@@ -7,32 +7,40 @@ Phases (any failure raises and exits non-zero before the result line):
 
  1. card check: CUDA present; the card's name and power limit
     (``nvidia-smi``);
- 2. build: every kernel of the path from ``src/repro_torch/csrc``, one
-    ``nvcc`` per source, all started together;
+ 2. build: every kernel from ``src/repro_torch/csrc``, one ``nvcc`` per
+    source, all started together;
  3. kernel 1 (encoded bitplane matmul) against its plain PyTorch version
     on the card, at the main path's shapes, a sampled M = 48 program with
     3-bit monomials and ragged shapes;
  4. kernel 2 (paged attention) against its plain version: ragged lens
     including 0 and page boundaries, f32 and bf16 pools, GQA, window +
-    softcap, Sq = 3;
- 5. the main path: qwen1.5-0.5b at full width and depth (weights from seed
+    softcap, Sq = 3; then the same with int8 and packed-int4 pools (and
+    the quantizer's codes and scales on the card against the CPU's, bit
+    for bit), at the main path's decode shape too;
+ 5. kernel 3 (flash attention) through ``ops.flash_mha`` against its plain
+    version: the prefill shape of full-width qwen1.5-0.5b in f32 and bf16,
+    ragged S = 100, GQA, window, softcap;
+ 6. the main path: qwen1.5-0.5b at full width and depth (weights from seed
     0), calibrated encoded-MAC serving with the exact AND-plane encoding
     and the fused paged-attention kernel, continuous batching of 8
-    requests over 4 slots; the kernels' launch counts are set to 0 just
-    before the run and read just after.  Then one decode step with every
-    slot busy is timed on the host clock and, as a measurement only, its
-    forward replayed from a CUDA graph (the card's time without the
-    host's);
- 6. the reduced config and the same trace served on the card (kernels)
-    and on the CPU (plain versions): identical greedy tokens;
- 7. per-kernel times at the main path's decode shape beside their bound,
-    the plain version's time and a library call's, as one JSON line.
+    requests over 4 slots, first with dense (f32) KV pools, then, from
+    the same fold, with int8 and with int4 pools; the kernels' launch
+    counts are set to 0 just before each run and read just after.  After
+    the dense run one decode step with every slot busy is timed on the
+    host clock and, as a measurement only, its forward replayed from a
+    CUDA graph (the card's time without the host's);
+ 7. the reduced config and the same trace served on the card (kernels)
+    and on the CPU (plain versions), with dense, int8 and int4 pools:
+    identical greedy tokens;
+ 8. per-kernel times at the main path's shapes beside their bound, the
+    plain version's time and a library call's, as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -242,6 +250,126 @@ def phase_kernel2(dev):
             raise AssertionError(f"kernel2 disagrees with plain at {tag}")
 
 
+def _pa_quant_case(dev, mode, B, Sq, Hq, Hkv, D, ps, P, lens, seed=0,
+                  copies=1):
+    """Like ``_pa_case`` with pools quantized on the card: (q, pool_k,
+    pool_v, pages, lens) and the scale rows (scale_k, scale_v)."""
+    import torch
+    from repro_torch.quant.kvcache import quantize_kv
+    sets, kv_map = _pa_case(dev, B, Sq, Hq, Hkv, D, ps, P, lens,
+                            torch.float32, seed=seed, copies=copies)
+    out = []
+    for q, pk, pv, pages, ln in sets:
+        qk, sk = quantize_kv(pk, mode)
+        qv, sv = quantize_kv(pv, mode)
+        out.append(((q, qk, qv, pages, ln), (sk, sv)))
+    return out, kv_map
+
+
+def phase_kernel2_quant(dev):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.quant.kvcache import quantize_kv
+    # the quantizer on the card must give the CPU's codes and scales
+    x = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(256, 16, 16, 64)).astype(np.float32) * 3)
+    x[0] = 0.0
+    for mode in ("int8", "int4"):
+        qc, sc = quantize_kv(x, mode)
+        qg, sg = quantize_kv(x.to(dev), mode)
+        same = torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+        log(f"[kernel2q] quantize_kv {mode} on the card vs the CPU, "
+            f"{tuple(x.shape)}: {'bit for bit' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"quantize_kv {mode}: card and CPU differ")
+    ps, D, P = 16, 64, 32
+    lens = [0, 16, 17, 511]
+    cases = [("mha", 1, 16, 16, None, None, lens),
+             ("gqa", 1, 4, 2, None, None, lens),
+             ("win+cap", 1, 16, 4, 100, 30.0, lens),
+             ("sq3-gqa", 3, 4, 2, None, None, lens),
+             ("decode", 1, 16, 16, None, None, [100, 200, 300, 400])]
+    # the f32 sums run in another order on the card (and exp differs by
+    # ulps): the dense kernel's f32 tolerance, not the CPU tests' 2e-5
+    tol = dict(rtol=1e-4, atol=1e-5)
+    for mode in ("int8", "int4"):
+        for tag, Sq, Hq, Hkv, window, cap, ln in cases:
+            ln = [min(x, P * ps - Sq) for x in ln]
+            ((args, (sk, sv)),), kv_map = _pa_quant_case(
+                dev, mode, 4, Sq, Hq, Hkv, D, ps, P, ln, seed=Hq + Sq)
+            out = pa.paged_attn(*args, scale=D ** -0.5, window=window,
+                                cap=cap, kv_of_q=kv_map, scale_k=sk,
+                                scale_v=sv)
+            ref = pa.paged_attn_plain(*args, window or pa._NO_WINDOW,
+                                      scale=D ** -0.5, cap=cap,
+                                      G=Hq // Hkv, scale_k=sk, scale_v=sv)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            ok = torch.allclose(out, ref, **tol) and \
+                bool(torch.isfinite(out).all())
+            log(f"[kernel2q] {mode} {tag:8s} B=4 Sq={Sq} Hq={Hq} Hkv={Hkv} "
+                f"D={D} ps={ps} lens={ln} max_abs_err={err:.3e} {tol} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernel2 {mode} disagrees with plain "
+                                     f"at {tag}")
+
+
+def _flash_case(dev, B, S, Hq, Hkv, D, dtype, seed=0):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(
+        np.float32)).to(dtype).to(dev) for h in (Hq, Hkv, Hkv))
+
+
+def _flash_plain_4d(q, k, v, **kw):
+    """The plain version at ``flash_mha``'s 4-D layout and padding."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ops import _pad_to
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    bq, bk = kw.pop("bq", 128), kw.pop("bk", 128)
+    flat = lambda x, H, m: _pad_to(                      # noqa: E731
+        x.permute(0, 2, 1, 3).reshape(B * H, S, D), m, 1)
+    out = fa.flash_attention_plain(flat(q, Hq, bq), flat(k, Hkv, bk),
+                                   flat(v, Hkv, bk), bq=bq, bk=bk,
+                                   G=Hq // Hkv, **kw)
+    return out[:, :S].reshape(B, Hq, S, D).permute(0, 2, 1, 3)
+
+
+def phase_flash(dev):
+    import torch
+    from repro_torch.kernels import ops
+    cases = [("prefill-f32", 4, 1024, 16, 16, 64, None, None, torch.float32),
+             ("prefill-bf16", 4, 1024, 16, 16, 64, None, None,
+              torch.bfloat16),
+             ("ragged100", 2, 100, 16, 16, 64, None, None, torch.float32),
+             ("ragged100-bf16", 2, 100, 4, 4, 64, None, None,
+              torch.bfloat16),
+             ("gqa-4/2", 2, 256, 4, 2, 64, None, None, torch.float32),
+             ("window32", 2, 256, 4, 2, 64, 32, None, torch.float32),
+             ("softcap", 2, 256, 4, 4, 64, None, 30.0, torch.float32),
+             ("win+cap-bf16", 2, 256, 4, 2, 128, 32, 20.0, torch.bfloat16)]
+    for tag, B, S, Hq, Hkv, D, window, cap, dt in cases:
+        q, k, v = _flash_case(dev, B, S, Hq, Hkv, D, dt, seed=S + Hq)
+        kw = dict(scale=D ** -0.5, window=window, cap=cap)
+        out = ops.flash_mha(q, k, v, **kw)
+        ref = _flash_plain_4d(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 2e-4 if dt == torch.float32 else 3e-2
+        ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol) \
+            and bool(torch.isfinite(out.float()).all())
+        log(f"[flash] {tag:14s} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+            f"window={window} cap={cap} max_abs_err={err:.3e} (tol {tol}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash kernel disagrees with plain at "
+                                 f"{tag}")
+
+
 def _serve(params, cfg, trace, device, max_new: int = MAX_NEW):
     from repro_torch.serve import Engine
     eng = Engine(params, cfg, n_slots=N_SLOTS, page_size=PAGE_SIZE,
@@ -252,16 +380,37 @@ def _serve(params, cfg, trace, device, max_new: int = MAX_NEW):
 
 def _reset_counts():
     from repro_torch.kernels import encoded_matmul as em
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     em.encoded_matmul.launches = 0
     pa.paged_attn.launches = 0
+    fa.flash_attention.launches = 0
 
 
 def _read_counts():
     from repro_torch.kernels import encoded_matmul as em
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     return {"encoded_matmul": em.encoded_matmul.launches,
-            "paged_attn": pa.paged_attn.launches}
+            "paged_attn": pa.paged_attn.launches,
+            "flash_attention": fa.flash_attention.launches}
+
+
+# the serving path's kernels; flash attention is not on it (the reference
+# never routes its model through the flash kernel, and the port mirrors
+# that), so its count must stay 0 there
+PATH_KERNELS = ("encoded_matmul", "paged_attn")
+
+
+def _check_counts(counts, decode_steps, n_layers, where):
+    """Every kernel of the path launched, paged attention once per layer
+    per decode step (prefill chunks take the gather path), flash never."""
+    for name in PATH_KERNELS:
+        assert counts[name] > 0, f"{name} was not launched {where}"
+    assert counts["paged_attn"] == n_layers * decode_steps, \
+        f"paged_attn launched {counts['paged_attn']} times {where}, not " \
+        f"{n_layers} per decode step x {decode_steps}"
+    assert counts["flash_attention"] == 0, f"flash launched {where}"
 
 
 def phase_serve(dev):
@@ -311,12 +460,13 @@ def phase_serve(dev):
         f"{st['step_ms_p50']:.2f} ms p99 {st['step_ms_p99']:.2f} ms, "
         f"kv pool {st['kv_pool_bytes'] / 1e9:.3f} GB")
     log(f"[serve] launches: encoded_matmul {counts['encoded_matmul']} "
-        f"paged_attn {counts['paged_attn']}")
+        f"paged_attn {counts['paged_attn']} flash_attention "
+        f"{counts['flash_attention']}")
     assert len(outs) == N_REQUESTS and all(
         len(outs[r]) == MAX_NEW for r in rids), "not every request finished"
     assert all(0 <= t < cfg.vocab_size for r in rids for t in outs[r])
-    for name, n in counts.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
+    _check_counts(counts, st["decode_steps"], cfg.n_layers,
+                  "on the main path")
     # full-width logits: finite, and close to the fp model's on one prompt
     toks = torch.from_numpy(trace[0][:16])[None].to(dev)
     with torch.inference_mode():
@@ -329,8 +479,64 @@ def phase_serve(dev):
     log(f"[serve] full-width encoded vs fp logits: top-1 agreement "
         f"{agree:.3f}, max |diff| / max |fp| {rel:.3e}")
     step_split(dev, params_enc, cfg_enc, trace)
+    del params
     return {"counts": counts, "steps": st["decode_steps"],
-            "chunks": st["prefill_chunks"], "tok_s": n_tok / dt}
+            "chunks": st["prefill_chunks"], "tok_s": n_tok / dt,
+            "params_enc": params_enc, "cfg_enc": cfg_enc, "trace": trace,
+            "tokens": [outs[r].tolist() for r in rids], "stats": st}
+
+
+def phase_serve_quant(dev, dense):
+    """The main path again with int8, then int4 KV pools, from the dense
+    run's fold (calibration does not depend on the KV dtype)."""
+    import torch
+    params, cfg0, trace = (dense["params_enc"], dense["cfg_enc"],
+                           dense["trace"])
+    st0 = dense["stats"]
+    out = {}
+    for mode in ("int8", "int4"):
+        cfg = dataclasses.replace(cfg0, kv_cache_dtype=mode)
+        eng, rids = _serve(params, cfg, trace, dev)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+        st = eng.stats()
+        toks = [res[r].tolist() for r in rids]
+        n_tok = sum(map(len, toks))
+        same = sum(a == b for x, y in zip(toks, dense["tokens"])
+                   for a, b in zip(x, y))
+        log(f"[serve-{mode}] {len(res)} requests, {n_tok} tokens in "
+            f"{dt:.3f}s = {n_tok / dt:.1f} tok/s; decode steps "
+            f"{st['decode_steps']}, prefill chunks {st['prefill_chunks']}, "
+            f"step p50 {st['step_ms_p50']:.2f} ms p99 "
+            f"{st['step_ms_p99']:.2f} ms")
+        log(f"[serve-{mode}] kv {st['kv_cache_dtype']}: "
+            f"{st['kv_bytes_per_token']:.1f} B/token (dense f32 pools "
+            f"{st0['kv_bytes_per_token']:.1f}, "
+            f"{st0['kv_bytes_per_token'] / st['kv_bytes_per_token']:.2f}x "
+            f"fewer), pool {st['kv_pool_bytes'] / 1e6:.1f} MB against "
+            f"{st0['kv_pool_bytes'] / 1e6:.1f} MB")
+        log(f"[serve-{mode}] launches: encoded_matmul "
+            f"{counts['encoded_matmul']} paged_attn {counts['paged_attn']} "
+            f"({counts['paged_attn'] / st['decode_steps']:.1f} per decode "
+            f"step) flash_attention {counts['flash_attention']}")
+        log(f"[serve-{mode}] greedy tokens equal to the dense-pool run's: "
+            f"{same} of {n_tok} ({same / n_tok:.3f}; printed, not gated: "
+            "quantized KV is not expected to give identical tokens)")
+        assert len(res) == N_REQUESTS and all(
+            len(t) == MAX_NEW for t in toks), "not every request finished"
+        assert all(0 <= t < cfg.vocab_size for x in toks for t in x)
+        _check_counts(counts, st["decode_steps"], cfg.n_layers,
+                      f"with {mode} pools")
+        out[mode] = {"counts": counts, "steps": st["decode_steps"],
+                     "tok_s": n_tok / dt}
+        del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 def step_split(dev, params, cfg, trace, steps: int = 10):
@@ -393,26 +599,29 @@ def phase_cpu_parity(dev):
         device="cpu")
     pe_gpu = to_device(pe_cpu, dev)
     trace = make_trace(cfg.vocab_size)
-    outs = {}
-    for name, params, device in (("cpu", pe_cpu, "cpu"),
-                                 ("cuda", pe_gpu, dev)):
-        eng, rids = _serve(params, ce, trace, device)
-        _reset_counts()
-        res = eng.run()
-        counts = _read_counts()
-        outs[name] = [res[r].tolist() for r in rids]
-        log(f"[parity] reduced on {name}: {sum(map(len, outs[name]))} "
-            f"tokens, launches {counts}")
-        if name == "cuda":
-            for k, n in counts.items():
-                assert n > 0, f"{k} not launched on the card"
-        else:
-            assert all(n == 0 for n in counts.values())
-    same = outs["cpu"] == outs["cuda"]
-    log(f"[parity] greedy tokens card (kernels) vs CPU (plain): "
-        f"{'identical' if same else 'DIFFERENT'}")
-    if not same:
-        raise AssertionError("card and CPU greedy tokens differ")
+    for mode in ("bf16", "int8", "int4"):
+        cm = dataclasses.replace(ce, kv_cache_dtype=mode)
+        outs = {}
+        for name, params, device in (("cpu", pe_cpu, "cpu"),
+                                     ("cuda", pe_gpu, dev)):
+            eng, rids = _serve(params, cm, trace, device)
+            _reset_counts()
+            res = eng.run()
+            counts = _read_counts()
+            outs[name] = [res[r].tolist() for r in rids]
+            log(f"[parity] reduced, kv {mode}, on {name}: "
+                f"{sum(map(len, outs[name]))} tokens, launches {counts}")
+            if name == "cuda":
+                _check_counts(counts, eng.counters["decode_steps"],
+                              cm.n_layers, "on the card")
+            else:
+                assert all(n == 0 for n in counts.values())
+        same = outs["cpu"] == outs["cuda"]
+        log(f"[parity] kv {mode}: greedy tokens card (kernels) vs CPU "
+            f"(plain): {'identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"card and CPU greedy tokens differ (kv "
+                                 f"{mode})")
     torch.cuda.empty_cache()
 
 
@@ -485,6 +694,82 @@ def phase_measure(dev, serve_info):
         "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": None,
         "shape": f"B={B} Sq={Sq} H={H} D={D} ps={ps} lens={lens} f32"})
+    # kernel 2 with quantized pools at the same shape: bytes of the int8
+    # or packed-int4 pages read plus their f32 scale rows
+    for mode in ("int8", "int4"):
+        qsets, kv_map = _pa_quant_case(dev, mode, B, Sq, H, H, D, ps, P,
+                                       lens, seed=6, copies=8)
+        args = [a + sc for a, sc in qsets]
+
+        def kern(q, pk, pv, pg, ln, sk, sv):
+            return pa.paged_attn(q, pk, pv, pg, ln, scale=D ** -0.5,
+                                 kv_of_q=kv_map, scale_k=sk, scale_v=sv)
+
+        def plain(q, pk, pv, pg, ln, sk, sv):
+            return pa.paged_attn_plain(q, pk, pv, pg, ln, pa._NO_WINDOW,
+                                       scale=D ** -0.5, G=1, scale_k=sk,
+                                       scale_v=sv)
+
+        err = (kern(*args[0]) - plain(*args[0])).abs().max().item()
+        ms = time_graph(kern, args)
+        plain_ms = time_loop(plain, args)
+        dp = D // 2 if mode == "int4" else D
+        nbytes = (2 * B * Sq * H * D * 4 + 2 * pages_read * ps * H * (dp + 4)
+                  + pages_read * 4 + B * 4)
+        t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+        rows.append({
+            "name": f"paged_attn_{mode}", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:131",
+            "launches": serve_info[mode]["counts"]["paged_attn"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            # no PyTorch call reads quantized pages through a page table
+            "library_ms": None,
+            "shape": f"B={B} Sq={Sq} H={H} D={D} ps={ps} lens={lens} {mode} "
+                     f"pools, {nbytes / 1e6:.3f} MB"})
+    # kernel 3 at the prefill shape of full-width qwen1.5-0.5b: B 4, S 1024,
+    # 16 heads, D 64, causal; flattened (B·H, S, D) as flash_mha hands it
+    # to the kernel.  Not on the serving path: launches 0 (the reference's
+    # model never reaches its flash kernel either).
+    from repro_torch.kernels import flash_attention as fa
+    Bf, S, Hf, Df = 4, 1024, 16, 64
+    for dt, tag, peak in ((torch.float32, "f32", PEAK_F32),
+                          (torch.bfloat16, "bf16", PEAK_BF16)):
+        fsets = []
+        for i in range(3):
+            q, k, v = _flash_case(dev, Bf, S, Hf, Hf, Df, dt, seed=20 + i)
+            flat = [t.permute(0, 2, 1, 3).reshape(Bf * Hf, S, Df).contiguous()
+                    for t in (q, k, v)]
+            fsets.append(flat)
+        kw = dict(scale=Df ** -0.5)
+        kern = lambda q, k, v: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+        plain = lambda q, k, v: fa.flash_attention_plain(  # noqa: E731
+            q, k, v, **kw)
+        err = (kern(*fsets[0]).float()
+               - plain(*fsets[0]).float()).abs().max().item()
+        ms = time_graph(kern, fsets, iters=20)
+        plain_ms = time_loop(plain, fsets, iters=5)
+        lib_sets = [[t.reshape(Bf, Hf, S, Df) for t in f] for f in fsets]
+        sdpa = functools.partial(
+            torch.nn.functional.scaled_dot_product_attention, is_causal=True,
+            scale=Df ** -0.5)
+        lib_ms = time_graph(sdpa, lib_sets, iters=20)
+        nbytes = 4 * Bf * Hf * S * Df * (4 if dt == torch.float32 else 2)
+        ops_f = 4.0 * Df * Bf * Hf * S * (S + 1) / 2   # visible pairs only
+        t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops_f / peak * 1e3
+        rows.append({
+            "name": f"flash_attention_{tag}", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:24",
+            "launches": serve_info["counts"]["flash_attention"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": lib_ms,
+            "shape": f"B={Bf} S={S} H={Hf} D={Df} causal {tag} (prefill; "
+                     "not on the serving path)"})
     for r in rows:
         log(f"[measure] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
@@ -495,7 +780,9 @@ def phase_measure(dev, serve_info):
         f"chunks = {per_step}): encoded_matmul "
         f"{serve_info['counts']['encoded_matmul'] / per_step:.1f}, "
         f"paged_attn per decode step "
-        f"{serve_info['counts']['paged_attn'] / serve_info['steps']:.1f}")
+        f"{serve_info['counts']['paged_attn'] / serve_info['steps']:.1f}; "
+        f"flash_attention {serve_info['counts']['flash_attention']} (not on "
+        "the serving path)")
     return rows
 
 
@@ -506,7 +793,13 @@ def main() -> int:
     phase_build()
     phase_kernel1(dev)
     phase_kernel2(dev)
+    phase_kernel2_quant(dev)
+    phase_flash(dev)
     serve_info = phase_serve(dev)
+    serve_info.update(phase_serve_quant(dev, serve_info))
+    for key in ("params_enc", "cfg_enc", "trace", "tokens", "stats"):
+        del serve_info[key]
+    torch.cuda.empty_cache()
     phase_cpu_parity(dev)
     rows = phase_measure(dev, serve_info)
     for r in rows:

@@ -49,6 +49,10 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     attn_chunk: int = 1024
+    # kept for parity of fields with the reference: its flash gate never
+    # opens on the model path, so the port's attention ignores it too
+    # (see nn/attention.py); kernels.ops.flash_mha is the kernel's entry
+    flash_attention: bool = False
     # paged decode attention: 'gather' = the gathered-page-view path (the
     # reference's 'xla'); 'kernel' = the fused page-walk op (the
     # reference's 'pallas'), which is the CUDA kernel on the card and its
@@ -56,8 +60,10 @@ class ModelConfig:
     attention_backend: str = "gather"
     # max query tokens per slot routed through the fused paged op
     paged_fused_max_sq: int = 1
-    # paged KV-cache storage; only 'bf16' (dense pages in compute_dtype)
-    # is ported so far
+    # paged KV-cache storage: 'bf16' = dense pages in compute_dtype;
+    # 'int8'/'int4' store pages quantized with per-token per-kv-head f32
+    # scale rows in side pools, dequantized inside the paged-attention
+    # page loop (quant.kvcache.kv_pool_layout validates it)
     kv_cache_dtype: str = "bf16"
     pad_heads_to: int = 1
     vocab_pad_to: int = 1

@@ -1,13 +1,16 @@
-"""Public entry for the encoded matmul (port of ``repro/kernels/ops.py``:
-monomial normalisation and dispatch).  The kernel masks ragged m/k/n
-itself, so nothing is padded here."""
+"""Public entries for the kernels (port of ``repro/kernels/ops.py``): the
+encoded matmul (monomial normalisation and dispatch; the kernel masks
+ragged m/k/n itself, so nothing is padded there) and ``flash_mha``, the
+4-D GQA wrapper of the flash-attention kernel."""
 from __future__ import annotations
 
 import functools
 
 import numpy as np
+import torch
 
 from . import encoded_matmul as _em
+from . import flash_attention as _fa
 
 
 def _norm_monos(mono_bits) -> tuple:
@@ -50,3 +53,39 @@ def _shift_table(monos: tuple) -> np.ndarray:
     table = _pad3(_norm_monos(monos))
     table.flags.writeable = False
     return table
+
+
+def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
+    """Zero-pad ``axis`` of ``x`` up to a multiple of ``mult``."""
+    pad = (-x.shape[axis]) % mult
+    if not pad:
+        return x
+    widths = [0, 0] * (x.dim() - axis - 1) + [0, pad]
+    return torch.nn.functional.pad(x, widths)
+
+
+def flash_mha(q, k, v, *, scale: float, causal: bool = True, window=None,
+              cap=None, bq: int = 128, bk: int = 128):
+    """4-D GQA wrapper for the flash kernel: q (B, Sq, Hq, D), k/v (B, Sk,
+    Hkv, D) → (B, Sq, Hq, D).
+
+    (B, H) flatten into the kernel's leading dim; query head ``h`` reads kv
+    head ``h // (Hq // Hkv)`` (the reference repeats K/V to q heads).  Sq
+    and Sk are zero-padded to multiples of bq and bk: padded keys lie past
+    every query position, so the causal mask hides them, and padded query
+    rows are sliced off.  CPU tensors take the plain version, CUDA tensors
+    the kernel (``kernels.flash_attention.flash_attention``)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if (-Sk) % bk and not causal:
+        raise ValueError("non-causal padding needs an explicit kv mask")
+    qf = q.permute(0, 2, 1, 3).reshape(B * Hq, Sq, D)
+    kf = k.permute(0, 2, 1, 3).reshape(B * Hkv, Sk, D)
+    vf = v.permute(0, 2, 1, 3).reshape(B * Hkv, Sk, D)
+    qf = _pad_to(qf, bq, 1)
+    kf = _pad_to(kf, bk, 1)
+    vf = _pad_to(vf, bk, 1)
+    out = _fa.flash_attention(qf, kf, vf, scale=scale, causal=causal,
+                              window=window, cap=cap, bq=bq, bk=bk,
+                              G=Hq // Hkv)
+    return out[:, :Sq].reshape(B, Hq, Sq, D).permute(0, 2, 1, 3)

@@ -5,6 +5,9 @@ cache, optionally with calibrated encoded-MAC inference.
       --encoding exact --paged-attn kernel            # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --continuous \
       --mac encoded --encoding exact --paged-attn kernel --device cpu
+  # int8 / int4 paged KV pools, dequantized inside the kernel's page loop
+  python -m repro_torch.launch.serve --continuous --mac encoded \
+      --encoding exact --paged-attn kernel --kv-dtype int8
 
 ``--paged-attn gather`` / ``kernel`` are the reference CLI's ``xla`` /
 ``pallas``: the gathered-page-view path, or the fused page-walk op (the
@@ -45,9 +48,18 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--paged-attn", default="gather",
                     choices=["gather", "kernel"])
+    ap.add_argument("--kv-dtype", default="bf16",
+                    choices=["bf16", "int8", "int4"],
+                    help="paged KV-cache storage: 'bf16' = dense pages in "
+                         "the compute dtype; 'int8'/'int4' store pages "
+                         "quantized with per-token per-head scale rows and "
+                         "dequantize inside the paged-attention page loop")
     ap.add_argument("--calib-batches", type=int, default=4)
     args = ap.parse_args(argv)
 
+    if args.kv_dtype != "bf16" and not args.continuous:
+        ap.error("--kv-dtype quantizes the PAGED cache; it requires "
+                 "--continuous")
     if not args.continuous:
         ap.error("only --continuous serving is ported so far (ROADMAP: "
                  "ServeEngine/generate on the dense cache)")
@@ -64,7 +76,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    cfg = dataclasses.replace(cfg, attention_backend=args.paged_attn)
+    cfg = dataclasses.replace(cfg, attention_backend=args.paged_attn,
+                              kv_cache_dtype=args.kv_dtype)
     params = init_model(cfg, seed=args.seed, device=dev)
     if args.mac == "encoded":
         if args.encoding != "exact":
@@ -104,6 +117,9 @@ def main(argv=None):
     print(f"  occupancy={st['occupancy']:.2f} evictions={st['evictions']} "
           f"p50={st['latency_p50_s']:.3f}s p99={st['latency_p99_s']:.3f}s "
           f"kv_pool={st['kv_pool_bytes'] / 1e6:.1f}MB")
+    print(f"  kv: dtype={st['kv_cache_dtype']} "
+          f"{st['kv_bytes_per_token']:.1f} B/token, "
+          f"capacity={st['kv_capacity_tokens']} tokens")
     for i, rid in enumerate(rids[:3]):
         print(f"req{i}: {list(map(int, outs[rid][:10]))} ...")
 

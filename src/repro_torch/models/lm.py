@@ -60,7 +60,8 @@ def to_device(tree, device):
 def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None):
     """tokens (B, S) → (logits (B, S, vocab_p), new_cache).
 
-    ``cache``: None, or a paged cache ``{"layers": [{pool_k, pool_v}, …],
+    ``cache``: None, or a paged cache ``{"layers": [{pool_k, pool_v[,
+    scale_k, scale_v]}, …],
     "pages": (B, P) int32, "lens": (B,) int32}``.  The pools are written in
     place; the returned cache shares them and carries ``lens + S``."""
     Bn, S = tokens.shape
@@ -110,16 +111,27 @@ def supports_paged_cache(cfg) -> bool:
 
 def init_paged_cache(cfg, n_pages: int, page_size: int, *, device=None):
     """Per layer a pool of fixed-size pages, ``pool_k/pool_v (n_pages,
-    page_size, n_kv, hd)`` in the compute dtype; page 0 is scratch."""
+    page_size, n_kv, hd)`` in the compute dtype; page 0 is scratch.
+
+    With ``cfg.kv_cache_dtype`` 'int8'/'int4' the pools store quantized
+    pages (int4 packs two head dims per byte) plus f32 per-token
+    per-kv-head ``scale_k/scale_v (n_pages, page_size, n_kv)`` side
+    pools."""
     dev = resolve_device(device)
     if not supports_paged_cache(cfg):
         raise ValueError(f"paged KV cache unsupported for arch {cfg.arch!r}")
-    pdt, phd, _ = kv_pool_layout(cfg)
+    pdt, phd, quant = kv_pool_layout(cfg)
     shape = (n_pages, page_size, cfg.n_kv_p, phd)
-    return {"layers": [
-        {"pool_k": torch.zeros(shape, dtype=pdt, device=dev),
-         "pool_v": torch.zeros(shape, dtype=pdt, device=dev)}
-        for _ in range(cfg.n_layers)]}
+    layers = []
+    for _ in range(cfg.n_layers):
+        st = {"pool_k": torch.zeros(shape, dtype=pdt, device=dev),
+              "pool_v": torch.zeros(shape, dtype=pdt, device=dev)}
+        if quant:
+            for name in ("scale_k", "scale_v"):
+                st[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=dev)
+        layers.append(st)
+    return {"layers": layers}
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ import torch
 from repro_torch.kernels.paged_attention import gqa_group, paged_attn
 from .attention_mha import mha
 from .common import apply_rope, linear, linear_init, norm_apply, norm_init
-from .paged import gather_kv, paged_attn_decode, scatter_kv
+from .paged import (gather_kv, gather_kv_dequant, paged_attn_decode,
+                    scatter_kv, scatter_kv_quant)
 
 
 def kv_of_q_map(n_heads: int, n_kv: int, n_heads_p: int, n_kv_p: int
@@ -55,9 +56,9 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
     """Self-attention over x (B, S, d) → (out, new_cache_or_None).
 
     ``cache``: None (no cache) or a paged layer cache ``{pool_k, pool_v,
-    pages, lens}`` whose pools are written in place (``positions`` is then
-    (B, S) absolute per-row positions).  ``window``: this layer's sliding
-    window (None = global)."""
+    [scale_k, scale_v,] pages, lens}`` whose pools are written in place
+    (``positions`` is then (B, S) absolute per-row positions).  ``window``:
+    this layer's sliding window (None = global)."""
     B, S, _ = x.shape
     hd = cfg.head_dim_r
     cdt = cfg.cdtype
@@ -78,6 +79,13 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
                          cfg.n_kv_p)
     new_cache = None
     if cache is None:
+        # the reference routes this branch through its flash kernel when
+        # cfg.flash_attention is set and the window is None or an int
+        # (src/repro/nn/attention.py:110-111), but its model hands every
+        # layer its window as an array (src/repro/models/lm.py:337-341,
+        # src/repro/nn/blocks.py:27-31,63), so that gate never opens and
+        # it runs mha; the port does the same (kernels.ops.flash_mha stays
+        # off the model path)
         out = mha(q, k, v, kv_map, scale=scale, q_pos=positions,
                   k_pos=positions, window=window, cap=cfg.attn_softcap,
                   chunk=cfg.attn_chunk)
@@ -86,10 +94,19 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
         # then attend through the page table.  Decode steps with a regular
         # GQA layout take the fused page-walk op when attention_backend is
         # 'kernel'; everything else keeps the gathered-view path.
+        # Quantized pools carry scale_k/scale_v side pools: fresh K/V
+        # quantizes on scatter, the fused op dequantizes inside its page
+        # loop, and the gather path dequantizes its page view.
         pages, lens = cache["pages"], cache["lens"]
         pk, pv = cache["pool_k"], cache["pool_v"]
-        scatter_kv(pk, pages, positions, k)
-        scatter_kv(pv, pages, positions, v)
+        sk, sv = cache.get("scale_k"), cache.get("scale_v")
+        quant = sk is not None
+        if quant:
+            scatter_kv_quant(pk, sk, pages, positions, k)
+            scatter_kv_quant(pv, sv, pages, positions, v)
+        else:
+            scatter_kv(pk, pages, positions, k)
+            scatter_kv(pv, pages, positions, v)
         fused = (S <= max(1, cfg.paged_fused_max_sq)
                  and cfg.attention_backend == "kernel"
                  and gqa_group(kv_map, cfg.n_heads_p, cfg.n_kv_p)
@@ -97,9 +114,13 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
         if fused:
             out = paged_attn(q, pk, pv, pages, lens, scale=scale,
                              window=window, cap=cfg.attn_softcap,
-                             kv_of_q=kv_map)
+                             kv_of_q=kv_map, scale_k=sk, scale_v=sv)
         else:
-            ck, cv = gather_kv(pk, pages), gather_kv(pv, pages)
+            if quant:
+                ck = gather_kv_dequant(pk, sk, pages)
+                cv = gather_kv_dequant(pv, sv, pages)
+            else:
+                ck, cv = gather_kv(pk, pages), gather_kv(pv, pages)
             k_pos = torch.arange(ck.shape[1], device=x.device)
             k_valid = k_pos[None, :] < (lens.long() + S)[:, None]
             out = paged_attn_decode(q, ck, cv, kv_map, scale=scale,
@@ -107,5 +128,7 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
                                     k_valid=k_valid, window=window,
                                     cap=cfg.attn_softcap)
         new_cache = {"pool_k": pk, "pool_v": pv}
+        if quant:
+            new_cache.update(scale_k=sk, scale_v=sv)
     out = out.reshape(B, S, cfg.n_heads_p * hd)
     return linear(p, "wo", out, cfg.mac, cdt), new_cache

@@ -7,8 +7,10 @@ Layout: one pool of fixed-size pages per layer,
 indexed per sequence through a page table ``pages (B, max_pages)`` int32
 and ``lens (B,)`` int32 (tokens already cached).  Page 0 is the scratch
 page: unassigned table entries and positions past the table land there and
-are masked on read.  The pools are written in place (the reference
-donates them to its jitted steps instead).
+are masked on read.  Quantized pools (int8, or uint8 = packed int4)
+carry f32 scale side pools ``(n_pages, page_size, n_kv_heads)``.  The
+pools are written in place (the reference donates them to its jitted
+steps instead).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.paged_attention import gqa_group
+from repro_torch.quant.kvcache import dequantize_kv, kv_mode_of, quantize_kv
 from .attention_mha import NEG_INF, softmax_f32
 from .common import softcap
 
@@ -41,11 +44,35 @@ def scatter_kv(pool: torch.Tensor, pages: torch.Tensor,
     pool[pid, off] = val.to(pool.dtype)
 
 
+def scatter_kv_quant(pool: torch.Tensor, scale: torch.Tensor,
+                     pages: torch.Tensor, positions: torch.Tensor,
+                     val: torch.Tensor) -> None:
+    """Quantize fresh rows ``val`` (B, S, H, D) to the pool's storage mode
+    and write the value bytes and their f32 per-token per-head scales
+    through the page table, in place."""
+    q, s = quantize_kv(val, kv_mode_of(pool))
+    pid, off = _page_slots(pages, positions, pool.shape[1])
+    pool[pid, off] = q
+    scale[pid, off] = s
+
+
 def gather_kv(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
     """(n_pages, ps, H, D) pool + (B, P) table → (B, P·ps, H, D) view."""
     B, P = pages.shape
     ps = pool.shape[1]
     return pool[pages.long()].reshape(B, P * ps, *pool.shape[2:])
+
+
+def gather_kv_dequant(pool: torch.Tensor, scale: torch.Tensor,
+                      pages: torch.Tensor) -> torch.Tensor:
+    """Quantized-pool gather for the reference path: (n_pages, ps, H, Dp)
+    pool + (n_pages, ps, H) scales + (B, P) table → dequantized f32
+    (B, P·ps, H, D) view."""
+    B, P = pages.shape
+    ps = pool.shape[1]
+    idx = pages.long()
+    out = dequantize_kv(pool[idx], scale[idx], kv_mode_of(pool))
+    return out.reshape(B, P * ps, *out.shape[3:])
 
 
 def paged_attn_decode(q, k, v, kv_of_q: np.ndarray, *, scale: float,

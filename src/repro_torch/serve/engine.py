@@ -260,6 +260,7 @@ class Engine:
             "kv_pool_bytes": self.kv.mem_bytes(),
             "kv_bytes_per_token": self.kv.kv_bytes_per_token(),
             "kv_capacity_tokens": (self.kv.n_pages - 1) * self.kv.page_size,
+            "kv_cache_dtype": self.cfg.kv_cache_dtype,
             "page_size": self.kv.page_size,
             "n_pages": self.kv.n_pages,
             "n_slots": self.kv.n_slots,

@@ -165,7 +165,8 @@ class PagedKVCache:
         return torch.from_numpy(self.lens.copy()).to(self.device)
 
     def pool_bytes(self) -> int:
-        """Device pool bytes (every layer's k and v pools)."""
+        """Device pool bytes: every layer's k and v value pools and, for
+        int8/int4, their f32 scale side pools."""
         return sum(t.numel() * t.element_size()
                    for st in self.layers for t in st.values())
 
@@ -175,4 +176,6 @@ class PagedKVCache:
         return self.pool_bytes() + self.ptab.nbytes + self.lens.nbytes
 
     def kv_bytes_per_token(self) -> float:
+        """Pool bytes one cached token costs across all layers: value
+        bytes plus, for int8/int4, its f32 scale rows."""
         return self.pool_bytes() / (self.n_pages * self.page_size)

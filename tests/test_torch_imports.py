@@ -45,7 +45,9 @@ def test_no_jax_or_reference_imports():
     for sub in ("configs", "core", "kernels", "models", "nn", "quant",
                 "serve", "data", "launch"):
         assert f"repro_torch.{sub}" in out["modules"]
-    assert "repro_torch.launch.serve" in out["modules"]
+    for mod in ("launch.serve", "kernels.flash_attention",
+                "kernels.paged_attention", "quant.kvcache", "nn.paged"):
+        assert f"repro_torch.{mod}" in out["modules"]
 
 
 def test_every_module_is_walked():
