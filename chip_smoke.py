@@ -11,7 +11,8 @@ Phases (any failure raises and exits non-zero before the result line):
     source, all started together;
  3. kernel 1 (encoded bitplane matmul) against its plain PyTorch version
     on the card, at the main path's shapes, a sampled M = 48 program with
-    3-bit monomials and ragged shapes;
+    3-bit monomials and ragged shapes (m past one 32-row pass, k and n
+    off the tiles);
  4. kernel 2 (paged attention) against its plain version: ragged lens
     including 0 and page boundaries, f32 and bf16 pools, GQA, window +
     softcap, Sq = 3; then the same with int8 and packed-int4 pools (and
@@ -19,7 +20,8 @@ Phases (any failure raises and exits non-zero before the result line):
     for bit), at the main path's decode shape too;
  5. kernel 3 (flash attention) through ``ops.flash_mha`` against its plain
     version: the prefill shape of full-width qwen1.5-0.5b in f32 and bf16,
-    ragged S = 100, GQA, window, softcap;
+    ragged S = 100, GQA, window, softcap, bf16 head dims 32 and 128 (the
+    tensor-core kernel) and 40 (the FMA kernel);
  6. the main path: qwen1.5-0.5b at full width and depth (weights from seed
     0), calibrated encoded-MAC serving with the exact AND-plane encoding
     and the fused paged-attention kernel, continuous batching of 8
@@ -33,7 +35,9 @@ Phases (any failure raises and exits non-zero before the result line):
     and on the CPU (plain versions), with dense, int8 and int4 pools:
     identical greedy tokens;
  8. per-kernel times at the main path's shapes beside their bound, the
-    plain version's time and a library call's, as one JSON line.
+    plain version's time and a library call's, as one JSON line: kernel 1
+    at its six shapes (three linears at decode m = 4 and at prefill
+    m = 32), with the launches each shape had in the dense serve.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -71,29 +75,6 @@ def make_trace(vocab: int, seed: int = 0):
     rng = np.random.default_rng(seed)
     lens = rng.integers(16, 257, N_REQUESTS)
     return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
-
-
-def time_graph(fn, arg_sets, iters: int = 40) -> float:
-    """ms per call of ``fn`` replayed from one CUDA graph of ``iters``
-    calls that rotate over ``arg_sets`` (sized past the 50 MB L2, so every
-    call reads cold data as the serving loop does)."""
-    import torch
-    for a in arg_sets:
-        fn(*a)
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-    g.replay()
-    torch.cuda.synchronize()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    s.record()
-    g.replay()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / iters
 
 
 def time_loop(fn, arg_sets, iters: int = 20) -> float:
@@ -177,7 +158,9 @@ def phase_kernel1(dev):
     cases += [("sampled48", sampled, 4, 1024, 2816),
               ("sampled48", sampled, 32, 2816, 1024),
               ("ragged", exact, 100, 130, 70),
-              ("ragged", sampled, 5, 77, 33)]
+              ("ragged", sampled, 5, 77, 33),
+              ("ragged", exact, 33, 1024, 70),
+              ("ragged", sampled, 100, 2816, 1024)]
     worst = 0.0
     for tag, prog, m, k, n in cases:
         (args,) = _em_case(dev, prog, m, k, n, seed=m * 7 + k + n)
@@ -351,7 +334,11 @@ def phase_flash(dev):
              ("gqa-4/2", 2, 256, 4, 2, 64, None, None, torch.float32),
              ("window32", 2, 256, 4, 2, 64, 32, None, torch.float32),
              ("softcap", 2, 256, 4, 4, 64, None, 30.0, torch.float32),
-             ("win+cap-bf16", 2, 256, 4, 2, 128, 32, 20.0, torch.bfloat16)]
+             ("win+cap-bf16", 2, 256, 4, 2, 128, 32, 20.0, torch.bfloat16),
+             ("d32-bf16", 2, 300, 8, 2, 32, None, None, torch.bfloat16),
+             ("d128-bf16", 1, 200, 4, 4, 128, 70, None, torch.bfloat16),
+             ("d40-bf16", 1, 100, 2, 2, 40, None, None, torch.bfloat16)]
+    from repro_torch.kernels.flash_attention import flash_route
     for tag, B, S, Hq, Hkv, D, window, cap, dt in cases:
         q, k, v = _flash_case(dev, B, S, Hq, Hkv, D, dt, seed=S + Hq)
         kw = dict(scale=D ** -0.5, window=window, cap=cap)
@@ -363,8 +350,8 @@ def phase_flash(dev):
         ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol) \
             and bool(torch.isfinite(out.float()).all())
         log(f"[flash] {tag:14s} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-            f"window={window} cap={cap} max_abs_err={err:.3e} (tol {tol}) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"window={window} cap={cap} route={flash_route(dt, D)} "
+            f"max_abs_err={err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash kernel disagrees with plain at "
                                  f"{tag}")
@@ -383,6 +370,7 @@ def _reset_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     em.encoded_matmul.launches = 0
+    em.encoded_matmul.shape_launches.clear()
     pa.paged_attn.launches = 0
     fa.flash_attention.launches = 0
 
@@ -393,7 +381,9 @@ def _read_counts():
     from repro_torch.kernels import paged_attention as pa
     return {"encoded_matmul": em.encoded_matmul.launches,
             "paged_attn": pa.paged_attn.launches,
-            "flash_attention": fa.flash_attention.launches}
+            "flash_attention": fa.flash_attention.launches,
+            "encoded_matmul_by_shape": dict(
+                em.encoded_matmul.shape_launches)}
 
 
 # the serving path's kernels; flash attention is not on it (the reference
@@ -411,6 +401,21 @@ def _check_counts(counts, decode_steps, n_layers, where):
         f"paged_attn launched {counts['paged_attn']} times {where}, not " \
         f"{n_layers} per decode step x {decode_steps}"
     assert counts["flash_attention"] == 0, f"flash launched {where}"
+
+
+def _path_shapes(cfg, steps, chunks, chunk_len):
+    """Encoded-matmul launches by (m, k, n) that a serve of ``steps`` decode
+    steps (m = n_slots) and ``chunks`` prefill chunks (m = chunk_len)
+    makes: per layer wq, wk, wv, wo, wi, wg and the MLP's wo."""
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_r
+    per_layer = [(d, cfg.n_heads_p * hd), (d, cfg.n_kv_p * hd),
+                 (d, cfg.n_kv_p * hd), (cfg.n_heads_p * hd, d), (d, ff),
+                 (d, ff), (ff, d)]
+    want = {}
+    for m, times in ((N_SLOTS, steps), (chunk_len, chunks)):
+        for k, n in per_layer:
+            want[(m, k, n)] = want.get((m, k, n), 0) + cfg.n_layers * times
+    return want
 
 
 def phase_serve(dev):
@@ -467,6 +472,12 @@ def phase_serve(dev):
     assert all(0 <= t < cfg.vocab_size for r in rids for t in outs[r])
     _check_counts(counts, st["decode_steps"], cfg.n_layers,
                   "on the main path")
+    want = _path_shapes(cfg, st["decode_steps"], st["prefill_chunks"],
+                        eng.prefill_chunk)
+    log(f"[serve] encoded_matmul launches by (m, k, n): "
+        f"{counts['encoded_matmul_by_shape']}")
+    assert counts["encoded_matmul_by_shape"] == want, \
+        f"encoded_matmul shapes {counts['encoded_matmul_by_shape']} != {want}"
     # full-width logits: finite, and close to the fp model's on one prompt
     toks = torch.from_numpy(trace[0][:16])[None].to(dev)
     with torch.inference_mode():
@@ -615,7 +626,8 @@ def phase_cpu_parity(dev):
                 _check_counts(counts, eng.counters["decode_steps"],
                               cm.n_layers, "on the card")
             else:
-                assert all(n == 0 for n in counts.values())
+                assert counts["encoded_matmul_by_shape"] == {} and all(
+                    counts[n] == 0 for n in PATH_KERNELS + ("flash_attention",))
         same = outs["cpu"] == outs["cuda"]
         log(f"[parity] kv {mode}: greedy tokens card (kernels) vs CPU "
             f"(plain): {'identical' if same else 'DIFFERENT'}")
@@ -626,48 +638,51 @@ def phase_cpu_parity(dev):
 
 
 def phase_measure(dev, serve_info):
-    """Kernel, plain and library times at the main path's decode shape."""
+    """Kernel, plain and library times at the main path's shapes."""
     import torch
     from repro_torch.kernels import encoded_matmul as em
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import planes_ref
+    from repro_torch.launch.kernel_bench import bf16_mm, time_graph
     rows = []
-    # kernel 1: decode wi of qwen1.5-0.5b — m = n_slots, k = 1024, n = 2816
+    # kernel 1 at the main path's six shapes: the linears (k, n) = (1024,
+    # 1024) x 4, (1024, 2816) x 2 and (2816, 1024) x 1 per layer, at decode
+    # (m = n_slots) and at prefill (m = one 32-token chunk); launches are
+    # the dense serve's at that shape
     prog = _program("exact")
-    m, k, n, U = N_SLOTS, 1024, 2816, prog.n_a_planes
-    sets = _em_case(dev, prog, m, k, n, seed=1, copies=4)
-    err = (em.encoded_matmul(*sets[0])
-           - em.encoded_matmul_plain(*sets[0])).abs().max().item()
-    ms = time_graph(em.encoded_matmul, sets)
-    plain_ms = time_loop(em.encoded_matmul_plain, sets)
-    lib_sets = []
-    for x, wt, bias, shifts in sets[:3]:
-        from repro_torch.kernels.ref import planes_ref
-        a = planes_ref(x, shifts).float().permute(1, 0, 2).reshape(m, U * k)
-        lib_sets.append((a.contiguous(), wt.float().reshape(U * k, n)))
-    lib_ms = time_graph(torch.matmul, lib_sets)
-    nbytes = m * k + U * k * n * 2 + n * 4 + m * n * 4
-    ops = 2.0 * m * k * n * U
-    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
-    rows.append({
-        "name": "encoded_matmul", "route": "cuda",
-        "source": "src/repro_torch/csrc/encoded_matmul.cu",
-        "replaces": "src/repro/kernels/encoded_matmul.py:50",
-        "launches": serve_info["counts"]["encoded_matmul"],
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_b, t_o),
-        "bound_by": "bytes" if t_b >= t_o else "operations",
-        "library_ms": lib_ms,
-        "shape": f"m={m} k={k} n={n} U={U} (decode wi)"})
-    # kernel 1 at every linear shape of the main path: decode m = n_slots,
-    # prefill m = one chunk (log lines only)
-    for mm in (N_SLOTS, 32):
-        for kk, nn in ((1024, 1024), (1024, 2816), (2816, 1024)):
-            sets = _em_case(dev, prog, mm, kk, nn, seed=2, copies=4)
-            t = time_graph(em.encoded_matmul, sets)
-            b = (mm * kk + U * kk * nn * 2 + nn * 4 + mm * nn * 4) / PEAK_BYTES
-            log(f"[measure] encoded_matmul m={mm} k={kk} n={nn} U={U}: "
-                f"kernel {t:.4f} ms, bound {b * 1e3:.4f} ms (bytes), "
-                f"{U * kk * nn * 2 / (t * 1e-3) / 1e12:.3f} TB/s of Wt")
+    U = prog.n_a_planes
+    lib, lib_name = bf16_mm()
+    by_shape = serve_info["counts"]["encoded_matmul_by_shape"]
+    for m in (N_SLOTS, 32):
+        for k, n in ((1024, 1024), (1024, 2816), (2816, 1024)):
+            sets = _em_case(dev, prog, m, k, n, seed=1, copies=4)
+            err = (em.encoded_matmul(*sets[0])
+                   - em.encoded_matmul_plain(*sets[0])).abs().max().item()
+            ms = time_graph(em.encoded_matmul, sets)
+            plain_ms = time_loop(em.encoded_matmul_plain, sets)
+            # the same function as one bf16 product: 0/1 planes (m, U·k) by
+            # Wt (U·k, n), f32 out; the bias add is left out
+            lib_sets = [(planes_ref(x, sh).to(torch.bfloat16).permute(1, 0, 2)
+                         .reshape(m, U * k).contiguous(), wt.reshape(U * k, n))
+                        for x, wt, _, sh in sets]
+            lib_ms = time_graph(lib, lib_sets)
+            nbytes = m * k + U * k * n * 2 + n * 4 + m * n * 4
+            ops = 2.0 * m * k * n * U
+            t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+            rows.append({
+                "name": f"encoded_matmul_m{m}_k{k}_n{n}", "route": "cuda",
+                "source": "src/repro_torch/csrc/encoded_matmul.cu",
+                "replaces": "src/repro/kernels/encoded_matmul.py:50",
+                "launches": by_shape.get((m, k, n), 0),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "library_ms": lib_ms,
+                "shape": f"m={m} k={k} n={n} U={U} "
+                         f"({'decode' if m == N_SLOTS else 'prefill'}); "
+                         f"library: {lib_name}"})
+            log(f"[measure] encoded_matmul m={m} k={k} n={n}: "
+                f"{U * k * n * 2 / (ms * 1e-3) / 1e12:.3f} TB/s of Wt")
     # kernel 2: decode attention, 4 slots × 16 heads × D 64, f32 pools
     B, Sq, H, D, ps, P = N_SLOTS, 1, 16, 64, PAGE_SIZE, 32
     lens = [100, 200, 300, 400]
@@ -768,8 +783,9 @@ def phase_measure(dev, serve_info):
             "bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
             "library_ms": lib_ms,
-            "shape": f"B={Bf} S={S} H={Hf} D={Df} causal {tag} (prefill; "
-                     "not on the serving path)"})
+            "shape": f"B={Bf} S={S} H={Hf} D={Df} causal {tag}, "
+                     f"{fa.flash_route(dt, Df)} kernel (prefill; not on the "
+                     "serving path)"})
     for r in rows:
         log(f"[measure] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "

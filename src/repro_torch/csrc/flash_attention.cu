@@ -3,7 +3,10 @@
 // Replaces the TPU kernel repro/kernels/flash_attention.py:_kernel.  q is
 // (BH, Sq, D) and k, v are (BH / G, Sk, D), query head i reading kv head
 // i / G (the reference repeats K/V to q heads instead; both compute the
-// same).  f32 or bf16, D <= 128.
+// same).  f32 or bf16, D <= 128.  Two kernels, chosen by the caller's
+// `route` before the launch (kernels/flash_attention.py:flash_route):
+// bf16 with D a multiple of 16 runs on the tensor cores, everything else
+// on the FMA pipes.
 //
 // Numerics follow the reference op order: s = (q . k) * scale summed in
 // f32, softcap cap * tanh(s / cap), causal and window masks to the finite
@@ -11,24 +14,41 @@
 // output sums in f32, p rounded to v's dtype before P.V (l sums the f32
 // p), and out = acc / max(l, 1e-30) in q's dtype.
 //
-// Design (simple first).  The TPU grid (B*H, Sq/bq, Sk/bk) walks the K
-// axis in order, carrying (m, l, acc) in VMEM.  Here one block of 128
-// threads per (b*h, tile of 64 query rows) holds the q tile, (m, l) and
-// the f32 output sums in shared memory and loops over 64-key tiles: each
-// tile of K and V is staged in shared memory as f32 (16-byte loads; a
-// tile of one head is contiguous), each thread computes a 4 x 8 block of
-// scores in registers, one warp per row updates the softmax statistics,
-// and each thread adds its 4 rows x D/8 dims of P.V.  The loop starts at
-// the first key tile inside the window and, when causal, ends at the last
-// tile the block's last row can see.  The reference runs the masked tiles
-// as well; that changes nothing: a tile masked for every row of the block
-// either comes after the row's diagonal (s = NEG_INF, so p = 0 and alpha
-// = 1) or before the first key the row sees, where it only adds to l and
-// acc what the first visible tile multiplies by exp(NEG_INF - m) = 0.
-// Every row sees its own position, so that tile exists.
-// Bound: the operations, 4 * D per (query, visible key) pair, which this
-// version runs on the FMA pipes in f32 (no wgmma), with shared-memory
-// reads behind every FMA block.
+// Both kernels: the TPU grid (B*H, Sq/bq, Sk/bk) walks the K axis in
+// order, carrying (m, l, acc) in VMEM.  Here one block of 128 threads per
+// (b*h, tile of 64 query rows) loops over 64-key tiles.  The loop starts
+// at the first key tile inside the window and, when causal, ends at the
+// last tile the block's last row can see.  The reference runs the masked
+// tiles as well; that changes nothing: a tile masked for every row of the
+// block either comes after the row's diagonal (s = NEG_INF, so p = 0 and
+// alpha = 1) or before the first key the row sees, where it only adds to
+// l and acc what the first visible tile multiplies by exp(NEG_INF - m) =
+// 0.  Every row sees its own position, so that tile exists.
+//
+// FMA kernel (f32; bf16 with other D).  The block holds the q tile, (m, l)
+// and the f32 output sums in shared memory: each tile of K and V is
+// staged in shared memory as f32 (16-byte loads; a tile of one head is
+// contiguous), each thread computes a 4 x 8 block of scores in registers,
+// one warp per row updates the softmax statistics, and each thread adds
+// its 4 rows x D/8 dims of P.V.  Bound: the operations, 4 * D per (query,
+// visible key) pair, which it runs on the FMA pipes in f32, with
+// shared-memory reads behind every FMA block.  No tensor-core route keeps
+// the reference's f32 precision (TF32 would change the numbers).
+//
+// Tensor-core kernel (bf16, D = 16, 32, ..., 128), FlashAttention-2 style.
+// Each of the 4 warps owns 16 query rows: their q fragments, the S tile
+// (16 x 64), (m, l) and the f32 output sums stay in registers.  K and V
+// tiles stream through a 2-stage shared-memory ring by cp.async (the next
+// tile loads while this one is used; rows past Sk are zero-filled and
+// masked); rows are padded by 16 bytes so ldmatrix's 8 rows fall in 8
+// bank groups.  S = Q.K^T and P.V are mma.sync.m16n8k16 bf16 products
+// with f32 sums; the S accumulator's layout is the A operand's, so p goes
+// from the scores to P.V in registers, rounded to bf16 there while l sums
+// the f32 p.  exp runs on the MUFU unit (__expf: ex2.approx of x·log2 e,
+// relative error below 1e-5 for the arguments softmax takes, far inside
+// the bf16 output's rounding).  Blocks of later query tiles (more keys
+// when causal) are launched first.  Bound at the prefill shape: bytes and bf16 tensor-core
+// operations about equally (0.010 and 0.009 ms on the H100).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -264,24 +284,288 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, const
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core kernel (bf16).
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+constexpr size_t mma_smem_bytes(int D) { return (size_t)5 * kBQ * (D + 8) * 2; }
+
+// rows [t0, t0 + 64) of a (rows, D) bf16 head into a tile of row stride
+// D + 8 by cp.async; rows at or past `rows` are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile_async(const __nv_bfloat16* __restrict__ src, int t0,
+                                                int rows, uint32_t dst) {
+  constexpr int CPR = D / 8;                   // 16-byte pieces per row
+  for (int p = threadIdx.x; p < kBK * CPR; p += kThreads) {
+    const int r = p / CPR, c = p % CPR;
+    const bool ok = t0 + r < rows;
+    cp_async16(dst + (r * (D + 8) + c * 8) * 2,
+               ok ? (const void*)(src + (size_t)(t0 + r) * D + c * 8) : (const void*)src,
+               ok ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                     Shape s) {
+  static_assert(kBQ == 64 && kBK == 64 && kThreads == 128, "4 warps x 16 rows, 64 keys");
+  constexpr int RS = D + 8;                    // tile row stride (bf16)
+  constexpr int TILE = kBQ * RS * 2;           // bytes of one 64-row tile
+  constexpr int KD = D / 16;                   // k16 steps over D
+  constexpr int ND = D / 8;                    // n8 tiles over D
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t sq = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t sk = sq + TILE, sv = sk + 2 * TILE;  // 2 stages each
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const __nv_bfloat16* qb = q + (size_t)bh * s.Sq * D;
+  const __nv_bfloat16* kb = k + (size_t)(bh / s.G) * s.Sk * D;
+  const __nv_bfloat16* vb = v + (size_t)(bh / s.G) * s.Sk * D;
+
+  const int q_last = min(q0 + kBQ, s.Sq) - 1;
+  int kt_end = (s.Sk + kBK - 1) / kBK;
+  if (s.causal) kt_end = min(kt_end, q_last / kBK + 1);
+  const int first_key = q0 - s.window + 1;
+  const int kt_begin = first_key > 0 ? first_key / kBK : 0;
+
+  load_tile_async<D>(qb, q0, s.Sq, sq);
+  cp_async_commit();
+  if (kt_begin < kt_end) {
+    load_tile_async<D>(kb, kt_begin * kBK, s.Sk, sk);
+    load_tile_async<D>(vb, kt_begin * kBK, s.Sk, sv);
+  }
+  cp_async_commit();
+
+  float o[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  uint32_t qf[KD][4];
+  const int row0 = q0 + warp * 16 + g;         // this thread's rows: row0, row0 + 8
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) {                     // the next tile loads during this one
+      load_tile_async<D>(kb, (kt + 1) * kBK, s.Sk, sk + (st ^ 1) * TILE);
+      load_tile_async<D>(vb, (kt + 1) * kBK, s.Sk, sv + (st ^ 1) * TILE);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                        // q and tile kt have landed
+    __syncthreads();
+    if (kt == kt_begin) {
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldsm_x4(qf[kd], sq + (r * RS + kd * 16 + ((lane >> 4) << 3)) * 2);
+      }
+    }
+    const uint32_t kt_s = sk + st * TILE, vt_s = sv + st * TILE;
+
+    // S = Q K^T: 16 rows x 64 keys per warp, keys nt * 8 + 2 * tig + {0, 1}
+    float sc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+      for (int kp = 0; kp < 4; ++kp) {
+        const int r = kp * 16 + (lane & 7) + ((lane >> 4) << 3);
+        uint32_t b[4];
+        ldsm_x4(b, kt_s + (r * RS + kd * 16 + ((lane >> 3) & 1) * 8) * 2);
+        mma_bf16(sc[2 * kp], qf[kd], b[0], b[1]);
+        mma_bf16(sc[2 * kp + 1], qf[kd], b[2], b[3]);
+      }
+    }
+    // scale, softcap, masks; a tile every key of which the warp's 16 rows
+    // see (most tiles below the causal diagonal) skips the mask arithmetic
+    const int k0 = kt * kBK, r_lo = q0 + warp * 16;
+    const bool seen = k0 + kBK <= s.Sk && (!s.causal || k0 + kBK - 1 <= r_lo) &&
+                      r_lo + 15 - k0 < s.window;
+    if (seen && !s.has_cap) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[i][e] *= s.scale;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = row0 + (e >> 1) * 8, kp = k0 + i * 8 + 2 * tig + (e & 1);
+          float x = sc[i][e] * s.scale;
+          if (s.has_cap) x = s.cap * tanhf(x / s.cap);
+          bool ok = kp < s.Sk && (qp - kp) < s.window;
+          if (s.causal) ok = ok && qp >= kp;
+          sc[i][e] = ok ? x : kNegInf;
+        }
+    }
+    // online softmax; a row's 64 scores sit in the 4 threads of a quad
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fmaxf(sc[i][2 * h], sc[i][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[h], mx);
+      alpha[h] = __expf(m_r[h] - m_new);
+      m_r[h] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          sc[i][e] = __expf(sc[i][e] - m_new);
+          sum += sc[i][e];                     // l sums the f32 p
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_r[h] = l_r[h] * alpha[h] + sum;
+    }
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      o[i][0] *= alpha[0];
+      o[i][1] *= alpha[0];
+      o[i][2] *= alpha[1];
+      o[i][3] *= alpha[1];
+    }
+    // O += P V, p rounded to bf16: the S tiles 2j, 2j+1 are P's A fragment
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t a[4] = {pack_bf16(sc[2 * j][0], sc[2 * j][1]),
+                             pack_bf16(sc[2 * j][2], sc[2 * j][3]),
+                             pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
+                             pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
+      const int r = j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, vt_s + (r * RS + dp * 16 + ((lane >> 4) << 3)) * 2);
+        mma_bf16(o[2 * dp], a, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();                           // the stage is free for tile kt + 2
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + h * 8;
+    if (row >= s.Sq) continue;
+    const float den = fmaxf(l_r[h], 1e-30f);
+    __nv_bfloat16* orow = out + ((size_t)bh * s.Sq + row) * D + 2 * tig;
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + i * 8) =
+          __floats2bfloat162_rn(o[i][2 * h] / den, o[i][2 * h + 1] / den);
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, const Shape& s,
+                       cudaStream_t stream) {
+  constexpr size_t bytes = mma_smem_bytes(D);
+  static bool configured = false;              // once, before any capture
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(s.BH, (s.Sq + kBQ - 1) / kBQ);
+  flash_fwd_mma_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), s);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mma_d(const void* q, const void* k, const void* v, void* out,
+                         const Shape& s, cudaStream_t st) {
+  switch (s.D) {
+    case 16: return launch_mma<16>(q, k, v, out, s, st);
+    case 32: return launch_mma<32>(q, k, v, out, s, st);
+    case 48: return launch_mma<48>(q, k, v, out, s, st);
+    case 64: return launch_mma<64>(q, k, v, out, s, st);
+    case 80: return launch_mma<80>(q, k, v, out, s, st);
+    case 96: return launch_mma<96>(q, k, v, out, s, st);
+    case 112: return launch_mma<112>(q, k, v, out, s, st);
+    case 128: return launch_mma<128>(q, k, v, out, s, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Returns a cudaError_t (0 = launched).  dtype: 0 = float32, 1 = bfloat16
-// (q, k, v and out share it).  q, out: (BH, Sq, D); k, v: (BH / G, Sk, D),
-// all contiguous.  causal: mask k_pos > q_pos.  window: mask q_pos - k_pos
-// >= window (a huge value = none).  has_cap: apply cap*tanh(s/cap).
-extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
+// (q, k, v and out share it).  route: 0 = the FMA kernel, 1 = the
+// tensor-core kernel (bf16, D a multiple of 16, 16-byte aligned tensors).
+// q, out: (BH, Sq, D); k, v: (BH / G, Sk, D), all contiguous.  causal:
+// mask k_pos > q_pos.  window: mask q_pos - k_pos >= window (a huge value
+// = none).  has_cap: apply cap*tanh(s/cap).
+extern "C" int flash_attention_launch(int dtype, int route, const void* q, const void* k,
                                       const void* v, void* out, int BH, int Sq,
                                       int Sk, int D, int G, float scale, int causal,
                                       int window, int has_cap, float cap, void* stream) {
   if (BH < 1 || Sq < 1 || Sk < 1 || D < 1 || D > kMaxD || G < 1 || BH % G ||
-      window < 1 || (dtype != 0 && dtype != 1) || Sq > 65535 * kBQ)
+      window < 1 || (dtype != 0 && dtype != 1) || Sq > 65535 * kBQ || (route != 0 && route != 1))
     return (int)cudaErrorInvalidValue;
   const int ve = dtype == 0 ? 4 : 8;  // elements per 16 bytes
   const int vec = D % ve == 0 && (uintptr_t)q % 16 == 0 && (uintptr_t)k % 16 == 0 &&
                   (uintptr_t)v % 16 == 0;
   Shape s{BH, Sq, Sk, D, G, causal, window, has_cap, vec, scale, cap};
   auto st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 1 || D % 16 != 0 || !vec || (uintptr_t)out % 4 != 0)
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_mma_d(q, k, v, out, s, st);
+  }
   if (dtype == 0) return (int)launch<float>(q, k, v, out, s, st);
   return (int)launch<__nv_bfloat16>(q, k, v, out, s, st);
 }

@@ -1,29 +1,30 @@
-"""Encoded-MAC bitplane matmul: the CUDA kernel's wrapper and its plain
-PyTorch version (port of ``repro/kernels/encoded_matmul.py``).
+"""Encoded-MAC bitplane matmul: the CUDA kernel's wrapper, its planning
+and its plain PyTorch version (port of ``repro/kernels/encoded_matmul.py``).
 
 Replaces the TPU kernel ``repro/kernels/encoded_matmul.py:_kernel``
-(``encoded_matmul_pallas``).  The CUDA source is
-``repro_torch/csrc/encoded_matmul.cu``:
+(``encoded_matmul_pallas``), an MXU product of bf16 0/1 planes by bf16 Wt.
+The CUDA source is ``repro_torch/csrc/encoded_matmul.cu``, which runs the
+same product on the tensor cores, transposed (``outᵀ = Wtᵀ · planesᵀ``):
 
-  * one block of 8 warps per (256-column, BM-row, k-split) output tile,
-    BM = 4 for m <= 4 (decode with a few slots) and 8 above (prefill runs
-    m / 8 row tiles); each lane reads 8 columns of a Wt row with one
-    16-byte load, and the 8 warps take interleaved k and meet in shared
-    memory at the end;
-  * the int8 x tile is staged in shared memory per 64-wide k chunk and
-    turned into per-(u, k) row masks of the 0/1 planes, so planes never
-    reach device memory; Wt[u] is read in bf16 and summed in f32
-    registers; the bias is added once;
-  * K is split across blocks so decode-sized calls fill the card; a second
-    pass sums the splits in a fixed order.
+  * ``mma.sync.m16n8k16`` with Wt as the A operand (64 columns of n per
+    block, read by ``ldmatrix.trans``) and the planes as B, built in
+    registers from the int8 codes (never in device memory); m is padded to
+    a tile of 8, 16 or 32 rows (``tile_n``), and m > 32 loops over 32-row
+    passes inside the block;
+  * each of a block's 4 warps streams its own run of (u, k) chunks (32 k
+    of one plane, 4 KB) through a 3-stage ``cp.async`` ring, so 48 KB of
+    Wt is in flight per block; the first chunk of each k column brings the
+    column's int8 codes along;
+  * the flattened (u, k) axis is split across the (at most 8) blocks of a
+    thread-block cluster so that decode-sized calls fill the card; the
+    warps meet in shared memory in warp order and the cluster's blocks
+    through distributed shared memory in rank order, in the one launch, so
+    results are deterministic and no partial sums reach device memory.
 
 What bounds it on the card: the bytes of Wt, U·k·n·2, read once.  Decode
 ``wi`` of qwen1.5-0.5b is 8·1024·2816·2 B = 46 MB, about 14 µs at the
-H100's 3.35 TB/s.  What the simple design leaves on the table: the
-plane × Wt products run on the f32 FMA pipes (BM·8 FMAs per 16 bytes of
-Wt), not on the tensor cores, and prefill re-reads Wt once per 8 rows
-(from L2 when the row tiles run together).  ``wgmma`` on 0/1 bf16 plane
-tiles, TMA loads of Wt and a pipelined ring of stages are later work.
+H100's 3.35 TB/s.  The tiling is planned here (``plan``, ``chunk_runs``)
+and handed to the C entry, so the CPU tests check it.
 
 Wt is stored on the device as bf16 once, at fold time; the reference casts
 the f32 fold to bf16 at every call (``encoded_matmul.py:105``,
@@ -31,8 +32,10 @@ the f32 fold to bf16 at every call (``encoded_matmul.py:105``,
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,8 +44,26 @@ from . import build
 from .ref import planes_ref
 
 MAX_MONOS = 64          # csrc kMaxMonos
-_BN = 256               # csrc kBN: output columns per block
-_MIN_K = 32             # k values per split at least: 4 per warp
+KC = 32                 # csrc kKC: k per chunk, one ring stage
+BN = 64                 # csrc kBN: Wt columns per block
+WARPS = 4               # csrc kWarps
+STAGES = 3              # csrc kStages: ring stages per warp
+MAX_SPLITS = 8          # csrc kMaxSplits: blocks of a (portable) cluster
+TILE_NS = (8, 16, 32)   # rows per pass: the N of mma.m16n8k16, 1-4 times
+BLOCKS_PER_SM = 3       # blocks the split aims for
+SMEM_MAX = 232_448      # shared memory a block may use on the H100
+
+
+class Plan(NamedTuple):
+    """The launch of one call, as the C entry takes it."""
+    tn: int                 # rows per pass (the MMA's N side)
+    passes: int             # 32-row passes over m (1 for m <= 32)
+    n_tiles: int            # blocks along n (grid.x)
+    chunks: int             # (u, k) chunks: U · ceil(k / KC)
+    splits: int             # blocks along the chunks (grid.y, one cluster)
+    chunks_per_split: int
+    stages: int             # ring stages per warp
+    smem_bytes: int         # dynamic shared memory of a block: the rings
 
 
 def encoded_matmul_plain(x_codes: torch.Tensor, wt: torch.Tensor,
@@ -65,23 +86,50 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_k(m: int, k: int, n: int, bm: int, sms: int) -> tuple[int, int]:
-    """(splits, k_per_split) for k >= 1: split K across blocks until the
-    grid holds about two 8-warp blocks per SM, keeping at least 32 k per
-    split; ``k_per_split`` is a multiple of 8, so each warp of a block
-    takes the same number of k."""
-    tiles = _cdiv(n, _BN) * _cdiv(m, bm)
-    splits = max(1, min(_cdiv(k, _MIN_K), _cdiv(2 * sms, tiles)))
-    k_per = _cdiv(_cdiv(k, splits), 8) * 8
-    return _cdiv(k, k_per), k_per
+def tile_n(m: int) -> int:
+    """Rows per pass: the smallest of ``TILE_NS`` that holds m, else 32."""
+    return next((t for t in TILE_NS if m <= t), TILE_NS[-1])
+
+
+def plan(m: int, k: int, n: int, U: int, sms: int) -> Plan:
+    """Tiling of one call (m, k, n >= 1).  The (u, k) axis is split across
+    the blocks of a cluster until the grid holds about ``BLOCKS_PER_SM``
+    blocks per SM, keeping at least one chunk per warp."""
+    tn = tile_n(m)
+    n_tiles = _cdiv(n, BN)
+    chunks = U * _cdiv(k, KC)
+    splits = max(1, min(MAX_SPLITS, _cdiv(chunks, WARPS),
+                        _cdiv(BLOCKS_PER_SM * sms, n_tiles)))
+    per = _cdiv(chunks, splits)
+    return Plan(tn, _cdiv(m, tn), n_tiles, chunks, _cdiv(chunks, per), per,
+                STAGES, WARPS * STAGES * (KC * BN * 2 + tn * KC))
+
+
+def chunk_uk(j: int, U: int) -> tuple[int, int]:
+    """(u, kc) of chunk ``j``: chunks run k-major, so one chunk of codes
+    serves all U planes."""
+    return j % U, j // U
+
+
+def chunk_runs(p: Plan) -> list[tuple[int, int]]:
+    """[begin, end) chunk run of each (split, warp), in the order their sums
+    meet: warps in order within a split, then splits in order."""
+    per_warp = _cdiv(p.chunks_per_split, WARPS)
+    runs = []
+    for z in range(p.splits):
+        s_end = min(p.chunks, (z + 1) * p.chunks_per_split)
+        for w in range(WARPS):
+            b = min(s_end, z * p.chunks_per_split + w * per_warp)
+            runs.append((b, min(s_end, b + per_warp)))
+    return runs
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# encoded_matmul_launch(x, wt, bias, out, workspace, M, K, N, U, shifts, bm,
-# splits, k_per_split, vec, stream) in csrc/encoded_matmul.cu.  Pointers
+# encoded_matmul_launch(x, wt, bias, out, M, K, N, U, shifts, tn, splits,
+# chunks_per_split, vec, stream) in csrc/encoded_matmul.cu.  Pointers
 # and the stream must be declared c_void_p: undeclared, ctypes passes a
 # Python int as a 32-bit C int and cuts the address.
-ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P)
+ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P)
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,7 +146,8 @@ def encoded_matmul(x_codes: torch.Tensor, wt: torch.Tensor,
     ``shifts`` (U, 3) int32 padded monomial shifts.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (and count it in ``encoded_matmul.launches``) or raise."""
+    (and count it in ``encoded_matmul.launches`` and, by shape, in
+    ``encoded_matmul.shape_launches``) or raise."""
     dev = x_codes.device
     if dev.type == "cpu":
         return encoded_matmul_plain(x_codes, wt, bias, shifts)
@@ -129,21 +178,21 @@ def encoded_matmul(x_codes: torch.Tensor, wt: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0 or k == 0:
         return out.copy_(bias.expand(m, n))
-    bm = 4 if m <= 4 else 8
-    splits, k_per = split_k(m, k, n, bm, _sm_count(dev.index or 0))
-    # 16-byte loads of Wt rows need every row 16-byte aligned
+    p = plan(m, k, n, U, _sm_count(dev.index or 0))
+    # 16-byte copies of Wt rows need every row 16-byte aligned
     vec = int(n % 8 == 0 and wt.data_ptr() % 16 == 0)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-          if splits > 1 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(
             x_codes.data_ptr(), wt.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), None if ws is None else ws.data_ptr(),
-            m, k, n, U, shifts.ctypes.data, bm, splits, k_per, vec, stream)
+            out.data_ptr(), m, k, n, U, shifts.ctypes.data, p.tn, p.splits,
+            p.chunks_per_split, vec, stream)
     build.check(err, "encoded_matmul")
     encoded_matmul.launches += 1
+    encoded_matmul.shape_launches[(m, k, n)] += 1
     return out
 
 
 encoded_matmul.launches = 0
+# launches by (m, k, n), counted with ``launches``
+encoded_matmul.shape_launches = collections.Counter()

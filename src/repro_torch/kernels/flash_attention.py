@@ -1,26 +1,34 @@
-"""Causal flash-attention forward: the CUDA kernel's wrapper and its plain
+"""Causal flash-attention forward: the CUDA kernels' wrapper and its plain
 PyTorch version (port of ``repro/kernels/flash_attention.py``).
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:_kernel``
 (``flash_attention``).  The CUDA source is
-``repro_torch/csrc/flash_attention.cu``.  One block per (b·h, tile of 64
-query rows) keeps the tile's running softmax statistics (m, l) and its
-f32 output sums in shared memory and loops over 64-key tiles of K and V,
-staged in shared memory as f32: the TPU grid's sequential K axis becomes
-that loop.  The loop starts at the first key tile inside the window and,
-when causal, stops at the last tile the tile's last row can see; the
-reference runs the masked tiles too, which changes nothing (see the
-source).  GQA reads kv head ``h // G`` directly in place of the
-reference's repeated K/V.
+``repro_torch/csrc/flash_attention.cu``, with two kernels that
+``flash_route`` chooses between by dtype and head dim before the launch:
 
-What bounds it on the card: at the prefill shapes the operations
-(``4 · Sq · Sk_visible · D`` per head), which the simple design runs on
-the FMA pipes in f32, not on the tensor cores.
+  * ``"mma"``, bf16 with D in ``MMA_HEAD_DIMS``: FlashAttention-2 style on
+    the tensor cores.  One block of 4 warps per (b·h, tile of 64 query
+    rows); each warp keeps 16 rows' q fragments, scores, (m, l) and f32
+    output sums in registers; K/V tiles of 64 keys stream through a
+    2-stage ``cp.async`` ring; ``Q·Kᵀ`` and ``P·V`` are ``mma.sync``
+    bf16 products with f32 sums.  At the prefill shapes bytes and bf16
+    tensor-core operations bound it about equally;
+  * ``"fma"``, f32 (and bf16 with other D): the block keeps the tile's
+    (m, l) and f32 output sums in shared memory and runs both products on
+    the FMA pipes; bound by the operations, ``4 · Sq · Sk_visible · D``
+    per head.  No tensor-core route keeps the reference's f32 precision.
+
+Both loop over 64-key tiles, the TPU grid's sequential K axis, from the
+first key tile inside the window and, when causal, to the last tile the
+tile's last row can see; the reference runs the masked tiles too, which
+changes nothing (see the source).  GQA reads kv head ``h // G`` directly
+in place of the reference's repeated K/V.
 
 Numerics follow the reference: ``s = (q · kᵀ) * scale`` accumulated in
 f32, softcap ``cap·tanh(s/cap)``, the causal and window masks to the
 finite ``NEG_INF``, ``(m, l, acc)`` in f32, ``p`` rounded to v's dtype
-before P·V, and ``acc / max(l, 1e-30)`` in q's dtype.
+before P·V (``l`` sums the unrounded ``p``), and ``acc / max(l, 1e-30)``
+in q's dtype.
 """
 from __future__ import annotations
 
@@ -34,6 +42,8 @@ from . import build
 NEG_INF = -2.0e38
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 128                                        # csrc: head dim bound
+MMA_HEAD_DIMS = tuple(range(16, MAX_D + 1, 16))    # csrc: launch_mma_d
+_ROUTE_CODE = {"fma": 0, "mma": 1}
 
 
 def _softcap(s, cap):
@@ -90,11 +100,19 @@ def flash_attention_plain(q, k, v, *, scale: float = 1.0, causal: bool = True,
     return out
 
 
+def flash_route(dtype: torch.dtype, D: int) -> str:
+    """The kernel a CUDA call launches: ``"mma"`` (tensor cores) for bf16
+    with D in ``MMA_HEAD_DIMS``, else ``"fma"``.  Fixed by dtype and D
+    alone, before any launch."""
+    return "mma" if dtype == torch.bfloat16 and D in MMA_HEAD_DIMS else "fma"
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# flash_attention_launch(dtype, q, k, v, out, BH, Sq, Sk, D, G, scale,
-# causal, window, has_cap, cap, stream) in csrc/flash_attention.cu;
+# flash_attention_launch(dtype, route, q, k, v, out, BH, Sq, Sk, D, G,
+# scale, causal, window, has_cap, cap, stream) in csrc/flash_attention.cu;
 # pointers and the stream declared c_void_p (see paged_attention.py).
-ARGTYPES = (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _F, _P)
+ARGTYPES = (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _F,
+            _P)
 _NO_WINDOW = 2 ** 30
 
 
@@ -124,13 +142,18 @@ def _flash_kernel(q, k, v, *, scale, causal, window, cap, G):
     if not 1 <= D <= MAX_D:
         raise ValueError(f"flash_attention kernel takes head dim 1..{MAX_D}"
                          f", got {D}")
+    route = flash_route(q.dtype, D)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    if route == "mma":      # 16-byte cp.async copies need aligned rows
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     win = _NO_WINDOW if window is None else int(window)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _DTYPE_CODE[q.dtype], _ROUTE_CODE[route], q.data_ptr(),
+            k.data_ptr(), v.data_ptr(),
             out.data_ptr(), BH, Sq, k.shape[1], D, G, float(scale),
             int(causal), win, int(cap is not None), float(cap or 0.0),
             stream)
@@ -145,8 +168,9 @@ def flash_attention(q, k, v, *, scale: float = 1.0, causal: bool = True,
     ``i`` reading kv head ``i // G``; Sq and Sk multiples of bq and bk.
 
     CPU tensors take the plain version (over ``bq × bk`` tiles); CUDA
-    tensors launch the kernel, which tiles by 64 whatever bq and bk are
-    (counted in ``flash_attention.launches``), or raise."""
+    tensors launch the kernel ``flash_route`` names, which tiles by 64
+    whatever bq and bk are (counted in ``flash_attention.launches``), or
+    raise."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
                                      window=window, cap=cap, bq=bq, bk=bk,

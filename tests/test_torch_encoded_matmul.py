@@ -102,9 +102,61 @@ def test_cpu_tensors_never_count_as_launches():
 @pytest.mark.parametrize("m,k,n", [(1, 1024, 2816), (33, 100, 70),
                                    (4, 2816, 1024)])
 def test_split_k_covers_k(m, k, n):
-    """Every k-split covers a multiple of 8 k (the kernel's 8 warps take
-    the same count), and together they cover k exactly once."""
-    bm = 4 if m <= 4 else 8
-    splits, k_per = tem.split_k(m, k, n, bm, sms=132)
-    assert k_per % 8 == 0 and splits >= 1
-    assert (splits - 1) * k_per < k <= splits * k_per
+    """The splits of the (u, k) axis cover every chunk exactly once: split
+    z takes chunks [z · per, (z + 1) · per), none of them empty."""
+    p = tem.plan(m, k, n, 8, sms=132)
+    assert p.chunks == 8 * -(-k // tem.KC) and p.splits >= 1
+    assert (p.splits - 1) * p.chunks_per_split < p.chunks \
+        <= p.splits * p.chunks_per_split
+
+
+def _covered(p, U, k):
+    """(u, k) pairs in the order the kernel's sums meet them."""
+    out = []
+    for b, e in tem.chunk_runs(p):
+        for j in range(b, e):
+            u, kc = tem.chunk_uk(j, U)
+            out += [(u, kk) for kk in range(kc * tem.KC,
+                                            min(k, (kc + 1) * tem.KC))]
+    return out
+
+
+@pytest.mark.parametrize("U", [8, 48])
+@pytest.mark.parametrize("n", [70, 1024, 2816])
+@pytest.mark.parametrize("k", [130, 1024, 2816])
+@pytest.mark.parametrize("m", [1, 4, 32, 33, 100])
+def test_plan_covers_every_uk_once_in_fixed_order(m, k, n, U):
+    """Main-path and ragged shapes: the (split, warp) runs are contiguous
+    and ascending, so every (u, k) is summed exactly once and in one fixed
+    order; the plan's shared memory fits a block and its tile is an N the
+    MMA takes."""
+    p = tem.plan(m, k, n, U, sms=132)
+    runs = tem.chunk_runs(p)
+    assert len(runs) == p.splits * tem.WARPS
+    pos = 0
+    for b, e in runs:
+        assert b <= e and (b == e or b == pos)
+        pos = max(pos, e)
+    assert pos == p.chunks
+    seen = _covered(p, U, k)
+    assert len(seen) == U * k and len(set(seen)) == U * k
+    assert seen == _covered(tem.plan(m, k, n, U, sms=132), U, k)
+    assert 3 * p.smem_bytes <= tem.SMEM_MAX     # three blocks an SM
+    assert p.tn in tem.TILE_NS and p.tn % 8 == 0
+    assert p.tn * p.passes >= m > p.tn * (p.passes - 1)
+    assert p.n_tiles * tem.BN >= n and p.stages >= 3
+    assert 1 <= p.splits <= tem.MAX_SPLITS
+
+
+@pytest.mark.parametrize("m,tn", [(1, 8), (4, 8), (8, 8), (9, 16), (16, 16),
+                                  (17, 32), (32, 32), (33, 32), (100, 32)])
+def test_tile_n_pads_m_to_an_mma_width(m, tn):
+    assert tem.tile_n(m) == tn
+
+
+@pytest.mark.parametrize("k,n", [(1024, 1024), (1024, 2816), (2816, 1024)])
+def test_decode_plan_fills_the_card(k, n):
+    """At decode (m = 4, U = 8) the grid holds at least 128 blocks, one for
+    97% of an H100's 132 SMs, and three blocks' rings fit an SM."""
+    p = tem.plan(4, k, n, 8, sms=132)
+    assert p.n_tiles * p.splits >= 128 and 3 * p.smem_bytes <= tem.SMEM_MAX

@@ -88,6 +88,17 @@ def test_noncausal_padding_refused_as_in_reference():
                        bk=64)
 
 
+@pytest.mark.parametrize("dtype,D,route", [
+    ("bfloat16", 16, "mma"), ("bfloat16", 32, "mma"), ("bfloat16", 48, "mma"),
+    ("bfloat16", 64, "mma"), ("bfloat16", 128, "mma"),
+    ("bfloat16", 8, "fma"), ("bfloat16", 40, "fma"), ("bfloat16", 100, "fma"),
+    ("float32", 64, "fma"), ("float32", 128, "fma"), ("float16", 64, "fma")])
+def test_flash_route_by_dtype_and_head_dim(dtype, D, route):
+    """bf16 with D a multiple of 16 up to 128 takes the tensor-core
+    kernel; f32, and bf16 with any other D, the FMA kernel."""
+    assert tfa.flash_route(getattr(torch, dtype), D) == route
+
+
 def test_cpu_tensors_never_count_as_launches():
     q, k, v = _qkv(5, 1, 64, 2, 2, 16)
     before = tfa.flash_attention.launches

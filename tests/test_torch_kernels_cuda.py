@@ -71,20 +71,37 @@ def _program(kind):
     return decompose(c)
 
 
+def _shifts(kind, rng):
+    """(U, 3) monomial shifts: a program's, or 48 random 1-3-bit ones."""
+    if kind != "random48":
+        return _program(kind).a_mono_bits
+    bits = [sorted(rng.choice(8, rng.integers(1, 4), replace=False))
+            for _ in range(48)]
+    return np.asarray([(b + b[-1:] * 3)[:3] for b in bits], np.int32)
+
+
 def _em_args(kind, m, k, n, dev, seed=0):
-    prog = _program(kind)
     rng = np.random.default_rng(seed)
+    shifts = _shifts(kind, rng)
     x = rng.integers(-127, 128, (m, k)).astype(np.int8)
-    wt = (rng.normal(size=(prog.n_a_planes, k, n)) * 4).astype(np.float32)
+    wt = (rng.normal(size=(len(shifts), k, n)) * 4).astype(np.float32)
     bias = rng.normal(size=(n,)).astype(np.float32)
     return (torch.from_numpy(x).to(dev),
             torch.from_numpy(wt).to(torch.bfloat16).to(dev),
-            torch.from_numpy(bias).to(dev), prog.a_mono_bits)
+            torch.from_numpy(bias).to(dev), shifts)
+
+
+# the main path's linears at decode (m = 4 slots) and prefill (m = one
+# 32-token chunk), then ragged m, k and n
+EM_SHAPES = [(m, k, n) for m in (4, 32)
+             for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
+EM_SHAPES += [(1, 130, 70), (33, 1024, 70), (100, 130, 70),
+              (100, 2816, 1024), (1, 2816, 2816), (33, 130, 2816)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["exact", "sampled"])
-@pytest.mark.parametrize("shape", [(4, 1024, 2816), (100, 130, 70)])
+@pytest.mark.parametrize("kind", ["exact", "sampled", "random48"])
+@pytest.mark.parametrize("shape", EM_SHAPES)
 def test_encoded_matmul_kernel_matches_plain(cuda_device, kind, shape):
     args = _em_args(kind, *shape, cuda_device)
     before = tem.encoded_matmul.launches
@@ -204,7 +221,17 @@ def test_quantize_kv_on_the_card_matches_the_cpu(cuda_device, mode):
     ("float32", 1, 100, 4, 2, 32, 32, None),
     ("float32", 1, 192, 2, 1, 128, None, 20.0),
     ("bfloat16", 1, 100, 2, 2, 64, None, None),
-    ("bfloat16", 2, 256, 4, 2, 64, 48, 30.0)])
+    ("bfloat16", 2, 256, 4, 2, 64, 48, 30.0),
+    # the tensor-core kernel: D 32, 48, 64, 128, S not a multiple of 64,
+    # GQA, window + softcap, and the prefill shape of qwen1.5-0.5b
+    ("bfloat16", 2, 100, 4, 4, 32, None, None),
+    ("bfloat16", 1, 130, 2, 1, 48, None, None),
+    ("bfloat16", 1, 200, 8, 2, 128, None, None),
+    ("bfloat16", 2, 300, 4, 2, 64, 70, 20.0),
+    ("bfloat16", 1, 192, 4, 1, 128, 64, 30.0),
+    ("bfloat16", 4, 1024, 16, 16, 64, None, None),
+    # bf16 with a head dim the tensor-core kernel does not take
+    ("bfloat16", 1, 100, 2, 2, 40, None, None)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, B, S, Hq, Hkv, D,
                                     window, cap):
     rng = np.random.default_rng(S + D)
@@ -213,6 +240,8 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, B, S, Hq, Hkv, D,
         rng.normal(size=shape).astype(np.float32)).to(dt).to(cuda_device)
     q, k, v = t(B, S, Hq, D), t(B, S, Hkv, D), t(B, S, Hkv, D)
     kw = dict(scale=D ** -0.5, window=window, cap=cap, bq=64, bk=64)
+    assert tfa.flash_route(dt, D) == (
+        "mma" if dtype == "bfloat16" and D % 16 == 0 else "fma")
     before = tfa.flash_attention.launches
     out = tops.flash_mha(q, k, v, **kw)
     torch.cuda.synchronize()
