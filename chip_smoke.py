@@ -15,13 +15,17 @@ Phases (any failure raises and exits non-zero before the result line):
     off the tiles);
  4. kernel 2 (paged attention) against its plain version: ragged lens
     including 0 and page boundaries, f32 and bf16 pools, GQA, window +
-    softcap, Sq = 3; then the same with int8 and packed-int4 pools (and
-    the quantizer's codes and scales on the card against the CPU's, bit
-    for bit), at the main path's decode shape too;
+    softcap, Sq = 3, and the serve's 127-page table with an idle row and a
+    row filling the table; then the same with int8 and packed-int4 pools
+    (and the quantizer's codes and scales on the card against the CPU's,
+    bit for bit), at the main path's decode shape too; one call is one
+    CUDA kernel (``torch.profiler`` kernel events) for each pool type;
  5. kernel 3 (flash attention) through ``ops.flash_mha`` against its plain
-    version: the prefill shape of full-width qwen1.5-0.5b in f32 and bf16,
-    ragged S = 100, GQA, window, softcap, bf16 head dims 32 and 128 (the
-    tensor-core kernel) and 40 (the FMA kernel);
+    version: the prefill shape of full-width qwen1.5-0.5b in f32 (3xTF32
+    tensor-core kernel, max abs error at most 1e-5) and bf16, ragged S =
+    100, GQA, window, softcap, f32 head dims 32 and 128 (3xTF32) and 36
+    (FMA), bf16 head dims 32 and 128 (bf16 tensor-core kernel) and 40
+    (FMA);
  6. the main path: qwen1.5-0.5b at full width and depth (weights from seed
     0), calibrated encoded-MAC serving with the exact AND-plane encoding
     and the fused paged-attention kernel, continuous batching of 8
@@ -37,7 +41,10 @@ Phases (any failure raises and exits non-zero before the result line):
  8. per-kernel times at the main path's shapes beside their bound, the
     plain version's time and a library call's, as one JSON line: kernel 1
     at its six shapes (three linears at decode m = 4 and at prefill
-    m = 32), with the launches each shape had in the dense serve.
+    m = 32), with the launches each shape had in the dense serve; kernel 2
+    with each pool type at page tables of 32 and of the serve's 127
+    pages, beside the launch floor (an empty kernel on the same grid and
+    cluster); kernel 3 in f32 and bf16 at the prefill shape.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -59,10 +66,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 
 N_REQUESTS, MAX_NEW = 8, 32
 N_SLOTS, PAGE_SIZE, N_PAGES = 4, 16, 256
+SERVE_P = 127          # the serve's page table: Engine's max_seq_pages
 
 
 def log(msg: str) -> None:
@@ -202,18 +211,32 @@ def _pa_case(dev, B, Sq, Hq, Hkv, D, ps, P, lens, dtype, seed=0, copies=1):
     return sets, kv_map
 
 
+def _one_kernel(fn, what):
+    """One call of ``fn`` runs exactly one CUDA kernel (profiler events)."""
+    from repro_torch.launch.kernel_bench import cuda_kernels_of
+    names = cuda_kernels_of(fn)
+    log(f"[kernel2] one call of {what}: {len(names)} CUDA kernel(s) {names}")
+    if len(names) != 1:
+        raise AssertionError(f"{what}: {len(names)} CUDA kernels in one "
+                             f"paged_attn call, not 1: {names}")
+
+
 def phase_kernel2(dev):
     import torch
     from repro_torch.kernels import paged_attention as pa
-    ps, D, P = 16, 64, 32
+    ps, D = 16, 64
     lens = [0, 16, 17, 511]
-    cases = [("mha-f32", 1, 16, 16, None, None, torch.float32),
-             ("mha-bf16", 1, 16, 16, None, None, torch.bfloat16),
-             ("gqa-f32", 1, 16, 4, None, None, torch.float32),
-             ("win+cap", 1, 16, 4, 100, 30.0, torch.float32),
-             ("sq3-gqa", 3, 16, 4, None, None, torch.float32)]
-    for tag, Sq, Hq, Hkv, window, cap, dtype in cases:
-        ln = [min(x, P * ps - Sq) for x in lens]
+    cases = [("mha-f32", 1, 16, 16, None, None, torch.float32, 32),
+             ("mha-bf16", 1, 16, 16, None, None, torch.bfloat16, 32),
+             ("gqa-f32", 1, 16, 4, None, None, torch.float32, 32),
+             ("win+cap", 1, 16, 4, 100, 30.0, torch.float32, 32),
+             ("sq3-gqa", 3, 16, 4, None, None, torch.float32, 32),
+             ("p127-f32", 1, 16, 16, None, None, torch.float32, SERVE_P),
+             ("p127-bf16", 1, 16, 16, None, None, torch.bfloat16, SERVE_P)]
+    for tag, Sq, Hq, Hkv, window, cap, dtype, P in cases:
+        # the serve's table: an idle row and a row filling the table
+        ln = ([0, 100, 288, P * ps - Sq] if P == SERVE_P
+              else [min(x, P * ps - Sq) for x in lens])
         (args,), kv_map = _pa_case(dev, 4, Sq, Hq, Hkv, D, ps, P, ln, dtype,
                                    seed=Hq + Hkv + Sq)
         kw = dict(scale=D ** -0.5, window=window, cap=cap)
@@ -226,11 +249,14 @@ def phase_kernel2(dev):
                else dict(rtol=0.0, atol=2e-2))
         ok = torch.allclose(out.float(), ref.float(), **tol) and \
             bool(torch.isfinite(out.float()).all())
-        log(f"[kernel2] {tag:8s} B=4 Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
-            f"ps={ps} lens={ln} max_abs_err={err:.3e} {tol} "
+        log(f"[kernel2] {tag:9s} B=4 Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
+            f"ps={ps} P={P} lens={ln} max_abs_err={err:.3e} {tol} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel2 disagrees with plain at {tag}")
+        if tag == "p127-f32":
+            _one_kernel(lambda: pa.paged_attn(*args, kv_of_q=kv_map, **kw),
+                        "paged_attn (dense f32 pools, P = 127)")
 
 
 def _pa_quant_case(dev, mode, B, Sq, Hq, Hkv, D, ps, P, lens, seed=0,
@@ -266,18 +292,20 @@ def phase_kernel2_quant(dev):
             f"{tuple(x.shape)}: {'bit for bit' if same else 'DIFFERENT'}")
         if not same:
             raise AssertionError(f"quantize_kv {mode}: card and CPU differ")
-    ps, D, P = 16, 64, 32
+    ps, D = 16, 64
     lens = [0, 16, 17, 511]
-    cases = [("mha", 1, 16, 16, None, None, lens),
-             ("gqa", 1, 4, 2, None, None, lens),
-             ("win+cap", 1, 16, 4, 100, 30.0, lens),
-             ("sq3-gqa", 3, 4, 2, None, None, lens),
-             ("decode", 1, 16, 16, None, None, [100, 200, 300, 400])]
+    cases = [("mha", 1, 16, 16, None, None, lens, 32),
+             ("gqa", 1, 4, 2, None, None, lens, 32),
+             ("win+cap", 1, 16, 4, 100, 30.0, lens, 32),
+             ("sq3-gqa", 3, 4, 2, None, None, lens, 32),
+             ("decode", 1, 16, 16, None, None, [100, 200, 300, 400], 32),
+             ("p127", 1, 16, 16, None, None,
+              [0, 100, 288, SERVE_P * ps - 1], SERVE_P)]
     # the f32 sums run in another order on the card (and exp differs by
     # ulps): the dense kernel's f32 tolerance, not the CPU tests' 2e-5
     tol = dict(rtol=1e-4, atol=1e-5)
     for mode in ("int8", "int4"):
-        for tag, Sq, Hq, Hkv, window, cap, ln in cases:
+        for tag, Sq, Hq, Hkv, window, cap, ln, P in cases:
             ln = [min(x, P * ps - Sq) for x in ln]
             ((args, (sk, sv)),), kv_map = _pa_quant_case(
                 dev, mode, 4, Sq, Hq, Hkv, D, ps, P, ln, seed=Hq + Sq)
@@ -292,11 +320,15 @@ def phase_kernel2_quant(dev):
             ok = torch.allclose(out, ref, **tol) and \
                 bool(torch.isfinite(out).all())
             log(f"[kernel2q] {mode} {tag:8s} B=4 Sq={Sq} Hq={Hq} Hkv={Hkv} "
-                f"D={D} ps={ps} lens={ln} max_abs_err={err:.3e} {tol} "
+                f"D={D} ps={ps} P={P} lens={ln} max_abs_err={err:.3e} {tol} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"kernel2 {mode} disagrees with plain "
                                      f"at {tag}")
+            if tag == "p127":
+                _one_kernel(lambda: pa.paged_attn(
+                    *args, scale=D ** -0.5, kv_of_q=kv_map, scale_k=sk,
+                    scale_v=sv), f"paged_attn ({mode} pools, P = 127)")
 
 
 def _flash_case(dev, B, S, Hq, Hkv, D, dtype, seed=0):
@@ -334,6 +366,10 @@ def phase_flash(dev):
              ("gqa-4/2", 2, 256, 4, 2, 64, None, None, torch.float32),
              ("window32", 2, 256, 4, 2, 64, 32, None, torch.float32),
              ("softcap", 2, 256, 4, 4, 64, None, 30.0, torch.float32),
+             ("d32-f32", 2, 300, 8, 2, 32, None, None, torch.float32),
+             ("d128-f32", 1, 200, 4, 4, 128, 70, None, torch.float32),
+             ("gqa-win+cap", 2, 130, 8, 2, 64, 48, 20.0, torch.float32),
+             ("d36-f32", 1, 100, 2, 2, 36, None, None, torch.float32),
              ("win+cap-bf16", 2, 256, 4, 2, 128, 32, 20.0, torch.bfloat16),
              ("d32-bf16", 2, 300, 8, 2, 32, None, None, torch.bfloat16),
              ("d128-bf16", 1, 200, 4, 4, 128, 70, None, torch.bfloat16),
@@ -355,6 +391,12 @@ def phase_flash(dev):
         if not ok:
             raise AssertionError(f"flash kernel disagrees with plain at "
                                  f"{tag}")
+        if tag == "prefill-f32":
+            # 3xTF32 keeps about f32 accuracy on the tensor cores
+            assert flash_route(dt, D) == "tf32x3"
+            if not err <= 1e-5:
+                raise AssertionError(f"tf32x3 max abs error {err:.3e} at "
+                                     "the prefill shape is above 1e-5")
 
 
 def _serve(params, cfg, trace, device, max_new: int = MAX_NEW):
@@ -683,75 +725,75 @@ def phase_measure(dev, serve_info):
                          f"library: {lib_name}"})
             log(f"[measure] encoded_matmul m={m} k={k} n={n}: "
                 f"{U * k * n * 2 / (ms * 1e-3) / 1e12:.3f} TB/s of Wt")
-    # kernel 2: decode attention, 4 slots × 16 heads × D 64, f32 pools
-    B, Sq, H, D, ps, P = N_SLOTS, 1, 16, 64, PAGE_SIZE, 32
+    # kernel 2: decode attention, 4 slots × 16 heads × D 64, with dense
+    # f32, int8 and packed-int4 pools, at a 32-page table and at the
+    # serve's 127-page table (the same lens, so the same bytes); the floor
+    # is an empty kernel on the same grid and cluster, replayed the same way
+    B, Sq, H, D, ps = N_SLOTS, 1, 16, 64, PAGE_SIZE
     lens = [100, 200, 300, 400]
-    sets, kv_map = _pa_case(dev, B, Sq, H, H, D, ps, P, lens,
-                            torch.float32, seed=5, copies=8)
-    kw = dict(scale=D ** -0.5, kv_of_q=kv_map)
-    err = (pa.paged_attn(*sets[0], **kw) - pa.paged_attn_plain(
-        *sets[0], pa._NO_WINDOW, scale=D ** -0.5, G=1)).abs().max().item()
-    ms = time_graph(lambda *a: pa.paged_attn(*a, **kw), sets)
-    plain_ms = time_loop(lambda *a: pa.paged_attn_plain(
-        *a, pa._NO_WINDOW, scale=D ** -0.5, G=1), sets)
     pages_read = sum(l_ // ps + 1 for l_ in lens)         # per kv head
-    nbytes = (2 * B * Sq * H * D * 4 + 2 * pages_read * ps * H * D * 4
-              + pages_read * 4 + B * 4)
     ops = 4.0 * Sq * D * pages_read * ps * H
-    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    rows.append({
-        "name": "paged_attn", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:131",
-        "launches": serve_info["counts"]["paged_attn"],
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_b, t_o),
-        "bound_by": "bytes" if t_b >= t_o else "operations",
-        "library_ms": None,
-        "shape": f"B={B} Sq={Sq} H={H} D={D} ps={ps} lens={lens} f32"})
-    # kernel 2 with quantized pools at the same shape: bytes of the int8
-    # or packed-int4 pages read plus their f32 scale rows
-    for mode in ("int8", "int4"):
-        qsets, kv_map = _pa_quant_case(dev, mode, B, Sq, H, H, D, ps, P,
-                                       lens, seed=6, copies=8)
-        args = [a + sc for a, sc in qsets]
+    for mode in ("bf16", "int8", "int4"):
+        for P in (32, SERVE_P):
+            if mode == "bf16":
+                sets, kv_map = _pa_case(dev, B, Sq, H, H, D, ps, P, lens,
+                                        torch.float32, seed=5, copies=8)
+                args = [a + (None, None) for a in sets]
+            else:
+                qsets, kv_map = _pa_quant_case(dev, mode, B, Sq, H, H, D, ps,
+                                               P, lens, seed=6, copies=8)
+                args = [a + sc for a, sc in qsets]
 
-        def kern(q, pk, pv, pg, ln, sk, sv):
-            return pa.paged_attn(q, pk, pv, pg, ln, scale=D ** -0.5,
-                                 kv_of_q=kv_map, scale_k=sk, scale_v=sv)
+            def kern(q, pk, pv, pg, ln, sk, sv):
+                return pa.paged_attn(q, pk, pv, pg, ln, scale=D ** -0.5,
+                                     kv_of_q=kv_map, scale_k=sk, scale_v=sv)
 
-        def plain(q, pk, pv, pg, ln, sk, sv):
-            return pa.paged_attn_plain(q, pk, pv, pg, ln, pa._NO_WINDOW,
-                                       scale=D ** -0.5, G=1, scale_k=sk,
-                                       scale_v=sv)
+            def plain(q, pk, pv, pg, ln, sk, sv):
+                return pa.paged_attn_plain(q, pk, pv, pg, ln, pa._NO_WINDOW,
+                                           scale=D ** -0.5, G=1, scale_k=sk,
+                                           scale_v=sv)
 
-        err = (kern(*args[0]) - plain(*args[0])).abs().max().item()
-        ms = time_graph(kern, args)
-        plain_ms = time_loop(plain, args)
-        dp = D // 2 if mode == "int4" else D
-        nbytes = (2 * B * Sq * H * D * 4 + 2 * pages_read * ps * H * (dp + 4)
-                  + pages_read * 4 + B * 4)
-        t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-        rows.append({
-            "name": f"paged_attn_{mode}", "route": "cuda",
-            "source": "src/repro_torch/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/paged_attention.py:131",
-            "launches": serve_info[mode]["counts"]["paged_attn"],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            # no PyTorch call reads quantized pages through a page table
-            "library_ms": None,
-            "shape": f"B={B} Sq={Sq} H={H} D={D} ps={ps} lens={lens} {mode} "
-                     f"pools, {nbytes / 1e6:.3f} MB"})
+            err = (kern(*args[0]) - plain(*args[0])).abs().max().item()
+            ms = time_graph(kern, args)
+            plain_ms = time_loop(plain, args)
+            floor_ms = time_graph(
+                lambda: pa.paged_attn_floor(B, H, P, dev), [()] * 8)
+            row_bytes = D * 4 if mode == "bf16" else (
+                D // 2 + 4 if mode == "int4" else D + 4)
+            nbytes = (2 * B * Sq * H * D * 4 + 2 * pages_read * ps * H
+                      * row_bytes + pages_read * 4 + B * 4)
+            t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+            name = "paged_attn" + ("" if mode == "bf16" else f"_{mode}") + (
+                "" if P == 32 else f"_p{P}")
+            pools = ("f32 pools" if mode == "bf16"
+                     else f"{mode} pools + f32 scales")
+            counts = (serve_info["counts"] if mode == "bf16"
+                      else serve_info[mode]["counts"])
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/csrc/paged_attention.cu",
+                "replaces": "src/repro/kernels/paged_attention.py:131",
+                "launches": counts["paged_attn"],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                # no PyTorch call reads K/V through a page table
+                "library_ms": None,
+                "floor_ms": floor_ms,
+                "cluster": pa.cluster_size(B, H, P, torch.cuda.
+                                           get_device_properties(dev)
+                                           .multi_processor_count),
+                "shape": f"B={B} Sq={Sq} H={H} D={D} ps={ps} P={P} "
+                         f"lens={lens} {pools}, {nbytes / 1e6:.3f} MB"})
     # kernel 3 at the prefill shape of full-width qwen1.5-0.5b: B 4, S 1024,
     # 16 heads, D 64, causal; flattened (B·H, S, D) as flash_mha hands it
     # to the kernel.  Not on the serving path: launches 0 (the reference's
     # model never reaches its flash kernel either).
     from repro_torch.kernels import flash_attention as fa
     Bf, S, Hf, Df = 4, 1024, 16, 64
-    for dt, tag, peak in ((torch.float32, "f32", PEAK_F32),
-                          (torch.bfloat16, "bf16", PEAK_BF16)):
+    # f32 runs 3xTF32: three tf32 products per product on the tensor cores
+    for dt, tag, peak, n_mma in ((torch.float32, "f32", PEAK_TF32, 3),
+                                 (torch.bfloat16, "bf16", PEAK_BF16, 1)):
         fsets = []
         for i in range(3):
             q, k, v = _flash_case(dev, Bf, S, Hf, Hf, Df, dt, seed=20 + i)
@@ -773,7 +815,7 @@ def phase_measure(dev, serve_info):
         lib_ms = time_graph(sdpa, lib_sets, iters=20)
         nbytes = 4 * Bf * Hf * S * Df * (4 if dt == torch.float32 else 2)
         ops_f = 4.0 * Df * Bf * Hf * S * (S + 1) / 2   # visible pairs only
-        t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops_f / peak * 1e3
+        t_b, t_o = nbytes / PEAK_BYTES * 1e3, n_mma * ops_f / peak * 1e3
         rows.append({
             "name": f"flash_attention_{tag}", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -785,11 +827,15 @@ def phase_measure(dev, serve_info):
             "library_ms": lib_ms,
             "shape": f"B={Bf} S={S} H={Hf} D={Df} causal {tag}, "
                      f"{fa.flash_route(dt, Df)} kernel (prefill; not on the "
-                     "serving path)"})
+                     "serving path)" + (
+                         f"; f32-pipe bound {ops_f / PEAK_F32 * 1e3:.4f} ms"
+                         if dt == torch.float32 else "")})
     for r in rows:
+        floor = (f", floor {r['floor_ms']:.4f} ms (cluster {r['cluster']})"
+                 if "floor_ms" in r else "")
         log(f"[measure] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){floor}, "
             f"launches on the main path {r['launches']}")
     per_step = serve_info["steps"] + serve_info["chunks"]
     log(f"[measure] launches per engine forward (decode steps + prefill "

@@ -3,7 +3,7 @@ PyTorch version (port of ``repro/kernels/flash_attention.py``).
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:_kernel``
 (``flash_attention``).  The CUDA source is
-``repro_torch/csrc/flash_attention.cu``, with two kernels that
+``repro_torch/csrc/flash_attention.cu``, with three kernels that
 ``flash_route`` chooses between by dtype and head dim before the launch:
 
   * ``"mma"``, bf16 with D in ``MMA_HEAD_DIMS``: FlashAttention-2 style on
@@ -13,10 +13,16 @@ Replaces the TPU kernel ``repro/kernels/flash_attention.py:_kernel``
     2-stage ``cp.async`` ring; ``Q·Kᵀ`` and ``P·V`` are ``mma.sync``
     bf16 products with f32 sums.  At the prefill shapes bytes and bf16
     tensor-core operations bound it about equally;
-  * ``"fma"``, f32 (and bf16 with other D): the block keeps the tile's
+  * ``"tf32x3"``, f32 with D in ``TF32X3_HEAD_DIMS``: the same layout in
+    f32, each product split into three ``mma.sync.m16n8k8`` tf32 products
+    (``split_tf32``: ``x = hi + lo``; ``lo·hi + hi·lo + hi·hi``), which
+    keeps about f32 accuracy on the tensor cores.  P's A fragment takes
+    each 8-key step's keys in the order ``P_KEY_OF_SLOT``.  Bound by the
+    operations, ``3 · 4 · D`` tf32 per (query, visible key) pair;
+  * ``"fma"``, bf16 and f32 with other D: the block keeps the tile's
     (m, l) and f32 output sums in shared memory and runs both products on
     the FMA pipes; bound by the operations, ``4 · Sq · Sk_visible · D``
-    per head.  No tensor-core route keeps the reference's f32 precision.
+    per head.
 
 Both loop over 64-key tiles, the TPU grid's sequential K axis, from the
 first key tile inside the window and, when causal, to the last tile the
@@ -43,7 +49,25 @@ NEG_INF = -2.0e38
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 128                                        # csrc: head dim bound
 MMA_HEAD_DIMS = tuple(range(16, MAX_D + 1, 16))    # csrc: launch_mma_d
-_ROUTE_CODE = {"fma": 0, "mma": 1}
+TF32X3_HEAD_DIMS = tuple(range(8, MAX_D + 1, 8))   # csrc: launch_tf32x3_d
+_ROUTE_CODE = {"fma": 0, "mma": 1, "tf32x3": 2}
+# csrc flash_fwd_tf32x3_kernel: the key of an 8-key step that k-slot t of
+# P's m16n8k8 A fragment holds.  The S accumulator gives a thread keys 2t
+# and 2t + 1 of the step; they serve as k-slots t and t + 4, and V's B
+# fragment reads rows 2t and 2t + 1 to match.
+P_KEY_OF_SLOT = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def split_tf32(x: torch.Tensor):
+    """f32 ``x`` → (hi, lo), each rounded to tf32 (10 mantissa bits) to
+    nearest with ties away from zero, as ``cvt.rna.tf32.f32`` (add
+    ``0x1000`` to the bits, clear the low 13); ``x = hi + lo`` to about
+    2^-22 relative.  The kernel's split, in torch."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
 
 
 def _softcap(s, cap):
@@ -101,10 +125,15 @@ def flash_attention_plain(q, k, v, *, scale: float = 1.0, causal: bool = True,
 
 
 def flash_route(dtype: torch.dtype, D: int) -> str:
-    """The kernel a CUDA call launches: ``"mma"`` (tensor cores) for bf16
-    with D in ``MMA_HEAD_DIMS``, else ``"fma"``.  Fixed by dtype and D
-    alone, before any launch."""
-    return "mma" if dtype == torch.bfloat16 and D in MMA_HEAD_DIMS else "fma"
+    """The kernel a CUDA call launches: ``"mma"`` (bf16 tensor cores) for
+    bf16 with D in ``MMA_HEAD_DIMS``, ``"tf32x3"`` (3xTF32 tensor cores)
+    for f32 with D in ``TF32X3_HEAD_DIMS``, else ``"fma"``.  Fixed by
+    dtype and D alone, before any launch."""
+    if dtype == torch.bfloat16 and D in MMA_HEAD_DIMS:
+        return "mma"
+    if dtype == torch.float32 and D in TF32X3_HEAD_DIMS:
+        return "tf32x3"
+    return "fma"
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -144,7 +173,7 @@ def _flash_kernel(q, k, v, *, scale, causal, window, cap, G):
                          f", got {D}")
     route = flash_route(q.dtype, D)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if route == "mma":      # 16-byte cp.async copies need aligned rows
+    if route != "fma":      # 16-byte cp.async copies need aligned rows
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (q, k, v))
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)

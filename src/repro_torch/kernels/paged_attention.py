@@ -1,29 +1,43 @@
-"""Fused paged-attention decode: the CUDA kernel's wrapper and its plain
-PyTorch version (port of ``repro/kernels/paged_attention.py``).
+"""Fused paged-attention decode: the CUDA kernel's wrapper, its planning
+and its plain PyTorch version (port of ``repro/kernels/paged_attention.py``).
 
 Replaces the TPU kernel ``repro/kernels/paged_attention.py:_decode_kernel``
 (``paged_attn_pallas``).  The CUDA source is
-``repro_torch/csrc/paged_attention.cu``.  The page chain of a row, up to
-the page holding position ``lens[b] + Sq - 1``, is cut into chunks of
-whole pages (about 64 tokens); one block per (row b, kv head, chunk) reads
-``pages[b, :]`` and ``lens[b]`` itself (in place of scalar prefetch) and
-writes its chunk's softmax statistics (m, l) and unnormalised sums for the
-head's Sq·G query rows, in f32; a second pass rescales the chunks to their
-common max in chunk order and divides.  The TPU kernel's sequential walk
-over page blocks thus runs in parallel, so 4 slots fill the card.
+``repro_torch/csrc/paged_attention.cu``: one launch, grid ``(B, Hkv, CL)``,
+one thread-block cluster of ``CL ≤ 8`` blocks per (row b, kv head).
+
+  * ``cluster_size`` fixes CL from the shape and the card, never from
+    ``lens``, so the grid does not grow with the page table and a captured
+    graph stays valid when ``lens`` changes;
+  * block z reads ``lens[b]`` and ``pages[b, :]`` itself (in place of
+    scalar prefetch) and takes the run of pages
+    ``rank_pages(nb, CL, z, block_pages(ps))`` of the row's
+    ``nb = pages_used(lens[b], Sq, ps)``: at least one of the reference's
+    K blocks of 128 tokens; a rank with no page adds nothing;
+  * each of the block's ``WARPS`` warps takes ``warp_pages`` of the run
+    and streams its K pages, then its V pages, through 2-stage
+    ``cp.async`` rings (the first two of each load at once); a token's dot
+    product is spread over the lanes holding its 16-byte pieces and
+    completed by shuffles, so no lane idles at ``Sq·G = 1``;
+  * as the reference does per K block, the block takes one max over its
+    pages' scores (pass 1) and adds up ``p = exp(s - max)`` and ``p · v``
+    (pass 2), warps in warp order; the cluster's blocks meet in rank order
+    through distributed shared memory, each rescaled from its max to the
+    row's, and the sums are divided by ``max(l, 1e-30)`` and written once:
+    no workspace, no second launch, a fixed summation order.
 
 Pools are dense (f32 / bf16, the q dtype), int8, or uint8 holding packed
 int4 (``quant.kvcache``); quantized pools come with f32 scale rows
-``(n_pages, ps, Hkv)`` and are widened inside the page loop as
-``level * scale`` (``_dequant_block``), so no dense K/V view is ever built.
+``(n_pages, ps, Hkv)``, copied raw into shared memory and widened on the
+way out as ``level * scale`` (``_dequant_block``), so no dense K/V view is
+ever built.  A stored row must be a multiple of 16 bytes and at most 512
+(``kernel_takes``).
 
 What bounds it on the card: the bytes of the K/V pages read (and their
-scale rows), ``2 · ceil((lens + Sq) / ps) · ps · (Dp · itemsize + 4)``
-per (b, kv head) — at decode every cached byte is read once.  What the
-simple design leaves on the table: a chunk's loads and math do not overlap
-(no asynchronous copy ring), the scores run on the FMA pipes, and the grid
-covers the whole page table, so chunks past a row's end start only to
-exit.
+scale rows), ``2 · nb · ps · (Dp · itemsize + 4)`` per (b, kv head) — at
+decode every cached byte is read once, about a microsecond at the main
+path's sizes, so the launch and a few dependent loads set its time
+(``paged_attn_floor`` times an empty kernel on the same grid and cluster).
 
 Sq ≤ 8 query tokens per row fold into the group axis (row ``s·G + g``).
 """
@@ -37,12 +51,17 @@ import numpy as np
 import torch
 
 from . import build
+from .encoded_matmul import _cdiv, _sm_count
 from repro_torch.quant.kvcache import dequantize_kv, kv_mode_of
 
 NEG_INF = -2.0e38                    # finite f32 sentinel (matches mha)
 _NO_WINDOW = 2 ** 30                 # "no sliding window" resolves to huge
 MAX_SQ = 8
-_TILE_TOKENS = 64                    # csrc: tokens per page tile
+WARPS = 4                            # csrc kWarps: page streams per block
+MAX_CLUSTER = 8                      # csrc kMaxCluster: portable size
+MAX_ROW_BYTES = 512                  # csrc kMaxPieces x 16 bytes
+BLOCKS_PER_SM = 2                    # blocks the cluster size aims for
+BLOCK_TOKENS = 128                   # the reference's K block (bk)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MODE_CODE = {"bf16": 0, "int8": 1, "int4": 2}     # csrc: kv_mode
 
@@ -67,6 +86,50 @@ def gqa_group(kv_of_q, n_q: int, n_kv: int) -> Optional[int]:
             kv_np, np.minimum(np.arange(n_q) // group, n_kv - 1)):
         return group
     return None
+
+
+def cluster_size(B: int, Hkv: int, P: int, sms: int) -> int:
+    """Blocks per (row, kv head): enough for about ``BLOCKS_PER_SM`` blocks
+    per SM, at most ``MAX_CLUSTER`` and at most one per page of the
+    table.  From the shape and the card only, never from ``lens``."""
+    return max(1, min(MAX_CLUSTER, P, (BLOCKS_PER_SM * sms) // (B * Hkv)))
+
+
+def pages_used(length: int, Sq: int, ps: int) -> int:
+    """Pages a row reads: through the one holding position
+    ``length + Sq - 1`` (at least one, so idle rows stay finite)."""
+    return (length + Sq - 1) // ps + 1
+
+
+def block_pages(ps: int) -> int:
+    """Pages of one of the reference's K blocks (``BLOCK_TOKENS`` tokens),
+    the least a cluster rank takes."""
+    return max(1, BLOCK_TOKENS // ps)
+
+
+def rank_pages(nb: int, cl: int, z: int, bp: int) -> tuple[int, int]:
+    """[begin, end) run of pages of cluster rank ``z`` out of ``cl`` for a
+    row of ``nb`` pages: runs of ``max(bp, ceil(nb / cl))`` pages, so a
+    row of one reference block stays in rank 0; empty past the row's last
+    page."""
+    per = max(bp, _cdiv(nb, cl))
+    begin = min(nb, z * per)
+    return begin, min(nb, begin + per)
+
+
+def warp_pages(begin: int, end: int, w: int) -> range:
+    """Pages of warp ``w`` in a block's run: every ``WARPS``-th one."""
+    return range(begin + w, end, WARPS)
+
+
+def kernel_takes(D: int, mode: str, dtype: torch.dtype) -> bool:
+    """Whether the kernel takes head dim D with ``mode`` pools and q of
+    ``dtype``: a stored row of 16·k bytes, at most ``MAX_ROW_BYTES``."""
+    if mode == "int4":
+        row = D // 2 if D % 2 == 0 else 0
+    else:
+        row = D * (1 if mode == "int8" else torch.finfo(dtype).bits // 8)
+    return 0 < row <= MAX_ROW_BYTES and row % 16 == 0
 
 
 def _softcap(s, cap):
@@ -129,20 +192,35 @@ def paged_attn_plain(q, pool_k, pool_v, pages, lens, window: int, *,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # paged_attn_launch(dtype, kv_mode, q, pool_k, pool_v, scale_k, scale_v,
-# pages, lens, out, workspace, B, Sq, Hq, Hkv, D, ps, P, G, tile_pages,
-# scale, window, has_cap, cap, stream) in csrc/paged_attention.cu.
-# Pointers and the stream must be declared c_void_p: undeclared, ctypes
-# passes a Python int as a 32-bit C int.
-ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-            _I, _I, _I, _I, _F, _I, _I, _F, _P)
+# pages, lens, out, B, Sq, Hq, Hkv, D, ps, P, G, cluster, scale, window,
+# has_cap, cap, stream) in csrc/paged_attention.cu.  Pointers and the
+# stream must be declared c_void_p: undeclared, ctypes passes a Python int
+# as a 32-bit C int.
+ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            _I, _I, _I, _F, _I, _I, _F, _P)
+# paged_attn_floor_launch(B, Hkv, cluster, stream)
+FLOOR_ARGTYPES = (_I, _I, _I, _P)
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = build.load("paged_attention").paged_attn_launch
-    fn.argtypes = ARGTYPES
+def _launcher(name: str = "paged_attn_launch", argtypes=ARGTYPES):
+    fn = getattr(build.load("paged_attention"), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def paged_attn_floor(B: int, Hkv: int, P: int, device) -> None:
+    """Launch an empty kernel on the grid and cluster that ``paged_attn``
+    uses for a (B, ·, ·, ·) q, Hkv kv heads and a P-page table: the launch
+    floor to time beside the kernel.  Not counted in ``launches``."""
+    dev = torch.device(device)
+    cl = cluster_size(B, Hkv, P, _sm_count(dev.index or 0))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launcher("paged_attn_floor_launch", FLOOR_ARGTYPES)(
+            B, Hkv, cl, stream)
+    build.check(err, "paged_attn_floor")
 
 
 def _paged_attn_kernel(q, pool_k, pool_v, pages, lens, window: int, *,
@@ -173,32 +251,33 @@ def _paged_attn_kernel(q, pool_k, pool_v, pages, lens, window: int, *,
     if pages.shape[0] != B or lens.shape != (B,):
         raise ValueError("paged_attn: pages (B, P) and lens (B,) must match "
                          "q's batch")
+    if not kernel_takes(D, mode, q.dtype):
+        raise ValueError(f"paged_attn kernel takes stored rows of a multiple "
+                         f"of 16 bytes up to {MAX_ROW_BYTES}; head dim {D} "
+                         f"with {mode} pools and {q.dtype} q is not one")
     scales = () if mode == "bf16" else (scale_k, scale_v)
     for t in (pool_k, pool_v, pages, lens) + scales:
         if t.device != dev:
             raise ValueError("paged_attn: tensors on different devices")
     q, pool_k, pool_v, pages, lens = (
         t.contiguous() for t in (q, pool_k, pool_v, pages, lens))
+    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
+        raise ValueError("paged_attn kernel takes 16-byte aligned pools")
     sk_ptr = sv_ptr = None
     if scales:
         scale_k, scale_v = scale_k.contiguous(), scale_v.contiguous()
         sk_ptr, sv_ptr = scale_k.data_ptr(), scale_v.data_ptr()
     out = torch.empty_like(q)
     P = pages.shape[1]
-    tile_pages = max(1, _TILE_TOKENS // ps)
-    # per (row, kv head, chunk of tile_pages pages): acc (S·G, D), then
-    # (m, l) (S·G, 2)
-    n_chunks = -(-P // tile_pages)
-    ws = torch.empty(B * Hkv * n_chunks * S * G * (D + 2),
-                     dtype=torch.float32, device=dev)
+    cl = cluster_size(B, Hkv, P, _sm_count(dev.index or 0))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(
             _DTYPE_CODE[q.dtype], _MODE_CODE[mode], q.data_ptr(),
             pool_k.data_ptr(), pool_v.data_ptr(), sk_ptr, sv_ptr,
-            pages.data_ptr(), lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            B, S, Hq, Hkv, D, ps, P, G, tile_pages, float(scale),
-            int(window), int(cap is not None), float(cap or 0.0), stream)
+            pages.data_ptr(), lens.data_ptr(), out.data_ptr(), B, S, Hq, Hkv,
+            D, ps, P, G, cl, float(scale), int(window),
+            int(cap is not None), float(cap or 0.0), stream)
     build.check(err, "paged_attn")
     return out
 

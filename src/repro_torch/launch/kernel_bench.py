@@ -1,14 +1,20 @@
-"""Time the port's kernels 1 and 3 at the main path's shapes on one card.
+"""Time the port's kernels at the main path's shapes on one card.
 
     python src/repro_torch/launch/kernel_bench.py [--src DIR] [--tag NAME]
+        [--only em,paged,flash]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is built and
 timed (by default this checkout's), so that two checkouts can be compared
 in one run on one card: run the script once per checkout, in turns
-(``A B B A``).  It uses only entry points both versions have.  Prints one
-JSON line per measurement, tagged ``--tag``: kernel ms (a CUDA graph of 40
-calls rotating over inputs past the 50 MB L2), max error against the plain
-version, and the library call's ms for the same function.
+(``A B B A``).  It uses only entry points both versions have (the launch
+floor of kernel 2 where the timed version has ``paged_attn_floor``).
+Prints one JSON line per measurement, tagged ``--tag``: kernel ms (a CUDA
+graph of 40 calls rotating over inputs past the 50 MB L2), max error
+against the plain version, the bound, and the library call's ms for the
+same function where there is one.  Kernel 1 at its six shapes; kernel 2
+(paged attention, 4 slots x 16 heads x D 64, lens 100-400) with dense
+f32, int8 and int4 pools at page tables of 32 and 127 pages; kernel 3
+(flash attention) in f32 and bf16 at the prefill shape.
 """
 from __future__ import annotations
 
@@ -42,6 +48,36 @@ def time_graph(fn, arg_sets, iters: int = 40) -> float:
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / iters
+
+
+def cuda_kernels_of(fn, attempts: int = 3) -> list:
+    """Names of the device kernels (and copies) that one call of ``fn``
+    runs: ``torch.profiler`` over the call, read back from its exported
+    trace (written under the checkout's git-ignored ``build/``).  A
+    capture that recorded no device activity at all is taken again, up to
+    ``attempts`` times (on the H100 machine one capture in a few dozen
+    came back empty); the last capture is returned either way."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "..", "..", "build", f"trace-{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    names = []
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        os.remove(path)
+        names = [e["name"] for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if names:
+            break
+    return names
 
 
 def bf16_mm():
@@ -94,6 +130,59 @@ def bench_em(tag):
                           "library": lib_name}), flush=True)
 
 
+def bench_paged(tag):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.quant.kvcache import quantize_kv
+    B, H, D, ps = 4, 16, 64, 16
+    lens = [100, 200, 300, 400]
+    pages_read = sum(n // ps + 1 for n in lens)
+    for mode in ("bf16", "int8", "int4"):
+        for P in (32, 127):
+            rng = np.random.default_rng(5)
+            t = lambda *shape: torch.from_numpy(  # noqa: E731
+                rng.normal(size=shape).astype(np.float32)).cuda()
+            sets = []
+            for _ in range(8):
+                pk, pv = t(1 + B * P, ps, H, D), t(1 + B * P, ps, H, D)
+                sk = sv = None
+                if mode != "bf16":
+                    pk, sk = quantize_kv(pk, mode)
+                    pv, sv = quantize_kv(pv, mode)
+                pages = torch.from_numpy(np.stack(
+                    [1 + b * P + rng.permutation(P) for b in range(B)])
+                    .astype(np.int32)).cuda()
+                sets.append((t(B, 1, H, D), pk, pv, pages, torch.tensor(
+                    lens, dtype=torch.int32).cuda(), sk, sv))
+
+            def kern(q, pk, pv, pg, ln, sk, sv):
+                return pa.paged_attn(q, pk, pv, pg, ln, scale=D ** -0.5,
+                                     scale_k=sk, scale_v=sv)
+
+            out = kern(*sets[0])
+            ref = pa.paged_attn_plain(*sets[0][:5], 2 ** 30, scale=D ** -0.5,
+                                      G=1, scale_k=sets[0][5],
+                                      scale_v=sets[0][6])
+            err = (out - ref).abs().max().item()
+            ms = time_graph(kern, sets)
+            floor_ms = None
+            if hasattr(pa, "paged_attn_floor"):
+                floor_ms = time_graph(
+                    lambda: pa.paged_attn_floor(B, H, P, "cuda"), [()] * 8)
+            row = D * 4 if mode == "bf16" else (D // 2 if mode == "int4"
+                                                else D) + 4
+            nbytes = (2 * B * H * D * 4 + 2 * pages_read * ps * H * row
+                      + pages_read * 4 + B * 4)
+            print(json.dumps({"tag": tag, "kernel": "paged_attn",
+                              "pools": "f32" if mode == "bf16" else mode,
+                              "B": B, "H": H, "D": D, "ps": ps, "P": P,
+                              "lens": lens, "ms": ms, "floor_ms": floor_ms,
+                              "bound_ms": nbytes / 3.35e12 * 1e3,
+                              "max_abs_err": err, "library_ms": None}),
+                  flush=True)
+
+
 def bench_flash(tag):
     import numpy as np
     import torch
@@ -113,9 +202,16 @@ def bench_flash(tag):
             scale=D ** -0.5)
         lib_ms = time_graph(sdpa, [[t.reshape(B, H, S, D) for t in s]
                                    for s in sets], iters=20)
+        # visible pairs x 4·D; f32 on the tensor cores as 3xTF32
+        ops = 4.0 * D * B * H * S * (S + 1) / 2
+        bound = (3 * ops / 495e12 if dt == torch.float32
+                 else max(ops / 989e12, 4 * B * H * S * D * 2 / 3.35e12))
         print(json.dumps({"tag": tag, "kernel": "flash_attention",
                           "dtype": str(dt).split(".")[-1], "B": B, "S": S,
                           "H": H, "D": D, "ms": ms, "max_abs_err": err,
+                          "bound_ms": bound * 1e3,
+                          "route": fa.flash_route(dt, D) if hasattr(
+                              fa, "flash_route") else None,
                           "library_ms": lib_ms,
                           "library": "scaled_dot_product_attention"}),
               flush=True)
@@ -126,6 +222,8 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
     ap.add_argument("--tag", default="this")
+    ap.add_argument("--only", default="em,paged,flash",
+                    help="comma-separated: em, paged, flash")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -133,8 +231,9 @@ def main() -> int:
         raise SystemExit("kernel_bench: needs an NVIDIA card")
     from repro_torch.kernels import build
     build.build()
-    bench_em(args.tag)
-    bench_flash(args.tag)
+    benches = {"em": bench_em, "paged": bench_paged, "flash": bench_flash}
+    for name in args.only.split(","):
+        benches[name](args.tag)
     return 0
 
 

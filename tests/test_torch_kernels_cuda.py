@@ -55,6 +55,13 @@ def test_ctypes_binding_matches_c_signature(mod, source, fn):
     assert mod.ARGTYPES == want
 
 
+def test_ctypes_binding_of_the_launch_floor():
+    """The empty kernel that times kernel 2's launch floor, likewise."""
+    params = _c_params("paged_attention", "paged_attn_floor_launch")
+    assert tpa.FLOOR_ARGTYPES == tuple(
+        ctypes.c_void_p if p.endswith("*") else _CTYPE[p] for p in params)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -135,13 +142,17 @@ def _pa_args(dev, B, Hq, Hkv, D, ps, P, dtype, seed=3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Hq,Hkv,window,cap,dtype", [
-    (16, 16, None, None, "float32"),
-    (8, 2, 20, 30.0, "float32"),
-    (16, 16, None, None, "bfloat16")])
+@pytest.mark.parametrize("Hq,Hkv,window,cap,dtype,P", [
+    (16, 16, None, None, "float32", 8),
+    (8, 2, 20, 30.0, "float32", 8),
+    (16, 16, None, None, "bfloat16", 8),
+    # the serve's 127-page table: idle rows and a row filling the table
+    (16, 16, None, None, "float32", 127),
+    (16, 16, None, None, "bfloat16", 127),
+    (4, 2, 50, 30.0, "float32", 127)])
 def test_paged_attn_kernel_matches_plain(cuda_device, Hq, Hkv, window, cap,
-                                         dtype):
-    ps, P, D = 16, 8, 64
+                                         dtype, P):
+    ps, D = 16, 64
     lens = np.asarray([0, 1, 15, 16, 17, P * ps - 1], np.int32)
     dt = getattr(torch, dtype)
     (q, pk, pv, pages), kv_map = _pa_args(cuda_device, len(lens), Hq, Hkv,
@@ -173,13 +184,14 @@ def _quant_pools(dev, mode, n_pages, ps, Hkv, D, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int8", "int4"])
-@pytest.mark.parametrize("Sq,Hq,Hkv,window,cap", [
-    (1, 16, 16, None, None),
-    (1, 4, 2, 20, 30.0),
-    (3, 4, 2, None, None)])
+@pytest.mark.parametrize("Sq,Hq,Hkv,window,cap,P", [
+    (1, 16, 16, None, None, 8),
+    (1, 4, 2, 20, 30.0, 8),
+    (3, 4, 2, None, None, 8),
+    (1, 16, 16, None, None, 127)])
 def test_paged_attn_kernel_quantized_matches_plain(cuda_device, mode, Sq, Hq,
-                                                   Hkv, window, cap):
-    ps, P, D = 16, 8, 64
+                                                   Hkv, window, cap, P):
+    ps, D = 16, 64
     lens = np.asarray([0, 1, 15, 16, 17, P * ps - Sq], np.int32)
     rng = np.random.default_rng(Hq + Sq)
     B = len(lens)
@@ -203,6 +215,46 @@ def test_paged_attn_kernel_quantized_matches_plain(cuda_device, mode, Sq, Hq,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_paged_attn_is_one_kernel_on_a_fixed_grid(cuda_device, mode):
+    """One CUDA kernel per call (no combine pass), whatever the table's
+    width; the launch floor runs too.  The reduced config's head dim 32
+    with GQA, as the card-against-CPU token check serves it."""
+    from repro_torch.launch.kernel_bench import cuda_kernels_of
+    ps, D, Hq, Hkv = 16, 32, 4, 2
+    rng = np.random.default_rng(7)
+    for P in (32, 127):
+        lens = np.asarray([0, 5, 200, P * ps - 1], np.int32)
+        B = len(lens)
+        q = torch.from_numpy(rng.normal(size=(B, 1, Hq, D)).astype(
+            np.float32)).to(cuda_device)
+        kw = {}
+        if mode == "bf16":
+            pk, pv = (torch.from_numpy(rng.normal(size=(
+                1 + B * P, ps, Hkv, D)).astype(np.float32)).to(cuda_device)
+                for _ in range(2))
+        else:
+            pk, sk, pv, sv = _quant_pools(cuda_device, mode, 1 + B * P, ps,
+                                          Hkv, D, rng)
+            kw = dict(scale_k=sk, scale_v=sv)
+        pages = torch.from_numpy(np.stack(
+            [1 + b * P + rng.permutation(P) for b in range(B)]).astype(
+                np.int32)).to(cuda_device)
+        args = (q, pk, pv, pages, torch.from_numpy(lens).to(cuda_device))
+        tpa.paged_attn(*args, scale=D ** -0.5, **kw)
+        torch.cuda.synchronize()
+        kernels = cuda_kernels_of(
+            lambda: tpa.paged_attn(*args, scale=D ** -0.5, **kw))
+        assert len(kernels) == 1 and "paged_attn" in kernels[0], kernels
+        out = tpa.paged_attn(*args, scale=D ** -0.5, **kw)
+        ref = tpa.paged_attn_plain(*args, tpa._NO_WINDOW, scale=D ** -0.5,
+                                   G=Hq // Hkv, **kw)
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+        tpa.paged_attn_floor(B, Hkv, P, cuda_device)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 def test_quantize_kv_on_the_card_matches_the_cpu(cuda_device, mode):
     """Codes and scales bit for bit: the card's tokens depend on it."""
@@ -220,6 +272,12 @@ def test_quantize_kv_on_the_card_matches_the_cpu(cuda_device, mode):
     ("float32", 2, 256, 4, 4, 64, None, None),
     ("float32", 1, 100, 4, 2, 32, 32, None),
     ("float32", 1, 192, 2, 1, 128, None, 20.0),
+    # the 3xTF32 kernel: D 8, 40 and 128, S not a multiple of 64, GQA,
+    # window + softcap; f32 with D 36 keeps the FMA kernel
+    ("float32", 2, 100, 4, 4, 8, None, None),
+    ("float32", 1, 130, 4, 1, 40, 70, 20.0),
+    ("float32", 1, 300, 8, 2, 128, None, None),
+    ("float32", 1, 100, 2, 2, 36, None, None),
     ("bfloat16", 1, 100, 2, 2, 64, None, None),
     ("bfloat16", 2, 256, 4, 2, 64, 48, 30.0),
     # the tensor-core kernel: D 32, 48, 64, 128, S not a multiple of 64,
@@ -241,7 +299,8 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, B, S, Hq, Hkv, D,
     q, k, v = t(B, S, Hq, D), t(B, S, Hkv, D), t(B, S, Hkv, D)
     kw = dict(scale=D ** -0.5, window=window, cap=cap, bq=64, bk=64)
     assert tfa.flash_route(dt, D) == (
-        "mma" if dtype == "bfloat16" and D % 16 == 0 else "fma")
+        ("mma" if D % 16 == 0 else "fma") if dtype == "bfloat16"
+        else ("tf32x3" if D % 8 == 0 else "fma"))
     before = tfa.flash_attention.launches
     out = tops.flash_mha(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -256,3 +315,18 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, B, S, Hq, Hkv, D,
     tol = 2e-4 if dt == torch.float32 else 3e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     assert bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.cuda
+def test_flash_tf32x3_prefill_error(cuda_device):
+    """The 3xTF32 route at the prefill shape of qwen1.5-0.5b (B 4, S 1024,
+    16 heads, D 64, causal): max abs error against the f32 plain version
+    at most 1e-5, about f32's own."""
+    rng = np.random.default_rng(20)
+    q, k, v = (torch.from_numpy(rng.normal(size=(64, 1024, 64)).astype(
+        np.float32)).to(cuda_device) for _ in range(3))
+    assert tfa.flash_route(torch.float32, 64) == "tf32x3"
+    out = tfa.flash_attention(q, k, v, scale=0.125)
+    ref = tfa.flash_attention_plain(q, k, v, scale=0.125)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5
