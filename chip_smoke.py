@@ -35,28 +35,56 @@ Phases (any failure raises and exits non-zero before the result line):
     the dense run one decode step with every slot busy is timed on the
     host clock and, as a measurement only, its forward replayed from a
     CUDA graph (the card's time without the host's);
+ 6b. the main path with the paper's searched encodings: full-width
+    qwen1.5-0.5b at the serving CLI's defaults (``--encoding search``, M
+    = 48, 128 samples + 64 anneal steps per projection family, 4
+    calibration batches), searched and folded on the card into a bundle
+    under ``build/`` (removed at the end), served over the same trace
+    with dense f32 pools through the kernels (and one decode step timed
+    on the host clock and from a CUDA graph, as in phase 6), and kernel 1
+    at each family's searched monomials and real folded weights against
+    its plain version; a second start with the same params and options
+    loads the bundle (a cache hit, timed) and must give the same circuits
+    and folded leaves bit for bit;
  7. the reduced config and the same trace served on the card (kernels)
     and on the CPU (plain versions), with dense, int8 and int4 pools:
-    identical greedy tokens;
+    identical greedy tokens (and, logged, how far one forward's linear
+    inputs and int8 activation codes part between card and CPU);
+ 7b. the reduced config searched on the card and on the CPU: the same
+    circuits for every family, or, where one differs, an anneal step
+    whose candidates lie within 1e-6 of each other (a near-tie at f32
+    rounding, logged and checked by replaying that step on both); the
+    CPU loads the card's bundle (a cache hit); every encoded linear of
+    one forward agrees card against CPU from the same input (and, logged,
+    how far the two forwards' inputs and codes part); both serve
+    the trace (greedy tokens compared and printed: an approximate product
+    table turns one rounding-boundary activation code into a table error,
+    so they part, ROADMAP Queue C);
  8. per-kernel times at the main path's shapes beside their bound, the
     plain version's time and a library call's, as one JSON line: kernel 1
     at its six shapes (three linears at decode m = 4 and at prefill
     m = 32), with the launches each shape had in the dense serve; kernel 2
     with each pool type at page tables of 32 and of the serve's 127
     pages, beside the launch floor (an empty kernel on the same grid and
-    cluster); kernel 3 in f32 and bf16 at the prefill shape.
+    cluster); kernel 3 in f32 and bf16 at the prefill shape; and kernel 1
+    at the searched U (phase 6b) at its three decode shapes.
 
-The last line is ``{"ok": true, "device": {...}}``.
+Every phase that folds writes its bundle into a fresh directory under
+``build/`` (git-ignored), logs the free disk first and removes it at its
+end.  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -76,6 +104,16 @@ SERVE_P = 127          # the serve's page table: Engine's max_seq_pages
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bundle_dir(tag: str) -> str:
+    """A fresh bundle cache under ``build/`` (git-ignored), free disk
+    logged first; the caller removes it."""
+    root = os.path.join(ROOT, "build")
+    os.makedirs(root, exist_ok=True)
+    log(f"[{tag}] free disk under build/: "
+        f"{shutil.disk_usage(root).free / 1e9:.1f} GB")
+    return tempfile.mkdtemp(prefix=f"bundles-{tag}-", dir=root)
 
 
 def make_trace(vocab: int, seed: int = 0):
@@ -472,11 +510,15 @@ def phase_serve(dev):
     log(f"[serve] {cfg.arch}: {cfg.n_layers} layers d={cfg.d_model} "
         f"ff={cfg.d_ff} vocab={cfg.vocab_size}, init from seed 0 in "
         f"{time.perf_counter() - t0:.1f}s")
+    cache = bundle_dir("serve")
     t0 = time.perf_counter()
     params_enc, cfg_enc, info = prepare_encoded_serving(
         params, cfg, macs_override=exact_encodings(cfg.mac.bits),
-        device=dev)
+        device=dev, cache_dir=cache, verbose=False)
     torch.cuda.synchronize()
+    log(f"[serve] bundle {info['bundle_bytes'] / 1e9:.3f} GB written in "
+        f"{info['seconds']['write']:.1f}s")
+    shutil.rmtree(cache)
     fw = sum(t.numel() * t.element_size() for layer in params_enc["layers"]
              for sub in layer.values() if isinstance(sub, dict)
              for k, t in sub.items() if k.endswith("_fw"))
@@ -647,11 +689,14 @@ def phase_cpu_parity(dev):
     cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
                               attention_backend="kernel")
     p_cpu = init_model(cfg, seed=0, device="cpu")
+    cache = bundle_dir("parity")
     pe_cpu, ce, _ = prepare_encoded_serving(
         p_cpu, cfg, macs_override=exact_encodings(cfg.mac.bits),
-        device="cpu")
+        device="cpu", cache_dir=cache, verbose=False)
+    shutil.rmtree(cache)
     pe_gpu = to_device(pe_cpu, dev)
     trace = make_trace(cfg.vocab_size)
+    _code_flips(dev, pe_cpu, ce, pe_gpu, ce, trace[0], "parity")
     for mode in ("bf16", "int8", "int4"):
         cm = dataclasses.replace(ce, kv_cache_dtype=mode)
         outs = {}
@@ -677,6 +722,360 @@ def phase_cpu_parity(dev):
             raise AssertionError(f"card and CPU greedy tokens differ (kv "
                                  f"{mode})")
     torch.cuda.empty_cache()
+
+SEARCH_FAMILIES = ("wg", "wi", "wk", "wo", "wq", "wv")
+# phase 8's searched kernel-1 rows: (family, k, n), the three decode
+# shapes of full-width qwen1.5-0.5b
+DECODE_SEARCH_ROWS = (("wq", 1024, 1024), ("wi", 1024, 2816),
+                      ("wo", 2816, 1024))
+
+
+def phase_serve_search(dev):
+    """The main path with the paper's searched encodings at the serving
+    CLI's defaults, searched and folded on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import encoded_matmul as em
+    from repro_torch.models import apply_model, init_model
+    from repro_torch.serve import prepare_encoded_serving
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              attention_backend="kernel")
+    params = init_model(cfg, seed=0, device=dev)
+    cache = bundle_dir("search")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    # the CLI's defaults: M 48, 128 samples, 64 anneal steps, 4 batches
+    params_enc, cfg_enc, info = prepare_encoded_serving(
+        params, cfg, device=dev, cache_dir=cache, verbose=False)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    sec = info["seconds"]
+    macs = cfg_enc.mac.macs
+    assert not info["loaded"] and sorted(macs) == list(SEARCH_FAMILIES)
+    assert info["n_folded"] == 7 * cfg.n_layers
+    for name in SEARCH_FAMILIES:
+        m = macs[name]
+        arity = collections.Counter(len(t) for t in m.program.a_mono_tuples)
+        log(f"[search] {name}: U={m.program.n_a_planes} (activation "
+            f"monomials by bits {dict(sorted(arity.items()))}), M="
+            f"{m.spec.m_bits}, weighted RMSE {m.spec.rmse:.3f}, searched in "
+            f"{sec['search'][name]:.3f}s on the card")
+    fw = sum(t.numel() * t.element_size() for layer in params_enc["layers"]
+             for sub in layer.values() if isinstance(sub, dict)
+             for k, t in sub.items() if k.endswith("_fw"))
+    log(f"[search] key {sec['key']:.2f}s, calibration {sec['calibrate']:.2f}s"
+        f" ({info['calib_tokens']} tokens), row weights "
+        f"{sec['row_weights']:.2f}s, search {sum(sec['search'].values()):.2f}"
+        f"s, fold {sec['fold']:.2f}s, bundle {info['bundle_bytes'] / 1e9:.3f}"
+        f" GB written in {sec['write']:.1f}s; {total:.1f}s in all")
+    log(f"[search] folded bf16 Wt {fw / 1e9:.3f} GB; device memory "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    # a second start with the same params and options: one load
+    t0 = time.perf_counter()
+    params_re, cfg_re, info_re = prepare_encoded_serving(
+        params, cfg, device=dev, cache_dir=cache, verbose=False)
+    torch.cuda.synchronize()
+    reload_s = time.perf_counter() - t0
+    shutil.rmtree(cache)
+    assert info_re["loaded"] and info_re["bundle_dir"] == info["bundle_dir"]
+    same = all(
+        torch.equal(a[sub][k], b[sub][k])
+        for a, b in zip(params_enc["layers"], params_re["layers"])
+        for sub in ("attn", "mlp") for k in a[sub]
+        if k.endswith(("_fw", "_fb", "_as", "_ws"))) and all(
+        cfg_re.mac.macs[n].spec.circuit.to_json()
+        == macs[n].spec.circuit.to_json() for n in SEARCH_FAMILIES)
+    log(f"[search] second start: cache hit in {reload_s:.1f}s (bundle key "
+        f"{info_re['seconds']['key']:.2f}s, load "
+        f"{info_re['seconds']['load']:.1f}s); circuits and folded leaves "
+        f"{'bit for bit the same' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("the reloaded bundle differs from the build")
+    del params_re, cfg_re
+    torch.cuda.empty_cache()
+    # kernel 1 at each family's searched monomials and its layer-0 fold,
+    # at the main path's m (decode slots, one prefill chunk).  Kernel and
+    # plain version take the same bf16 Wt and differ only in f32 order, so
+    # the tolerance is phase 3's, rtol 1e-4 and atol 1e-4·max|ref|: the
+    # reference's kernel test (tests/test_kernel_encoded_matmul.py:36,
+    # rtol = atol = 2e-2 against an f32 oracle) has an absolute floor below
+    # f32 rounding here, where searched folds give outputs up to ~6e5 that
+    # pass near 0 (first card run: max error 0.44, 7.5e-7 of max|ref|)
+    g = torch.Generator().manual_seed(3)
+    layer = params_enc["layers"][0]
+    for sub, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                      ("attn", "wo"), ("mlp", "wg"), ("mlp", "wi"),
+                      ("mlp", "wo")):
+        wt, bias = layer[sub][name + "_fw"], layer[sub][name + "_fb"]
+        U, k, n = wt.shape
+        shifts = macs[name].program.a_mono_bits
+        for m in (N_SLOTS, 32):
+            x = torch.randint(-127, 128, (m, k), generator=g,
+                              dtype=torch.int8).to(dev)
+            out = em.encoded_matmul(x, wt, bias, shifts)
+            ref = em.encoded_matmul_plain(x, wt, bias, shifts)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            top = ref.abs().max().item()
+            ok = torch.allclose(out, ref, rtol=1e-4, atol=1e-4 * top)
+            log(f"[search-kernel1] {sub}/{name} U={U} m={m} k={k} n={n}: "
+                f"max_abs_err {err:.3e} = {err / top:.2e} of max|ref| "
+                f"{top:.3e} (rtol 1e-4, atol 1e-4·max|ref|) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernel 1 disagrees with its plain "
+                                     f"version at {sub}/{name} m={m}")
+    trace = make_trace(cfg.vocab_size)
+    warm, _ = _serve(params_enc, cfg_enc, trace[:1], dev)
+    warm.run()
+    del warm
+    eng, rids = _serve(params_enc, cfg_enc, trace, dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _read_counts()
+    st = eng.stats()
+    n_tok = sum(len(outs[r]) for r in rids)
+    log(f"[serve-search] {len(outs)} requests, {n_tok} tokens in {dt:.3f}s "
+        f"= {n_tok / dt:.1f} tok/s; decode steps {st['decode_steps']}, "
+        f"prefill chunks {st['prefill_chunks']}, step p50 "
+        f"{st['step_ms_p50']:.2f} ms p99 {st['step_ms_p99']:.2f} ms")
+    log(f"[serve-search] launches: encoded_matmul {counts['encoded_matmul']}"
+        f" paged_attn {counts['paged_attn']} flash_attention "
+        f"{counts['flash_attention']}; by (m, k, n) "
+        f"{counts['encoded_matmul_by_shape']}")
+    assert len(outs) == N_REQUESTS and all(
+        len(outs[r]) == MAX_NEW for r in rids), "not every request finished"
+    assert all(0 <= t < cfg.vocab_size for r in rids for t in outs[r])
+    _check_counts(counts, st["decode_steps"], cfg.n_layers,
+                  "on the searched path")
+    want = _path_shapes(cfg, st["decode_steps"], st["prefill_chunks"],
+                        eng.prefill_chunk)
+    assert counts["encoded_matmul_by_shape"] == want, \
+        f"encoded_matmul shapes {counts['encoded_matmul_by_shape']} != {want}"
+    toks = torch.from_numpy(trace[0][:16])[None].to(dev)
+    with torch.inference_mode():
+        lg_enc, _ = apply_model(params_enc, cfg_enc, toks)
+        lg_fp, _ = apply_model(params, cfg, toks)
+    assert lg_enc.shape == (1, 16, cfg.vocab_p)
+    assert bool(torch.isfinite(lg_enc).all()), "non-finite logits"
+    agree = (lg_enc.argmax(-1) == lg_fp.argmax(-1)).float().mean().item()
+    log(f"[serve-search] full-width searched-encoding vs fp logits: top-1 "
+        f"agreement {agree:.3f} (random weights; printed, not gated)")
+    step_split(dev, params_enc, cfg_enc, trace)
+    programs = {name: macs[name].program for name, _, _ in
+                DECODE_SEARCH_ROWS}
+    del params_enc, params, eng
+    torch.cuda.empty_cache()
+    return {"counts": counts, "steps": st["decode_steps"],
+            "chunks": st["prefill_chunks"], "tok_s": n_tok / dt,
+            "programs": programs}
+
+
+TIE_RTOL = 1e-6
+
+
+def _check_near_tie(dev, params, cfg, names, name, opts):
+    """Where the card and the CPU searched different circuits for family
+    ``name``: each side's row weights (its own calibration), the same
+    random-search result, and the anneal replayed along the card's choices
+    must part at a step whose candidates lie within ``TIE_RTOL`` of each
+    other under both fits (a near-tie at f32 rounding, ROADMAP Queue C);
+    anything else raises."""
+    from repro_torch.core import gates
+    from repro_torch.core.encoding import fit_position_weights
+    from repro_torch.core.search import anneal_choices_apart, random_search
+    from repro_torch.models import to_device
+    from repro_torch.serve.encoded import (capture_activation_stats,
+                                           family_row_weights)
+    i = names.index(name)
+    rw, starts = {}, {}
+    for d in (dev, "cpu"):
+        p = to_device(params, d)
+        st = capture_activation_stats(p, cfg)
+        rw[str(d)] = family_row_weights(p, st, cfg.mac.bits)[name]
+        starts[str(d)] = random_search(
+            101 * i, 48, opts["n_samples"], row_weights=rw[str(d)],
+            patience=opts["n_samples"], device=d)
+    g, c = starts[str(dev)].spec, starts["cpu"].spec
+    log(f"[parity-search] {name}: row weights card vs CPU max |diff| "
+        f"{float(abs(rw[str(dev)] - rw['cpu']).max()):.3e}; random search "
+        f"RMSE card {g.rmse:.6f} CPU {c.rmse:.6f}")
+    if not (g.circuit.to_json() == c.circuit.to_json()):
+        raise AssertionError(f"{name}: the random search already differs")
+    vals = gates.signed_products(8, 8)
+    apart = anneal_choices_apart(
+        g, 101 * i + 7919, opts["refine"],
+        lambda gt, ii: fit_position_weights(gt, ii, vals,
+                                            row_weights=rw[str(dev)],
+                                            device=dev)[1],
+        lambda gt, ii: fit_position_weights(gt, ii, vals,
+                                            row_weights=rw["cpu"],
+                                            device="cpu")[1])
+    log(f"[parity-search] {name}: anneal replayed along the card's choices:"
+        f" parts at (step, spread card, spread CPU) = {apart} (near-tie "
+        f"below {TIE_RTOL})")
+    if apart is None or max(apart[1:]) > TIE_RTOL:
+        raise AssertionError(f"the card and the CPU searched different "
+                             f"circuits for {name}, not at a near-tie")
+
+
+def phase_cpu_parity_search(dev):
+    """Reduced config: the search on the card and on the CPU choose the
+    same circuits; the CPU serves from the card's bundle (a cache hit)
+    with the plain versions and gives the card's greedy tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import prepare_encoded_serving
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              attention_backend="kernel")
+    p_cpu = init_model(cfg, seed=0, device="cpu")
+    # the CLI's 128 + 64 fits per family would take minutes on the host
+    opts = dict(n_samples=16, refine=8, verbose=False)
+    card_dir, cpu_dir = bundle_dir("parity-search"), bundle_dir("parity-cpu")
+    try:
+        t0 = time.perf_counter()
+        pe_g, ce_g, info_g = prepare_encoded_serving(
+            p_cpu, cfg, device=dev, cache_dir=card_dir, **opts)
+        t1 = time.perf_counter()
+        _, ce_c, info_c = prepare_encoded_serving(
+            p_cpu, cfg, device="cpu", cache_dir=cpu_dir, **opts)
+        t2 = time.perf_counter()
+        log(f"[parity-search] reduced, 16 samples + 8 anneal steps per "
+            f"family: built on the card in {t1 - t0:.1f}s, on the CPU in "
+            f"{t2 - t1:.1f}s")
+        for name in sorted(ce_g.mac.macs):
+            g, c = ce_g.mac.macs[name].spec, ce_c.mac.macs[name].spec
+            same = (np.array_equal(g.circuit.gate_types, c.circuit.gate_types)
+                    and np.array_equal(g.circuit.in_idx, c.circuit.in_idx))
+            log(f"[parity-search] {name}: U={ce_g.mac.macs[name].program.n_a_planes}"
+                f" RMSE card {g.rmse:.6f} CPU {c.rmse:.6f}: circuits "
+                f"{'the same' if same else 'DIFFERENT'}")
+            if not same:
+                _check_near_tie(dev, p_cpu, cfg, sorted(ce_g.mac.macs), name,
+                                opts)
+        pe_c, ce_c, info_c = prepare_encoded_serving(
+            p_cpu, cfg, device="cpu", cache_dir=card_dir, **opts)
+        assert info_c["loaded"] and info_c["bundle_dir"] == \
+            info_g["bundle_dir"], "the card's bundle was not a cache hit"
+        log(f"[parity-search] the CPU loaded the card's bundle "
+            f"{os.path.basename(info_g['bundle_dir'])}")
+    finally:
+        shutil.rmtree(card_dir)
+        shutil.rmtree(cpu_dir)
+    trace = make_trace(cfg.vocab_size)
+    _linears_teacher_forced(dev, pe_c, ce_c, pe_g, ce_g, trace[0])
+    _code_flips(dev, pe_c, ce_c, pe_g, ce_g, trace[0], "parity-search")
+    outs = {}
+    for name, params, cm, device in (("cpu", pe_c, ce_c, "cpu"),
+                                     ("cuda", pe_g, ce_g, dev)):
+        eng, rids = _serve(params, cm, trace, device)
+        _reset_counts()
+        res = eng.run()
+        counts = _read_counts()
+        outs[name] = [res[r].tolist() for r in rids]
+        log(f"[parity-search] on {name}: {sum(map(len, outs[name]))} tokens,"
+            f" launches {counts}")
+        assert len(res) == N_REQUESTS and all(
+            len(t) == MAX_NEW and all(0 <= x < cfg.vocab_size for x in t)
+            for t in outs[name]), f"not every request finished on {name}"
+        if name == "cuda":
+            _check_counts(counts, eng.counters["decode_steps"], cm.n_layers,
+                          "on the card")
+        else:
+            assert counts["encoded_matmul_by_shape"] == {} and all(
+                counts[n] == 0 for n in PATH_KERNELS + ("flash_attention",))
+    # printed, not gated: with an approximate product table one activation
+    # code on the other side of a rounding boundary (f32 summation order)
+    # moves a linear's output by a table error, so greedy tokens part
+    # after the first such code (ROADMAP Queue C); phase 7 gates the exact
+    # encoding's tokens and the check above each searched linear
+    same = [a == b for a, b in zip(outs["cpu"], outs["cuda"])]
+    first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+             for a, b in zip(outs["cpu"], outs["cuda"])]
+    log(f"[parity-search] greedy tokens card (kernels) vs CPU (plain), "
+        f"searched encodings: {sum(same)} of {len(same)} requests "
+        f"identical; first differing token per request {first}")
+    torch.cuda.empty_cache()
+
+
+def _code_flips(dev, pe_c, ce_c, pe_g, ce_g, prompt, tag):
+    """Log, for one forward of ``prompt`` on the CPU and on the card, how
+    far apart each encoded linear's input is and how many of its int8
+    activation codes differ (a diagnosis, not a gate)."""
+    import torch
+    from repro_torch.models import apply_model
+    from repro_torch.nn.common import activation_recorder
+    xs = {}
+    for name, pe, ce, d in (("cpu", pe_c, ce_c, "cpu"),
+                            ("cuda", pe_g, ce_g, dev)):
+        sites = {id(t): (li, sub, k, layer[sub][k + "_as"])
+                 for li, layer in enumerate(pe["layers"])
+                 for sub in ("attn", "mlp") for k, t in layer[sub].items()
+                 if k + "_fw" in layer[sub]}
+        calls = []
+        with torch.inference_mode(), activation_recorder(
+                lambda n, w, x: calls.append((sites[id(w)],
+                                              x.float().cpu()))):
+            apply_model(pe, ce, torch.from_numpy(prompt)[None].to(d))
+        xs[name] = calls
+    flips, rel, first = [], [], None
+    for ((li, sub, k, sa), xc), (_, xg) in zip(xs["cpu"], xs["cuda"]):
+        sa = sa.cpu()
+        qc, qg = (torch.clamp(torch.round(x / sa), -127, 127)
+                  for x in (xc, xg))
+        n = int((qc != qg).sum())
+        flips.append(n)
+        rel.append((xc - xg).abs().max().item() / xc.abs().max().item())
+        if n and first is None:
+            q = (xc / sa)[qc != qg]
+            first = (f"layer {li} {sub}/{k}, x / scale "
+                     f"{((q - q.floor()) - 0.5).abs().min().item():.2e} "
+                     f"from a .5 boundary")
+    log(f"[{tag}] one {len(prompt)}-token forward, card vs CPU: encoded "
+        f"linears' inputs apart by at most {[f'{r:.1e}' for r in rel]} "
+        f"(max |diff| / max |x|); int8 codes that differ per linear "
+        f"{flips}; first: {first}")
+
+
+def _linears_teacher_forced(dev, pe_c, ce_c, pe_g, ce_g, prompt):
+    """Every encoded linear of one CPU forward of ``prompt``, run again on
+    the card (kernel 1) from the CPU's input: within f32 tolerance
+    (rtol 1e-4, atol 1e-4·max|out|) of the CPU's output (plain version)."""
+    import torch
+    from repro_torch.models import apply_model
+    from repro_torch.nn.common import activation_recorder
+    sites = {id(t): (li, sub, k) for li, layer in enumerate(pe_c["layers"])
+             for sub in ("attn", "mlp") for k, t in layer[sub].items()
+             if k + "_fw" in layer[sub]}
+    calls = []
+    with torch.inference_mode(), activation_recorder(
+            lambda n, w, x: calls.append((sites[id(w)], x.clone()))):
+        apply_model(pe_c, ce_c, torch.from_numpy(prompt)[None])
+    ex = ce_c.mac.executor
+    worst = 0.0
+    with torch.inference_mode():
+        for (li, sub, k), x in calls:
+            yc = ex.apply(pe_c["layers"][li][sub], k, x, ce_c.mac, ce_c.cdtype)
+            yg = ex.apply(pe_g["layers"][li][sub], k, x.to(dev), ce_g.mac,
+                          ce_g.cdtype).cpu()
+            top = yc.abs().max().item()
+            err = (yg - yc).abs().max().item()
+            worst = max(worst, err / top)
+            if not torch.allclose(yg, yc, rtol=1e-4, atol=1e-4 * top):
+                raise AssertionError(f"layer {li} {sub}/{k}: card and CPU "
+                                     f"outputs differ by {err:.3e} (max "
+                                     f"{top:.3e}) from the same input")
+    log(f"[parity-search] {len(calls)} encoded linears of one forward "
+        f"({len(prompt)} tokens), each on the card from the CPU's input: "
+        f"within rtol 1e-4, atol 1e-4·max|out| (worst max err / max|out| "
+        f"{worst:.2e})")
 
 
 def phase_measure(dev, serve_info):
@@ -725,6 +1124,42 @@ def phase_measure(dev, serve_info):
                          f"library: {lib_name}"})
             log(f"[measure] encoded_matmul m={m} k={k} n={n}: "
                 f"{U * k * n * 2 / (ms * 1e-3) / 1e12:.3f} TB/s of Wt")
+    # kernel 1 at the searched U of phase 6b, at its three decode shapes:
+    # (k, n) of wq, wi and the MLP's wo with that family's monomials
+    search = serve_info["search"]
+    s_shape = search["counts"]["encoded_matmul_by_shape"]
+    for name, k, n in DECODE_SEARCH_ROWS:
+        prog = search["programs"][name]
+        U, m = prog.n_a_planes, N_SLOTS
+        sets = _em_case(dev, prog, m, k, n, seed=2, copies=4)
+        err = (em.encoded_matmul(*sets[0])
+               - em.encoded_matmul_plain(*sets[0])).abs().max().item()
+        ms = time_graph(em.encoded_matmul, sets)
+        plain_ms = time_loop(em.encoded_matmul_plain, sets)
+        lib_sets = [(planes_ref(x, sh).to(torch.bfloat16).permute(1, 0, 2)
+                     .reshape(m, U * k).contiguous(), wt.reshape(U * k, n))
+                    for x, wt, _, sh in sets]
+        lib_ms = time_graph(lib, lib_sets)
+        nbytes = m * k + U * k * n * 2 + n * 4 + m * n * 4
+        ops = 2.0 * m * k * n * U
+        t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+        monos = collections.Counter(len(t) for t in prog.a_mono_tuples)
+        rows.append({
+            "name": f"encoded_matmul_search_{name}_m{m}_k{k}_n{n}",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/encoded_matmul.cu",
+            "replaces": "src/repro/kernels/encoded_matmul.py:50",
+            "launches": s_shape.get((m, k, n), 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": lib_ms,
+            "shape": f"m={m} k={k} n={n} U={U} (decode, searched {name}: "
+                     f"monomials by bits {dict(sorted(monos.items()))}; "
+                     f"launches: every family at this (m, k, n) in the "
+                     f"searched serve); library: {lib_name} over K = U·k"})
+        log(f"[measure] searched {name} m={m} k={k} n={n} U={U}: "
+            f"{U * k * n * 2 / (ms * 1e-3) / 1e12:.3f} TB/s of Wt")
     # kernel 2: decode attention, 4 slots × 16 heads × D 64, with dense
     # f32, int8 and packed-int4 pools, at a 32-page table and at the
     # serve's 127-page table (the same lens, so the same bytes); the floor
@@ -862,7 +1297,9 @@ def main() -> int:
     for key in ("params_enc", "cfg_enc", "trace", "tokens", "stats"):
         del serve_info[key]
     torch.cuda.empty_cache()
+    serve_info["search"] = phase_serve_search(dev)
     phase_cpu_parity(dev)
+    phase_cpu_parity_search(dev)
     rows = phase_measure(dev, serve_info)
     for r in rows:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

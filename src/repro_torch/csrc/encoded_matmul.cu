@@ -62,7 +62,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxMonos = 64;
+constexpr int kMaxMonos = 92;                  // C(8,1) + C(8,2) + C(8,3): every 8-bit program
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBN = 64;                        // Wt columns per block

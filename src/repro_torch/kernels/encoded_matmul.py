@@ -43,7 +43,7 @@ import torch
 from . import build
 from .ref import planes_ref
 
-MAX_MONOS = 64          # csrc kMaxMonos
+MAX_MONOS = 92          # csrc kMaxMonos: C(8,1)+C(8,2)+C(8,3), any 8-bit program
 KC = 32                 # csrc kKC: k per chunk, one ring stage
 BN = 64                 # csrc kBN: Wt columns per block
 WARPS = 4               # csrc kWarps

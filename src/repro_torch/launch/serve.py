@@ -1,10 +1,16 @@
 """Serving launcher of the port: continuous batching over the paged KV
 cache, optionally with calibrated encoded-MAC inference.
 
+  # on the card: per-family encoding search (the default --encoding
+  # search), fold, bundle cache under src/repro_torch/core/artifacts/
   python -m repro_torch.launch.serve --continuous --mac encoded \
-      --encoding exact --paged-attn kernel            # on the card
+      --paged-attn kernel
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --continuous \
-      --mac encoded --encoding exact --paged-attn kernel --device cpu
+      --mac encoded --paged-attn kernel --device cpu \
+      --calib-samples 16 --calib-refine 8
+  # the bit-exact AND-plane circuit instead of a search
+  python -m repro_torch.launch.serve --continuous --mac encoded \
+      --encoding exact --paged-attn kernel
   # int8 / int4 paged KV pools, dequantized inside the kernel's page loop
   python -m repro_torch.launch.serve --continuous --mac encoded \
       --encoding exact --paged-attn kernel --kv-dtype int8
@@ -33,8 +39,14 @@ def main(argv=None):
     ap.add_argument("--mac", default="fp", choices=["fp", "encoded"])
     ap.add_argument("--encoding", default="search",
                     choices=["search", "exact"],
-                    help="search = per-family encoding search (not ported "
-                         "yet); exact = bit-exact AND-plane circuit")
+                    help="search = task-specific per-family search (paper); "
+                         "exact = bit-exact AND-plane circuit (debug)")
+    ap.add_argument("--m-bits", type=int, default=48,
+                    help="encoding output width M per family")
+    ap.add_argument("--calib-samples", type=int, default=128,
+                    help="random-search samples per family")
+    ap.add_argument("--calib-refine", type=int, default=64,
+                    help="anneal refinement iters per family")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--continuous", action="store_true",
@@ -55,6 +67,8 @@ def main(argv=None):
                          "quantized with per-token per-head scale rows and "
                          "dequantize inside the paged-attention page loop")
     ap.add_argument("--calib-batches", type=int, default=4)
+    ap.add_argument("--force-calib", action="store_true",
+                    help="rebuild the artifact bundle even if cached")
     args = ap.parse_args(argv)
 
     if args.kv_dtype != "bf16" and not args.continuous:
@@ -80,16 +94,15 @@ def main(argv=None):
                               kv_cache_dtype=args.kv_dtype)
     params = init_model(cfg, seed=args.seed, device=dev)
     if args.mac == "encoded":
-        if args.encoding != "exact":
-            ap.error("--encoding search is not ported yet (ROADMAP: "
-                     "encoded-serving bundle cache and family search); use "
-                     "--encoding exact")
+        overrides = (exact_encodings(cfg.mac.bits)
+                     if args.encoding == "exact" else None)
         t0 = time.time()
         params, cfg, info = prepare_encoded_serving(
-            params, cfg, macs_override=exact_encodings(cfg.mac.bits),
-            calib_batches=args.calib_batches, device=dev)
-        print(f"[encoded-serving] folded {info['n_folded']} linears in "
-              f"{time.time() - t0:.1f}s")
+            params, cfg, m_bits=args.m_bits, n_samples=args.calib_samples,
+            refine=args.calib_refine, calib_batches=args.calib_batches,
+            macs_override=overrides, force=args.force_calib, device=dev)
+        print(f"[encoded-serving] ready in {time.time() - t0:.1f}s "
+              f"({'cache hit' if info['loaded'] else 'searched+folded'})")
 
     rng = np.random.default_rng(0)
     reqs = [rng.integers(0, cfg.vocab_size, rng.integers(4, 24))

@@ -10,4 +10,5 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .lm import (init_model, apply_model, init_paged_cache,  # noqa: E402
                  supports_paged_cache, params_from_jax,
-                 to_device)
+                 to_device, to_reference_layout,
+                 from_reference_layout, tree_from_reference)

@@ -9,6 +9,7 @@ Public API:
   apply_model(params, cfg, tokens, cache=None)   → (logits, new_cache)
   init_paged_cache(cfg, n_pages, page_size, *, device) → paged cache
   params_from_jax(tree, cfg, device)             → params
+  to_reference_layout(tree) / from_reference_layout(tree, n_layers)
   to_device(params, device)                      → params
 """
 from __future__ import annotations
@@ -135,8 +136,36 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, *, device=None):
 
 
 # ---------------------------------------------------------------------------
-# bridge from the reference's param tree
+# bridges to and from the reference's layout
 # ---------------------------------------------------------------------------
+
+def to_reference_layout(tree: dict) -> dict:
+    """A tree in the port's layout (params, or a delta of folded leaves)
+    in the reference's: the per-layer dicts under ``"layers"`` become
+    ``"stack"``, whose leaves are lists with one entry per layer (the
+    reference's ``(L, …)`` arrays, to be stacked by whoever writes or
+    hashes them); every other entry as is."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    if tree.get("layers"):
+        out["stack"] = _gather_layers(tree["layers"])
+    return out
+
+
+def _gather_layers(layers: list) -> dict:
+    return {k: _gather_layers([layer[k] for layer in layers])
+            if isinstance(v, dict) else [layer[k] for layer in layers]
+            for k, v in layers[0].items()}
+
+
+def from_reference_layout(tree: dict, n_layers: int) -> dict:
+    """Inverse of ``to_reference_layout``: the reference's ``"stack"`` of
+    ``(L, …)`` leaves becomes ``"layers"``, a list of ``n_layers``
+    per-layer dicts of slices; every other entry as is."""
+    out = {k: v for k, v in tree.items() if k != "stack"}
+    if "stack" in tree:
+        out["layers"] = [_slice(tree["stack"], i) for i in range(n_layers)]
+    return out
+
 
 def _np_to_torch(a) -> torch.Tensor:
     a = np.asarray(a)
@@ -146,12 +175,18 @@ def _np_to_torch(a) -> torch.Tensor:
 
 
 def _convert(tree, dev):
+    if isinstance(tree, list):
+        return [_convert(v, dev) for v in tree]
     out = {}
     for k, v in tree.items():
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             out[k] = _convert(v, dev)
             continue
-        t = _np_to_torch(v)
+        if k.endswith("_fw") and np.asarray(v).dtype == np.uint16:
+            # the port's bundles store folded weights as bf16 bits
+            t = torch.from_numpy(np.array(v, copy=True)).view(torch.bfloat16)
+        else:
+            t = _np_to_torch(v)
         if k.endswith("_fw"):
             # the port keeps folded bitplane weights in bf16 (the kernel's
             # operand type); the reference rounds its f32 fold to bf16 with
@@ -166,14 +201,18 @@ def _slice(tree, i):
             for k, v in tree.items()}
 
 
+def tree_from_reference(tree: dict, n_layers: int, device) -> dict:
+    """A reference-layout tree of numpy leaves (params or a folded-leaf
+    delta) → the port's layout as tensors on ``device``; folded ``*_fw``
+    leaves become bf16 (from f32, or from the bf16 bits the port's
+    bundles store as uint16)."""
+    return _convert(from_reference_layout(tree, n_layers),
+                    resolve_device(device))
+
+
 def params_from_jax(tree, cfg, device=None) -> dict:
     """The reference's param tree (numpy leaves; stacked ``(L, …)`` leaves
     under ``"stack"``) → the port's params on ``device``, every leaf as is
     except folded ``*_fw`` tensors, which become bf16.  Carries the
     ``encoded_infer`` leaves ``*_fw/_fb/_as/_ws`` too."""
-    dev = resolve_device(device)
-    rest = {k: v for k, v in tree.items() if k != "stack"}
-    params = _convert(rest, dev)
-    params["layers"] = [_convert(_slice(tree["stack"], i), dev)
-                        for i in range(cfg.n_layers)]
-    return params
+    return tree_from_reference(tree, cfg.n_layers, device)

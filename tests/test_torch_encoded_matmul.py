@@ -3,6 +3,9 @@ path CPU tensors take) against the reference's ``ops.encoded_matmul``
 (``backend='xla'`` and the Pallas kernel in interpret mode).  Both sides
 round planes and Wt to bf16 at the same places, so only the f32
 summation order differs: rtol 1e-5, atol 1e-4."""
+import itertools
+import types
+
 import numpy as np
 import pytest
 
@@ -20,7 +23,20 @@ from repro_torch.kernels.ops import encoded_matmul as t_encoded_matmul  # noqa: 
 from repro_torch.kernels.ref import encoded_matmul_ref as t_ref  # noqa: E402
 
 
+def _all_monomials():
+    """Every 1–3-bit monomial of the 8 activation bits, C(8,1) + C(8,2) +
+    C(8,3) = 92: the most planes an 8-bit program can have."""
+    monos = tuple(m for r in (1, 2, 3)
+                  for m in itertools.combinations(range(8), r))
+    bits = np.asarray([list(m) + [m[-1]] * (3 - len(m)) for m in monos],
+                      np.int32)
+    return types.SimpleNamespace(a_mono_tuples=monos, a_mono_bits=bits,
+                                 n_a_planes=len(monos))
+
+
 def _program(kind):
+    if kind == "full92":
+        return _all_monomials()
     if kind == "exact":
         c, _ = jcirc.exact_product_circuit(8, 8)
     else:              # M = 48 with 3-bit activation monomials
@@ -51,7 +67,7 @@ def _port(prog, x, wt, bias, monos=None):
 SHAPES = [(1, 256, 128), (100, 130, 70), (4, 64, 96), (32, 96, 40)]
 
 
-@pytest.mark.parametrize("kind", ["exact", "sampled"])
+@pytest.mark.parametrize("kind", ["exact", "sampled", "full92"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plain_matches_reference_xla(kind, shape):
     prog, x, wt, bias = _case(kind, *shape)
@@ -73,7 +89,7 @@ def test_plain_matches_reference_pallas_interpret(kind, shape):
                                rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("kind", ["exact", "sampled"])
+@pytest.mark.parametrize("kind", ["exact", "sampled", "full92"])
 def test_padded_and_tuple_monomials_agree(kind):
     """AND is idempotent: the padded (U, 3) form and the variable-arity
     tuples give the same product."""
@@ -90,6 +106,14 @@ def test_f32_oracle_matches_reference(kind):
     out = t_ref(torch.from_numpy(x), torch.from_numpy(wt),
                 torch.from_numpy(bias), prog.a_mono_bits).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-4)
+
+
+def test_kernel_takes_every_8_bit_program():
+    """The kernel's monomial table holds every plane an 8-bit program can
+    have, and its arguments (4 pointers, 6 ints, the table of MAX_MONOS x
+    3 shifts) stay far inside the 4 KB kernel parameter space."""
+    assert tem.MAX_MONOS == _all_monomials().n_a_planes == 92
+    assert 4 * 8 + 6 * 4 + 3 * tem.MAX_MONOS <= 4096
 
 
 def test_cpu_tensors_never_count_as_launches():
@@ -121,7 +145,7 @@ def _covered(p, U, k):
     return out
 
 
-@pytest.mark.parametrize("U", [8, 48])
+@pytest.mark.parametrize("U", [8, 48, 92])
 @pytest.mark.parametrize("n", [70, 1024, 2816])
 @pytest.mark.parametrize("k", [130, 1024, 2816])
 @pytest.mark.parametrize("m", [1, 4, 32, 33, 100])
@@ -142,6 +166,9 @@ def test_plan_covers_every_uk_once_in_fixed_order(m, k, n, U):
     assert len(seen) == U * k and len(set(seen)) == U * k
     assert seen == _covered(tem.plan(m, k, n, U, sms=132), U, k)
     assert 3 * p.smem_bytes <= tem.SMEM_MAX     # three blocks an SM
+    # with each block's static table of MAX_MONOS packed shifts and the
+    # 1 KB the card reserves per block, three still fit the SM's 228 KB
+    assert 3 * (p.smem_bytes + 4 * tem.MAX_MONOS + 1024) <= 228 * 1024
     assert p.tn in tem.TILE_NS and p.tn % 8 == 0
     assert p.tn * p.passes >= m > p.tn * (p.passes - 1)
     assert p.n_tiles * tem.BN >= n and p.stages >= 3

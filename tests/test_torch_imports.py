@@ -43,10 +43,11 @@ def test_no_jax_or_reference_imports():
     assert out["bad"] == []
     # every subpackage of the port was imported
     for sub in ("configs", "core", "kernels", "models", "nn", "quant",
-                "serve", "data", "launch"):
+                "serve", "data", "launch", "ckpt", "parallel"):
         assert f"repro_torch.{sub}" in out["modules"]
     for mod in ("launch.serve", "kernels.flash_attention",
-                "kernels.paged_attention", "quant.kvcache", "nn.paged"):
+                "kernels.paged_attention", "quant.kvcache", "nn.paged",
+                "core.search", "ckpt.checkpoint", "parallel.sharding"):
         assert f"repro_torch.{mod}" in out["modules"]
 
 

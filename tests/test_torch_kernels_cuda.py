@@ -13,6 +13,8 @@ bf16 by one rounding of the output (atol 2e-2); kernel 3 (flash
 attention) as the reference's tests/test_kernel_flash.py: 2e-4 in f32,
 3e-2 in bf16."""
 import ctypes
+import functools
+import itertools
 import re
 
 import numpy as np
@@ -22,6 +24,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import circuits  # noqa: E402
 from repro_torch.core.decompose import decompose  # noqa: E402
+from repro_torch.core import gates  # noqa: E402
+from repro_torch.core.encoding import (EncodingSpec,  # noqa: E402
+                                       fit_position_weights)
+from repro_torch.core.search import anneal, random_search  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import encoded_matmul as tem  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
@@ -78,8 +84,25 @@ def _program(kind):
     return decompose(c)
 
 
+@functools.lru_cache(maxsize=None)
+def _searched_shifts():
+    """The monomials of a circuit searched on the card at the serving
+    CLI's defaults (M = 48, 128 samples, 64 anneal steps)."""
+    res = random_search(0, 48, 128, patience=128, device="cuda")
+    res = anneal(res.spec, 7919, 64, device="cuda")
+    return decompose(res.spec.circuit).a_mono_bits
+
+
 def _shifts(kind, rng):
-    """(U, 3) monomial shifts: a program's, or 48 random 1-3-bit ones."""
+    """(U, 3) monomial shifts: a program's, every 1-3-bit monomial of 8
+    bits (U = 92, the most a program can have), a searched program's, or
+    48 random 1-3-bit ones."""
+    if kind == "full92":
+        monos = [list(m) for r in (1, 2, 3)
+                 for m in itertools.combinations(range(8), r)]
+        return np.asarray([(m + m[-1:] * 3)[:3] for m in monos], np.int32)
+    if kind == "searched":
+        return _searched_shifts()
     if kind != "random48":
         return _program(kind).a_mono_bits
     bits = [sorted(rng.choice(8, rng.integers(1, 4), replace=False))
@@ -107,7 +130,8 @@ EM_SHAPES += [(1, 130, 70), (33, 1024, 70), (100, 130, 70),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["exact", "sampled", "random48"])
+@pytest.mark.parametrize("kind", ["exact", "sampled", "random48", "full92",
+                                  "searched"])
 @pytest.mark.parametrize("shape", EM_SHAPES)
 def test_encoded_matmul_kernel_matches_plain(cuda_device, kind, shape):
     args = _em_args(kind, *shape, cuda_device)
@@ -118,6 +142,44 @@ def test_encoded_matmul_kernel_matches_plain(cuda_device, kind, shape):
     ref = tem.encoded_matmul_plain(*args)
     torch.testing.assert_close(out, ref, rtol=1e-4,
                                atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fit_on_the_card_matches_the_cpu(cuda_device, weighted):
+    """The least-squares fit on the card against the CPU: RMSE within rtol
+    1e-5, LUTs (B·s, which is unique where s is not) within 1e-4·max|v|."""
+    rng = np.random.default_rng(4)
+    gt, ii = circuits.sample_circuits(rng, 40, 48)
+    vals = gates.signed_products(8, 8)
+    w = rng.random(65536).astype(np.float32) * 2 if weighted else None
+    s_g, r_g = fit_position_weights(gt, ii, vals, row_weights=w,
+                                    device=cuda_device)
+    s_c, r_c = fit_position_weights(gt, ii, vals, row_weights=w,
+                                    device="cpu")
+    np.testing.assert_allclose(r_g, r_c, rtol=1e-5)
+    for i in range(len(gt)):
+        spec = EncodingSpec(circuits.circuit_from_batch(gt, ii, i), s_c[i],
+                            float(r_c[i]))
+        np.testing.assert_allclose(spec.lut(s_g[i]).numpy(),
+                                   spec.lut().numpy(), rtol=0,
+                                   atol=1e-4 * np.abs(vals).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_search_on_the_card_picks_the_cpu_circuits(cuda_device, seed):
+    res = {}
+    for dev in (cuda_device, "cpu"):
+        r = random_search(seed, 48, 64, patience=64, device=dev)
+        res[str(dev)] = anneal(r.spec, seed + 7919, 32, batch=16,
+                               device=dev)
+    g, c = res[str(cuda_device)], res["cpu"]
+    np.testing.assert_array_equal(g.spec.circuit.gate_types,
+                                  c.spec.circuit.gate_types)
+    np.testing.assert_array_equal(g.spec.circuit.in_idx,
+                                  c.spec.circuit.in_idx)
+    np.testing.assert_allclose(g.rmse_trace, c.rmse_trace, rtol=1e-5)
 
 
 @pytest.mark.cuda

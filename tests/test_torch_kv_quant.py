@@ -267,9 +267,9 @@ def models(tmp_path_factory):
     tcfg = tget("qwen1.5-0.5b").reduced()
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg, "cpu")
     # the port calibrates and folds on its own, as tests/test_torch_serve.py
-    tpe, tce, _ = prepare_encoded_serving(tp, tcfg,
-                                          macs_override=exact_encodings(),
-                                          device="cpu")
+    tpe, tce, _ = prepare_encoded_serving(
+        tp, tcfg, macs_override=exact_encodings(), device="cpu",
+        cache_dir=str(tmp_path_factory.mktemp("own")), verbose=False)
     return {"fp": ((jp, jcfg), (tp, tcfg)),
             "encoded": ((jpe, jce), (tpe, tce))}
 

@@ -217,11 +217,12 @@ def test_own_calibration_matches_reference(ref, port):
             np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
-def test_own_fold_matches_reference(ref, port):
+def test_own_fold_matches_reference(ref, port, tmp_path):
     tree_enc = ref[5]
     tcfg, tp, _, _ = port
     p_enc, c_enc, info = prepare_encoded_serving(
-        tp, tcfg, macs_override=exact_encodings(), device="cpu")
+        tp, tcfg, macs_override=exact_encodings(), device="cpu",
+        cache_dir=str(tmp_path), verbose=False)
     assert info["n_folded"] == 7 * tcfg.n_layers
     assert c_enc.mac.mode == "encoded_infer"
     for i, layer in enumerate(p_enc["layers"]):
@@ -244,7 +245,16 @@ def test_own_fold_matches_reference(ref, port):
     assert "wq_fw" not in tp["layers"][0]["attn"]
 
 
-def test_search_encoding_is_not_ported(port):
+def test_search_encoding_is_not_ported(port, tmp_path):
+    """The per-family search once refused here (no ``macs_override``); it
+    is ported now: without an override every family is searched and
+    folded with its own encoding (``tests/test_torch_encoded_bundle.py``
+    holds the search against the reference)."""
     tcfg, tp, _, _ = port
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prepare_encoded_serving(tp, tcfg)
+    _, c_enc, info = prepare_encoded_serving(
+        tp, tcfg, m_bits=16, n_samples=4, refine=0, calib_batches=1,
+        cache_dir=str(tmp_path), verbose=False, device="cpu")
+    assert not info["loaded"] and info["n_folded"] == 7 * tcfg.n_layers
+    assert sorted(c_enc.mac.macs) == ["wg", "wi", "wk", "wo", "wq", "wv"]
+    assert all(m.spec.m_bits == 16 and m.spec.rmse > 0
+               for m in c_enc.mac.macs.values())
