@@ -12,11 +12,13 @@ Phases (any failure raises and exits non-zero before the result line):
  3. kernel 1 (encoded bitplane matmul) against its plain PyTorch version
     on the card, at the main path's shapes, a sampled M = 48 program with
     3-bit monomials and ragged shapes (m past one 32-row pass, k and n
-    off the tiles);
+    off the tiles); and its rows at m = 4 bit for bit the same rows at
+    m = 20 (speculative verification's m);
  4. kernel 2 (paged attention) against its plain version: ragged lens
     including 0 and page boundaries, f32 and bf16 pools, GQA, window +
-    softcap, Sq = 3, and the serve's 127-page table with an idle row and a
-    row filling the table; then the same with int8 and packed-int4 pools
+    softcap, Sq = 3, 5 and 9 (speculative verification at k = 4 and 8),
+    and the serve's 127-page table with an idle row and a row filling
+    the table; then the same with int8 and packed-int4 pools
     (and the quantizer's codes and scales on the card against the CPU's,
     bit for bit), at the main path's decode shape too; one call is one
     CUDA kernel (``torch.profiler`` kernel events) for each pool type;
@@ -29,12 +31,25 @@ Phases (any failure raises and exits non-zero before the result line):
  6. the main path: qwen1.5-0.5b at full width and depth (weights from seed
     0), calibrated encoded-MAC serving with the exact AND-plane encoding
     and the fused paged-attention kernel, continuous batching of 8
-    requests over 4 slots, first with dense (f32) KV pools, then, from
-    the same fold, with int8 and with int4 pools; the kernels' launch
-    counts are set to 0 just before each run and read just after.  After
-    the dense run one decode step with every slot busy is timed on the
-    host clock and, as a measurement only, its forward replayed from a
-    CUDA graph (the card's time without the host's);
+    requests over 4 slots, every engine step a captured CUDA graph, first
+    with dense (f32) KV pools, then, from the same fold, with int8 and
+    with int4 pools; the kernels' launch counts are set to 0 just before
+    each run and read just after, and must equal what the run's forwards
+    (the graphs' replays and their warm-ups) make.  Each pool type is
+    served again eagerly (``cuda_graphs=False``): identical greedy tokens.
+    The dense serve runs three more times on its warm engine (tokens/s and
+    its spread), and one decode step with every slot busy is timed on the
+    host clock with and without graphs, beside the decode graph's replay
+    alone (the card's busy share);
+ 6c. the prefix cache: a trace where 4 of 8 requests share a 128-token
+    prefix, served with the cache on and off (identical tokens, hits > 0),
+    and ``copy_page`` on full-width dense, int8 and int4 card pools,
+    scale rows included, in place and bit for bit;
+ 6d. speculative decoding over the main trace: k = 4 and 8 with the
+    ``self`` drafter and k = 4 with an ``encoded`` drafter searched on the
+    card at M = 24 (bundle in a fresh ``build/`` directory, removed
+    after): tokens identical to plain decode, acceptance and tokens per
+    round, launch counts by shape;
  6b. the main path with the paper's searched encodings: full-width
     qwen1.5-0.5b at the serving CLI's defaults (``--encoding search``, M
     = 48, 128 samples + 64 anneal steps per projection family, 4
@@ -66,8 +81,9 @@ Phases (any failure raises and exits non-zero before the result line):
     m = 32), with the launches each shape had in the dense serve; kernel 2
     with each pool type at page tables of 32 and of the serve's 127
     pages, beside the launch floor (an empty kernel on the same grid and
-    cluster); kernel 3 in f32 and bf16 at the prefill shape; and kernel 1
-    at the searched U (phase 6b) at its three decode shapes.
+    cluster); kernel 3 in f32 and bf16 at the prefill shape; kernel 1
+    at the searched U (phase 6b) at its three decode shapes; kernel 1 at
+    the verify shape m = 20 and kernel 2 at Sq = 5 and 9 (phase 6d).
 
 Every phase that folds writes its bundle into a fresh directory under
 ``build/`` (git-ignored), logs the free disk first and removes it at its
@@ -226,6 +242,22 @@ def phase_kernel1(dev):
         worst = max(worst, err / max(ref.abs().max().item(), 1e-30))
     log(f"[kernel1] all {len(cases)} cases within tolerance "
         f"(worst err / max|ref| = {worst:.3e})")
+    # a row's sums do not depend on m: the decode step (m = 4 slots) and
+    # speculative verification (m = 4·(k+1) = 20 at k = 4) give the same
+    # row bit for bit, so spec decoding can keep plain decode's tokens
+    for tag, prog in (("exact", exact), ("sampled48", sampled)):
+        for k, n in ((1024, 1024), (1024, 2816), (2816, 1024)):
+            (args,) = _em_case(dev, prog, 20, k, n, seed=k + n)
+            x, wt, bias, sh = args
+            full = em.encoded_matmul(x, wt, bias, sh)
+            head = em.encoded_matmul(x[:N_SLOTS].contiguous(), wt, bias, sh)
+            torch.cuda.synchronize()
+            same = torch.equal(full[:N_SLOTS], head)
+            log(f"[kernel1] {tag} k={k} n={n}: rows 0-3 at m=20 and at "
+                f"m=4 {'bit-identical' if same else 'DIFFER'}")
+            if not same:
+                raise AssertionError(f"kernel 1's rows depend on m ({tag} "
+                                     f"k={k} n={n})")
 
 
 def _pa_case(dev, B, Sq, Hq, Hkv, D, ps, P, lens, dtype, seed=0, copies=1):
@@ -269,6 +301,11 @@ def phase_kernel2(dev):
              ("gqa-f32", 1, 16, 4, None, None, torch.float32, 32),
              ("win+cap", 1, 16, 4, 100, 30.0, torch.float32, 32),
              ("sq3-gqa", 3, 16, 4, None, None, torch.float32, 32),
+             # speculative verification: Sq = k+1 for k = 4 and 8
+             ("sq5", 5, 16, 16, None, None, torch.float32, SERVE_P),
+             ("sq9", 9, 16, 16, None, None, torch.float32, SERVE_P),
+             ("sq9-bf16", 9, 16, 16, None, None, torch.bfloat16, SERVE_P),
+             ("sq9-gqa", 9, 16, 4, 100, 30.0, torch.float32, 32),
              ("p127-f32", 1, 16, 16, None, None, torch.float32, SERVE_P),
              ("p127-bf16", 1, 16, 16, None, None, torch.bfloat16, SERVE_P)]
     for tag, Sq, Hq, Hkv, window, cap, dtype, P in cases:
@@ -437,33 +474,23 @@ def phase_flash(dev):
                                      "the prefill shape is above 1e-5")
 
 
-def _serve(params, cfg, trace, device, max_new: int = MAX_NEW):
+def _serve(params, cfg, trace, device, max_new: int = MAX_NEW, **kw):
     from repro_torch.serve import Engine
     eng = Engine(params, cfg, n_slots=N_SLOTS, page_size=PAGE_SIZE,
-                 n_pages=N_PAGES, device=device)
+                 n_pages=N_PAGES, device=device, **kw)
     rids = [eng.submit(p, max_new=max_new) for p in trace]
     return eng, rids
 
 
 def _reset_counts():
-    from repro_torch.kernels import encoded_matmul as em
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    em.encoded_matmul.launches = 0
-    em.encoded_matmul.shape_launches.clear()
-    pa.paged_attn.launches = 0
-    fa.flash_attention.launches = 0
+    from repro_torch.serve.graphs import set_launch_counts
+    set_launch_counts({})
 
 
 def _read_counts():
-    from repro_torch.kernels import encoded_matmul as em
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    return {"encoded_matmul": em.encoded_matmul.launches,
-            "paged_attn": pa.paged_attn.launches,
-            "flash_attention": fa.flash_attention.launches,
-            "encoded_matmul_by_shape": dict(
-                em.encoded_matmul.shape_launches)}
+    from repro_torch.serve.graphs import launch_counts
+    return {k: dict(v) if isinstance(v, dict) else v
+            for k, v in launch_counts().items()}
 
 
 # the serving path's kernels; flash attention is not on it (the reference
@@ -472,33 +499,84 @@ def _read_counts():
 PATH_KERNELS = ("encoded_matmul", "paged_attn")
 
 
-def _check_counts(counts, decode_steps, n_layers, where):
+def _forwards(st, chunk_len):
+    """Model forwards of a serve by the rows of their linears (m): decode
+    steps at m = n_slots, prefill chunks at m = chunk_len, and, with
+    speculative decoding, k draft steps at m = n_slots and one verify at
+    m = n_slots·(k+1) per round; plus the one eager warm-up run of each
+    step that the engine captured into a CUDA graph.  Also returns the
+    forwards whose attention runs kernel 2 (all but prefill), by Sq."""
+    warm = st["jit_compiles_by_step"]
+    k = st.get("spec_decode_k", 0)
+    rounds = st.get("spec_rounds", 0)
+    by_m = collections.Counter()
+    by_m[chunk_len] += st["prefill_chunks"] + warm["prefill"]
+    by_m[N_SLOTS] += st["decode_steps"] + warm["decode"]
+    attn = collections.Counter({1: st["decode_steps"] + warm["decode"]})
+    if k:
+        by_m[N_SLOTS] += k * (rounds + warm["draft"])
+        by_m[N_SLOTS * (k + 1)] += rounds + warm["verify"]
+        attn[1] += k * (rounds + warm["draft"])
+        attn[k + 1] += rounds + warm["verify"]
+    return +by_m, +attn
+
+
+def _check_counts(counts, st, cfg, chunk_len, where):
     """Every kernel of the path launched, paged attention once per layer
-    per decode step (prefill chunks take the gather path), flash never."""
+    per forward that attends through it (prefill chunks take the gather
+    path), by query tokens per row; encoded matmul at every linear of
+    every forward, by (m, k, n); flash never."""
+    by_m, attn = _forwards(st, chunk_len)
     for name in PATH_KERNELS:
         assert counts[name] > 0, f"{name} was not launched {where}"
-    assert counts["paged_attn"] == n_layers * decode_steps, \
-        f"paged_attn launched {counts['paged_attn']} times {where}, not " \
-        f"{n_layers} per decode step x {decode_steps}"
+    want = {sq: cfg.n_layers * n for sq, n in attn.items()}
+    assert counts["paged_attn_by_sq"] == want, \
+        f"paged_attn launched {counts['paged_attn_by_sq']} times by Sq " \
+        f"{where}, not {cfg.n_layers} per layer x {dict(attn)}"
+    assert counts["paged_attn"] == sum(want.values())
+    shapes = _path_shapes(cfg, by_m)
+    assert counts["encoded_matmul_by_shape"] == shapes, \
+        f"encoded_matmul shapes {counts['encoded_matmul_by_shape']} " \
+        f"!= {shapes} {where}"
     assert counts["flash_attention"] == 0, f"flash launched {where}"
 
 
-def _path_shapes(cfg, steps, chunks, chunk_len):
-    """Encoded-matmul launches by (m, k, n) that a serve of ``steps`` decode
-    steps (m = n_slots) and ``chunks`` prefill chunks (m = chunk_len)
-    makes: per layer wq, wk, wv, wo, wi, wg and the MLP's wo."""
+def _path_shapes(cfg, forwards):
+    """Encoded-matmul launches by (m, k, n) of ``forwards`` ({m: model
+    forwards with m rows per linear}): per layer wq, wk, wv, wo, wi, wg
+    and the MLP's wo."""
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_r
     per_layer = [(d, cfg.n_heads_p * hd), (d, cfg.n_kv_p * hd),
                  (d, cfg.n_kv_p * hd), (cfg.n_heads_p * hd, d), (d, ff),
                  (d, ff), (ff, d)]
     want = {}
-    for m, times in ((N_SLOTS, steps), (chunk_len, chunks)):
+    for m, times in forwards.items():
         for k, n in per_layer:
             want[(m, k, n)] = want.get((m, k, n), 0) + cfg.n_layers * times
     return want
 
 
+def _timed_run(eng, rids):
+    """Drain ``eng``: (outputs by rid, seconds, launch counts, stats)."""
+    import torch
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return outs, dt, _read_counts(), eng.stats()
+
+
+def _spread(xs):
+    xs = sorted(xs)
+    return (f"{', '.join(f'{x:.1f}' for x in xs)} (min {xs[0]:.1f}, "
+            f"max {xs[-1]:.1f}, spread {(xs[-1] - xs[0]) / xs[-1]:.1%} "
+            f"of max)")
+
+
 def phase_serve(dev):
+    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import apply_model, init_model
@@ -532,36 +610,55 @@ def phase_serve(dev):
     warm.run()
     del warm
     eng, rids = _serve(params_enc, cfg_enc, trace, dev)
-    torch.cuda.synchronize()
-    _reset_counts()
-    t0 = time.perf_counter()
-    outs = eng.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = _read_counts()
-    st = eng.stats()
+    outs, dt, counts, st = _timed_run(eng, rids)
     n_tok = sum(len(outs[r]) for r in rids)
     log(f"[serve] prompts {[len(p) for p in trace]} max_new={MAX_NEW} "
         f"slots={N_SLOTS} ps={PAGE_SIZE} pages={N_PAGES}")
-    log(f"[serve] {len(outs)} requests, {n_tok} tokens in {dt:.3f}s = "
-        f"{n_tok / dt:.1f} tok/s; decode steps {st['decode_steps']}, "
-        f"prefill chunks {st['prefill_chunks']}, step p50 "
+    log(f"[serve] CUDA graphs: {len(outs)} requests, {n_tok} tokens in "
+        f"{dt:.3f}s = {n_tok / dt:.1f} tok/s (graph captures included: "
+        f"{st['jit_compiles_by_step']}); decode steps {st['decode_steps']},"
+        f" prefill chunks {st['prefill_chunks']}, step p50 "
         f"{st['step_ms_p50']:.2f} ms p99 {st['step_ms_p99']:.2f} ms, "
         f"kv pool {st['kv_pool_bytes'] / 1e9:.3f} GB")
     log(f"[serve] launches: encoded_matmul {counts['encoded_matmul']} "
         f"paged_attn {counts['paged_attn']} flash_attention "
         f"{counts['flash_attention']}")
+    assert st["cuda_graphs"] and st["jit_compiles"] == 2, \
+        f"the engine captured {st['jit_compiles_by_step']}, not prefill " \
+        "and decode once each"
     assert len(outs) == N_REQUESTS and all(
         len(outs[r]) == MAX_NEW for r in rids), "not every request finished"
     assert all(0 <= t < cfg.vocab_size for r in rids for t in outs[r])
-    _check_counts(counts, st["decode_steps"], cfg.n_layers,
-                  "on the main path")
-    want = _path_shapes(cfg, st["decode_steps"], st["prefill_chunks"],
-                        eng.prefill_chunk)
     log(f"[serve] encoded_matmul launches by (m, k, n): "
         f"{counts['encoded_matmul_by_shape']}")
-    assert counts["encoded_matmul_by_shape"] == want, \
-        f"encoded_matmul shapes {counts['encoded_matmul_by_shape']} != {want}"
+    _check_counts(counts, st, cfg, eng.prefill_chunk, "on the main path")
+    tokens = [outs[r].tolist() for r in rids]
+    # the same trace served again on the warm engine (its graphs already
+    # captured), three times: tokens/s and its spread within one run
+    warm_tok_s, steps_p50 = [], []
+    for _ in range(3):
+        n0 = len(eng.step_ms)
+        rids2 = [eng.submit(p, max_new=MAX_NEW) for p in trace]
+        outs2, dt2, _, st2 = _timed_run(eng, rids2)
+        assert [outs2[r].tolist() for r in rids2] == tokens
+        warm_tok_s.append(n_tok / dt2)
+        steps_p50.append(float(np.percentile(eng.step_ms[n0:], 50)))
+    log(f"[serve] warm engine, 3 more serves of the trace: tok/s "
+        f"{_spread(warm_tok_s)}; step p50 "
+        f"{', '.join(f'{x:.2f}' for x in steps_p50)} ms; "
+        f"jit_compiles still {st2['jit_compiles']}; tokens identical")
+    # the same step functions without graphs: the tokens must not move
+    eager, rids_e = _serve(params_enc, cfg_enc, trace, dev, cuda_graphs=False)
+    outs_e, dt_e, counts_e, st_e = _timed_run(eager, rids_e)
+    same = [outs_e[r].tolist() for r in rids_e] == tokens
+    log(f"[serve] eager (cuda_graphs=False): {n_tok / dt_e:.1f} tok/s, step "
+        f"p50 {st_e['step_ms_p50']:.2f} ms p99 {st_e['step_ms_p99']:.2f} ms;"
+        f" greedy tokens graphs vs eager "
+        f"{'identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("graphed and eager greedy tokens differ")
+    _check_counts(counts_e, st_e, cfg, eager.prefill_chunk, "eagerly")
+    del eager
     # full-width logits: finite, and close to the fp model's on one prompt
     toks = torch.from_numpy(trace[0][:16])[None].to(dev)
     with torch.inference_mode():
@@ -573,17 +670,19 @@ def phase_serve(dev):
     rel = ((lg_enc - lg_fp).abs().max() / lg_fp.abs().max()).item()
     log(f"[serve] full-width encoded vs fp logits: top-1 agreement "
         f"{agree:.3f}, max |diff| / max |fp| {rel:.3e}")
-    step_split(dev, params_enc, cfg_enc, trace)
-    del params
+    split = step_split(dev, params_enc, cfg_enc, trace)
     return {"counts": counts, "steps": st["decode_steps"],
             "chunks": st["prefill_chunks"], "tok_s": n_tok / dt,
+            "warm_tok_s": warm_tok_s, "eager_tok_s": n_tok / dt_e,
+            "split": split, "params": params, "cfg": cfg,
             "params_enc": params_enc, "cfg_enc": cfg_enc, "trace": trace,
-            "tokens": [outs[r].tolist() for r in rids], "stats": st}
+            "tokens": tokens, "stats": st}
 
 
 def phase_serve_quant(dev, dense):
     """The main path again with int8, then int4 KV pools, from the dense
-    run's fold (calibration does not depend on the KV dtype)."""
+    run's fold (calibration does not depend on the KV dtype), graphed and
+    eager."""
     import torch
     params, cfg0, trace = (dense["params_enc"], dense["cfg_enc"],
                            dense["trace"])
@@ -592,14 +691,7 @@ def phase_serve_quant(dev, dense):
     for mode in ("int8", "int4"):
         cfg = dataclasses.replace(cfg0, kv_cache_dtype=mode)
         eng, rids = _serve(params, cfg, trace, dev)
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        res = eng.run()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = _read_counts()
-        st = eng.stats()
+        res, dt, counts, st = _timed_run(eng, rids)
         toks = [res[r].tolist() for r in rids]
         n_tok = sum(map(len, toks))
         same = sum(a == b for x, y in zip(toks, dense["tokens"])
@@ -617,68 +709,264 @@ def phase_serve_quant(dev, dense):
             f"{st0['kv_pool_bytes'] / 1e6:.1f} MB")
         log(f"[serve-{mode}] launches: encoded_matmul "
             f"{counts['encoded_matmul']} paged_attn {counts['paged_attn']} "
-            f"({counts['paged_attn'] / st['decode_steps']:.1f} per decode "
-            f"step) flash_attention {counts['flash_attention']}")
+            f"flash_attention {counts['flash_attention']}")
         log(f"[serve-{mode}] greedy tokens equal to the dense-pool run's: "
             f"{same} of {n_tok} ({same / n_tok:.3f}; printed, not gated: "
             "quantized KV is not expected to give identical tokens)")
         assert len(res) == N_REQUESTS and all(
             len(t) == MAX_NEW for t in toks), "not every request finished"
         assert all(0 <= t < cfg.vocab_size for x in toks for t in x)
-        _check_counts(counts, st["decode_steps"], cfg.n_layers,
+        _check_counts(counts, st, cfg, eng.prefill_chunk,
                       f"with {mode} pools")
-        out[mode] = {"counts": counts, "steps": st["decode_steps"],
-                     "tok_s": n_tok / dt}
         del eng
+        eager, rids_e = _serve(params, cfg, trace, dev, cuda_graphs=False)
+        res_e, dt_e, _, st_e = _timed_run(eager, rids_e)
+        same_e = [res_e[r].tolist() for r in rids_e] == toks
+        log(f"[serve-{mode}] eager: {n_tok / dt_e:.1f} tok/s, step p50 "
+            f"{st_e['step_ms_p50']:.2f} ms; greedy tokens graphs vs eager "
+            f"{'identical' if same_e else 'DIFFERENT'}")
+        if not same_e:
+            raise AssertionError(f"graphed and eager greedy tokens differ "
+                                 f"with {mode} pools")
+        out[mode] = {"counts": counts, "steps": st["decode_steps"],
+                     "tok_s": n_tok / dt, "eager_tok_s": n_tok / dt_e}
+        del eager
     torch.cuda.empty_cache()
     return out
 
 
 def step_split(dev, params, cfg, trace, steps: int = 10):
     """Host against device time of one full-width decode step with every
-    slot decoding: the engine's step on the host clock, and the same
-    forward replayed from a CUDA graph, which leaves out the host's time
-    between launches (the graph is a measurement only; the engine does not
-    use one)."""
+    slot decoding: the engine's step on the host clock with its CUDA
+    graphs and without (``cuda_graphs=False``), and the decode graph's
+    replay alone on the card (CUDA events), whose share of the graphed
+    step is the card's busy share."""
     import torch
-    from repro_torch.models import apply_model
-    eng, _ = _serve(params, cfg, trace[:N_SLOTS], dev, max_new=4 * MAX_NEW)
-    while eng.counters["prefills"] < N_SLOTS:
+    host = {}
+    for graphs in (True, False):
+        eng, _ = _serve(params, cfg, trace[:N_SLOTS], dev,
+                        max_new=4 * MAX_NEW, cuda_graphs=graphs)
+        while eng.counters["prefills"] < N_SLOTS:
+            eng.step()
         eng.step()
-    eng.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        eng.step()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / steps * 1e3
-    toks = torch.zeros((N_SLOTS, 1), dtype=torch.int32, device=dev)
-    cache = {"layers": eng.kv.layers, "pages": eng.kv.pages_dev(),
-             "lens": eng.kv.lens_dev()}
-    with torch.inference_mode():
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            apply_model(params, cfg, toks, cache=cache)
-        torch.cuda.current_stream().wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            apply_model(params, cfg, toks, cache=cache)
-        g.replay()
         torch.cuda.synchronize()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-            enable_timing=True)
-        s.record()
+        t0 = time.perf_counter()
         for _ in range(steps):
-            g.replay()
-        e.record()
+            eng.step()
         torch.cuda.synchronize()
-    dev_ms = s.elapsed_time(e) / steps
-    log(f"[step] {N_SLOTS} slots decoding: engine step {host_ms:.3f} ms on "
-        f"the host clock; the same forward from a CUDA graph "
-        f"{dev_ms:.3f} ms on the card; device busy share about "
-        f"{dev_ms / host_ms:.3f}")
-    del g, eng
+        host[graphs] = (time.perf_counter() - t0) / steps * 1e3
+        if graphs:
+            g = eng.steps["decode"].graph
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            s.record()
+            for _ in range(steps):
+                g.replay()
+            e.record()
+            torch.cuda.synchronize()
+            dev_ms = s.elapsed_time(e) / steps
+            split = _replay_split(g)
+        del eng
+    log(f"[step] {N_SLOTS} slots decoding: engine step {host[True]:.3f} ms "
+        f"with CUDA graphs, {host[False]:.3f} ms eager, on the host clock; "
+        f"the decode graph's replay {dev_ms:.3f} ms on the card; device "
+        f"busy share {dev_ms / host[True]:.3f} with graphs, "
+        f"{dev_ms / host[False]:.3f} eager")
+    return {"graph_ms": host[True], "eager_ms": host[False],
+            "replay_ms": dev_ms, "kernels": split}
+
+
+def _replay_split(graph):
+    """Device time of one replay of ``graph`` by kind of kernel
+    (``torch.profiler``): kernel 1, kernel 2, the library's matrix
+    products (the LM head) and every other kernel, in ms, with counts."""
+    from repro_torch.launch.kernel_bench import cuda_kernel_times
+    out = collections.defaultdict(lambda: [0.0, 0])
+    events = cuda_kernel_times(graph.replay)
+    for name, us in events:
+        kind = ("encoded_matmul" if "encoded_matmul" in name else
+                "paged_attn" if "paged_attn" in name else
+                "library_gemm" if "gemm" in name.lower() else "other")
+        out[kind][0] += us / 1e3
+        out[kind][1] += 1
+    total = sum(v[0] for v in out.values())
+    log(f"[step] one decode replay under torch.profiler: {len(events)} "
+        f"device kernels, {total:.3f} ms of kernel time: " + ", ".join(
+            f"{k} {v[0]:.3f} ms in {v[1]}" for k, v in sorted(out.items())))
+    return {k: v[0] for k, v in out.items()}
+
+
+def _prefix_trace(vocab: int):
+    """8 prompts from seed 1; prompts 0, 2, 5 and 7 share a 128-token
+    prefix (their own tails 16–64 tokens), the others are 16–256 tokens of
+    their own.  With 4 slots, 0 and 2 are admitted cold and 5 and 7 after
+    the prefix is indexed."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, vocab, 128).astype(np.int32)
+    out = []
+    for i in range(N_REQUESTS):
+        if i in (0, 2, 5, 7):
+            tail = rng.integers(0, vocab, int(rng.integers(16, 65)))
+            out.append(np.concatenate([shared, tail.astype(np.int32)]))
+        else:
+            out.append(rng.integers(0, vocab, int(rng.integers(16, 257)))
+                       .astype(np.int32))
+    return out
+
+
+def phase_prefix(dev, info):
+    """The prefix cache at full width: the shared-prefix trace served with
+    the cache on and off (graphed, exact encoding, dense pools), and
+    ``copy_page`` on the card pools, checked bit for bit."""
+    import torch
+    from repro_torch.serve import PagedKVCache
+    params, cfg = info["params_enc"], info["cfg_enc"]
+    trace = _prefix_trace(cfg.vocab_size)
+    runs = {}
+    for on in (False, True):
+        eng, rids = _serve(params, cfg, trace, dev, prefix_cache=on)
+        outs, dt, counts, st = _timed_run(eng, rids)
+        runs[on] = ([outs[r].tolist() for r in rids], dt, st)
+        n_tok = sum(len(outs[r]) for r in rids)
+        log(f"[prefix] cache {'on' if on else 'off'}: {n_tok} tokens in "
+            f"{dt:.3f}s = {n_tok / dt:.1f} tok/s; prefill tokens "
+            f"{st['prefill_tokens']} in {st['prefill_chunks']} chunks, "
+            f"decode steps {st['decode_steps']}, step p50 "
+            f"{st['step_ms_p50']:.2f} ms; hit rate "
+            f"{st['prefix_hit_rate']:.3f} ({st['prefix_hit_tokens']}/"
+            f"{st['prefix_lookup_tokens']} tokens), "
+            f"{st['prefix_pages_indexed']} pages indexed, copy-on-write "
+            f"{st['cow_copies']}")
+        _check_counts(counts, st, cfg, eng.prefill_chunk,
+                      f"with the prefix cache {'on' if on else 'off'}")
+        del eng
+    same = runs[True][0] == runs[False][0]
+    st = runs[True][2]
+    log(f"[prefix] greedy tokens with the cache against without: "
+        f"{'identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("prefix-cache tokens differ from cold tokens")
+    if st["prefix_hit_tokens"] <= 0:
+        raise AssertionError("the shared-prefix trace had no prefix hit")
+    # copy-on-write's page copy on full-width card pools, every pool type
+    g = torch.Generator(device=dev).manual_seed(0)
+    for mode in ("bf16", "int8", "int4"):
+        c = dataclasses.replace(cfg, kv_cache_dtype=mode)
+        kv = PagedKVCache(c, N_SLOTS, N_PAGES, PAGE_SIZE, SERVE_P,
+                          device=dev)
+        for st_ in kv.layers:
+            for t in st_.values():
+                if t.dtype.is_floating_point:
+                    t.copy_(torch.randn(t.shape, generator=g, device=dev))
+                else:
+                    t.copy_(torch.randint(0, 120, t.shape, generator=g,
+                                          device=dev))
+        leaves = [t for st_ in kv.layers for t in st_.values()]
+        ptrs = [t.data_ptr() for t in leaves]
+        before = [t.clone() for t in leaves]
+        kv.copy_page(7, 200)
+        torch.cuda.synchronize()
+        keep = [p for p in range(N_PAGES) if p != 200]
+        ok = ([t.data_ptr() for t in leaves] == ptrs and all(
+            torch.equal(t[200], b[7]) and torch.equal(t[keep], b[keep])
+            for t, b in zip(leaves, before)))
+        names = sorted(kv.layers[0])
+        log(f"[prefix] copy_page on {mode} pools ({len(leaves)} tensors: "
+            f"{names} x {c.n_layers} layers): in place and bit for bit "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"copy_page on {mode} pools")
+        del kv, leaves, before
+    torch.cuda.empty_cache()
+    return {"tok_s": {on: sum(map(len, r[0])) / r[1]
+                      for on, r in runs.items()},
+            "hit_rate": st["prefix_hit_rate"],
+            "hit_tokens": st["prefix_hit_tokens"],
+            "cow_copies": st["cow_copies"]}
+
+
+SPEC_K = 4
+
+
+def phase_spec(dev, info):
+    """Speculative decoding at full width over the main trace, graphed:
+    k = 4 and 8 with the ``self`` drafter and k = 4 with an ``encoded``
+    drafter searched on the card at M = 24 (the CLI's drafter default;
+    bundle in a fresh ``build/`` directory, removed after).  Tokens must
+    be the plain (spec_decode = 0) serve's, on a fresh and a warm engine."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import prepare_drafter
+    params, cfg = info["params_enc"], info["cfg_enc"]
+    trace, plain = info["trace"], info["tokens"]
+    cache = bundle_dir("draft")
+    t0 = time.perf_counter()
+    dp, dc, dinfo = prepare_drafter(info["params"], info["cfg"], m_bits=24,
+                                    cache_dir=cache, device=dev,
+                                    verbose=False)
+    torch.cuda.synchronize()
+    log(f"[spec] encoded drafter M=24 searched and folded in "
+        f"{time.perf_counter() - t0:.1f}s (U by family "
+        f"{ {n: m.program.n_a_planes for n, m in dc.mac.macs.items()} }, "
+        f"bundle {dinfo['bundle_bytes'] / 1e9:.3f} GB)")
+    shutil.rmtree(cache)
+    out = {}
+    for name, k, kw in (("self", SPEC_K, {}), ("self", 8, {}),
+                        ("encoded", SPEC_K, dict(draft_params=dp,
+                                                 draft_cfg=dc))):
+        eng, rids = _serve(params, cfg, trace, dev, spec_decode=k, **kw)
+        outs, dt, counts, st = _timed_run(eng, rids)
+        toks = [outs[r].tolist() for r in rids]
+        n_tok = sum(map(len, toks))
+        tag = f"{name} k={k}"
+        log(f"[spec] {tag}: {n_tok} tokens in {dt:.3f}s = "
+            f"{n_tok / dt:.1f} tok/s (captures {st['jit_compiles_by_step']})"
+            f"; {st['spec_rounds']} rounds, acceptance "
+            f"{st['spec_acceptance_rate']:.3f}, tokens per round "
+            f"{st['spec_tokens_per_round']:.2f}; step p50 "
+            f"{st['step_ms_p50']:.2f} ms p99 {st['step_ms_p99']:.2f} ms; "
+            f"launches by Sq {counts['paged_attn_by_sq']}")
+        same = toks == plain
+        log(f"[spec] {tag}: greedy tokens against spec_decode=0: "
+            f"{'identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"spec decoding ({tag}) changed the tokens")
+        _check_counts(counts, st, cfg, eng.prefill_chunk, f"({tag})")
+        # the trace again on the warm engine (graphs captured), then each
+        # graph's replay alone on the card: a round's device time
+        n0 = len(eng.step_ms)
+        rids2 = [eng.submit(p, max_new=MAX_NEW) for p in trace]
+        outs2, dt2, _, _ = _timed_run(eng, rids2)
+        if [outs2[r].tolist() for r in rids2] != plain:
+            raise AssertionError(f"spec decoding ({tag}) changed the tokens "
+                                 "on the warm engine")
+        warm_p50 = float(np.percentile(eng.step_ms[n0:], 50))
+        replay = {}
+        for step in ("draft", "verify"):
+            g = eng.steps[step].graph
+            s_ev, e_ev = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            s_ev.record()
+            for _ in range(10):
+                g.replay()
+            e_ev.record()
+            torch.cuda.synchronize()
+            replay[step] = s_ev.elapsed_time(e_ev) / 10
+        log(f"[spec] {tag}: warm engine {n_tok / dt2:.1f} tok/s, step p50 "
+            f"{warm_p50:.2f} ms, tokens identical; graph replays on the card:"
+            f" draft {replay['draft']:.3f} ms ({k} forwards), verify "
+            f"{replay['verify']:.3f} ms")
+        out[f"{name}_k{k}"] = {
+            "counts": counts, "tok_s": n_tok / dt, "warm_tok_s": n_tok / dt2,
+            "acceptance": st["spec_acceptance_rate"],
+            "tokens_per_round": st["spec_tokens_per_round"],
+            "step_p50": st["step_ms_p50"], "step_p99": st["step_ms_p99"],
+            "replay": replay}
+        del eng
+    del dp, dc
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_cpu_parity(dev):
@@ -710,8 +998,8 @@ def phase_cpu_parity(dev):
             log(f"[parity] reduced, kv {mode}, on {name}: "
                 f"{sum(map(len, outs[name]))} tokens, launches {counts}")
             if name == "cuda":
-                _check_counts(counts, eng.counters["decode_steps"],
-                              cm.n_layers, "on the card")
+                _check_counts(counts, eng.stats(), cm, eng.prefill_chunk,
+                              "on the card")
             else:
                 assert counts["encoded_matmul_by_shape"] == {} and all(
                     counts[n] == 0 for n in PATH_KERNELS + ("flash_attention",))
@@ -851,12 +1139,7 @@ def phase_serve_search(dev):
     assert len(outs) == N_REQUESTS and all(
         len(outs[r]) == MAX_NEW for r in rids), "not every request finished"
     assert all(0 <= t < cfg.vocab_size for r in rids for t in outs[r])
-    _check_counts(counts, st["decode_steps"], cfg.n_layers,
-                  "on the searched path")
-    want = _path_shapes(cfg, st["decode_steps"], st["prefill_chunks"],
-                        eng.prefill_chunk)
-    assert counts["encoded_matmul_by_shape"] == want, \
-        f"encoded_matmul shapes {counts['encoded_matmul_by_shape']} != {want}"
+    _check_counts(counts, st, cfg, eng.prefill_chunk, "on the searched path")
     toks = torch.from_numpy(trace[0][:16])[None].to(dev)
     with torch.inference_mode():
         lg_enc, _ = apply_model(params_enc, cfg_enc, toks)
@@ -866,14 +1149,14 @@ def phase_serve_search(dev):
     agree = (lg_enc.argmax(-1) == lg_fp.argmax(-1)).float().mean().item()
     log(f"[serve-search] full-width searched-encoding vs fp logits: top-1 "
         f"agreement {agree:.3f} (random weights; printed, not gated)")
-    step_split(dev, params_enc, cfg_enc, trace)
+    split = step_split(dev, params_enc, cfg_enc, trace)
     programs = {name: macs[name].program for name, _, _ in
                 DECODE_SEARCH_ROWS}
     del params_enc, params, eng
     torch.cuda.empty_cache()
     return {"counts": counts, "steps": st["decode_steps"],
             "chunks": st["prefill_chunks"], "tok_s": n_tok / dt,
-            "programs": programs}
+            "programs": programs, "split": split}
 
 
 TIE_RTOL = 1e-6
@@ -986,7 +1269,7 @@ def phase_cpu_parity_search(dev):
             len(t) == MAX_NEW and all(0 <= x < cfg.vocab_size for x in t)
             for t in outs[name]), f"not every request finished on {name}"
         if name == "cuda":
-            _check_counts(counts, eng.counters["decode_steps"], cm.n_layers,
+            _check_counts(counts, eng.stats(), cm, eng.prefill_chunk,
                           "on the card")
         else:
             assert counts["encoded_matmul_by_shape"] == {} and all(
@@ -1078,148 +1361,157 @@ def _linears_teacher_forced(dev, pe_c, ce_c, pe_g, ce_g, prompt):
         f"{worst:.2e})")
 
 
+def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib):
+    """Kernel 1's row of the kernels line: ``prog``'s monomials at (m, k,
+    n), kernel and plain version timed over 4 input sets, and the library
+    yardstick: the same function as one bf16 product of the 0/1 planes
+    (m, U·k) by Wt (U·k, n), f32 out (the bias add left out)."""
+    import torch
+    from repro_torch.kernels import encoded_matmul as em
+    from repro_torch.kernels.ref import planes_ref
+    from repro_torch.launch.kernel_bench import time_graph
+    U = prog.n_a_planes
+    sets = _em_case(dev, prog, m, k, n, seed=seed, copies=4)
+    err = (em.encoded_matmul(*sets[0])
+           - em.encoded_matmul_plain(*sets[0])).abs().max().item()
+    ms = time_graph(em.encoded_matmul, sets)
+    plain_ms = time_loop(em.encoded_matmul_plain, sets)
+    lib_sets = [(planes_ref(x, sh).to(torch.bfloat16).permute(1, 0, 2)
+                 .reshape(m, U * k).contiguous(), wt.reshape(U * k, n))
+                for x, wt, _, sh in sets]
+    lib_ms = time_graph(lib[0], lib_sets)
+    nbytes = m * k + U * k * n * 2 + n * 4 + m * n * 4
+    ops = 2.0 * m * k * n * U
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+    log(f"[measure] {name}: {U * k * n * 2 / (ms * 1e-3) / 1e12:.3f} TB/s "
+        f"of Wt")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/encoded_matmul.cu",
+            "replaces": "src/repro/kernels/encoded_matmul.py:50",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": lib_ms,
+            "shape": f"m={m} k={k} n={n} U={U} ({shape}); library: "
+                     f"{lib[1]} over K = U·k"}
+
+
 def phase_measure(dev, serve_info):
     """Kernel, plain and library times at the main path's shapes."""
     import torch
-    from repro_torch.kernels import encoded_matmul as em
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels.ref import planes_ref
     from repro_torch.launch.kernel_bench import bf16_mm, time_graph
     rows = []
+    lib = bf16_mm()
+    shapes = ((1024, 1024), (1024, 2816), (2816, 1024))
     # kernel 1 at the main path's six shapes: the linears (k, n) = (1024,
     # 1024) x 4, (1024, 2816) x 2 and (2816, 1024) x 1 per layer, at decode
     # (m = n_slots) and at prefill (m = one 32-token chunk); launches are
     # the dense serve's at that shape
     prog = _program("exact")
-    U = prog.n_a_planes
-    lib, lib_name = bf16_mm()
     by_shape = serve_info["counts"]["encoded_matmul_by_shape"]
     for m in (N_SLOTS, 32):
-        for k, n in ((1024, 1024), (1024, 2816), (2816, 1024)):
-            sets = _em_case(dev, prog, m, k, n, seed=1, copies=4)
-            err = (em.encoded_matmul(*sets[0])
-                   - em.encoded_matmul_plain(*sets[0])).abs().max().item()
-            ms = time_graph(em.encoded_matmul, sets)
-            plain_ms = time_loop(em.encoded_matmul_plain, sets)
-            # the same function as one bf16 product: 0/1 planes (m, U·k) by
-            # Wt (U·k, n), f32 out; the bias add is left out
-            lib_sets = [(planes_ref(x, sh).to(torch.bfloat16).permute(1, 0, 2)
-                         .reshape(m, U * k).contiguous(), wt.reshape(U * k, n))
-                        for x, wt, _, sh in sets]
-            lib_ms = time_graph(lib, lib_sets)
-            nbytes = m * k + U * k * n * 2 + n * 4 + m * n * 4
-            ops = 2.0 * m * k * n * U
-            t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
-            rows.append({
-                "name": f"encoded_matmul_m{m}_k{k}_n{n}", "route": "cuda",
-                "source": "src/repro_torch/csrc/encoded_matmul.cu",
-                "replaces": "src/repro/kernels/encoded_matmul.py:50",
-                "launches": by_shape.get((m, k, n), 0),
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_b, t_o),
-                "bound_by": "bytes" if t_b >= t_o else "operations",
-                "library_ms": lib_ms,
-                "shape": f"m={m} k={k} n={n} U={U} "
-                         f"({'decode' if m == N_SLOTS else 'prefill'}); "
-                         f"library: {lib_name}"})
-            log(f"[measure] encoded_matmul m={m} k={k} n={n}: "
-                f"{U * k * n * 2 / (ms * 1e-3) / 1e12:.3f} TB/s of Wt")
+        for k, n in shapes:
+            rows.append(_em_row(
+                dev, prog, m, k, n, 1, f"encoded_matmul_m{m}_k{k}_n{n}",
+                by_shape.get((m, k, n), 0),
+                "decode" if m == N_SLOTS else "prefill", lib))
+    # kernel 1 at speculative verification's shape, m = n_slots·(k+1) = 20
+    # at k = 4, exact U; launches are the self-drafter k = 4 serve's
+    m = N_SLOTS * (SPEC_K + 1)
+    v_shape = serve_info["spec"][f"self_k{SPEC_K}"]["counts"][
+        "encoded_matmul_by_shape"]
+    for k, n in shapes:
+        rows.append(_em_row(
+            dev, prog, m, k, n, 3, f"encoded_matmul_m{m}_k{k}_n{n}",
+            v_shape.get((m, k, n), 0), f"speculative verify, k={SPEC_K}",
+            lib))
     # kernel 1 at the searched U of phase 6b, at its three decode shapes:
     # (k, n) of wq, wi and the MLP's wo with that family's monomials
     search = serve_info["search"]
     s_shape = search["counts"]["encoded_matmul_by_shape"]
     for name, k, n in DECODE_SEARCH_ROWS:
         prog = search["programs"][name]
-        U, m = prog.n_a_planes, N_SLOTS
-        sets = _em_case(dev, prog, m, k, n, seed=2, copies=4)
-        err = (em.encoded_matmul(*sets[0])
-               - em.encoded_matmul_plain(*sets[0])).abs().max().item()
-        ms = time_graph(em.encoded_matmul, sets)
-        plain_ms = time_loop(em.encoded_matmul_plain, sets)
-        lib_sets = [(planes_ref(x, sh).to(torch.bfloat16).permute(1, 0, 2)
-                     .reshape(m, U * k).contiguous(), wt.reshape(U * k, n))
-                    for x, wt, _, sh in sets]
-        lib_ms = time_graph(lib, lib_sets)
-        nbytes = m * k + U * k * n * 2 + n * 4 + m * n * 4
-        ops = 2.0 * m * k * n * U
-        t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
         monos = collections.Counter(len(t) for t in prog.a_mono_tuples)
+        rows.append(_em_row(
+            dev, prog, N_SLOTS, k, n, 2,
+            f"encoded_matmul_search_{name}_m{N_SLOTS}_k{k}_n{n}",
+            s_shape.get((N_SLOTS, k, n), 0),
+            f"decode, searched {name}: monomials by bits "
+            f"{dict(sorted(monos.items()))}; launches: every family at "
+            f"this (m, k, n) in the searched serve", lib))
+    # kernel 2: decode attention, 4 slots × 16 heads × D 64, with dense
+    # f32, int8 and packed-int4 pools, at a 32-page table and at the
+    # serve's 127-page table (the same lens, so the same bytes); then at
+    # speculative verification's Sq = k+1 (5 and 9) with dense f32 pools
+    # and the serve's table, launches those at that Sq in the self-drafter
+    # serves with k = 4 and 8.  The floor is an empty kernel on the same
+    # grid and cluster, replayed the same way
+    B, H, D, ps = N_SLOTS, 16, 64, PAGE_SIZE
+    lens = [100, 200, 300, 400]
+    cases = [(mode, P, 1) for mode in ("bf16", "int8", "int4")
+             for P in (32, SERVE_P)]
+    cases += [("bf16", SERVE_P, SPEC_K + 1), ("bf16", SERVE_P, 9)]
+    for mode, P, sq in cases:
+        if mode == "bf16":
+            sets, kv_map = _pa_case(dev, B, sq, H, H, D, ps, P, lens,
+                                    torch.float32, seed=5 if sq == 1 else 7,
+                                    copies=8)
+            args = [a + (None, None) for a in sets]
+        else:
+            qsets, kv_map = _pa_quant_case(dev, mode, B, sq, H, H, D, ps,
+                                           P, lens, seed=6, copies=8)
+            args = [a + sc for a, sc in qsets]
+
+        def kern(q, pk, pv, pg, ln, sk, sv):
+            return pa.paged_attn(q, pk, pv, pg, ln, scale=D ** -0.5,
+                                 kv_of_q=kv_map, scale_k=sk, scale_v=sv)
+
+        def plain(q, pk, pv, pg, ln, sk, sv):
+            return pa.paged_attn_plain(q, pk, pv, pg, ln, pa._NO_WINDOW,
+                                       scale=D ** -0.5, G=1, scale_k=sk,
+                                       scale_v=sv)
+
+        err = (kern(*args[0]) - plain(*args[0])).abs().max().item()
+        ms = time_graph(kern, args)
+        plain_ms = time_loop(plain, args)
+        floor_ms = time_graph(
+            lambda: pa.paged_attn_floor(B, H, P, dev), [()] * 8)
+        read = sum((l_ + sq - 1) // ps + 1 for l_ in lens)  # per kv head
+        row_bytes = D * 4 if mode == "bf16" else (
+            D // 2 + 4 if mode == "int4" else D + 4)
+        nbytes = (2 * B * sq * H * D * 4 + 2 * read * ps * H * row_bytes
+                  + read * 4 + B * 4)
+        ops = 4.0 * sq * D * read * ps * H
+        t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+        if sq == 1:
+            name = "paged_attn" + ("" if mode == "bf16" else f"_{mode}") + (
+                "" if P == 32 else f"_p{P}")
+            note = ("f32 pools" if mode == "bf16"
+                    else f"{mode} pools + f32 scales")
+            launches = (serve_info["counts"] if mode == "bf16"
+                        else serve_info[mode]["counts"])["paged_attn"]
+        else:
+            name = f"paged_attn_sq{sq}_p{P}"
+            note = f"f32 pools (speculative verify, k={sq - 1})"
+            launches = serve_info["spec"][f"self_k{sq - 1}"]["counts"][
+                "paged_attn_by_sq"].get(sq, 0)
         rows.append({
-            "name": f"encoded_matmul_search_{name}_m{m}_k{k}_n{n}",
-            "route": "cuda",
-            "source": "src/repro_torch/csrc/encoded_matmul.cu",
-            "replaces": "src/repro/kernels/encoded_matmul.py:50",
-            "launches": s_shape.get((m, k, n), 0),
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:131",
+            "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
-            "library_ms": lib_ms,
-            "shape": f"m={m} k={k} n={n} U={U} (decode, searched {name}: "
-                     f"monomials by bits {dict(sorted(monos.items()))}; "
-                     f"launches: every family at this (m, k, n) in the "
-                     f"searched serve); library: {lib_name} over K = U·k"})
-        log(f"[measure] searched {name} m={m} k={k} n={n} U={U}: "
-            f"{U * k * n * 2 / (ms * 1e-3) / 1e12:.3f} TB/s of Wt")
-    # kernel 2: decode attention, 4 slots × 16 heads × D 64, with dense
-    # f32, int8 and packed-int4 pools, at a 32-page table and at the
-    # serve's 127-page table (the same lens, so the same bytes); the floor
-    # is an empty kernel on the same grid and cluster, replayed the same way
-    B, Sq, H, D, ps = N_SLOTS, 1, 16, 64, PAGE_SIZE
-    lens = [100, 200, 300, 400]
-    pages_read = sum(l_ // ps + 1 for l_ in lens)         # per kv head
-    ops = 4.0 * Sq * D * pages_read * ps * H
-    for mode in ("bf16", "int8", "int4"):
-        for P in (32, SERVE_P):
-            if mode == "bf16":
-                sets, kv_map = _pa_case(dev, B, Sq, H, H, D, ps, P, lens,
-                                        torch.float32, seed=5, copies=8)
-                args = [a + (None, None) for a in sets]
-            else:
-                qsets, kv_map = _pa_quant_case(dev, mode, B, Sq, H, H, D, ps,
-                                               P, lens, seed=6, copies=8)
-                args = [a + sc for a, sc in qsets]
-
-            def kern(q, pk, pv, pg, ln, sk, sv):
-                return pa.paged_attn(q, pk, pv, pg, ln, scale=D ** -0.5,
-                                     kv_of_q=kv_map, scale_k=sk, scale_v=sv)
-
-            def plain(q, pk, pv, pg, ln, sk, sv):
-                return pa.paged_attn_plain(q, pk, pv, pg, ln, pa._NO_WINDOW,
-                                           scale=D ** -0.5, G=1, scale_k=sk,
-                                           scale_v=sv)
-
-            err = (kern(*args[0]) - plain(*args[0])).abs().max().item()
-            ms = time_graph(kern, args)
-            plain_ms = time_loop(plain, args)
-            floor_ms = time_graph(
-                lambda: pa.paged_attn_floor(B, H, P, dev), [()] * 8)
-            row_bytes = D * 4 if mode == "bf16" else (
-                D // 2 + 4 if mode == "int4" else D + 4)
-            nbytes = (2 * B * Sq * H * D * 4 + 2 * pages_read * ps * H
-                      * row_bytes + pages_read * 4 + B * 4)
-            t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-            name = "paged_attn" + ("" if mode == "bf16" else f"_{mode}") + (
-                "" if P == 32 else f"_p{P}")
-            pools = ("f32 pools" if mode == "bf16"
-                     else f"{mode} pools + f32 scales")
-            counts = (serve_info["counts"] if mode == "bf16"
-                      else serve_info[mode]["counts"])
-            rows.append({
-                "name": name, "route": "cuda",
-                "source": "src/repro_torch/csrc/paged_attention.cu",
-                "replaces": "src/repro/kernels/paged_attention.py:131",
-                "launches": counts["paged_attn"],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_b, t_o),
-                "bound_by": "bytes" if t_b >= t_o else "operations",
-                # no PyTorch call reads K/V through a page table
-                "library_ms": None,
-                "floor_ms": floor_ms,
-                "cluster": pa.cluster_size(B, H, P, torch.cuda.
-                                           get_device_properties(dev)
-                                           .multi_processor_count),
-                "shape": f"B={B} Sq={Sq} H={H} D={D} ps={ps} P={P} "
-                         f"lens={lens} {pools}, {nbytes / 1e6:.3f} MB"})
+            # no PyTorch call reads K/V through a page table
+            "library_ms": None,
+            "floor_ms": floor_ms,
+            "cluster": pa.cluster_size(B, H, P, torch.cuda.
+                                       get_device_properties(dev)
+                                       .multi_processor_count),
+            "shape": f"B={B} Sq={sq} H={H} D={D} ps={ps} P={P} "
+                     f"lens={lens} {note}, {nbytes / 1e6:.3f} MB"})
     # kernel 3 at the prefill shape of full-width qwen1.5-0.5b: B 4, S 1024,
     # 16 heads, D 64, causal; flattened (B·H, S, D) as flash_mha hands it
     # to the kernel.  Not on the serving path: launches 0 (the reference's
@@ -1272,14 +1564,14 @@ def phase_measure(dev, serve_info):
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){floor}, "
             f"launches on the main path {r['launches']}")
-    per_step = serve_info["steps"] + serve_info["chunks"]
+    per_step = serve_info["steps"] + serve_info["chunks"] + 2
     log(f"[measure] launches per engine forward (decode steps + prefill "
-        f"chunks = {per_step}): encoded_matmul "
+        f"chunks + the 2 graph warm-ups = {per_step}): encoded_matmul "
         f"{serve_info['counts']['encoded_matmul'] / per_step:.1f}, "
-        f"paged_attn per decode step "
-        f"{serve_info['counts']['paged_attn'] / serve_info['steps']:.1f}; "
-        f"flash_attention {serve_info['counts']['flash_attention']} (not on "
-        "the serving path)")
+        f"paged_attn per decode forward "
+        f"{serve_info['counts']['paged_attn'] / (serve_info['steps'] + 1):.1f}"
+        f"; flash_attention {serve_info['counts']['flash_attention']} (not "
+        "on the serving path)")
     return rows
 
 
@@ -1294,7 +1586,10 @@ def main() -> int:
     phase_flash(dev)
     serve_info = phase_serve(dev)
     serve_info.update(phase_serve_quant(dev, serve_info))
-    for key in ("params_enc", "cfg_enc", "trace", "tokens", "stats"):
+    serve_info["prefix"] = phase_prefix(dev, serve_info)
+    serve_info["spec"] = phase_spec(dev, serve_info)
+    for key in ("params", "cfg", "params_enc", "cfg_enc", "trace", "tokens",
+                "stats"):
         del serve_info[key]
     torch.cuda.empty_cache()
     serve_info["search"] = phase_serve_search(dev)

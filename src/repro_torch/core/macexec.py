@@ -1,6 +1,6 @@
 """MAC backend registry — the single dispatch point for linear-layer MAC
-execution (port of ``repro/core/macexec.py``: the registry, ``FpExecutor``
-and ``EncodedInferExecutor``).
+execution (port of ``repro/core/macexec.py``: the registry, ``FpExecutor``,
+``EncodedInferExecutor`` and the speculative drafter's guard).
 
 An executor owns its param-suffix schema (``_fw``/``_fb`` folded bitplane
 tensors, ``_as``/``_ws`` activation/weight scales), init and apply.
@@ -28,6 +28,45 @@ def get_executor(mode: str) -> "MacExecutor":
     except KeyError:
         raise ValueError(f"unknown MAC mode {mode!r}; registered modes: "
                          f"{sorted(_REGISTRY)}") from None
+
+
+def count_prepared(params, mode: str) -> int:
+    """Number of linears in ``params`` carrying the prepared leaves
+    ``mode``'s executor applies with (its first param suffix, e.g. ``_fw``
+    for 'encoded_infer').  -1 when the mode needs no prepared leaves."""
+    ex = get_executor(mode)
+    if not ex.requires_prepared_params or not ex.param_suffixes:
+        return -1
+    suffix = ex.param_suffixes[0]
+    n = 0
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if isinstance(k, str) and k.endswith(suffix):
+                    n += 1
+                else:
+                    stack.append(v)
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+    return n
+
+
+def check_drafter(params, mode: str) -> None:
+    """Guard for the speculative-decoding drafter: a prepared-params
+    executor handed params with NO prepared leaves would serve the fp
+    fallback in every linear, so the "cheap drafter" would be the dense
+    model in disguise.  Raise instead."""
+    if count_prepared(params, mode) == 0:
+        ex = get_executor(mode)
+        raise ValueError(
+            f"drafter MAC mode {mode!r} requires prepared params "
+            f"(no {ex.param_suffixes[0]!r} leaves found) — every linear "
+            "would fall back to the fp matmul and the drafter would just "
+            "be the dense model; build (draft_params, draft_cfg) with "
+            "repro_torch.serve.encoded.prepare_drafter / "
+            "prepare_encoded_serving")
 
 
 def mm(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:

@@ -39,10 +39,14 @@ decode every cached byte is read once, about a microsecond at the main
 path's sizes, so the launch and a few dependent loads set its time
 (``paged_attn_floor`` times an empty kernel on the same grid and cluster).
 
-Sq ≤ 8 query tokens per row fold into the group axis (row ``s·G + g``).
+Sq ≤ ``MAX_SQ`` query tokens per row fold into the group axis (row
+``s·G + g``): speculative verification scores k+1 tokens per row in one
+launch.  The reference kernel has no cap; this one is sized for k ≤ 15
+(its shared memory holds ``Sq·G`` query rows and their sums).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional
@@ -56,7 +60,7 @@ from repro_torch.quant.kvcache import dequantize_kv, kv_mode_of
 
 NEG_INF = -2.0e38                    # finite f32 sentinel (matches mha)
 _NO_WINDOW = 2 ** 30                 # "no sliding window" resolves to huge
-MAX_SQ = 8
+MAX_SQ = 16
 WARPS = 4                            # csrc kWarps: page streams per block
 MAX_CLUSTER = 8                      # csrc kMaxCluster: portable size
 MAX_ROW_BYTES = 512                  # csrc kMaxPieces x 16 bytes
@@ -166,7 +170,10 @@ def paged_attn_plain(q, pool_k, pool_v, pages, lens, window: int, *,
     l = torch.zeros((B, Hkv, S * G), dtype=f32, device=dev)
     acc = torch.zeros((B, Hkv, S * G, D), dtype=f32, device=dev)
     for j in range(nb):
-        pid = pages[:, j * bp:(j + 1) * bp]                  # (B, bp)
+        # as the reference's dynamic_slice, a block past the table reads
+        # the table's last block; its positions are masked by the query's
+        st = max(0, min(j * bp, pages.shape[1] - bp))
+        pid = pages[:, st:st + bp]                           # (B, bp)
         skb = None if scale_k is None else scale_k[pid]
         svb = None if scale_v is None else scale_v[pid]
         kb = _dequant_block(pool_k[pid], skb, mode).reshape(B, blk, Hkv, D)
@@ -285,7 +292,7 @@ def _paged_attn_kernel(q, pool_k, pool_v, pages, lens, window: int, *,
 def paged_attn(q, pool_k, pool_v, pages, lens, *, scale: float,
                window=None, cap=None, kv_of_q=None,
                scale_k=None, scale_v=None) -> torch.Tensor:
-    """Fused paged attention over 1..8 query tokens per row.
+    """Fused paged attention over 1..``MAX_SQ`` query tokens per row.
 
     q (B, Sq, Hq, D) · pool_k/v (n_pages, ps, Hkv, Dp) · pages (B, P) ·
     lens (B,) → (B, Sq, Hq, D) in q.dtype.  Query s of row b sits at
@@ -297,7 +304,8 @@ def paged_attn(q, pool_k, pool_v, pages, lens, *, scale: float,
     pools must not pass them.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (and count it in ``paged_attn.launches``) or raise."""
+    (and count it in ``paged_attn.launches`` and, by Sq, in
+    ``paged_attn.sq_launches``) or raise."""
     B, S, Hq, D = q.shape
     Hkv = pool_k.shape[2]
     G = Hq // Hkv if kv_of_q is None else gqa_group(kv_of_q, Hq, Hkv)
@@ -322,7 +330,10 @@ def paged_attn(q, pool_k, pool_v, pages, lens, *, scale: float,
                              scale=scale, cap=cap, G=G, scale_k=scale_k,
                              scale_v=scale_v)
     paged_attn.launches += 1
+    paged_attn.sq_launches[S] += 1
     return out
 
 
 paged_attn.launches = 0
+# launches by query tokens per row (Sq), counted with ``launches``
+paged_attn.sq_launches = collections.Counter()

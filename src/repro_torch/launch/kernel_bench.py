@@ -52,10 +52,16 @@ def time_graph(fn, arg_sets, iters: int = 40) -> float:
 
 def cuda_kernels_of(fn, attempts: int = 3) -> list:
     """Names of the device kernels (and copies) that one call of ``fn``
-    runs: ``torch.profiler`` over the call, read back from its exported
-    trace (written under the checkout's git-ignored ``build/``).  A
-    capture that recorded no device activity at all is taken again, up to
-    ``attempts`` times (on the H100 machine one capture in a few dozen
+    runs, in order (``cuda_kernel_times``)."""
+    return [name for name, _ in cuda_kernel_times(fn, attempts)]
+
+
+def cuda_kernel_times(fn, attempts: int = 3) -> list:
+    """``(name, µs)`` of each device kernel (and copy) that one call of
+    ``fn`` runs: ``torch.profiler`` over the call, read back from its
+    exported trace (written under the checkout's git-ignored ``build/``).
+    A capture that recorded no device activity at all is taken again, up
+    to ``attempts`` times (on the H100 machine one capture in a few dozen
     came back empty); the last capture is returned either way."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -73,7 +79,7 @@ def cuda_kernels_of(fn, attempts: int = 3) -> list:
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
         os.remove(path)
-        names = [e["name"] for e in events
+        names = [(e["name"], float(e.get("dur", 0.0))) for e in events
                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
         if names:
             break

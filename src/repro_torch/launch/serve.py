@@ -14,10 +14,14 @@ cache, optionally with calibrated encoded-MAC inference.
   # int8 / int4 paged KV pools, dequantized inside the kernel's page loop
   python -m repro_torch.launch.serve --continuous --mac encoded \
       --encoding exact --paged-attn kernel --kv-dtype int8
+  # prefix cache, and speculative decoding with a lower-M encoded drafter
+  python -m repro_torch.launch.serve --continuous --mac encoded \
+      --paged-attn kernel --prefix-cache --spec-decode 4 --draft encoded
 
 ``--paged-attn gather`` / ``kernel`` are the reference CLI's ``xla`` /
 ``pallas``: the gathered-page-view path, or the fused page-walk op (the
-CUDA kernel on the card, its plain PyTorch version on the CPU).  The
+CUDA kernel on the card, its plain PyTorch version on the CPU).  On the
+card every engine step runs as a captured CUDA graph.  The
 weights are random, made from ``--seed``; the request trace comes from
 ``numpy.random.default_rng(0)`` as in the reference CLI.
 """
@@ -57,7 +61,26 @@ def main(argv=None):
     ap.add_argument("--n-pages", type=int, default=256)
     ap.add_argument("--reserve", default="conservative",
                     choices=["conservative", "optimistic"])
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="prefix caching: reuse pool pages holding full "
+                         "prompt pages already prefilled by earlier "
+                         "requests; only the uncached suffix is prefilled")
     ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="speculative decoding: draft K tokens per slot "
+                         "per round with the drafter, verify all K+1 "
+                         "positions in one batched forward, commit the "
+                         "longest agreeing prefix + bonus token (greedy "
+                         "output token-identical to K=0); 0 = off")
+    ap.add_argument("--draft", default="self", choices=["self", "encoded"],
+                    help="drafter for --spec-decode: 'self' = the "
+                         "verifier's own params (the gain is fewer "
+                         "dispatches alone), 'encoded' = a lower-m-bits "
+                         "encoded bundle built by prepare_drafter")
+    ap.add_argument("--draft-m-bits", type=int, default=24,
+                    help="encoding width M for --draft encoded (coarser "
+                         "than the verifier's --m-bits: cheaper drafts, "
+                         "lower acceptance)")
     ap.add_argument("--paged-attn", default="gather",
                     choices=["gather", "kernel"])
     ap.add_argument("--kv-dtype", default="bf16",
@@ -74,6 +97,11 @@ def main(argv=None):
     if args.kv_dtype != "bf16" and not args.continuous:
         ap.error("--kv-dtype quantizes the PAGED cache; it requires "
                  "--continuous")
+    if args.spec_decode and not args.continuous:
+        ap.error("--spec-decode requires --continuous (the draft/verify "
+                 "rounds run against the paged KV cache)")
+    if args.spec_decode < 0:
+        ap.error("--spec-decode must be >= 0")
     if not args.continuous:
         ap.error("only --continuous serving is ported so far (ROADMAP: "
                  "ServeEngine/generate on the dense cache)")
@@ -84,7 +112,7 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.models import init_model
     from repro_torch.serve import (Engine, exact_encodings,
-                                   prepare_encoded_serving)
+                                   prepare_drafter, prepare_encoded_serving)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -93,6 +121,7 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, attention_backend=args.paged_attn,
                               kv_cache_dtype=args.kv_dtype)
     params = init_model(cfg, seed=args.seed, device=dev)
+    params_ref, cfg_ref = params, cfg
     if args.mac == "encoded":
         overrides = (exact_encodings(cfg.mac.bits)
                      if args.encoding == "exact" else None)
@@ -103,6 +132,21 @@ def main(argv=None):
             macs_override=overrides, force=args.force_calib, device=dev)
         print(f"[encoded-serving] ready in {time.time() - t0:.1f}s "
               f"({'cache hit' if info['loaded'] else 'searched+folded'})")
+
+    draft_params = draft_cfg = None
+    if args.spec_decode and args.draft == "encoded":
+        verifier = (params, cfg) if args.mac == "encoded" else None
+        t0 = time.time()
+        draft_params, draft_cfg, dinfo = prepare_drafter(
+            params_ref, cfg_ref, m_bits=args.draft_m_bits,
+            verifier=verifier, n_samples=args.calib_samples,
+            refine=args.calib_refine, calib_batches=args.calib_batches,
+            force=args.force_calib, device=dev)
+        src = ("verifier artifacts" if dinfo.get("shared_with_verifier")
+               else "searched+folded" if not dinfo.get("loaded")
+               else "cache hit")
+        print(f"[spec-decode] encoded drafter m_bits={args.draft_m_bits} "
+              f"ready in {time.time() - t0:.1f}s ({src})")
 
     rng = np.random.default_rng(0)
     reqs = [rng.integers(0, cfg.vocab_size, rng.integers(4, 24))
@@ -115,7 +159,9 @@ def main(argv=None):
     engine = Engine(params, cfg, n_slots=args.slots,
                     page_size=args.page_size, n_pages=args.n_pages,
                     reserve=args.reserve, prefill_chunk=args.prefill_chunk,
-                    device=dev)
+                    prefix_cache=args.prefix_cache,
+                    spec_decode=args.spec_decode, draft_params=draft_params,
+                    draft_cfg=draft_cfg, device=dev)
     t0 = time.time()
     rids = [engine.submit(r, max_new=args.max_new) for r in reqs]
     outs = engine.run()
@@ -128,11 +174,25 @@ def main(argv=None):
           f"({total / dt:.1f} tok/s, mac={args.mac}, "
           f"paged-attn={args.paged_attn}, device={dev})")
     print(f"  occupancy={st['occupancy']:.2f} evictions={st['evictions']} "
+          f"jit_compiles={st['jit_compiles']} "
           f"p50={st['latency_p50_s']:.3f}s p99={st['latency_p99_s']:.3f}s "
           f"kv_pool={st['kv_pool_bytes'] / 1e6:.1f}MB")
     print(f"  kv: dtype={st['kv_cache_dtype']} "
           f"{st['kv_bytes_per_token']:.1f} B/token, "
           f"capacity={st['kv_capacity_tokens']} tokens")
+    if args.prefix_cache:
+        print(f"  prefix: hit_rate={st['prefix_hit_rate']:.2f} "
+              f"({st['prefix_hit_tokens']}/{st['prefix_lookup_tokens']} "
+              f"tokens, {st['prefix_pages_indexed']} pages indexed, "
+              f"{st['cow_copies']} copy-on-write, {st['prefill_chunks']} "
+              f"prefill chunks of {st['prefill_chunk']})")
+    if args.spec_decode:
+        print(f"  spec: k={st['spec_decode_k']} "
+              f"acceptance={st['spec_acceptance_rate']:.3f} "
+              f"tokens/round={st['spec_tokens_per_round']:.2f} "
+              f"({st['spec_accepted_tokens']}/{st['spec_draft_tokens']} "
+              f"drafts accepted over {st['spec_rounds']} rounds, "
+              f"drafter={st['draft_mac_mode']})")
     for i, rid in enumerate(rids[:3]):
         print(f"req{i}: {list(map(int, outs[rid][:10]))} ...")
 

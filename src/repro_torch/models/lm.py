@@ -68,8 +68,8 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None):
     Bn, S = tokens.shape
     x = embed_apply(params["embed"], tokens, cfg.cdtype)
     if cfg.embed_scale:
-        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=cfg.cdtype,
-                             device=x.device)
+        x = x * torch.full((), np.sqrt(cfg.d_model), dtype=cfg.cdtype,
+                           device=x.device)
     if cache is not None:
         lens = cache["lens"]
         positions = lens[:, None] + torch.arange(S, device=x.device,
@@ -110,6 +110,18 @@ def supports_paged_cache(cfg) -> bool:
     return cfg.family == "dense"
 
 
+def paged_cache_layout(cfg, n_pages: int, page_size: int) -> list:
+    """Per layer ``{name: (shape, dtype)}`` of the paged pools that
+    ``init_paged_cache`` allocates (a drafter must match its verifier's)."""
+    pdt, phd, quant = kv_pool_layout(cfg)
+    shape = (n_pages, page_size, cfg.n_kv_p, phd)
+    st = {"pool_k": (shape, pdt), "pool_v": (shape, pdt)}
+    if quant:
+        for name in ("scale_k", "scale_v"):
+            st[name] = (shape[:3], torch.float32)
+    return [dict(st) for _ in range(cfg.n_layers)]
+
+
 def init_paged_cache(cfg, n_pages: int, page_size: int, *, device=None):
     """Per layer a pool of fixed-size pages, ``pool_k/pool_v (n_pages,
     page_size, n_kv, hd)`` in the compute dtype; page 0 is scratch.
@@ -121,18 +133,10 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, *, device=None):
     dev = resolve_device(device)
     if not supports_paged_cache(cfg):
         raise ValueError(f"paged KV cache unsupported for arch {cfg.arch!r}")
-    pdt, phd, quant = kv_pool_layout(cfg)
-    shape = (n_pages, page_size, cfg.n_kv_p, phd)
-    layers = []
-    for _ in range(cfg.n_layers):
-        st = {"pool_k": torch.zeros(shape, dtype=pdt, device=dev),
-              "pool_v": torch.zeros(shape, dtype=pdt, device=dev)}
-        if quant:
-            for name in ("scale_k", "scale_v"):
-                st[name] = torch.zeros(shape[:3], dtype=torch.float32,
-                                       device=dev)
-        layers.append(st)
-    return {"layers": layers}
+    return {"layers": [
+        {name: torch.zeros(shape, dtype=dt, device=dev)
+         for name, (shape, dt) in st.items()}
+        for st in paged_cache_layout(cfg, n_pages, page_size)]}
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ def _apply_mask(lg, ok, k_valid):
     if k_valid is not None:
         kv = k_valid if k_valid.dim() > 1 else k_valid[None]
         ok = (ok if ok.dim() == 3 else ok[None]) & kv[:, None, :]
-    neg = torch.tensor(NEG_INF, dtype=lg.dtype, device=lg.device)
+    neg = torch.full((), NEG_INF, dtype=lg.dtype, device=lg.device)
     if ok.dim() == 2:
         return torch.where(ok[None, None, None], lg, neg)
     return torch.where(ok[:, None, None], lg, neg)
@@ -69,7 +69,7 @@ def mha(q, k, v, kv_of_q: np.ndarray, *, scale: float, q_pos, k_pos,
         v = v.index_select(2, idx)
         G, He = 1, Hq
 
-    qg = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    qg = (q * torch.full((), scale, dtype=q.dtype, device=q.device)
           ).reshape(B, Sq, He, G, D).to(f32)
 
     def logits_block(kb):                     # → (B,He,G,Sq,Ck) f32

@@ -95,7 +95,7 @@ def paged_attn_decode(q, k, v, kv_of_q: np.ndarray, *, scale: float,
         k = k.index_select(2, idx)
         v = v.index_select(2, idx)
         G, He = 1, Hq
-    qg = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    qg = (q * torch.full((), scale, dtype=q.dtype, device=q.device)
           ).reshape(B, Sq, He, G, D)
     lg = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(f32), k.to(f32))
     lg = softcap(lg, cap)
@@ -104,6 +104,6 @@ def paged_attn_decode(q, k, v, kv_of_q: np.ndarray, *, scale: float,
     if window is not None:
         ok = ok & (d < window)
     lg = torch.where(ok[:, None, None], lg,
-                     torch.tensor(NEG_INF, dtype=f32, device=lg.device))
+                     torch.full((), NEG_INF, dtype=f32, device=lg.device))
     out = torch.einsum("bhgqk,bkhd->bqhgd", softmax_f32(lg), v.to(f32))
     return out.reshape(B, Sq, Hq, -1).to(q.dtype)

@@ -83,8 +83,8 @@ def quantize_kv(val: torch.Tensor, mode: str):
     if mode not in _LEVELS:
         raise ValueError(f"quantize_kv: dense mode {mode!r} has no scales")
     f = val.to(torch.float32)
-    levels = torch.tensor(_LEVELS[mode], dtype=torch.float32,
-                          device=f.device)
+    levels = torch.full((), _LEVELS[mode], dtype=torch.float32,
+                        device=f.device)
     s = f.abs().amax(dim=-1) / levels
     q = torch.clamp(torch.round(f / (s[..., None] + _EPS)), -levels, levels)
     if mode == "int8":

@@ -1,7 +1,9 @@
-from .engine import Engine
-from .paged_cache import PageAllocator, PagedKVCache, pages_for
+from .engine import Engine, make_paged_decode_step, make_paged_prefill
+from .paged_cache import PageAllocator, PagedKVCache, PrefixIndex, pages_for
 from .scheduler import (Scheduler, Request, QUEUED, PREFILLING, DECODING,
                         FINISHED, EVICTED)
 from .encoded import (prepare_encoded_serving, capture_activation_stats,
                       family_row_weights, search_family_encodings,
-                      fold_linear_params, exact_encodings)
+                      fold_linear_params, exact_encodings, prepare_drafter)
+from .spec import (greedy_accept, rejection_sample, make_spec_draft,
+                   make_spec_verify)

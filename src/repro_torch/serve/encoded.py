@@ -47,6 +47,7 @@ from repro_torch.core.circuits import exact_product_circuit
 from repro_torch.core.encoding import EncodingSpec
 from repro_torch.core.layers import MacConfig
 from repro_torch.core.mac import EncodedMac, _ARTIFACT_DIR
+from repro_torch.core.macexec import check_drafter
 from repro_torch.core.search import anneal, random_search
 from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.device import resolve_device
@@ -509,3 +510,29 @@ def prepare_encoded_serving(params, cfg, *, m_bits=48, n_samples: int = 128,
               f"({info['n_folded']} folded linears, families="
               f"{sorted(info['families'])})")
     return params_enc, cfg_enc, info
+
+
+def prepare_drafter(params, cfg, *, m_bits=24, verifier=None, **kw):
+    """The speculative-decoding drafter pair ``(draft_params, draft_cfg,
+    info)`` for ``Engine(spec_decode=k, draft_params=..., draft_cfg=...)``:
+    the same fp params through ``prepare_encoded_serving`` at a lower
+    ``m_bits`` (coarser encodings, cheaper MACs, lower acceptance).  The
+    calibration knobs, ``cache_dir`` and ``device`` pass through ``kw``, so
+    drafter bundles sit beside the serving bundle and cache-hit like it.
+
+    ``verifier``: an already built ``(params_enc, cfg_enc)`` pair; when
+    its encodings were searched at the same ``m_bits`` the drafter is the
+    verifier itself (no second search or fold)."""
+    if verifier is not None:
+        p_v, c_v = verifier
+        mb = {int(m.spec.m_bits)
+              for m in (getattr(c_v.mac, "macs", None) or {}).values()}
+        if mb == {int(m_bits)}:
+            check_drafter(p_v, c_v.mac.mode)
+            return p_v, c_v, {"shared_with_verifier": True,
+                              "m_bits": int(m_bits)}
+    params_d, cfg_d, info = prepare_encoded_serving(
+        params, cfg, m_bits=m_bits, **kw)
+    check_drafter(params_d, cfg_d.mac.mode)
+    info = dict(info, shared_with_verifier=False, m_bits=int(m_bits))
+    return params_d, cfg_d, info

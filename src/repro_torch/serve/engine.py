@@ -1,29 +1,63 @@
 """Continuous-batching greedy ``Engine`` over the paged KV cache (port of
-``Engine`` from ``repro/serve/engine.py``; telemetry, speculative
-decoding, mesh, sanitizer and prefix cache wait).
+``Engine`` from ``repro/serve/engine.py``, with its prefix cache and
+speculative decoding; telemetry, mesh and sanitizer wait).
 
 A scheduler admits queued requests into a fixed number of slots under a
 page budget; each engine step runs one prefill chunk per prefilling slot
 (``(1, prefill_chunk)`` tokens, right-padded) and then one decode step for
-all ``n_slots`` rows, whatever each request's progress.  The page pools are
-updated in place by both.
+all ``n_slots`` rows, whatever each request's progress (or, with
+``spec_decode=k``, one draft + verify round).  The page pools are updated
+in place by every step.
+
+Every step the reference jits runs here as one captured CUDA graph on the
+card (``serve/graphs.py``): the prefill chunk, the decode step, the k
+unrolled draft steps and the verify forward, one graph per shape.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core.macexec import check_drafter
 from repro_torch.models import apply_model, supports_paged_cache
+from repro_torch.models.lm import paged_cache_layout
+from .graphs import Step
 from .paged_cache import PagedKVCache
 from .scheduler import DECODING, FINISHED, Request, Scheduler
+from .spec import greedy_accept, make_spec_draft, make_spec_verify
 
 
 def _percentile(xs, q: float) -> float:
     """numpy's linear-interpolation percentile; NaN on an empty sample."""
     return float(np.percentile(xs, q)) if len(xs) else float("nan")
+
+
+def make_paged_prefill(cfg):
+    """Prefill one right-padded token chunk (1, C) into its pages from
+    offset ``lens`` (0 for a fresh slot; the cached tokens for a later
+    chunk or after a prefix-cache hit).  Returns the greedy token at every
+    position (1, C) int32; the pools are written in place."""
+    def prefill(params, layers, tokens, pages, lens):
+        cache = {"layers": layers, "pages": pages, "lens": lens}
+        logits, _ = apply_model(params, cfg, tokens, cache=cache)
+        return torch.argmax(logits[..., :cfg.vocab_size],
+                            dim=-1).to(torch.int32)
+    return prefill
+
+
+def make_paged_decode_step(cfg):
+    """One greedy token (B,) int32 for every slot against the shared page
+    pools."""
+    def step(params, layers, tokens, pages, lens):
+        cache = {"layers": layers, "pages": pages, "lens": lens}
+        logits, _ = apply_model(params, cfg, tokens, cache=cache)
+        return torch.argmax(logits[:, -1, :cfg.vocab_size],
+                            dim=-1).to(torch.int32)
+    return step
 
 
 class Engine:
@@ -34,6 +68,25 @@ class Engine:
     and grows page by page, evicting the youngest running request on
     exhaustion (its generated tokens are kept and re-prefilled).
 
+    ``prefix_cache=True``: full prompt pages are hash-indexed after
+    prefill, and admission maps matching cached pages into a new request's
+    table (refcount-shared, copied on write), so only the uncached suffix
+    is prefilled.
+
+    ``spec_decode=k`` (k >= 1): each decode round drafts k greedy tokens
+    per slot with ``draft_params``/``draft_cfg`` (default: the serving
+    params) in one step, verifies all k+1 positions in one batched forward
+    over the same pools and commits the longest agreeing prefix plus a
+    bonus token.  Greedy output is token-identical to ``spec_decode=0``
+    for any drafter; build a cheap one with
+    ``repro_torch.serve.encoded.prepare_drafter``.
+
+    ``cuda_graphs``: None (default) captures every step into a CUDA graph
+    when the engine runs on the card; False runs the same step functions
+    eagerly; True on the CPU raises.  ``stats()["jit_compiles"]`` counts
+    the graphs this engine captured (each after one eager warm-up run of
+    its step, whose kernel launches count as any other).
+
     ``device`` defaults to the card; pass ``device="cpu"`` for the plain
     PyTorch versions.  ``params`` must already live on that device."""
 
@@ -41,7 +94,9 @@ class Engine:
                  page_size: int = 16, n_pages: int = 128,
                  max_seq_pages: Optional[int] = None,
                  reserve: str = "conservative", prefill_chunk: int = 32,
-                 device=None):
+                 prefix_cache: bool = False, spec_decode: int = 0,
+                 draft_params=None, draft_cfg=None, device=None,
+                 cuda_graphs: Optional[bool] = None):
         if not supports_paged_cache(cfg):
             raise ValueError(f"{cfg.arch!r} cannot serve paged")
         if prefill_chunk < 1:
@@ -54,14 +109,51 @@ class Engine:
         self.kv = PagedKVCache(cfg, n_slots, n_pages, page_size,
                                max_seq_pages, device=device)
         self.device = self.kv.device
-        self.sched = Scheduler(self.kv, reserve=reserve)
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        if cuda_graphs and self.device.type != "cuda":
+            raise ValueError("cuda_graphs=True needs the card; the engine "
+                             f"runs on {self.device}")
+        self.cuda_graphs = bool(cuda_graphs)
+        self.sched = Scheduler(self.kv, reserve=reserve,
+                               prefix_cache=prefix_cache)
+        self.spec_k = int(spec_decode)
+        if self.spec_k < 0:
+            raise ValueError("spec_decode must be >= 0")
+        step = functools.partial(Step, device=self.device,
+                                 graphs=self.cuda_graphs)
+        # the step functions by name, each one graph per engine on the card
+        self.steps = {
+            "prefill": step("prefill", functools.partial(
+                make_paged_prefill(cfg), params, self.kv.layers)),
+            "decode": step("decode", functools.partial(
+                make_paged_decode_step(cfg), params, self.kv.layers))}
+        if self.spec_k:
+            self.draft_cfg = draft_cfg if draft_cfg is not None else cfg
+            self.draft_params = (draft_params if draft_params is not None
+                                 else params)
+            check_drafter(self.draft_params, self.draft_cfg.mac.mode)
+            # the drafter writes into the verifier's pools, so its paged
+            # cache geometry must match exactly
+            if (paged_cache_layout(self.draft_cfg, 2, page_size)
+                    != paged_cache_layout(cfg, 2, page_size)):
+                raise ValueError(
+                    "spec_decode drafter cache geometry mismatch: "
+                    "draft_cfg must produce the same paged KV layout "
+                    "(layers/kv-heads/head-dim/dtype) as the serving cfg")
+            self.steps["draft"] = step("draft", functools.partial(
+                make_spec_draft(self.draft_cfg, self.spec_k),
+                self.draft_params, self.kv.layers))
+            self.steps["verify"] = step("verify", functools.partial(
+                make_spec_verify(cfg, self.spec_k), params, self.kv.layers))
         self.requests = {}
         self._next_rid = 0
         self.clock = 0
         self.counters = {"steps": 0, "decode_steps": 0, "decode_tokens": 0,
                          "prefill_tokens": 0, "prefills": 0,
                          "prefill_chunks": 0, "occupancy_sum": 0.0,
-                         "stalls": 0, "rejects": 0}
+                         "stalls": 0, "rejects": 0, "spec_rounds": 0,
+                         "spec_draft_tokens": 0, "spec_accepted_tokens": 0}
         self.step_ms = []
 
     # ---- API ---------------------------------------------------------------
@@ -127,16 +219,15 @@ class Engine:
             for req in todo:
                 chunked.add(req.rid)
                 self._prefill_chunk(req)
+        if self.spec_k:
+            self._spec_round(chunked)
+            return
         active = self._runnable()
         worked = set(chunked) | {r.rid for r in active}
         self.counters["occupancy_sum"] += len(worked) / self.kv.n_slots
         if not active:
-            if chunked or not self.sched.queue:
-                return
-            raise RuntimeError(
-                "page pool too small for the queued request "
-                f"(need {self.sched._pages_needed(self.sched.queue[0])}"
-                f" pages, {self.kv.alloc.n_free} free)")
+            self._check_progress(chunked)
+            return
         tokens = np.zeros((self.kv.n_slots, 1), np.int32)
         # refresh lens for every slotted request (stalled ones included, so
         # their dummy write this step lands past their pages → scratch;
@@ -148,7 +239,10 @@ class Engine:
                 self.kv.set_len(r.slot, r.n_cached)
         for req in active:
             tokens[req.slot, 0] = req.out[-1]
-        toks = self._decode(tokens)
+        self.kv.upload()
+        out = self.steps["decode"](tokens, self.kv.pages_buf,
+                                   self.kv.lens_buf)
+        toks = out.cpu().numpy()         # the step boundary: tokens to host
         self.counters["decode_steps"] += 1
         now = time.perf_counter()
         for req in active:
@@ -158,33 +252,98 @@ class Engine:
             if req.done:
                 self.sched.finish(req, now)
 
-    @torch.inference_mode()
-    def _decode(self, tokens: np.ndarray) -> np.ndarray:
-        """One greedy token for every slot (all ``n_slots`` rows run)."""
-        cache = {"layers": self.kv.layers, "pages": self.kv.pages_dev(),
-                 "lens": self.kv.lens_dev()}
-        logits, _ = apply_model(
-            self.params, self.cfg,
-            torch.from_numpy(tokens).to(self.device), cache=cache)
-        toks = torch.argmax(logits[:, -1, :self.cfg.vocab_size], -1)
-        return toks.cpu().numpy()       # the step boundary: tokens to host
+    def _check_progress(self, chunked) -> None:
+        """No request decodes this step: fine while prefill progresses or
+        nothing waits; a queued request that no pool could hold raises."""
+        if chunked or not self.sched.queue:
+            return
+        raise RuntimeError(
+            "page pool too small for the queued request "
+            f"(need {self.sched._pages_needed(self.sched.queue[0])}"
+            f" pages, {self.kv.alloc.n_free} free)")
 
-    @torch.inference_mode()
-    def _prefill_logits_argmax(self, padded: np.ndarray, slot: int,
-                               start: int) -> torch.Tensor:
-        cache = {"layers": self.kv.layers,
-                 "pages": self.kv.pages_dev()[slot:slot + 1],
-                 "lens": torch.tensor([start], dtype=torch.int32,
-                                      device=self.device)}
-        logits, _ = apply_model(
-            self.params, self.cfg,
-            torch.from_numpy(padded).to(self.device), cache=cache)
-        return torch.argmax(logits[..., :self.cfg.vocab_size], -1)
+    def _spec_round(self, chunked) -> None:
+        """One speculative draft + verify round (the reference's
+        ``Engine._spec_round``).
+
+        Each active slot secures a write window of ``min(k+1, tokens
+        left)`` positions it owns alone (``ensure_write_window``; on
+        failure a window of 1, else it stalls); the drafter drafts k
+        tokens (one step), the verifier scores the k+1 positions (one
+        step, reading the draft on the device) and the longest agreeing
+        prefix plus the bonus token is committed, capped at the window:
+        logits past it may have read scratch.  Rejected positions are
+        rolled back by host arithmetic on ``n_cached``.  Slotted requests
+        that do not decode get lens at the end of their own pages, so the
+        round's k+1 writes land in the scratch page."""
+        k = self.spec_k
+        active, wins = [], {}
+        for req in sorted(self.sched.active(),
+                          key=lambda r: (r.t_arrive, r.rid)):
+            if req.state != DECODING:
+                continue                    # evicted mid-loop by a peer
+            want = min(k + 1, req.max_new - len(req.out))
+            if self.sched.ensure_write_window(req, want):
+                wins[req.rid] = want
+            elif want > 1 and self.sched.ensure_write_window(req, 1):
+                wins[req.rid] = 1
+            else:
+                self.counters["stalls"] += 1
+                continue
+            active.append(req)
+        active = [r for r in active if r.state == DECODING]  # late evicts
+        worked = set(chunked) | {r.rid for r in active}
+        self.counters["occupancy_sum"] += len(worked) / self.kv.n_slots
+        if not active:
+            self._check_progress(chunked)
+            return
+        act = {r.rid for r in active}
+        for r in self.sched.slots:
+            if r is None:
+                continue
+            if r.rid in act:
+                self.kv.set_len(r.slot, r.n_cached)
+            else:
+                self.kv.set_len(r.slot, len(r.pages) * self.kv.page_size)
+        tokens = np.zeros((self.kv.n_slots, 1), np.int32)
+        for req in active:
+            tokens[req.slot, 0] = req.out[-1]
+        self.kv.upload()
+        pages, lens = self.kv.pages_buf, self.kv.lens_buf
+        draft, verify = self.steps["draft"], self.steps["verify"]
+        d_toks = draft(tokens, pages, lens)
+        # the draft stays on the device: verify joins it to the round's
+        # input tokens, so draft → verify needs no host sync
+        v_toks = verify(draft.arg(0), d_toks, pages, lens)
+        d_np, v_np = d_toks.cpu().numpy(), v_toks.cpu().numpy()
+        now = time.perf_counter()
+        r_acc = r_cons = 0
+        for req in active:
+            cons = min(k, wins[req.rid] - 1)   # draft tokens we may trust
+            d, v = d_np[req.slot], v_np[req.slot]
+            n_acc = greedy_accept(d[:cons], v[:cons])
+            emit = [int(x) for x in d[:n_acc]] + [int(v[n_acc])]
+            emit = emit[:req.max_new - len(req.out)]
+            if req.eos_id is not None:
+                for j, t in enumerate(emit):
+                    if t == req.eos_id:
+                        emit = emit[:j + 1]
+                        break
+            req.out.extend(emit)
+            req.n_cached += len(emit)
+            self.counters["decode_tokens"] += len(emit)
+            r_acc += n_acc
+            r_cons += cons
+            if req.done:
+                self.sched.finish(req, now)
+        self.counters["spec_rounds"] += 1
+        self.counters["spec_draft_tokens"] += r_cons
+        self.counters["spec_accepted_tokens"] += r_acc
 
     def _runnable(self):
-        """Decoding requests with a page for their next write, oldest
-        first (growth may evict younger requests; a request that can
-        neither grow nor evict stalls this step)."""
+        """Decoding requests with a page of their own for their next
+        write, oldest first (growth may evict younger requests; a request
+        that can neither grow nor evict stalls this step)."""
         out = []
         for req in sorted(self.sched.active(),
                           key=lambda r: (r.t_arrive, r.rid)):
@@ -198,9 +357,11 @@ class Engine:
 
     def _prefill_chunk(self, req: Request) -> None:
         """Run one fixed-shape prefill chunk for a PREFILLING request from
-        its cursor ``n_cached``.  On the final chunk the request turns
-        DECODING; a fresh request takes its first token from the last
-        prompt position, a re-admitted one keeps the tokens it had."""
+        its cursor ``n_cached`` (past the mapped pages after a prefix-cache
+        hit).  On the final chunk the request turns DECODING and its prompt
+        pages enter the prefix index; a fresh request takes its first token
+        from the last prompt position, a re-admitted one keeps the tokens
+        it had."""
         stream = req.prefill_stream()
         target = req.prefill_target
         start = req.n_cached
@@ -209,7 +370,9 @@ class Engine:
         n = int(chunk.shape[0])
         padded = np.zeros((1, C), np.int32)
         padded[0, :n] = chunk
-        toks = self._prefill_logits_argmax(padded, req.slot, start)
+        toks = self.steps["prefill"](
+            padded, self.kv.ptab[req.slot:req.slot + 1],
+            np.array([start], np.int32))
         req.n_cached = start + n
         self.kv.set_len(req.slot, req.n_cached)
         self.counters["prefill_chunks"] += 1
@@ -220,7 +383,10 @@ class Engine:
         req.state = DECODING
         req.t_prefill_done = now
         self.counters["prefills"] += 1
+        self.sched.note_prefilled(req)
         if not req.out:
+            # read before the next prefill replay overwrites the graph's
+            # output
             req.out = [int(toks[0, req.plen - 1 - start])]
             if req.t_first is None:
                 req.t_first = now
@@ -231,8 +397,9 @@ class Engine:
 
     def stats(self) -> dict:
         """Counters plus request-derived percentiles (numpy linear
-        interpolation).  Latency and TPOT are over finished requests,
-        TTFT over every request with a first token."""
+        interpolation), with the reference's prefix-cache, copy-on-write
+        and speculative keys.  Latency and TPOT are over finished
+        requests, TTFT over every request with a first token."""
         reqs = list(self.requests.values())
         fin = [r for r in reqs if r.state == FINISHED]
         lat = [r.t_finish - r.t_arrive for r in fin]
@@ -240,11 +407,20 @@ class Engine:
                 if r.t_first is not None]
         tpot = [(r.t_finish - r.t_first) / (len(r.out) - 1) for r in fin
                 if r.t_first is not None and len(r.out) > 1]
+        pfx = self.sched.prefix
+        on = pfx is not None        # NOT truthiness: an empty index is falsy
         m = dict(self.counters)
         m.update({
             "finished": len(fin),
             "admissions": self.sched.n_admissions,
             "evictions": self.sched.n_evictions,
+            "cow_copies": self.sched.n_cow_copies,
+            "prefix_cache": on,
+            "prefix_hit_tokens": pfx.hit_tokens if on else 0,
+            "prefix_lookup_tokens": pfx.lookup_tokens if on else 0,
+            "prefix_hit_rate": pfx.hit_rate if on else 0.0,
+            "prefix_windowed_hit_rate": pfx.windowed_hit_rate if on else 0.0,
+            "prefix_pages_indexed": len(pfx) if on else 0,
             "occupancy": (m["occupancy_sum"] / m["steps"]
                           if m["steps"] else 0.0),
             "latency_p50_s": _percentile(lat, 50),
@@ -256,6 +432,7 @@ class Engine:
             "step_ms_p50": _percentile(self.step_ms, 50),
             "step_ms_p99": _percentile(self.step_ms, 99),
             "pages_free": self.kv.alloc.n_free_strict,
+            "pages_cached": self.kv.alloc.n_cached,
             "pages_held": self.kv.alloc.n_held,
             "kv_pool_bytes": self.kv.mem_bytes(),
             "kv_bytes_per_token": self.kv.kv_bytes_per_token(),
@@ -268,5 +445,19 @@ class Engine:
             "mac_mode": self.cfg.mac.mode,
             "attention_backend": self.cfg.attention_backend,
             "device": str(self.device),
+            "cuda_graphs": self.cuda_graphs,
+            "jit_compiles": sum(s.captures for s in self.steps.values()),
+            "jit_compiles_by_step": {n: s.captures
+                                     for n, s in self.steps.items()},
         })
+        if self.spec_k:
+            rounds, prop = m["spec_rounds"], m["spec_draft_tokens"]
+            m.update({
+                "spec_decode_k": self.spec_k,
+                "spec_acceptance_rate": (m["spec_accepted_tokens"] / prop
+                                         if prop else 0.0),
+                "spec_tokens_per_round": (m["decode_tokens"] / rounds
+                                          if rounds else 0.0),
+                "draft_mac_mode": self.draft_cfg.mac.mode,
+            })
         return m

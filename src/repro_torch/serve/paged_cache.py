@@ -1,18 +1,24 @@
 """Host-side paged-KV management (port of ``repro/serve/paged_cache.py``):
-the refcounted page allocator and the device-pool wrapper.
+the refcounted page allocator, the prefix index and the device-pool
+wrapper.
 
   * ``PageAllocator`` — refcounted allocation over pool page ids with an
-    LRU *cached* tier (the prefix index's parking lot; its state machine
-    is kept whole even though the prefix index itself is not ported yet).
+    LRU *cached* tier: a page whose refcount drops to zero while the
+    prefix index holds its contents parks there, reusable but evictable.
     Page 0 is the reserved scratch page, so ids handed out are in
     ``[1, n_pages)``.
+  * ``PrefixIndex`` — maps hash-chained full pages of prompt tokens to the
+    pool page holding their K/V, so admission can map cached prefix pages
+    into a new request's page table and skip prefilling those tokens.
   * ``PagedKVCache`` — the device pools plus per-slot page tables and
-    lengths (numpy, mirrored to the device each engine step).
+    lengths (numpy, written by the scheduler and copied into static device
+    buffers before each step).
 """
 from __future__ import annotations
 
+import hashlib
 import math
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -118,13 +124,120 @@ class PageAllocator:
             self._free.append(page)
 
 
+class PrefixIndex:
+    """Host-side prefix cache: full immutable pages of prompt tokens,
+    keyed by a hash chain, mapped to the pool page holding their K/V.
+
+    The chain key of page ``i`` is a SHA-256 digest over the parent digest
+    and the page's raw int32 token bytes, so it commits to every token of
+    pages ``0..i`` and is the same in every process.  ``match`` retains
+    every page it returns (the caller frees them through the allocator)
+    and always leaves at least one token unmatched, so the logits that
+    seed decoding are recomputed."""
+
+    WINDOW = 32                                 # admissions per hit window
+
+    def __init__(self, alloc: PageAllocator, page_size: int):
+        self.alloc = alloc
+        self.page_size = page_size
+        self._pages: Dict[bytes, int] = {}      # chain digest → page id
+        self._keys: Dict[int, bytes] = {}       # page id → chain digest
+        alloc.on_evict = self.drop_page
+        self.hit_tokens = 0
+        self.lookup_tokens = 0
+        # (hit, lookup) token pairs of the latest admissions
+        self._recent: "deque[tuple]" = deque(maxlen=self.WINDOW)
+
+    def __len__(self) -> int:
+        return len(self._pages)
+
+    def chain_keys(self, tokens: np.ndarray) -> List[bytes]:
+        """Chain digest of each full page of ``tokens`` (callers memoize it
+        per request)."""
+        ps = self.page_size
+        keys: List[bytes] = []
+        h = b""
+        for i in range(len(tokens) // ps):
+            blk = np.asarray(tokens[i * ps:(i + 1) * ps], np.int32).tobytes()
+            h = hashlib.sha256(h + blk).digest()
+            keys.append(h)
+        return keys
+
+    def match(self, tokens: np.ndarray, n_target: Optional[int] = None,
+              keys: Optional[List[bytes]] = None) -> List[int]:
+        """Longest cached page-chain prefix of ``tokens``, capped so at
+        least one of the first ``n_target`` (default ``len(tokens)``)
+        tokens remains to prefill.  Every returned page is retained; the
+        hit counters are left to ``record``."""
+        n_target = len(tokens) if n_target is None else n_target
+        cap = max(0, (n_target - 1) // self.page_size)
+        if keys is None:
+            keys = self.chain_keys(tokens)
+        out: List[int] = []
+        for i, key in enumerate(keys):
+            if i >= cap:
+                break
+            page = self._pages.get(key)
+            if page is None:
+                break
+            self.alloc.retain(page)
+            out.append(page)
+        return out
+
+    def record(self, n_hit_pages: int, n_target: int) -> None:
+        """Commit one admission's hit and lookup token counts."""
+        self.lookup_tokens += n_target
+        self.hit_tokens += n_hit_pages * self.page_size
+        self._recent.append((n_hit_pages * self.page_size, n_target))
+
+    def insert(self, tokens: np.ndarray, pages: List[int],
+               keys: Optional[List[bytes]] = None) -> int:
+        """Register the full-page prefix of ``tokens`` held in ``pages``;
+        the first writer of a key wins.  Returns the pages newly indexed."""
+        added = 0
+        if keys is None:
+            keys = self.chain_keys(tokens)
+        for i, key in enumerate(keys):
+            if i >= len(pages):
+                break
+            if key in self._pages:
+                continue
+            page = pages[i]
+            if page in self._keys:          # page already backs another key
+                continue
+            self._pages[key] = page
+            self._keys[page] = key
+            self.alloc.mark_cached(page)
+            added += 1
+        return added
+
+    def drop_page(self, page: int) -> None:
+        key = self._keys.pop(page, None)
+        if key is not None:
+            self._pages.pop(key, None)
+        self.alloc.unmark_cached(page)
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hit_tokens / self.lookup_tokens if self.lookup_tokens \
+            else 0.0
+
+    @property
+    def windowed_hit_rate(self) -> float:
+        """Hit rate over the last ``WINDOW`` admissions only."""
+        lookup = sum(n for _, n in self._recent)
+        return sum(h for h, _ in self._recent) / lookup if lookup else 0.0
+
+
 class PagedKVCache:
     """Device page pools + host page tables for a fixed slot count.
 
-    ``layers`` holds the per-layer pools, written in place by every
-    prefill and decode step; ``ptab``/``lens`` are numpy, written by the
-    scheduler and uploaded as small int32 tensors each step.  Unassigned
-    table entries stay 0 → scratch page."""
+    ``layers`` holds the per-layer pools, written in place by every step
+    and never replaced (a captured CUDA graph holds their addresses);
+    ``ptab``/``lens`` are numpy, written by the scheduler and copied by
+    ``upload`` into the static device buffers ``pages_buf``/``lens_buf``
+    that every batched step reads.  Unassigned table entries stay 0 →
+    scratch page."""
 
     def __init__(self, cfg, n_slots: int, n_pages: int, page_size: int,
                  max_seq_pages: int, *, device=None):
@@ -141,6 +254,11 @@ class PagedKVCache:
         self.alloc = PageAllocator(n_pages)
         self.ptab = np.zeros((n_slots, self.max_seq_pages), np.int32)
         self.lens = np.zeros((n_slots,), np.int32)
+        # one device block, so one copy uploads the table and the lens
+        self._block = torch.zeros(self.ptab.size + n_slots,
+                                  dtype=torch.int32, device=self.device)
+        self.pages_buf = self._block[:self.ptab.size].view(self.ptab.shape)
+        self.lens_buf = self._block[self.ptab.size:]
 
     @property
     def max_seq_tokens(self) -> int:
@@ -158,11 +276,19 @@ class PagedKVCache:
         self.ptab[slot] = 0
         self.lens[slot] = 0
 
-    def pages_dev(self) -> torch.Tensor:
-        return torch.from_numpy(self.ptab.copy()).to(self.device)
+    def copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write support: duplicate one pool page in place, in
+        every layer's k and v pools and, for quantized pools, their scale
+        rows (page axis first in all of them).  No tensor is replaced."""
+        for st in self.layers:
+            for t in st.values():
+                t[dst].copy_(t[src])
 
-    def lens_dev(self) -> torch.Tensor:
-        return torch.from_numpy(self.lens.copy()).to(self.device)
+    def upload(self) -> None:
+        """Copy the host page table and lens into ``pages_buf`` /
+        ``lens_buf`` (one synchronous host-to-device copy)."""
+        self._block.copy_(torch.from_numpy(
+            np.concatenate([self.ptab.ravel(), self.lens])))
 
     def pool_bytes(self) -> int:
         """Device pool bytes: every layer's k and v value pools and, for

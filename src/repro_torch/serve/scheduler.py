@@ -1,6 +1,6 @@
-"""Continuous-batching scheduler (port of ``repro/serve/scheduler.py``
-without the prefix index): request queue, FCFS admission under a page
-budget, page growth with eviction by recompute.
+"""Continuous-batching scheduler (port of ``repro/serve/scheduler.py``):
+request queue, FCFS admission under a page budget with optional prefix
+caching, page growth with copy-on-write and eviction by recompute.
 
 Request states::
 
@@ -23,7 +23,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from .paged_cache import PagedKVCache, pages_for
+from .paged_cache import PagedKVCache, PrefixIndex, pages_for
 
 QUEUED, PREFILLING, DECODING, FINISHED, EVICTED = (
     "queued", "prefilling", "decoding", "finished", "evicted")
@@ -46,6 +46,10 @@ class Request:
     t_first: Optional[float] = None
     t_prefill_done: Optional[float] = None
     t_finish: Optional[float] = None
+    # memoized prefix-index chain digests of the (immutable) prompt, so a
+    # blocked head-of-line request is not re-hashed every scheduler tick
+    prefix_keys: Optional[List[bytes]] = dataclasses.field(
+        default=None, repr=False)
 
     @property
     def plen(self) -> int:
@@ -75,15 +79,19 @@ class Request:
 class Scheduler:
     """FCFS continuous-batching scheduler over a PagedKVCache."""
 
-    def __init__(self, kv: PagedKVCache, reserve: str = "conservative"):
+    def __init__(self, kv: PagedKVCache, reserve: str = "conservative",
+                 prefix_cache: bool = False):
         if reserve not in ("conservative", "optimistic"):
             raise ValueError(f"unknown reserve policy {reserve!r}")
         self.kv = kv
         self.reserve = reserve
+        self.prefix: Optional[PrefixIndex] = (
+            PrefixIndex(kv.alloc, kv.page_size) if prefix_cache else None)
         self.queue: deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * kv.n_slots
         self.n_evictions = 0
         self.n_admissions = 0
+        self.n_cow_copies = 0
 
     def submit(self, req: Request) -> None:
         max_tokens = self.kv.max_seq_tokens
@@ -112,19 +120,34 @@ class Scheduler:
 
     def admissions(self) -> List[Tuple[int, Request]]:
         """Admit queued requests into free slots while pages last (FCFS,
-        head-of-line blocking)."""
+        head-of-line blocking).
+
+        With the prefix index, cached full prompt pages are mapped (shared,
+        refcounted) into the request's page table first and only the rest
+        is allocated; ``req.n_cached`` starts at the hit length, so only
+        the uncached suffix is prefilled."""
         out = []
         free = [i for i, r in enumerate(self.slots) if r is None]
         while self.queue and free:
             req = self.queue[0]
-            pages = self.kv.alloc.alloc(self._pages_needed(req))
+            cached: List[int] = []
+            if self.prefix is not None:
+                if req.prefix_keys is None:
+                    req.prefix_keys = self.prefix.chain_keys(req.prompt)
+                cached = self.prefix.match(req.prompt, req.prefill_target,
+                                           keys=req.prefix_keys)
+            pages = self.kv.alloc.alloc(self._pages_needed(req) - len(cached))
             if pages is None:
+                if cached:                   # undo the retains: the pages
+                    self.kv.alloc.free(cached)   # return to the cached tier
                 break                        # head-of-line: wait for pages
             self.queue.popleft()
             slot = free.pop(0)
+            if self.prefix is not None:
+                self.prefix.record(len(cached), req.prefill_target)
             req.slot, req.state = slot, PREFILLING
-            req.pages = pages
-            req.n_cached = 0
+            req.pages = cached + pages
+            req.n_cached = len(cached) * self.kv.page_size
             req.t_admit = time.perf_counter()
             self.slots[slot] = req
             self.kv.set_pages(slot, req.pages)
@@ -133,19 +156,45 @@ class Scheduler:
             out.append((slot, req))
         return out
 
+    def note_prefilled(self, req: Request) -> None:
+        """Register a fully prefilled request's full prompt pages in the
+        prefix index (their K/V is now valid and immutable)."""
+        if self.prefix is not None:
+            self.prefix.insert(req.prompt, req.pages, keys=req.prefix_keys)
+
     def ensure_page(self, req: Request) -> bool:
-        """Make sure the page for the next write position exists, growing
-        by one page (reclaiming cached pages, then evicting a strictly
-        younger running request).  False → no page and no younger victim:
-        ``req`` keeps its pages and stalls this step.  (Without the prefix
-        index no page is ever shared, so no copy-on-write is needed.)"""
+        """Make sure the page for the next write position exists and is
+        owned by ``req`` alone: ``ensure_write_window(req, 1)``."""
+        return self.ensure_write_window(req, 1)
+
+    def ensure_write_window(self, req: Request, n: int) -> bool:
+        """Make the next ``n`` write positions ``[n_cached, n_cached + n)``
+        land in pages ``req`` owns alone: grow page by page (reclaiming
+        cached pages, then evicting a strictly younger running request)
+        and copy any shared page first (copy-on-write).  False → no page
+        and no younger victim: ``req`` keeps the pages it holds and stalls
+        this step (or the engine retries with a smaller window)."""
         ps = self.kv.page_size
-        while req.n_cached >= len(req.pages) * ps:
+        last = req.n_cached + n - 1
+        while last >= len(req.pages) * ps:
             grown = self._alloc_or_evict(req, 1)
             if grown is None:
                 return False
             req.pages.extend(grown)
             self.kv.set_pages(req.slot, req.pages)
+        # never write into a page another sequence (or the prefix index
+        # through a peer) still references
+        for idx in range(req.n_cached // ps, last // ps + 1):
+            page = req.pages[idx]
+            if self.kv.alloc.refcount(page) > 1:
+                fresh = self._alloc_or_evict(req, 1)
+                if fresh is None:
+                    return False
+                self.kv.copy_page(page, fresh[0])
+                req.pages[idx] = fresh[0]
+                self.kv.alloc.free([page])
+                self.kv.set_pages(req.slot, req.pages)
+                self.n_cow_copies += 1
         return True
 
     def _alloc_or_evict(self, req: Request, n: int) -> Optional[List[int]]:

@@ -47,7 +47,8 @@ def test_no_jax_or_reference_imports():
         assert f"repro_torch.{sub}" in out["modules"]
     for mod in ("launch.serve", "kernels.flash_attention",
                 "kernels.paged_attention", "quant.kvcache", "nn.paged",
-                "core.search", "ckpt.checkpoint", "parallel.sharding"):
+                "core.search", "ckpt.checkpoint", "parallel.sharding",
+                "serve.spec", "serve.graphs"):
         assert f"repro_torch.{mod}" in out["modules"]
 
 

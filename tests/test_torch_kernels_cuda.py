@@ -392,3 +392,79 @@ def test_flash_tf32x3_prefill_error(cuda_device):
     ref = tfa.flash_attention_plain(q, k, v, scale=0.125)
     torch.cuda.synchronize()
     assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Hq,Hkv", [(5, 16, 16), (9, 16, 16), (9, 8, 2),
+                                       (16, 16, 16)])
+def test_paged_attn_kernel_at_verify_shapes(cuda_device, Sq, Hq, Hkv):
+    """Speculative verification's Sq = k+1 query tokens per row, with a
+    row whose queries run past its page table (a scratch row)."""
+    ps, D, P = 16, 64, 127
+    lens = np.asarray([0, 100, P * ps - Sq, P * ps], np.int32)
+    rng = np.random.default_rng(Sq)
+    n_pages = 1 + len(lens) * P
+    t = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+    pages = np.stack([1 + b * P + rng.permutation(P)
+                      for b in range(len(lens))]).astype(np.int32)
+    args = (t(len(lens), Sq, Hq, D), t(n_pages, ps, Hkv, D),
+            t(n_pages, ps, Hkv, D), torch.from_numpy(pages).to(cuda_device),
+            torch.from_numpy(lens).to(cuda_device))
+    before = tpa.paged_attn.sq_launches[Sq]
+    out = tpa.paged_attn(*args, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert tpa.paged_attn.sq_launches[Sq] == before + 1
+    ref = tpa.paged_attn_plain(*args, tpa._NO_WINDOW, scale=D ** -0.5,
+                               G=Hq // Hkv)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_engine_graphs_give_the_eager_tokens(cuda_device, mode):
+    """Reduced qwen1.5-0.5b, exact encoding, fused paged attention: the
+    engine's CUDA graphs give the eager engine's tokens, with and without
+    speculative decoding and the prefix cache, and the kernels' launch
+    counts of a graphed serve are the eager serve's plus one warm-up
+    forward per captured step."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, to_device
+    from repro_torch.serve import (Engine, exact_encodings,
+                                   prepare_encoded_serving)
+    from repro_torch.serve.graphs import launch_counts
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              attention_backend="kernel")
+    with tempfile.TemporaryDirectory() as cache:
+        pe, ce, _ = prepare_encoded_serving(
+            init_model(cfg, seed=0, device="cpu"), cfg,
+            macs_override=exact_encodings(8), device="cpu", cache_dir=cache,
+            verbose=False)
+    pe = to_device(pe, cuda_device)
+    ce = dataclasses.replace(ce, kv_cache_dtype=mode)
+    rng = np.random.default_rng(0)
+    trace = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in (40, 13, 70, 7, 50, 33)]
+
+    def serve(**kw):
+        eng = Engine(pe, ce, n_slots=4, page_size=16, n_pages=64,
+                     device=cuda_device, **kw)
+        rids = [eng.submit(p, max_new=8) for p in trace]
+        before = launch_counts()["encoded_matmul"]
+        res = eng.run()
+        torch.cuda.synchronize()
+        return ([res[r].tolist() for r in rids], eng.stats(),
+                launch_counts()["encoded_matmul"] - before)
+
+    eager, st_e, n_e = serve(cuda_graphs=False)
+    graphed, st_g, n_g = serve()
+    assert graphed == eager
+    assert st_e["jit_compiles"] == 0 and st_g["jit_compiles"] == 2
+    assert n_g == n_e + 2 * 7 * cfg.n_layers
+    for kw in (dict(spec_decode=4), dict(spec_decode=8, prefix_cache=True),
+               dict(prefix_cache=True)):
+        out, st, _ = serve(**kw)
+        assert out == eager, kw
+        assert st["jit_compiles"] == (3 if kw.get("spec_decode") else 2)

@@ -120,8 +120,8 @@ def test_gqa_group_and_irregular_maps():
         _port(q, pk, pv, pages, np.zeros(2, np.int32),
               np.asarray([0, 1, 0, 1]), scale=1.0)
     with pytest.raises(ValueError):          # Sq above the fold bound
-        q9 = np.zeros((2, 9, 4, 8), np.float32)
-        _port(q9, pk, pv, pages, np.zeros(2, np.int32), None, scale=1.0)
+        q_big = np.zeros((2, tpa.MAX_SQ + 1, 4, 8), np.float32)
+        _port(q_big, pk, pv, pages, np.zeros(2, np.int32), None, scale=1.0)
 
 
 @pytest.mark.parametrize("window,cap", [(None, None), (5, 30.0)])
