@@ -115,6 +115,8 @@ PEAK_F32 = 67e12
 
 N_REQUESTS, MAX_NEW = 8, 32
 N_SLOTS, PAGE_SIZE, N_PAGES = 4, 16, 256
+# speculative decoding's main draft length (phase 6d also serves k = 8)
+SPEC_K = 4
 SERVE_P = 127          # the serve's page table: Engine's max_seq_pages
 
 
@@ -218,6 +220,12 @@ def phase_kernel1(dev):
     assert max(len(t) for t in sampled.a_mono_tuples) == 3
     cases = [("exact", exact, m, k, n) for m in (1, 4, 32)
              for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
+    # speculative verification's m = n_slots·(k+1): 20 at k = 4, 36 at
+    # k = 8 (two 32-row passes)
+    cases += [(tag, prog, m, k, n)
+              for tag, prog in (("exact", exact), ("sampled48", sampled))
+              for m in (N_SLOTS * (SPEC_K + 1), N_SLOTS * (8 + 1))
+              for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
     cases += [("sampled48", sampled, 4, 1024, 2816),
               ("sampled48", sampled, 32, 2816, 1024),
               ("ragged", exact, 100, 130, 70),
@@ -483,12 +491,12 @@ def _serve(params, cfg, trace, device, max_new: int = MAX_NEW, **kw):
 
 
 def _reset_counts():
-    from repro_torch.serve.graphs import set_launch_counts
+    from repro_torch.kernels.counts import set_launch_counts
     set_launch_counts({})
 
 
 def _read_counts():
-    from repro_torch.serve.graphs import launch_counts
+    from repro_torch.kernels.counts import launch_counts
     return {k: dict(v) if isinstance(v, dict) else v
             for k, v in launch_counts().items()}
 
@@ -765,7 +773,7 @@ def step_split(dev, params, cfg, trace, steps: int = 10):
             e.record()
             torch.cuda.synchronize()
             dev_ms = s.elapsed_time(e) / steps
-            split = _replay_split(g)
+            split = _replay_split(eng.steps["decode"])
         del eng
     log(f"[step] {N_SLOTS} slots decoding: engine step {host[True]:.3f} ms "
         f"with CUDA graphs, {host[False]:.3f} ms eager, on the host clock; "
@@ -776,23 +784,37 @@ def step_split(dev, params, cfg, trace, steps: int = 10):
             "replay_ms": dev_ms, "kernels": split}
 
 
-def _replay_split(graph):
-    """Device time of one replay of ``graph`` by kind of kernel
+# the kernels a graph's replay counts, by a word of their device names
+GRAPH_KERNELS = {"encoded_matmul": "encoded_matmul", "paged_attn": "paged_attn",
+                 "flash_attention": "flash_fwd"}
+
+
+def _replay_split(step):
+    """Device time of one replay of ``step``'s graph by kind of kernel
     (``torch.profiler``): kernel 1, kernel 2, the library's matrix
-    products (the LM head) and every other kernel, in ms, with counts."""
+    products (the LM head) and every other kernel, in ms, with counts.
+    Fails unless the replay ran each hand-written kernel as many times as
+    the step adds to its launch counter per replay (``Step.delta``)."""
     from repro_torch.launch.kernel_bench import cuda_kernel_times
     out = collections.defaultdict(lambda: [0.0, 0])
-    events = cuda_kernel_times(graph.replay)
+    events = cuda_kernel_times(step.graph.replay)
     for name, us in events:
-        kind = ("encoded_matmul" if "encoded_matmul" in name else
-                "paged_attn" if "paged_attn" in name else
-                "library_gemm" if "gemm" in name.lower() else "other")
+        kind = next((k for k, word in GRAPH_KERNELS.items() if word in name),
+                    "library_gemm" if "gemm" in name.lower() else "other")
         out[kind][0] += us / 1e3
         out[kind][1] += 1
     total = sum(v[0] for v in out.values())
-    log(f"[step] one decode replay under torch.profiler: {len(events)} "
-        f"device kernels, {total:.3f} ms of kernel time: " + ", ".join(
-            f"{k} {v[0]:.3f} ms in {v[1]}" for k, v in sorted(out.items())))
+    log(f"[step] one {step.name} replay under torch.profiler: "
+        f"{len(events)} device kernels, {total:.3f} ms of kernel time: " +
+        ", ".join(f"{k} {v[0]:.3f} ms in {v[1]}"
+                  for k, v in sorted(out.items())))
+    ran = {k: out[k][1] if k in out else 0 for k in GRAPH_KERNELS}
+    counted = {k: step.delta[k] for k in GRAPH_KERNELS}
+    log(f"[step] {step.name} graph: kernels run per replay {ran}, counted "
+        f"per replay {counted}: {'equal' if ran == counted else 'DIFFER'}")
+    if ran != counted:
+        raise AssertionError(f"the {step.name} graph runs {ran} kernels but "
+                             f"its replays count {counted}")
     return {k: v[0] for k, v in out.items()}
 
 
@@ -886,8 +908,6 @@ def phase_prefix(dev, info):
             "cow_copies": st["cow_copies"]}
 
 
-SPEC_K = 4
-
 
 def phase_spec(dev, info):
     """Speculative decoding at full width over the main trace, graphed:
@@ -944,6 +964,7 @@ def phase_spec(dev, info):
         warm_p50 = float(np.percentile(eng.step_ms[n0:], 50))
         replay = {}
         for step in ("draft", "verify"):
+            _replay_split(eng.steps[step])
             g = eng.steps[step].graph
             s_ev, e_ev = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
@@ -1372,8 +1393,12 @@ def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib):
     from repro_torch.launch.kernel_bench import time_graph
     U = prog.n_a_planes
     sets = _em_case(dev, prog, m, k, n, seed=seed, copies=4)
-    err = (em.encoded_matmul(*sets[0])
-           - em.encoded_matmul_plain(*sets[0])).abs().max().item()
+    out, ref = em.encoded_matmul(*sets[0]), em.encoded_matmul_plain(*sets[0])
+    err = (out - ref).abs().max().item()
+    if not torch.allclose(out, ref, rtol=1e-4,
+                          atol=1e-4 * ref.abs().max().item()):
+        raise AssertionError(f"{name}: kernel 1 disagrees with plain "
+                             f"(max abs err {err:.3e})")
     ms = time_graph(em.encoded_matmul, sets)
     plain_ms = time_loop(em.encoded_matmul_plain, sets)
     lib_sets = [(planes_ref(x, sh).to(torch.bfloat16).permute(1, 0, 2)
@@ -1416,16 +1441,18 @@ def phase_measure(dev, serve_info):
                 dev, prog, m, k, n, 1, f"encoded_matmul_m{m}_k{k}_n{n}",
                 by_shape.get((m, k, n), 0),
                 "decode" if m == N_SLOTS else "prefill", lib))
-    # kernel 1 at speculative verification's shape, m = n_slots·(k+1) = 20
-    # at k = 4, exact U; launches are the self-drafter k = 4 serve's
-    m = N_SLOTS * (SPEC_K + 1)
-    v_shape = serve_info["spec"][f"self_k{SPEC_K}"]["counts"][
-        "encoded_matmul_by_shape"]
-    for k, n in shapes:
-        rows.append(_em_row(
-            dev, prog, m, k, n, 3, f"encoded_matmul_m{m}_k{k}_n{n}",
-            v_shape.get((m, k, n), 0), f"speculative verify, k={SPEC_K}",
-            lib))
+    # kernel 1 at speculative verification's shapes, m = n_slots·(k+1):
+    # 20 at k = 4 and 36 at k = 8, exact U; launches are the self-drafter
+    # serve's with that k
+    for sk in (SPEC_K, 8):
+        m = N_SLOTS * (sk + 1)
+        v_shape = serve_info["spec"][f"self_k{sk}"]["counts"][
+            "encoded_matmul_by_shape"]
+        for k, n in shapes:
+            rows.append(_em_row(
+                dev, prog, m, k, n, 3, f"encoded_matmul_m{m}_k{k}_n{n}",
+                v_shape.get((m, k, n), 0), f"speculative verify, k={sk}",
+                lib))
     # kernel 1 at the searched U of phase 6b, at its three decode shapes:
     # (k, n) of wq, wi and the MLP's wo with that family's monomials
     search = serve_info["search"]

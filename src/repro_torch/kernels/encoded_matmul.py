@@ -32,7 +32,6 @@ the f32 fold to bf16 at every call (``encoded_matmul.py:105``,
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -41,6 +40,7 @@ import numpy as np
 import torch
 
 from . import build
+from .counts import register
 from .ref import planes_ref
 
 MAX_MONOS = 92          # csrc kMaxMonos: C(8,1)+C(8,2)+C(8,3), any 8-bit program
@@ -193,6 +193,5 @@ def encoded_matmul(x_codes: torch.Tensor, wt: torch.Tensor,
     return out
 
 
-encoded_matmul.launches = 0
-# launches by (m, k, n), counted with ``launches``
-encoded_matmul.shape_launches = collections.Counter()
+# launches, and by (m, k, n) in ``shape_launches``
+register(encoded_matmul, encoded_matmul_by_shape="shape_launches")

@@ -44,6 +44,7 @@ import functools
 import torch
 
 from . import build
+from .counts import register
 
 NEG_INF = -2.0e38
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -212,4 +213,4 @@ def flash_attention(q, k, v, *, scale: float = 1.0, causal: bool = True,
     return out
 
 
-flash_attention.launches = 0
+register(flash_attention)

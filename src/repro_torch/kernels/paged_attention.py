@@ -46,7 +46,6 @@ launch.  The reference kernel has no cap; this one is sized for k ≤ 15
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import Optional
@@ -55,6 +54,7 @@ import numpy as np
 import torch
 
 from . import build
+from .counts import register
 from .encoded_matmul import _cdiv, _sm_count
 from repro_torch.quant.kvcache import dequantize_kv, kv_mode_of
 
@@ -334,6 +334,5 @@ def paged_attn(q, pool_k, pool_v, pages, lens, *, scale: float,
     return out
 
 
-paged_attn.launches = 0
-# launches by query tokens per row (Sq), counted with ``launches``
-paged_attn.sq_launches = collections.Counter()
+# launches, and by query tokens per row (Sq) in ``sq_launches``
+register(paged_attn, paged_attn_by_sq="sq_launches")

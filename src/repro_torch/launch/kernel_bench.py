@@ -1,7 +1,7 @@
 """Time the port's kernels at the main path's shapes on one card.
 
     python src/repro_torch/launch/kernel_bench.py [--src DIR] [--tag NAME]
-        [--only em,paged,flash]
+        [--only em,paged,paged_sq,flash]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is built and
 timed (by default this checkout's), so that two checkouts can be compared
@@ -13,8 +13,9 @@ graph of 40 calls rotating over inputs past the 50 MB L2), max error
 against the plain version, the bound, and the library call's ms for the
 same function where there is one.  Kernel 1 at its six shapes; kernel 2
 (paged attention, 4 slots x 16 heads x D 64, lens 100-400) with dense
-f32, int8 and int4 pools at page tables of 32 and 127 pages; kernel 3
-(flash attention) in f32 and bf16 at the prefill shape.
+f32, int8 and int4 pools at page tables of 32 and 127 pages, and with
+``paged_sq`` (not by default) against Sq = 1..16 query tokens per row;
+kernel 3 (flash attention) in f32 and bf16 at the prefill shape.
 """
 from __future__ import annotations
 
@@ -189,6 +190,48 @@ def bench_paged(tag):
                   flush=True)
 
 
+def bench_paged_sq(tag):
+    """Kernel 2 against query tokens per row (Sq), dense f32 pools at the
+    serve's 127-page table: how its time follows the rows a pass holds
+    (``rows_per_pass``, the smallest power of 2 that holds Sq·G, at most
+    8 for f32) and the passes over the pages (``passes``)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    B, H, D, ps, P = 4, 16, 64, 16, 127
+    lens = [100, 200, 300, 400]
+    for sq in (1, 2, 3, 4, 5, 8, 9, 16):
+        rng = np.random.default_rng(sq)
+        t = lambda *shape: torch.from_numpy(  # noqa: E731
+            rng.normal(size=shape).astype(np.float32)).cuda()
+        sets = []
+        for _ in range(8):
+            pages = torch.from_numpy(np.stack(
+                [1 + b * P + rng.permutation(P) for b in range(B)])
+                .astype(np.int32)).cuda()
+            sets.append((t(B, sq, H, D), t(1 + B * P, ps, H, D),
+                         t(1 + B * P, ps, H, D), pages,
+                         torch.tensor(lens, dtype=torch.int32).cuda()))
+
+        def kern(q, pk, pv, pg, ln):
+            return pa.paged_attn(q, pk, pv, pg, ln, scale=D ** -0.5)
+
+        out = kern(*sets[0])
+        ref = pa.paged_attn_plain(*sets[0], 2 ** 30, scale=D ** -0.5, G=1)
+        err = (out - ref).abs().max().item()
+        ms = time_graph(kern, sets)
+        rp = min(8, 1 << (sq - 1).bit_length())
+        read = sum((n + sq - 1) // ps + 1 for n in lens)
+        nbytes = (2 * B * sq * H * D * 4 + 2 * read * ps * H * D * 4
+                  + read * 4 + B * 4)
+        print(json.dumps({"tag": tag, "kernel": "paged_attn_sq",
+                          "pools": "f32", "B": B, "H": H, "D": D, "ps": ps,
+                          "P": P, "lens": lens, "Sq": sq,
+                          "rows_per_pass": rp, "passes": -(-sq // rp),
+                          "ms": ms, "bound_ms": nbytes / 3.35e12 * 1e3,
+                          "max_abs_err": err}), flush=True)
+
+
 def bench_flash(tag):
     import numpy as np
     import torch
@@ -229,7 +272,7 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
     ap.add_argument("--tag", default="this")
     ap.add_argument("--only", default="em,paged,flash",
-                    help="comma-separated: em, paged, flash")
+                    help="comma-separated: em, paged, paged_sq, flash")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -237,7 +280,8 @@ def main() -> int:
         raise SystemExit("kernel_bench: needs an NVIDIA card")
     from repro_torch.kernels import build
     build.build()
-    benches = {"em": bench_em, "paged": bench_paged, "flash": bench_flash}
+    benches = {"em": bench_em, "paged": bench_paged,
+               "paged_sq": bench_paged_sq, "flash": bench_flash}
     for name in args.only.split(","):
         benches[name](args.tag)
     return 0

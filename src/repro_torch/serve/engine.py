@@ -239,9 +239,7 @@ class Engine:
                 self.kv.set_len(r.slot, r.n_cached)
         for req in active:
             tokens[req.slot, 0] = req.out[-1]
-        self.kv.upload()
-        out = self.steps["decode"](tokens, self.kv.pages_buf,
-                                   self.kv.lens_buf)
+        out = self.steps["decode"](tokens, self.kv.ptab, self.kv.lens)
         toks = out.cpu().numpy()         # the step boundary: tokens to host
         self.counters["decode_steps"] += 1
         now = time.perf_counter()
@@ -308,13 +306,12 @@ class Engine:
         tokens = np.zeros((self.kv.n_slots, 1), np.int32)
         for req in active:
             tokens[req.slot, 0] = req.out[-1]
-        self.kv.upload()
-        pages, lens = self.kv.pages_buf, self.kv.lens_buf
         draft, verify = self.steps["draft"], self.steps["verify"]
-        d_toks = draft(tokens, pages, lens)
-        # the draft stays on the device: verify joins it to the round's
-        # input tokens, so draft → verify needs no host sync
-        v_toks = verify(draft.arg(0), d_toks, pages, lens)
+        d_toks = draft(tokens, self.kv.ptab, self.kv.lens)
+        # the draft stays on the device: verify reads it, the round's
+        # input tokens, page table and lens from the draft step's own
+        # tensors, so draft → verify needs no copy and no host sync
+        v_toks = verify(draft.arg(0), d_toks, draft.arg(1), draft.arg(2))
         d_np, v_np = d_toks.cpu().numpy(), v_toks.cpu().numpy()
         now = time.perf_counter()
         r_acc = r_cons = 0

@@ -3,10 +3,11 @@ the reference's jitted serving steps (``repro/serve/engine.py``
 ``_jitted_paged_steps`` / ``_jitted_spec_steps``).
 
 A ``Step`` wraps one step function already bound to the engine's params
-and pools.  Its inputs are int32 numpy arrays, which it copies into device
-buffers of its own (one host-to-device copy per call), or device tensors
-that stay the same from call to call (the cache's page table and lens,
-the draft step's output).  On the card the first call runs the function
+and pools.  Its inputs are int32 numpy arrays (tokens, the cache's page
+table and lens), which it copies into one device buffer of its own (one
+host-to-device copy per call), or device tensors that stay the same from
+call to call (the draft step's output and its bound inputs, which the
+verify step reads).  On the card the first call runs the function
 once on a side stream (the warm-up: the kernels' first launches, library
 set-up; a step rewrites the same K/V from the same inputs, so running it
 twice changes nothing), captures it into a CUDA graph and replays it;
@@ -14,65 +15,20 @@ later calls copy their inputs in and replay.  The outputs are the graph's
 own tensors, overwritten by the next replay: read them first.
 
 Replays skip the kernels' Python wrappers, whose launch counters would
-then stop.  Each graph records the counters' change during its capture,
-undoes it (the capture ran nothing) and adds it on every replay.
+then stop.  Each graph records the change of every registered counter
+(``repro_torch.kernels.counts``) during its capture, undoes it (the
+capture ran nothing) and adds it on every replay.
 
 A failed capture or replay raises; nothing falls back to eager execution.
 With ``graphs=False`` the same function runs eagerly on the same buffers.
 """
 from __future__ import annotations
 
-import collections
-
 import numpy as np
 import torch
 
-from repro_torch.kernels.encoded_matmul import encoded_matmul
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.paged_attention import paged_attn
-
-_COUNTED = {"encoded_matmul": encoded_matmul, "paged_attn": paged_attn,
-            "flash_attention": flash_attention}
-
-
-# the counters kept by shape: encoded_matmul's by (m, k, n), paged_attn's
-# by query tokens per row
-_BY_SHAPE = {"encoded_matmul_by_shape": encoded_matmul.shape_launches,
-             "paged_attn_by_sq": paged_attn.sq_launches}
-
-
-def launch_counts() -> dict:
-    """The kernels' launch counters, and the by-shape ones."""
-    out = {name: fn.launches for name, fn in _COUNTED.items()}
-    out.update({name: collections.Counter(c)
-                for name, c in _BY_SHAPE.items()})
-    return out
-
-
-def set_launch_counts(counts: dict) -> None:
-    """Set every counter (``launch_counts()``'s keys; a missing by-shape
-    key empties its counter), e.g. to zero before a counted run."""
-    for name, fn in _COUNTED.items():
-        fn.launches = counts.get(name, 0)
-    for name, c in _BY_SHAPE.items():
-        c.clear()
-        c.update(counts.get(name, {}))
-
-
-def _add_counts(delta: dict) -> None:
-    for name, fn in _COUNTED.items():
-        fn.launches += delta[name]
-    for name, c in _BY_SHAPE.items():
-        c.update(delta[name])
-
-
-def _diff(after: dict, before: dict) -> dict:
-    out = {name: after[name] - before[name] for name in _COUNTED}
-    for name in _BY_SHAPE:
-        c = collections.Counter(after[name])
-        c.subtract(before[name])
-        out[name] = +c
-    return out
+from repro_torch.kernels.counts import (add_counts, diff_counts,
+                                        launch_counts, set_launch_counts)
 
 
 class Step:
@@ -104,7 +60,7 @@ class Step:
         if self.graph is None:
             self._capture(args)
         self.graph.replay()
-        _add_counts(self.delta)
+        add_counts(self.delta)
         return self.out
 
     def _bind(self, inputs):
@@ -154,7 +110,7 @@ class Step:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = self.fn(*args)
-        self.delta = _diff(launch_counts(), before)
+        self.delta = diff_counts(launch_counts(), before)
         set_launch_counts(before)
         self.graph, self.out = graph, out
         self.captures += 1

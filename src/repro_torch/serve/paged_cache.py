@@ -235,8 +235,8 @@ class PagedKVCache:
     ``layers`` holds the per-layer pools, written in place by every step
     and never replaced (a captured CUDA graph holds their addresses);
     ``ptab``/``lens`` are numpy, written by the scheduler and copied by
-    ``upload`` into the static device buffers ``pages_buf``/``lens_buf``
-    that every batched step reads.  Unassigned table entries stay 0 →
+    each step into its own device buffer with its other inputs
+    (``serve/graphs.py:Step``).  Unassigned table entries stay 0 →
     scratch page."""
 
     def __init__(self, cfg, n_slots: int, n_pages: int, page_size: int,
@@ -254,11 +254,6 @@ class PagedKVCache:
         self.alloc = PageAllocator(n_pages)
         self.ptab = np.zeros((n_slots, self.max_seq_pages), np.int32)
         self.lens = np.zeros((n_slots,), np.int32)
-        # one device block, so one copy uploads the table and the lens
-        self._block = torch.zeros(self.ptab.size + n_slots,
-                                  dtype=torch.int32, device=self.device)
-        self.pages_buf = self._block[:self.ptab.size].view(self.ptab.shape)
-        self.lens_buf = self._block[self.ptab.size:]
 
     @property
     def max_seq_tokens(self) -> int:
@@ -283,12 +278,6 @@ class PagedKVCache:
         for st in self.layers:
             for t in st.values():
                 t[dst].copy_(t[src])
-
-    def upload(self) -> None:
-        """Copy the host page table and lens into ``pages_buf`` /
-        ``lens_buf`` (one synchronous host-to-device copy)."""
-        self._block.copy_(torch.from_numpy(
-            np.concatenate([self.ptab.ravel(), self.lens])))
 
     def pool_bytes(self) -> int:
         """Device pool bytes: every layer's k and v value pools and, for

@@ -121,9 +121,10 @@ def _em_args(kind, m, k, n, dev, seed=0):
             torch.from_numpy(bias).to(dev), shifts)
 
 
-# the main path's linears at decode (m = 4 slots) and prefill (m = one
-# 32-token chunk), then ragged m, k and n
-EM_SHAPES = [(m, k, n) for m in (4, 32)
+# the main path's linears at decode (m = 4 slots), prefill (m = one
+# 32-token chunk) and speculative verification (m = 4·(k+1): 20 at k = 4,
+# 36 at k = 8), then ragged m, k and n
+EM_SHAPES = [(m, k, n) for m in (4, 32, 20, 36)
              for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
 EM_SHAPES += [(1, 130, 70), (33, 1024, 70), (100, 130, 70),
               (100, 2816, 1024), (1, 2816, 2816), (33, 130, 2816)]
@@ -434,7 +435,7 @@ def test_engine_graphs_give_the_eager_tokens(cuda_device, mode):
     from repro_torch.models import init_model, to_device
     from repro_torch.serve import (Engine, exact_encodings,
                                    prepare_encoded_serving)
-    from repro_torch.serve.graphs import launch_counts
+    from repro_torch.kernels.counts import launch_counts
     cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
                               attention_backend="kernel")
     with tempfile.TemporaryDirectory() as cache:

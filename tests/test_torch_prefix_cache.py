@@ -258,17 +258,31 @@ def test_copy_page_in_place_with_scale_rows(models, mode):
 
 
 def test_upload_fills_the_static_buffers(models):
-    _, tkv = _kv_pair(models, n_slots=3, n_pages=9, page_size=4,
-                      max_seq_pages=5)
-    pages_buf, lens_buf = tkv.pages_buf, tkv.lens_buf
+    """The decode step copies the host page table and lens, with its
+    tokens, into one device buffer of its own (one copy per call), the
+    same tensors on every call (a captured graph reads their addresses)."""
+    tp, tcfg = models[1]
+    eng = TEngine(tp, tcfg, n_slots=3, page_size=4, n_pages=9,
+                  max_seq_pages=5, device="cpu")
+    tkv, step = eng.kv, eng.steps["decode"]
     tkv.set_pages(1, [3, 4, 7])
     tkv.set_len(1, 10)
     tkv.set_len(2, 2)
-    tkv.upload()
-    assert tkv.pages_buf is pages_buf and tkv.lens_buf is lens_buf
+    tokens = np.zeros((3, 1), np.int32)
+    step(tokens, tkv.ptab, tkv.lens)
+    toks, pages_buf, lens_buf = (step.arg(i) for i in range(3))
     assert pages_buf.dtype == lens_buf.dtype == torch.int32
     assert pages_buf.tolist() == tkv.ptab.tolist()
     assert lens_buf.tolist() == [0, 10, 2]
+    assert pages_buf.data_ptr() == toks.data_ptr() + toks.numel() * 4
+    assert lens_buf.data_ptr() == pages_buf.data_ptr() + tkv.ptab.size * 4
+    tkv.set_pages(2, [5])
+    tkv.set_len(2, 3)
+    step(tokens + 1, tkv.ptab, tkv.lens)
+    assert step.arg(1) is pages_buf and step.arg(2) is lens_buf
+    assert pages_buf.tolist() == tkv.ptab.tolist()
+    assert lens_buf.tolist() == [0, 10, 3]
+    assert not hasattr(tkv, "upload")
 
 
 # ---------------------------------------------------------------------------

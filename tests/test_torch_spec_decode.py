@@ -28,6 +28,8 @@ from repro.serve import spec as jspec  # noqa: E402
 
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.core.macexec import check_drafter, count_prepared  # noqa
+from repro_torch.kernels import counts  # noqa: E402
+from repro_torch.kernels import flash_attention  # noqa: E402,F401
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.launch import serve as tcli  # noqa: E402
 from repro_torch.models import params_from_jax  # noqa: E402
@@ -300,8 +302,9 @@ def test_step_binds_inputs_into_one_buffer():
 
 
 def test_launch_count_bookkeeping():
-    """What a graph records at capture and adds per replay."""
-    before = graphs.launch_counts()
+    """What a graph records at capture and adds per replay, over every
+    counter the kernel wrappers registered."""
+    before = counts.launch_counts()
     try:
         after = dict(before, encoded_matmul=before["encoded_matmul"] + 3,
                      paged_attn=before["paged_attn"] + 2)
@@ -309,25 +312,57 @@ def test_launch_count_bookkeeping():
             "encoded_matmul_by_shape"] + collections.Counter({(4, 8, 8): 3})
         after["paged_attn_by_sq"] = before["paged_attn_by_sq"] + \
             collections.Counter({5: 2})
-        delta = graphs._diff(after, before)
+        delta = counts.diff_counts(after, before)
         assert delta == {"encoded_matmul": 3, "paged_attn": 2,
                          "flash_attention": 0,
                          "encoded_matmul_by_shape": {(4, 8, 8): 3},
                          "paged_attn_by_sq": {5: 2}}
-        graphs._add_counts(delta)
-        graphs._add_counts(delta)
-        now = graphs.launch_counts()
+        counts.add_counts(delta)
+        counts.add_counts(delta)
+        now = counts.launch_counts()
         assert now["encoded_matmul"] == before["encoded_matmul"] + 6
         assert now["paged_attn"] == before["paged_attn"] + 4
         assert now["encoded_matmul_by_shape"][(4, 8, 8)] == \
             before["encoded_matmul_by_shape"][(4, 8, 8)] + 6
         assert now["paged_attn_by_sq"][5] == before["paged_attn_by_sq"][5] + 4
-        graphs.set_launch_counts({})
-        zero = graphs.launch_counts()
+        counts.set_launch_counts({})
+        zero = counts.launch_counts()
         assert zero["paged_attn"] == 0 and not zero["encoded_matmul_by_shape"]
     finally:
-        graphs.set_launch_counts(before)
-    assert graphs.launch_counts() == before
+        counts.set_launch_counts(before)
+    assert counts.launch_counts() == before
+
+
+def test_a_registered_counter_is_carried():
+    """A wrapper registered after the others is read, set, diffed and
+    added with them: nothing outside the registry lists the counters."""
+    def new_kernel():
+        new_kernel.launches += 1
+        new_kernel.by_width[7] += 1
+
+    counts.register(new_kernel, new_kernel_by_width="by_width")
+    try:
+        before = counts.launch_counts()
+        assert before["new_kernel"] == 0 and not before["new_kernel_by_width"]
+        new_kernel()
+        delta = counts.diff_counts(counts.launch_counts(), before)
+        assert delta["new_kernel"] == 1
+        assert delta["new_kernel_by_width"] == {7: 1}
+        counts.set_launch_counts(before)     # a capture undoes its launches
+        assert new_kernel.launches == 0 and not new_kernel.by_width
+        # a graph captured before the wrapper registered adds it nothing
+        counts.add_counts({k: v for k, v in delta.items()
+                           if not k.startswith("new_kernel")})
+        assert new_kernel.launches == 0 and not new_kernel.by_width
+        counts.add_counts(delta)             # and each replay adds them
+        counts.add_counts(delta)
+        assert new_kernel.launches == 2 and new_kernel.by_width == {7: 2}
+        counts.set_launch_counts({})
+        assert new_kernel.launches == 0 and not new_kernel.by_width
+        counts.set_launch_counts(before)
+    finally:
+        counts._COUNTERS.pop("new_kernel")
+        counts._COUNTERS.pop("new_kernel_by_width")
 
 
 # ---------------------------------------------------------------------------
