@@ -13,7 +13,9 @@ Phases (any failure raises and exits non-zero before the result line):
     on the card, at the main path's shapes, a sampled M = 48 program with
     3-bit monomials and ragged shapes (m past one 32-row pass, k and n
     off the tiles); and its rows at m = 4 bit for bit the same rows at
-    m = 20 (speculative verification's m);
+    m = 20 (speculative verification's m); then at every (k, n) of
+    qwen1.5-4b, starcoder2-3b and gemma2-27b at m = 4 and 32, Wt made on
+    the card (qwen1.5-4b's untied head: 3.1e9 elements, past 2^31);
  4. kernel 2 (paged attention) against its plain version: ragged lens
     including 0 and page boundaries, f32 and bf16 pools, GQA, window +
     softcap, Sq = 3, 5 and 9 (speculative verification at k = 4 and 8),
@@ -22,6 +24,9 @@ Phases (any failure raises and exits non-zero before the result line):
     (and the quantizer's codes and scales on the card against the CPU's,
     bit for bit), at the main path's decode shape too; one call is one
     CUDA kernel (``torch.profiler`` kernel events) for each pool type;
+    and at head dim 128 (the dense archs') with f32, bf16, int8 and int4
+    pools, 20/20, 24/2 and 32/16 heads, Sq 1 and 5, window 100 with
+    softcap 50;
  5. kernel 3 (flash attention) through ``ops.flash_mha`` against its plain
     version: the prefill shape of full-width qwen1.5-0.5b in f32 (3xTF32
     tensor-core kernel, max abs error at most 1e-5) and bf16, ragged S =
@@ -50,6 +55,25 @@ Phases (any failure raises and exits non-zero before the result line):
     card at M = 24 (bundle in a fresh ``build/`` directory, removed
     after): tokens identical to plain decode, acceptance and tokens per
     round, launch counts by shape;
+ 6e. the static engine (``ServeEngine`` over the dense KV cache) on the
+    main trace in chunks of 4, graphed (fresh, then warm) and eager:
+    identical tokens, kernel 1 at every linear of every forward and
+    kernel 2 never; against the continuous engine's tokens, each split
+    logged with its position and logit margin (reported: with the
+    encoding's int8 activation codes, a code flipped by another
+    summation order moves later K/V by a code step); the same two
+    engines with the fp weights: identical tokens or near-ties under
+    ``FP_TIE_RTOL``;
+ 6f. qwen1.5-4b (4 layers), starcoder2-3b (4) and gemma2-27b (2: one
+    local, one global) at full width, weights from seed 0, calibrated
+    and folded on the card with the exact encoding (no bundle write),
+    serving the main trace through the continuous engine (kernel 2) and
+    ``ServeEngine``, each graphed and eager (identical tokens), with
+    launches by (m, k, n) and by Sq, static against continuous as in 6e
+    (encoded reported, fp gated); gemma2 also serves one 4,200-token
+    request past layer 0's 4096 window, whose live layer-0 pools hold
+    kernel 2 against its plain version with the window (which must move
+    the output); folded bytes and peak memory per arch;
  6b. the main path with the paper's searched encodings: full-width
     qwen1.5-0.5b at the serving CLI's defaults (``--encoding search``, M
     = 48, 128 samples + 64 anneal steps per projection family, 4
@@ -64,7 +88,9 @@ Phases (any failure raises and exits non-zero before the result line):
  7. the reduced config and the same trace served on the card (kernels)
     and on the CPU (plain versions), with dense, int8 and int4 pools:
     identical greedy tokens (and, logged, how far one forward's linear
-    inputs and int8 activation codes part between card and CPU);
+    inputs and int8 activation codes part between card and CPU); then
+    each other dense arch's reduced config through both engines, card
+    against CPU: identical greedy tokens;
  7b. the reduced config searched on the card and on the CPU: the same
     circuits for every family, or, where one differs, an anneal step
     whose candidates lie within 1e-6 of each other (a near-tie at f32
@@ -83,7 +109,10 @@ Phases (any failure raises and exits non-zero before the result line):
     pages, beside the launch floor (an empty kernel on the same grid and
     cluster); kernel 3 in f32 and bf16 at the prefill shape; kernel 1
     at the searched U (phase 6b) at its three decode shapes; kernel 1 at
-    the verify shape m = 20 and kernel 2 at Sq = 5 and 9 (phase 6d).
+    the verify shape m = 20 and kernel 2 at Sq = 5 and 9 (phase 6d);
+    kernel 1 at each (k, n) of the other dense archs at decode m = 4 and
+    kernel 2 at their head layouts (D = 128, f32 pools, 127-page table),
+    launches from their phase 6f serves.
 
 Every phase that folds writes its bundle into a fresh directory under
 ``build/`` (git-ignored), logs the free disk first and removes it at its
@@ -118,6 +147,15 @@ N_SLOTS, PAGE_SIZE, N_PAGES = 4, 16, 256
 # speculative decoding's main draft length (phase 6d also serves k = 8)
 SPEC_K = 4
 SERVE_P = 127          # the serve's page table: Engine's max_seq_pages
+# the other dense-family archs at full width, depth cut (phase 6f): gemma2
+# keeps one local (window 4096) and one global layer
+ARCH_DEPTHS = (("qwen1.5-4b", 4), ("starcoder2-3b", 4), ("gemma2-27b", 2))
+# gemma2's long request (phase 6f): past layer 0's 4096-token window
+LONG_PROMPT = 4200
+# with fp weights two engines may part only at a near-tie: the candidates'
+# logits within this share of the largest |logit| (f32 summation orders
+# part them by about 1e-6 of it at full width)
+FP_TIE_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -211,6 +249,70 @@ def _em_case(dev, prog, m, k, n, seed=0, copies=1):
         sets.append((x.to(dev), wt.to(torch.bfloat16).to(dev), bias.to(dev),
                      prog.a_mono_bits))
     return sets
+
+
+def _em_dev_case(dev, prog, ms, k, n, seed=0):
+    """``_em_case``'s distribution made on the card (real-size Wt of up to
+    6 GB, past what the host should draw): x for each m in ``ms``, one
+    Wt and bias."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    U = prog.n_a_planes
+    wt = torch.randint(-127, 128, (U, k, n), generator=g, device=dev,
+                       dtype=torch.int16).to(torch.bfloat16)
+    wt *= (2.0 ** (torch.arange(U, device=dev) % 8)).to(
+        torch.bfloat16).reshape(U, 1, 1)          # exact: powers of 2
+    bias = torch.randn((n,), generator=g, device=dev) * 100
+    xs = [torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                        dtype=torch.int8) for m in ms]
+    return xs, wt, bias, prog.a_mono_bits
+
+
+def _arch_cfg(arch: str, n_layers=None):
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dc.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                      attention_backend="kernel")
+
+
+def _arch_em_shapes(cfg):
+    """(k, n) of an arch's encoded linears, each once."""
+    return sorted(_linear_shapes(cfg), key=lambda kn: (kn[0] * kn[1], kn))
+
+
+def phase_kernel1_archs(dev):
+    """Kernel 1 at every (k, n) of the other dense archs, decode m = 4 and
+    prefill m = 32, real-size Wt made on the card (qwen1.5-4b's untied
+    head: 8·2560·151936 elements, past 2^31)."""
+    import torch
+    from repro_torch.kernels import encoded_matmul as em
+    prog = _program("exact")
+    n_cases = 0
+    for arch, _ in ARCH_DEPTHS:
+        for k, n in _arch_em_shapes(_arch_cfg(arch)):
+            xs, wt, bias, sh = _em_dev_case(dev, prog, (N_SLOTS, 32), k, n,
+                                            seed=k + n)
+            for x in xs:
+                out = em.encoded_matmul(x, wt, bias, sh)
+                ref = em.encoded_matmul_plain(x, wt, bias, sh)
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                top = ref.abs().max().item()
+                ok = torch.allclose(out, ref, rtol=1e-4, atol=1e-4 * top) \
+                    and bool(torch.isfinite(out).all())
+                log(f"[kernel1] {arch:13s} U={prog.n_a_planes} m={x.shape[0]:2d}"
+                    f" k={k:5d} n={n:6d} (Wt {wt.numel() / 2 ** 31:.2f}x 2^31 "
+                    f"elements) max_abs_err={err:.3e} (atol {1e-4 * top:.3e})"
+                    f" {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"kernel1 disagrees with plain at "
+                                         f"{arch} {(x.shape[0], k, n)}")
+                n_cases += 1
+                del out, ref
+            del xs, wt, bias
+            torch.cuda.empty_cache()
+    log(f"[kernel1] {n_cases} cases of the dense archs within tolerance")
 
 
 def phase_kernel1(dev):
@@ -340,6 +442,48 @@ def phase_kernel2(dev):
         if tag == "p127-f32":
             _one_kernel(lambda: pa.paged_attn(*args, kv_of_q=kv_map, **kw),
                         "paged_attn (dense f32 pools, P = 127)")
+
+
+def phase_kernel2_d128(dev):
+    """Kernel 2 at head dim 128 (an f32 row of 512 bytes, the kernel's
+    largest) with the dense archs' head layouts (20/20 qwen1.5-4b, 24/2
+    starcoder2-3b, 32/16 gemma2-27b), Sq 1 and 5, f32, bf16, int8 and int4
+    pools, and gemma2's layout with window 100 and softcap 50."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    ps, D, P = 16, 128, 32
+    lens = [0, 16, 17, 511]
+    cases = [(Hq, Hkv, sq, None, None) for Hq, Hkv in
+             ((20, 20), (24, 2), (32, 16)) for sq in (1, 5)]
+    cases += [(32, 16, sq, 100, 50.0) for sq in (1, 5)]
+    for mode in ("f32", "bf16", "int8", "int4"):
+        for Hq, Hkv, Sq, window, cap in cases:
+            ln = [min(x, P * ps - Sq) for x in lens]
+            seed = Hq + Hkv + Sq
+            if mode in ("f32", "bf16"):
+                dt = torch.float32 if mode == "f32" else torch.bfloat16
+                (args,), kv_map = _pa_case(dev, 4, Sq, Hq, Hkv, D, ps, P, ln,
+                                           dt, seed=seed)
+                sk = sv = None
+            else:
+                ((args, (sk, sv)),), kv_map = _pa_quant_case(
+                    dev, mode, 4, Sq, Hq, Hkv, D, ps, P, ln, seed=seed)
+            kw = dict(scale=D ** -0.5, cap=cap, scale_k=sk, scale_v=sv)
+            out = pa.paged_attn(*args, window=window, kv_of_q=kv_map, **kw)
+            ref = pa.paged_attn_plain(*args, window or pa._NO_WINDOW,
+                                      G=Hq // Hkv, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = (dict(rtol=0.0, atol=2e-2) if mode == "bf16"
+                   else dict(rtol=1e-4, atol=1e-5))
+            ok = torch.allclose(out.float(), ref.float(), **tol) and \
+                bool(torch.isfinite(out.float()).all())
+            log(f"[kernel2-d128] {mode:4s} B=4 Sq={Sq} Hq={Hq} Hkv={Hkv} "
+                f"D={D} window={window} cap={cap} P={P} lens={ln} "
+                f"max_abs_err={err:.3e} {tol} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernel2 disagrees with plain at D=128 "
+                                     f"{mode} {(Hq, Hkv, Sq, window)}")
 
 
 def _pa_quant_case(dev, mode, B, Sq, Hq, Hkv, D, ps, P, lens, seed=0,
@@ -549,19 +693,54 @@ def _check_counts(counts, st, cfg, chunk_len, where):
     assert counts["flash_attention"] == 0, f"flash launched {where}"
 
 
-def _path_shapes(cfg, forwards):
-    """Encoded-matmul launches by (m, k, n) of ``forwards`` ({m: model
-    forwards with m rows per linear}): per layer wq, wk, wv, wo, wi, wg
-    and the MLP's wo."""
+def _linear_shapes(cfg) -> dict:
+    """Encoded linears of one forward by (k, n): per layer wq, wk, wv, wo,
+    wi, wg (gated MLPs) and the MLP's wo, and an untied LM head (a tied
+    head reads the embedding table, an fp product)."""
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_r
     per_layer = [(d, cfg.n_heads_p * hd), (d, cfg.n_kv_p * hd),
                  (d, cfg.n_kv_p * hd), (cfg.n_heads_p * hd, d), (d, ff),
-                 (d, ff), (ff, d)]
-    want = {}
+                 (ff, d)] + ([(d, ff)] if cfg.gated_mlp else [])
+    out = collections.Counter()
+    for kn in per_layer:
+        out[kn] += cfg.n_layers
+    if not cfg.tie_embeddings:
+        out[(d, cfg.vocab_p)] += 1
+    return dict(out)
+
+
+def _path_shapes(cfg, forwards):
+    """Encoded-matmul launches by (m, k, n) of ``forwards`` ({m: model
+    forwards with m rows per linear})."""
+    want = collections.Counter()
     for m, times in forwards.items():
-        for k, n in per_layer:
-            want[(m, k, n)] = want.get((m, k, n), 0) + cfg.n_layers * times
-    return want
+        for (k, n), c in _linear_shapes(cfg).items():
+            want[(m, k, n)] += c * times
+    return dict(want)
+
+
+def _static_forwards(chunks):
+    """Encoded-matmul launches by (m, k, n)-forwards of a static serve:
+    per chunk one prefill of batch·seq rows, and its decode steps plus the
+    eager warm-up of each graph it captured at batch rows."""
+    fw = collections.Counter()
+    for c in chunks:
+        fw[c["batch"] * c["seq"]] += 1
+        fw[c["batch"]] += c["decode_steps"] + c["captures"]
+    return fw
+
+
+def _check_static_counts(counts, chunks, cfg, where):
+    """Kernel 1 at every linear of every forward of the static serve's
+    ``chunks``, by (m, k, n); kernels 2 and 3 never (its attention is
+    ``mha`` over the dense row)."""
+    assert counts["encoded_matmul"] > 0, f"encoded_matmul not launched {where}"
+    want = _path_shapes(cfg, _static_forwards(chunks))
+    assert counts["encoded_matmul_by_shape"] == want, \
+        f"encoded_matmul shapes {counts['encoded_matmul_by_shape']} != " \
+        f"{want} {where}"
+    assert counts["paged_attn"] == 0 and counts["flash_attention"] == 0, \
+        f"kernel 2 or 3 launched {where}"
 
 
 def _timed_run(eng, rids):
@@ -990,6 +1169,402 @@ def phase_spec(dev, info):
     return out
 
 
+def _static(params, cfg, trace, device, max_new: int = MAX_NEW, **kw):
+    """A ``ServeEngine`` over ``N_SLOTS``-request chunks and its counted
+    run: (engine, tokens per request, seconds, launch counts)."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(params, cfg, batch_slots=N_SLOTS, device=device, **kw)
+    return eng, *_static_run(eng, trace, max_new)
+
+
+def _static_run(eng, trace, max_new: int = MAX_NEW):
+    import torch
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.run(trace, max_new=max_new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return [o.tolist() for o in outs], dt, _read_counts()
+
+
+def _routes(params, cfg, toks, dev):
+    """The last position's logits of ``toks`` by three routes of one
+    function: a no-cache forward (the static engine's prefill numerics);
+    ``toks[:-1]`` prefilled into a dense cache and the last token decoded
+    over the dense row (the static engine's decode); and ``toks[:-1]``
+    prefilled into paged pools in 32-token chunks and the last token
+    decoded through the fused paged op (the continuous engine's decode).
+    Also how many of that token's int8 activation codes, over every
+    encoded linear, differ from the no-cache route's in each other route."""
+    import torch
+    from repro_torch.models import apply_model, init_cache, init_paged_cache
+    from repro_torch.nn.common import activation_recorder
+    nodes = [params.get("lm_head", {})] + [
+        sub for layer in params["layers"] for sub in layer.values()
+        if isinstance(sub, dict)]
+    sa = {id(node[k]): node[k + "_as"] for node in nodes for k in node
+          if k + "_fw" in node}
+    n = len(toks)
+    x = torch.from_numpy(toks).to(dev)[None]
+    codes = collections.defaultdict(list)
+
+    def recorder(tag):
+        def hook(name, w, inp):
+            if id(w) in sa:
+                codes[tag].append(torch.round(
+                    inp[0, -1].float() / sa[id(w)]).clamp(-127, 127))
+        return activation_recorder(hook)
+
+    logits = {}
+    with torch.inference_mode():
+        with recorder("no-cache"):
+            logits["no-cache"] = apply_model(params, cfg, x)[0]
+        dense = init_cache(cfg, 1, n, device=dev)
+        _, dense = apply_model(params, cfg, x[:, :n - 1], cache=dense)
+        with recorder("dense"):
+            logits["dense"] = apply_model(params, cfg, x[:, n - 1:],
+                                          cache=dense)[0]
+        P = -(-n // PAGE_SIZE) + 1
+        paged = init_paged_cache(cfg, P + 1, PAGE_SIZE, device=dev)
+        paged["pages"] = torch.arange(1, P + 1, dtype=torch.int32,
+                                      device=dev)[None]
+        for s0 in range(0, n - 1, 32):
+            paged["lens"] = torch.full((1,), s0, dtype=torch.int32,
+                                       device=dev)
+            apply_model(params, cfg, x[:, s0:min(n - 1, s0 + 32)],
+                        cache=paged)
+        paged["lens"] = torch.full((1,), n - 1, dtype=torch.int32,
+                                   device=dev)
+        with recorder("paged"):
+            logits["paged"] = apply_model(params, cfg, x[:, n - 1:],
+                                          cache=paged)[0]
+    flips = {t: sum(int((a != b).sum()) for a, b in
+                    zip(codes["no-cache"], codes[t]))
+             for t in ("dense", "paged")}
+    V = cfg.vocab_size
+    return {t: lg[0, -1, :V].float() for t, lg in logits.items()}, flips
+
+
+def _split_report(params, cfg, trace, a, b, names, dev, rtol=None):
+    """Greedy tokens of two engines over ``trace``: each request's first
+    split, if any, logged with its position, the two candidates' logit
+    margin under each route of ``_routes`` (which differ only in f32
+    summation order), how far those routes' logits part and how many of
+    the token's int8 activation codes differ between them.  With
+    ``rtol``, every split must be a near-tie: a margin within ``rtol`` of
+    the largest |logit| under every route.  Without it (encoded weights,
+    where a flipped code in any earlier token moves later K/V by a code
+    step, ROADMAP Queue C) the splits are reported, not gated."""
+    import numpy as np
+    splits = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        j = next((j for j, (u, v) in enumerate(zip(x, y)) if u != v), None)
+        if j is None:
+            continue
+        toks = np.concatenate([trace[i], np.asarray(x[:j], np.int32)])
+        lg, flips = _routes(params, cfg, toks, dev)
+        rs = list(lg.values())
+        spread = max((p - q).abs().max().item() for p in rs for q in rs)
+        margins = {t: (r[x[j]] - r[y[j]]).item() for t, r in lg.items()}
+        top = max(r.abs().max().item() for r in rs)
+        splits.append((i, j, max(map(abs, margins.values())) / top))
+        log(f"[split] {names[0]} vs {names[1]}: request {i} (prompt "
+            f"{len(trace[i])}) parts at new token {j}: {x[j]} against "
+            f"{y[j]}; margin by route " + ", ".join(
+                f"{t} {m:.3e}" for t, m in margins.items()) +
+            f" ({splits[-1][2]:.2e} of max|logit| {top:.4f}); the routes' "
+            f"logits apart by up to {spread:.3e}; int8 codes of that token "
+            f"differing from the no-cache route's: {flips}")
+    same = len(a) - len(splits)
+    log(f"[split] {names[0]} vs {names[1]}: {same} of {len(a)} requests "
+        f"token for token identical, {len(splits)} split" + (
+            f" (gated: a split must be a near-tie within {rtol} of "
+            f"max|logit|)" if rtol is not None else " (reported, not gated)"))
+    for i, j, rel in splits:
+        if rtol is not None and rel > rtol:
+            raise AssertionError(
+                f"{names[0]} and {names[1]} part at request {i} token {j} "
+                f"with a margin of {rel:.2e} of max|logit|, not a near-tie "
+                f"(<= {rtol})")
+    return splits
+
+
+def phase_static(dev, info):
+    """Phase 6e: ``ServeEngine`` on the dense KV cache at full width and
+    depth, the main trace in chunks of ``N_SLOTS``: graphed (fresh, then
+    warm) and eager, identical tokens; against the continuous engine's
+    tokens (identical or a near-tie); kernel 1 at every linear of every
+    forward, kernel 2 never."""
+    import numpy as np
+    import torch
+    params, cfg, trace = info["params_enc"], info["cfg_enc"], info["trace"]
+    eng, toks, dt, counts = _static(params, cfg, trace, dev)
+    st = eng.stats()
+    n_tok = sum(map(len, toks))
+    log(f"[static] {cfg.arch} {cfg.n_layers} layers: {st['chunks']} chunks "
+        f"of {N_SLOTS}, {n_tok} tokens in {dt:.3f}s = {n_tok / dt:.1f} tok/s "
+        f"(captures included: {st['jit_compiles_by_shape']}); decode steps "
+        f"{st['decode_steps']}, step p50 {st['step_ms_p50']:.2f} ms p99 "
+        f"{st['step_ms_p99']:.2f} ms (card timeline), dense cache "
+        f"{st['kv_cache_bytes'] / 1e9:.3f} GB")
+    log(f"[static] launches: encoded_matmul {counts['encoded_matmul']} by "
+        f"(m, k, n) {counts['encoded_matmul_by_shape']}; paged_attn "
+        f"{counts['paged_attn']} flash_attention {counts['flash_attention']}")
+    assert st["cuda_graphs"] and st["chunks"] == 2 and all(
+        v == 1 for v in st["jit_compiles_by_shape"].values()), \
+        f"captures {st['jit_compiles_by_shape']}, not one per chunk shape"
+    assert len(toks) == N_REQUESTS and all(len(t) == MAX_NEW for t in toks)
+    assert all(0 <= t < cfg.vocab_size for x in toks for t in x)
+    _check_static_counts(counts, eng.chunks, cfg, "in the static serve")
+    warm = []
+    for _ in range(2):
+        n0, c0 = len(eng.step_ms), len(eng.chunks)
+        toks2, dt2, counts2 = _static_run(eng, trace)
+        assert toks2 == toks, "the warm static engine changed the tokens"
+        _check_static_counts(counts2, eng.chunks[c0:], cfg,
+                             "in the warm static serve")
+        warm.append((n_tok / dt2, float(np.percentile(eng.step_ms[n0:], 50))))
+    log(f"[static] warm engine, 2 more serves: tok/s "
+        f"{', '.join(f'{w[0]:.1f}' for w in warm)}, step p50 "
+        f"{', '.join(f'{w[1]:.2f}' for w in warm)} ms; captures still "
+        f"{eng.stats()['jit_compiles']}; tokens identical")
+    eager, toks_e, dt_e, counts_e = _static(params, cfg, trace, dev,
+                                            cuda_graphs=False)
+    st_e = eager.stats()
+    same = toks_e == toks
+    log(f"[static] eager (cuda_graphs=False): {n_tok / dt_e:.1f} tok/s, step "
+        f"p50 {st_e['step_ms_p50']:.2f} ms p99 {st_e['step_ms_p99']:.2f} ms; "
+        f"greedy tokens graphs vs eager {'identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("static engine: graphed and eager tokens differ")
+    _check_static_counts(counts_e, eager.chunks, cfg, "eagerly")
+    del eager
+    log(f"[static] beside the continuous engine (phase 6): tok/s fresh "
+        f"{info['tok_s']:.1f} / static {n_tok / dt:.1f}, warm "
+        f"{max(info['warm_tok_s']):.1f} / {max(w[0] for w in warm):.1f}, "
+        f"eager {info['eager_tok_s']:.1f} / {n_tok / dt_e:.1f}")
+    splits = _split_report(params, cfg, trace, toks, info["tokens"],
+                           ("static", "continuous"), dev)
+    del eng
+    # the two engines with the fp weights: no activation codes to move, so
+    # the routes part by f32 rounding alone
+    fp, fp_cfg = info["params"], info["cfg"]
+    eng, rids = _serve(fp, fp_cfg, trace, dev)
+    outs, _, _, _ = _timed_run(eng, rids)
+    del eng
+    seng, toks_fp, _, _ = _static(fp, fp_cfg, trace, dev)
+    del seng
+    fp_splits = _split_report(fp, fp_cfg, trace, toks_fp,
+                              [outs[r].tolist() for r in rids],
+                              ("static fp", "continuous fp"), dev,
+                              rtol=FP_TIE_RTOL)
+    torch.cuda.empty_cache()
+    return {"counts": counts, "tok_s": n_tok / dt,
+            "warm_tok_s": [w[0] for w in warm],
+            "eager_tok_s": n_tok / dt_e, "step_p50": st["step_ms_p50"],
+            "warm_step_p50": [w[1] for w in warm],
+            "eager_step_p50": st_e["step_ms_p50"], "splits": len(splits),
+            "fp_splits": len(fp_splits)}
+
+
+def _fold_exact(params, cfg):
+    """Calibrate and fold ``params`` on their device with the exact
+    encoding, as ``prepare_encoded_serving`` does, without writing a
+    bundle (tens of GB at these widths): (params_enc, cfg_enc, seconds)."""
+    import torch
+    from repro_torch.core.layers import MacConfig
+    from repro_torch.serve import (capture_activation_stats, exact_encodings,
+                                   fold_linear_params)
+    from repro_torch.serve.encoded import _merge
+    macs = exact_encodings(cfg.mac.bits)
+    t0 = time.perf_counter()
+    stats = capture_activation_stats(params, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    delta = fold_linear_params(params, stats, macs, cfg.mac.bits)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    cfg_enc = dataclasses.replace(cfg, mac=MacConfig(
+        mode="encoded_infer", bits=cfg.mac.bits, macs=macs))
+    return _merge(params, delta), cfg_enc, (t1 - t0, t2 - t1)
+
+
+def _long_request(dev, params, cfg, vocab):
+    """gemma2's long request: one prompt of ``LONG_PROMPT`` tokens through
+    the continuous engine (graphed, kernel 2), past layer 0's window.
+    Once its prefill is done, kernel 2 on the live layer-0 pools against
+    its plain version with the window, and against itself without it (the
+    window must mask keys); then decode, and the static engine's tokens
+    for the same request (identical or a near-tie)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.counts import launch_counts, set_launch_counts
+    from repro_torch.nn.attention import kv_of_q_map
+    from repro_torch.serve import Engine
+    from repro_torch.serve.scheduler import DECODING
+    win = cfg.layer_windows[0]
+    assert win is not None and LONG_PROMPT > win
+    prompt = [np.random.default_rng(7).integers(0, vocab, LONG_PROMPT)
+              .astype(np.int32)]
+    new = 8
+    seq_pages = -(-(LONG_PROMPT + new) // PAGE_SIZE) + 3      # 266
+    eng = Engine(params, cfg, n_slots=N_SLOTS, page_size=PAGE_SIZE,
+                 n_pages=seq_pages + 8, max_seq_pages=seq_pages, device=dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rid = eng.submit(prompt[0], max_new=new)
+    req = eng.requests[rid]
+    while req.state != DECODING:
+        eng.step()
+    # kernel 2 on the live pools (not counted: a comparison, not the path)
+    before = launch_counts()
+    layer = eng.kv.layers[0]
+    pages = torch.from_numpy(eng.kv.ptab).to(dev)
+    lens = torch.from_numpy(eng.kv.lens).to(dev)
+    q = torch.randn((N_SLOTS, 1, cfg.n_heads_p, cfg.head_dim_r),
+                    generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    kv_map = kv_of_q_map(cfg.n_heads, cfg.n_kv_heads, cfg.n_heads_p,
+                         cfg.n_kv_p)
+    kw = dict(scale=cfg.attn_scale, cap=cfg.attn_softcap)
+    G = cfg.n_heads_p // cfg.n_kv_p
+    out = pa.paged_attn(q, layer["pool_k"], layer["pool_v"], pages, lens,
+                        window=win, kv_of_q=kv_map, **kw)
+    glob = pa.paged_attn(q, layer["pool_k"], layer["pool_v"], pages, lens,
+                         kv_of_q=kv_map, **kw)
+    ref = pa.paged_attn_plain(q, layer["pool_k"], layer["pool_v"], pages,
+                              lens, win, G=G, **kw)
+    torch.cuda.synchronize()
+    set_launch_counts(before)
+    s = req.slot
+    err = (out - ref).abs().max().item()
+    moved = (out[s] - glob[s]).abs().max().item()
+    log(f"[archs] {cfg.arch} long request: prefill of {LONG_PROMPT} tokens "
+        f"in {eng.counters['prefill_chunks']} chunks, lens {int(lens[s])}, "
+        f"table of {eng.kv.max_seq_pages} pages; kernel 2 on the live layer-0"
+        f" pools with window {win}, softcap {cfg.attn_softcap}: max_abs_err "
+        f"vs plain {err:.3e}; the window moves the row's output by {moved:.3e}")
+    if not (torch.allclose(out, ref, rtol=1e-4, atol=1e-5) and moved > 1e-4):
+        raise AssertionError("kernel 2's window on the live pools: plain "
+                             f"error {err:.3e}, moved {moved:.3e}")
+    outs = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _read_counts()
+    st = eng.stats()
+    _check_counts(counts, st, cfg, eng.prefill_chunk, "on the long request")
+    cont = [outs[rid].tolist()]
+    log(f"[archs] {cfg.arch} long request served in {dt:.2f}s: "
+        f"{st['decode_steps']} decode steps, paged_attn by Sq "
+        f"{counts['paged_attn_by_sq']}; tokens {cont[0]}")
+    del eng
+    seng, static, _, counts_s = _static(params, cfg, prompt, dev,
+                                        max_new=new)
+    _check_static_counts(counts_s, seng.chunks, cfg, "on the long request")
+    del seng
+    splits = _split_report(params, cfg, prompt, static, cont,
+                           ("static", "continuous"), dev)
+    torch.cuda.empty_cache()
+    return {"seconds": dt, "splits": len(splits)}
+
+
+def phase_archs(dev):
+    """Phase 6f: each other dense arch at full width and cut depth, weights
+    from seed 0, calibrated and folded on the card with the exact encoding,
+    serving the main trace through the continuous engine (fused kernel 2)
+    and ``ServeEngine``, each graphed and eager."""
+    import torch
+    from repro_torch.models import init_model
+    out = {}
+    for arch, depth in ARCH_DEPTHS:
+        cfg = _arch_cfg(arch, depth)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_model(cfg, seed=0, device=dev)
+        t_init = time.perf_counter() - t0
+        params_enc, cfg_enc, (t_cal, t_fold) = _fold_exact(params, cfg)
+        fw = sum(t.numel() * t.element_size()
+                 for node in [params_enc.get("lm_head", {})] + [
+                     sub for layer in params_enc["layers"]
+                     for sub in layer.values() if isinstance(sub, dict)]
+                 for k, t in node.items() if k.endswith("_fw"))
+        log(f"[archs] {arch}: {cfg.n_layers} of {_arch_cfg(arch).n_layers} "
+            f"layers, d={cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads}x"
+            f"{cfg.head_dim_r} ff={cfg.d_ff} vocab={cfg.vocab_size} windows "
+            f"{cfg.layer_windows}; init {t_init:.1f}s, calibration "
+            f"{t_cal:.1f}s, fold {t_fold:.1f}s; folded bf16 Wt "
+            f"{fw / 1e9:.3f} GB; device memory "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
+        trace = make_trace(cfg.vocab_size)
+        res = {}
+        for graphs in (True, False):
+            eng, rids = _serve(params_enc, cfg_enc, trace, dev,
+                               cuda_graphs=graphs)
+            outs, dt, counts, st = _timed_run(eng, rids)
+            toks = [outs[r].tolist() for r in rids]
+            assert len(toks) == N_REQUESTS and all(
+                len(t) == MAX_NEW and all(0 <= x < cfg.vocab_size for x in t)
+                for t in toks), f"{arch}: not every request finished"
+            _check_counts(counts, st, cfg_enc, eng.prefill_chunk,
+                          f"({arch}, continuous)")
+            tag = "graphed" if graphs else "eager"
+            res[("continuous", graphs)] = (toks, counts)
+            log(f"[archs] {arch} continuous {tag}: "
+                f"{sum(map(len, toks)) / dt:.1f} tok/s, step p50 "
+                f"{st['step_ms_p50']:.2f} ms; launches encoded_matmul by "
+                f"(m, k, n) {counts['encoded_matmul_by_shape']}, paged_attn "
+                f"by Sq {counts['paged_attn_by_sq']}")
+            del eng
+            eng, toks, dt, counts = _static(params_enc, cfg_enc, trace, dev,
+                                            cuda_graphs=graphs)
+            st = eng.stats()
+            _check_static_counts(counts, eng.chunks, cfg_enc,
+                                 f"({arch}, static)")
+            res[("static", graphs)] = (toks, counts)
+            log(f"[archs] {arch} static {tag}: "
+                f"{sum(map(len, toks)) / dt:.1f} tok/s, step p50 "
+                f"{st['step_ms_p50']:.2f} ms (captures "
+                f"{st['jit_compiles']}); launches by (m, k, n) "
+                f"{counts['encoded_matmul_by_shape']}")
+            del eng
+        for name in ("continuous", "static"):
+            same = res[(name, True)][0] == res[(name, False)][0]
+            log(f"[archs] {arch} {name}: greedy tokens graphs vs eager "
+                f"{'identical' if same else 'DIFFERENT'}")
+            if not same:
+                raise AssertionError(f"{arch} {name}: graphed and eager "
+                                     "tokens differ")
+        splits = _split_report(params_enc, cfg_enc, trace,
+                               res[("static", True)][0],
+                               res[("continuous", True)][0],
+                               ("static", "continuous"), dev)
+        # the fp weights through both engines (graphed): a split only at
+        # a near-tie
+        eng, rids = _serve(params, cfg, trace, dev)
+        outs, _, _, _ = _timed_run(eng, rids)
+        del eng
+        seng, toks_fp, _, _ = _static(params, cfg, trace, dev)
+        del seng
+        fp_splits = _split_report(params, cfg, trace, toks_fp,
+                                  [outs[r].tolist() for r in rids],
+                                  (f"{arch} static fp", "continuous fp"),
+                                  dev, rtol=FP_TIE_RTOL)
+        info = {"counts": res[("continuous", True)][1], "cfg": cfg_enc,
+                "splits": len(splits), "fp_splits": len(fp_splits)}
+        if arch == "gemma2-27b":
+            info["long"] = _long_request(dev, params_enc, cfg_enc,
+                                         cfg.vocab_size)
+        log(f"[archs] {arch}: peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        out[arch] = info
+        del params, params_enc
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_cpu_parity(dev):
     import torch
     from repro_torch.configs import get_config
@@ -1031,6 +1606,51 @@ def phase_cpu_parity(dev):
             raise AssertionError(f"card and CPU greedy tokens differ (kv "
                                  f"{mode})")
     torch.cuda.empty_cache()
+
+def phase_cpu_parity_archs(dev):
+    """Phase 7 for the other dense archs: each reduced config, exact
+    encoding folded on the CPU, serves the main trace on the card
+    (kernels) and on the CPU (plain versions) through the continuous
+    engine and ``ServeEngine``: identical greedy tokens."""
+    import torch
+    from repro_torch.models import init_model, to_device
+    from repro_torch.serve import exact_encodings, prepare_encoded_serving
+    for arch, _ in ARCH_DEPTHS:
+        cfg = _arch_cfg(arch).reduced()
+        p_cpu = init_model(cfg, seed=0, device="cpu")
+        cache = bundle_dir("parity-" + arch)
+        pe_cpu, ce, _ = prepare_encoded_serving(
+            p_cpu, cfg, macs_override=exact_encodings(cfg.mac.bits),
+            device="cpu", cache_dir=cache, verbose=False)
+        shutil.rmtree(cache)
+        pe_gpu = to_device(pe_cpu, dev)
+        trace = make_trace(cfg.vocab_size)
+        outs = {}
+        for where, device, params in (("cpu", "cpu", pe_cpu),
+                                      ("cuda", dev, pe_gpu)):
+            eng, rids = _serve(params, ce, trace, device)
+            _reset_counts()
+            res = eng.run()
+            counts = _read_counts()
+            if where == "cuda":
+                _check_counts(counts, eng.stats(), ce, eng.prefill_chunk,
+                              f"({arch} reduced, on the card)")
+            outs[("continuous", where)] = [res[r].tolist() for r in rids]
+            seng, toks, _, counts = _static(params, ce, trace, device)
+            if where == "cuda":
+                _check_static_counts(counts, seng.chunks, ce,
+                                     f"({arch} reduced, on the card)")
+            outs[("static", where)] = toks
+        for name in ("continuous", "static"):
+            same = outs[(name, "cpu")] == outs[(name, "cuda")]
+            log(f"[parity] {arch} reduced, {name}: greedy tokens card "
+                f"(kernels) vs CPU (plain) {'identical' if same else 'DIFFERENT'}"
+                f" ({sum(map(len, outs[(name, 'cpu')]))} tokens)")
+            if not same:
+                raise AssertionError(f"{arch} reduced {name}: card and CPU "
+                                     "greedy tokens differ")
+    torch.cuda.empty_cache()
+
 
 SEARCH_FAMILIES = ("wg", "wi", "wk", "wo", "wq", "wv")
 # phase 8's searched kernel-1 rows: (family, k, n), the three decode
@@ -1382,17 +2002,27 @@ def _linears_teacher_forced(dev, pe_c, ce_c, pe_g, ce_g, prompt):
         f"{worst:.2e})")
 
 
-def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib):
+def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib,
+            on_card=False):
     """Kernel 1's row of the kernels line: ``prog``'s monomials at (m, k,
-    n), kernel and plain version timed over 4 input sets, and the library
-    yardstick: the same function as one bf16 product of the 0/1 planes
-    (m, U·k) by Wt (U·k, n), f32 out (the bias add left out)."""
+    n), kernel and plain version timed over 4 input sets (``on_card``:
+    made on the card, as many as take 128 MB of Wt, 1 to 4), and the
+    library yardstick: the same function as one bf16 product of the 0/1
+    planes (m, U·k) by Wt (U·k, n), f32 out (the bias add left out)."""
     import torch
     from repro_torch.kernels import encoded_matmul as em
     from repro_torch.kernels.ref import planes_ref
     from repro_torch.launch.kernel_bench import time_graph
     U = prog.n_a_planes
-    sets = _em_case(dev, prog, m, k, n, seed=seed, copies=4)
+    if on_card:
+        copies = min(4, max(1, math.ceil(128e6 / (U * k * n * 2))))
+        sets = []
+        for i in range(copies):
+            (x,), wt, bias, sh = _em_dev_case(dev, prog, (m,), k, n,
+                                              seed=seed + i)
+            sets.append((x, wt, bias, sh))
+    else:
+        sets = _em_case(dev, prog, m, k, n, seed=seed, copies=4)
     out, ref = em.encoded_matmul(*sets[0]), em.encoded_matmul_plain(*sets[0])
     err = (out - ref).abs().max().item()
     if not torch.allclose(out, ref, rtol=1e-4,
@@ -1421,10 +2051,69 @@ def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib):
                      f"{lib[1]} over K = U·k"}
 
 
+def _pa_row(dev, mode, sq, Hq, Hkv, D, P, lens, window, cap, name, note,
+            launches, seed):
+    """Kernel 2's row of the kernels line: 4 rows of ``lens`` at Sq
+    ``sq``, ``mode`` pools ('bf16' = dense f32), kernel and plain version
+    timed over 8 input sets, beside the launch floor (an empty kernel on
+    the same grid and cluster, replayed the same way)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.kernel_bench import time_graph
+    B, ps = N_SLOTS, PAGE_SIZE
+    if mode == "bf16":
+        sets, kv_map = _pa_case(dev, B, sq, Hq, Hkv, D, ps, P, lens,
+                                torch.float32, seed=seed, copies=8)
+        args = [a + (None, None) for a in sets]
+    else:
+        qsets, kv_map = _pa_quant_case(dev, mode, B, sq, Hq, Hkv, D, ps, P,
+                                       lens, seed=seed, copies=8)
+        args = [a + sc for a, sc in qsets]
+    G = Hq // Hkv
+
+    def kern(q, pk, pv, pg, ln, sk, sv):
+        return pa.paged_attn(q, pk, pv, pg, ln, scale=D ** -0.5,
+                             window=window, cap=cap, kv_of_q=kv_map,
+                             scale_k=sk, scale_v=sv)
+
+    def plain(q, pk, pv, pg, ln, sk, sv):
+        return pa.paged_attn_plain(q, pk, pv, pg, ln,
+                                   window or pa._NO_WINDOW, scale=D ** -0.5,
+                                   cap=cap, G=G, scale_k=sk, scale_v=sv)
+
+    err = (kern(*args[0]) - plain(*args[0])).abs().max().item()
+    ms = time_graph(kern, args)
+    plain_ms = time_loop(plain, args)
+    floor_ms = time_graph(lambda: pa.paged_attn_floor(B, Hkv, P, dev),
+                          [()] * 8)
+    read = sum((l_ + sq - 1) // ps + 1 for l_ in lens)  # pages per kv head
+    row_bytes = D * 4 if mode == "bf16" else (
+        D // 2 + 4 if mode == "int4" else D + 4)
+    nbytes = (2 * B * sq * Hq * D * 4 + 2 * read * ps * Hkv * row_bytes
+              + read * 4 + B * 4)
+    ops = 4.0 * sq * D * read * ps * Hq
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:131",
+        "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_b, t_o),
+        "bound_by": "bytes" if t_b >= t_o else "operations",
+        # no PyTorch call reads K/V through a page table
+        "library_ms": None,
+        "floor_ms": floor_ms,
+        "cluster": pa.cluster_size(B, Hkv, P, torch.cuda.get_device_properties(
+            dev).multi_processor_count),
+        "shape": f"B={B} Sq={sq} Hq={Hq} Hkv={Hkv} D={D} ps={ps} P={P} "
+                 f"lens={lens} window={window} cap={cap} {note}, "
+                 f"{nbytes / 1e6:.3f} MB"}
+
+
 def phase_measure(dev, serve_info):
     """Kernel, plain and library times at the main path's shapes."""
     import torch
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.kernel_bench import bf16_mm, time_graph
     rows = []
     lib = bf16_mm()
@@ -1467,6 +2156,17 @@ def phase_measure(dev, serve_info):
             f"decode, searched {name}: monomials by bits "
             f"{dict(sorted(monos.items()))}; launches: every family at "
             f"this (m, k, n) in the searched serve", lib))
+    # kernel 1 at the other dense archs' decode shapes (m = n_slots), exact
+    # U, Wt made on the card; launches: the arch's continuous serve (6f)
+    for arch, _ in ARCH_DEPTHS:
+        a_shape = serve_info["archs"][arch]["counts"]["encoded_matmul_by_shape"]
+        for k, n in _arch_em_shapes(serve_info["archs"][arch]["cfg"]):
+            rows.append(_em_row(
+                dev, _program("exact"), N_SLOTS, k, n, 4,
+                f"encoded_matmul_{arch}_m{N_SLOTS}_k{k}_n{n}",
+                a_shape.get((N_SLOTS, k, n), 0), f"decode, {arch}", lib,
+                on_card=True))
+            torch.cuda.empty_cache()
     # kernel 2: decode attention, 4 slots × 16 heads × D 64, with dense
     # f32, int8 and packed-int4 pools, at a 32-page table and at the
     # serve's 127-page table (the same lens, so the same bytes); then at
@@ -1474,43 +2174,11 @@ def phase_measure(dev, serve_info):
     # and the serve's table, launches those at that Sq in the self-drafter
     # serves with k = 4 and 8.  The floor is an empty kernel on the same
     # grid and cluster, replayed the same way
-    B, H, D, ps = N_SLOTS, 16, 64, PAGE_SIZE
     lens = [100, 200, 300, 400]
     cases = [(mode, P, 1) for mode in ("bf16", "int8", "int4")
              for P in (32, SERVE_P)]
     cases += [("bf16", SERVE_P, SPEC_K + 1), ("bf16", SERVE_P, 9)]
     for mode, P, sq in cases:
-        if mode == "bf16":
-            sets, kv_map = _pa_case(dev, B, sq, H, H, D, ps, P, lens,
-                                    torch.float32, seed=5 if sq == 1 else 7,
-                                    copies=8)
-            args = [a + (None, None) for a in sets]
-        else:
-            qsets, kv_map = _pa_quant_case(dev, mode, B, sq, H, H, D, ps,
-                                           P, lens, seed=6, copies=8)
-            args = [a + sc for a, sc in qsets]
-
-        def kern(q, pk, pv, pg, ln, sk, sv):
-            return pa.paged_attn(q, pk, pv, pg, ln, scale=D ** -0.5,
-                                 kv_of_q=kv_map, scale_k=sk, scale_v=sv)
-
-        def plain(q, pk, pv, pg, ln, sk, sv):
-            return pa.paged_attn_plain(q, pk, pv, pg, ln, pa._NO_WINDOW,
-                                       scale=D ** -0.5, G=1, scale_k=sk,
-                                       scale_v=sv)
-
-        err = (kern(*args[0]) - plain(*args[0])).abs().max().item()
-        ms = time_graph(kern, args)
-        plain_ms = time_loop(plain, args)
-        floor_ms = time_graph(
-            lambda: pa.paged_attn_floor(B, H, P, dev), [()] * 8)
-        read = sum((l_ + sq - 1) // ps + 1 for l_ in lens)  # per kv head
-        row_bytes = D * 4 if mode == "bf16" else (
-            D // 2 + 4 if mode == "int4" else D + 4)
-        nbytes = (2 * B * sq * H * D * 4 + 2 * read * ps * H * row_bytes
-                  + read * 4 + B * 4)
-        ops = 4.0 * sq * D * read * ps * H
-        t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
         if sq == 1:
             name = "paged_attn" + ("" if mode == "bf16" else f"_{mode}") + (
                 "" if P == 32 else f"_p{P}")
@@ -1523,22 +2191,20 @@ def phase_measure(dev, serve_info):
             note = f"f32 pools (speculative verify, k={sq - 1})"
             launches = serve_info["spec"][f"self_k{sq - 1}"]["counts"][
                 "paged_attn_by_sq"].get(sq, 0)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/paged_attention.py:131",
-            "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            # no PyTorch call reads K/V through a page table
-            "library_ms": None,
-            "floor_ms": floor_ms,
-            "cluster": pa.cluster_size(B, H, P, torch.cuda.
-                                       get_device_properties(dev)
-                                       .multi_processor_count),
-            "shape": f"B={B} Sq={sq} H={H} D={D} ps={ps} P={P} "
-                     f"lens={lens} {note}, {nbytes / 1e6:.3f} MB"})
+        rows.append(_pa_row(dev, mode, sq, 16, 16, 64, P, lens, None, None,
+                            name, note, launches,
+                            seed=(5 if sq == 1 else 7) if mode == "bf16"
+                            else 6))
+    # kernel 2 at head dim 128 with the other dense archs' head layouts,
+    # f32 pools and the serve's table (gemma2 with its layer-0 window and
+    # softcap); launches: the arch's continuous serve (phase 6f)
+    for arch, _ in ARCH_DEPTHS:
+        cfg = serve_info["archs"][arch]["cfg"]
+        rows.append(_pa_row(
+            dev, "bf16", 1, cfg.n_heads_p, cfg.n_kv_p, cfg.head_dim_r,
+            SERVE_P, lens, cfg.layer_windows[0], cfg.attn_softcap,
+            f"paged_attn_{arch}_p{SERVE_P}", f"f32 pools, {arch} heads",
+            serve_info["archs"][arch]["counts"]["paged_attn"], seed=8))
     # kernel 3 at the prefill shape of full-width qwen1.5-0.5b: B 4, S 1024,
     # 16 heads, D 64, causal; flattened (B·H, S, D) as flash_mha hands it
     # to the kernel.  Not on the serving path: launches 0 (the reference's
@@ -1608,19 +2274,24 @@ def main() -> int:
     import torch
     phase_build()
     phase_kernel1(dev)
+    phase_kernel1_archs(dev)
     phase_kernel2(dev)
     phase_kernel2_quant(dev)
+    phase_kernel2_d128(dev)
     phase_flash(dev)
     serve_info = phase_serve(dev)
     serve_info.update(phase_serve_quant(dev, serve_info))
     serve_info["prefix"] = phase_prefix(dev, serve_info)
     serve_info["spec"] = phase_spec(dev, serve_info)
+    serve_info["static"] = phase_static(dev, serve_info)
     for key in ("params", "cfg", "params_enc", "cfg_enc", "trace", "tokens",
                 "stats"):
         del serve_info[key]
     torch.cuda.empty_cache()
     serve_info["search"] = phase_serve_search(dev)
+    serve_info["archs"] = phase_archs(dev)
     phase_cpu_parity(dev)
+    phase_cpu_parity_archs(dev)
     phase_cpu_parity_search(dev)
     rows = phase_measure(dev, serve_info)
     for r in rows:

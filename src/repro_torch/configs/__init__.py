@@ -1,2 +1,2 @@
 from .base import ModelConfig
-from .registry import get_config
+from .registry import get_config, list_archs

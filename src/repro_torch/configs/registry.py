@@ -1,11 +1,19 @@
-"""--arch registry.  Only the dense archs the port serves are registered."""
+"""--arch registry: the reference's dense-family archs, the ones the port
+serves (the other families wait, ROADMAP Queue A)."""
 from __future__ import annotations
 
 import importlib
 
 _ARCHS = {
     "qwen1.5-0.5b": "qwen15_05b",
+    "qwen1.5-4b": "qwen15_4b",
+    "gemma2-27b": "gemma2_27b",
+    "starcoder2-3b": "starcoder2_3b",
 }
+
+
+def list_archs() -> list[str]:
+    return list(_ARCHS)
 
 
 def get_config(arch: str):

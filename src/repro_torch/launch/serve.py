@@ -1,6 +1,12 @@
-"""Serving launcher of the port: continuous batching over the paged KV
-cache, optionally with calibrated encoded-MAC inference.
+"""Serving launcher of the port: a static batch over the dense KV cache
+(the default) or continuous batching over the paged KV cache
+(``--continuous``), optionally with calibrated encoded-MAC inference.
 
+  # static batch (dense KV cache), on the CPU and on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --requests 6 --max-new 8
+  python -m repro_torch.launch.serve --arch qwen1.5-4b --mac encoded \
+      --encoding exact
   # on the card: per-family encoding search (the default --encoding
   # search), fold, bundle cache under src/repro_torch/core/artifacts/
   python -m repro_torch.launch.serve --continuous --mac encoded \
@@ -21,7 +27,9 @@ cache, optionally with calibrated encoded-MAC inference.
 ``--paged-attn gather`` / ``kernel`` are the reference CLI's ``xla`` /
 ``pallas``: the gathered-page-view path, or the fused page-walk op (the
 CUDA kernel on the card, its plain PyTorch version on the CPU).  On the
-card every engine step runs as a captured CUDA graph.  The
+card every continuous engine step, and the static engine's decode step,
+runs as a captured CUDA graph.  ``--arch`` takes the four dense-family
+archs (``configs/registry.py``).  The
 weights are random, made from ``--seed``; the request trace comes from
 ``numpy.random.default_rng(0)`` as in the reference CLI.
 """
@@ -34,7 +42,8 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    from repro_torch.configs import list_archs
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) runs the kernels on the card; "
@@ -55,7 +64,7 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over the paged KV cache "
-                         "(the only engine ported so far)")
+                         "(default: static batches over the dense cache)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--n-pages", type=int, default=256)
@@ -102,16 +111,13 @@ def main(argv=None):
                  "rounds run against the paged KV cache)")
     if args.spec_decode < 0:
         ap.error("--spec-decode must be >= 0")
-    if not args.continuous:
-        ap.error("only --continuous serving is ported so far (ROADMAP: "
-                 "ServeEngine/generate on the dense cache)")
 
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.models import init_model
-    from repro_torch.serve import (Engine, exact_encodings,
+    from repro_torch.serve import (Engine, ServeEngine, exact_encodings,
                                    prepare_drafter, prepare_encoded_serving)
 
     dev = resolve_device(args.device)
@@ -156,6 +162,18 @@ def main(argv=None):
         # timed run below measures serving only
         from repro_torch.kernels import build
         build.build()
+    if not args.continuous:
+        engine = ServeEngine(params, cfg, batch_slots=args.slots,
+                             max_len=128, device=dev)
+        t0 = time.time()
+        outs = engine.run(reqs, max_new=args.max_new)
+        dt = time.time() - t0
+        total = sum(args.max_new for _ in reqs)
+        print(f"served {len(reqs)} requests, {total} tokens in {dt:.2f}s "
+              f"({total / dt:.1f} tok/s, mac={args.mac}, static)")
+        for i, o in enumerate(outs[:3]):
+            print(f"req{i}: {list(map(int, o[:10]))} ...")
+        return
     engine = Engine(params, cfg, n_slots=args.slots,
                     page_size=args.page_size, n_pages=args.n_pages,
                     reserve=args.reserve, prefill_chunk=args.prefill_chunk,

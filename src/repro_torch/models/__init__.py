@@ -8,7 +8,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .lm import (init_model, apply_model, init_paged_cache,  # noqa: E402
-                 supports_paged_cache, params_from_jax,
+from .lm import (init_model, apply_model, init_cache,  # noqa: E402
+                 init_paged_cache, supports_paged_cache,
+                 supports_ragged_mask, params_from_jax,
                  to_device, to_reference_layout,
                  from_reference_layout, tree_from_reference)

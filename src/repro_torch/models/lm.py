@@ -7,7 +7,9 @@ stacks them ``(L, …)`` under ``"stack"`` for its scan).
 Public API:
   init_model(cfg, *, seed, device)               → params
   apply_model(params, cfg, tokens, cache=None)   → (logits, new_cache)
+  init_cache(cfg, batch, max_len, *, device)     → dense KV cache
   init_paged_cache(cfg, n_pages, page_size, *, device) → paged cache
+  supports_paged_cache(cfg) / supports_ragged_mask(cfg)
   params_from_jax(tree, cfg, device)             → params
   to_reference_layout(tree) / from_reference_layout(tree, n_layers)
   to_device(params, device)                      → params
@@ -20,6 +22,7 @@ import torch
 from repro_torch.core.macexec import mm
 from repro_torch.device import resolve_device
 from repro_torch.nn import blocks as B
+from repro_torch.nn.attention import init_kv_cache
 from repro_torch.nn.common import (embed_apply, embed_init, linear,
                                    linear_init, norm_apply, norm_init,
                                    softcap)
@@ -61,35 +64,53 @@ def to_device(tree, device):
 def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None):
     """tokens (B, S) → (logits (B, S, vocab_p), new_cache).
 
-    ``cache``: None, or a paged cache ``{"layers": [{pool_k, pool_v[,
-    scale_k, scale_v]}, …],
-    "pages": (B, P) int32, "lens": (B,) int32}``.  The pools are written in
-    place; the returned cache shares them and carries ``lens + S``."""
+    ``cache``: None; a paged cache ``{"layers": [{pool_k, pool_v[,
+    scale_k, scale_v]}, …], "pages": (B, P) int32, "lens": (B,) int32}``;
+    or a dense cache ``{"layers": [{k, v}, …], "pos"[, "pad"]}``
+    (``init_cache``; ``pos`` an int or a 0-d tensor, ``pad`` (B,) the
+    left-pad slots of each row).  The cache's tensors are written in place;
+    the returned cache shares them and carries ``lens + S`` (paged) or
+    ``pos + S`` (dense)."""
     Bn, S = tokens.shape
     x = embed_apply(params["embed"], tokens, cfg.cdtype)
     if cfg.embed_scale:
         x = x * torch.full((), np.sqrt(cfg.d_model), dtype=cfg.cdtype,
                            device=x.device)
-    if cache is not None:
+    paged = cache is not None and "pages" in cache
+    pad = cache.get("pad") if (cache is not None and not paged) else None
+    ar = torch.arange(S, device=x.device)
+    if paged:
         lens = cache["lens"]
-        positions = lens[:, None] + torch.arange(S, device=x.device,
-                                                 dtype=lens.dtype)[None, :]
+        positions = lens[:, None] + ar.to(lens.dtype)[None, :]
+        ctx = {"pages": cache["pages"], "lens": lens}
+    elif cache is not None:
+        pos = cache["pos"]
+        ctx = {"pos": pos}
+        if pad is not None:
+            # left-padded ragged batch: row b's tokens start at pad[b]
+            # slots, so its logical positions are slot - pad[b] (negative
+            # for the pads themselves, whose keys attention masks)
+            positions = pos + ar[None, :] - pad[:, None]
+            ctx["pad"] = pad
+        else:
+            positions = pos + ar
     else:
-        positions = torch.arange(S, device=x.device)
+        positions = ar
     windows = cfg.layer_windows
     for i, p_l in enumerate(params["layers"]):
-        c_l = None
-        if cache is not None:
-            c_l = dict(cache["layers"][i], pages=cache["pages"],
-                       lens=cache["lens"])
+        c_l = None if cache is None else dict(cache["layers"][i], **ctx)
         x, _ = B.decoder_block_apply(p_l, x, cfg, window=windows[i],
                                      cache=c_l, positions=positions)
     h = norm_apply(params, x, cfg.norm, cfg.norm_eps, "final_norm")
     logits = _head(params, cfg, h)
     new_cache = None
-    if cache is not None:
+    if paged:
         new_cache = {"layers": cache["layers"], "pages": cache["pages"],
                      "lens": cache["lens"] + S}
+    elif cache is not None:
+        new_cache = {"layers": cache["layers"], "pos": cache["pos"] + S}
+        if pad is not None:
+            new_cache["pad"] = pad
     return logits, new_cache
 
 
@@ -104,10 +125,29 @@ def _head(params, cfg, h):
     return logits.to(cfg.cdtype)
 
 
+def init_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:
+    """Dense KV cache: per layer ``k/v (batch, max_len, n_kv, hd)`` zeros
+    in the compute dtype, and ``pos`` 0 (a 0-d int32 tensor)."""
+    dev = resolve_device(device)
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                                  "(ROADMAP: remaining archs)")
+    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+            "layers": init_kv_cache(cfg, batch, max_len, cfg.n_layers,
+                                    device=dev)}
+
+
 def supports_paged_cache(cfg) -> bool:
     """Block paging needs plain per-layer (k, v) attention: the dense
     family."""
     return cfg.family == "dense"
+
+
+def supports_ragged_mask(cfg) -> bool:
+    """Whether left-pad masking (``pad_lens``) is exact for this arch:
+    plain GQA attention over a dense cache (the paged predicate), and no
+    flash prefill, whose summation order a solo run would not share."""
+    return supports_paged_cache(cfg) and not cfg.flash_attention
 
 
 def paged_cache_layout(cfg, n_pages: int, page_size: int) -> list:

@@ -1,6 +1,6 @@
 """Self-attention: GQA/MQA/MHA with RoPE, sliding window, logit softcap
-(port of ``repro/nn/attention.py``: the no-cache branch and the paged
-branch; the dense decode cache waits with ``generate``)."""
+(port of ``repro/nn/attention.py``: the no-cache, paged and dense-cache
+branches)."""
 from __future__ import annotations
 
 import math
@@ -55,10 +55,14 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
                positions=None):
     """Self-attention over x (B, S, d) → (out, new_cache_or_None).
 
-    ``cache``: None (no cache) or a paged layer cache ``{pool_k, pool_v,
+    ``cache``: None (no cache), a paged layer cache ``{pool_k, pool_v,
     [scale_k, scale_v,] pages, lens}`` whose pools are written in place
-    (``positions`` is then (B, S) absolute per-row positions).  ``window``:
-    this layer's sliding window (None = global)."""
+    (``positions`` is then (B, S) absolute per-row positions), or a dense
+    layer cache ``{k, v, pos[, pad]}`` (``init_kv_cache``) whose rows
+    ``[pos, pos+S)`` are written in place; ``pad`` (B,) counts each row's
+    left-pad slots, and ``positions`` is then (B, S) logical positions
+    (negative on the pads).  ``window``: this layer's sliding window (None
+    = global)."""
     B, S, _ = x.shape
     hd = cfg.head_dim_r
     cdt = cfg.cdtype
@@ -77,6 +81,14 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
     scale = cfg.attn_scale or (1.0 / math.sqrt(hd))
     kv_map = kv_of_q_map(cfg.n_heads, cfg.n_kv_heads, cfg.n_heads_p,
                          cfg.n_kv_p)
+    pad = None if cache is None else cache.get("pad")
+
+    def parallel_attn(q, k, v):
+        k_valid = None if pad is None else positions >= 0   # left-pad keys
+        return mha(q, k, v, kv_map, scale=scale, q_pos=positions,
+                   k_pos=positions, window=window, cap=cfg.attn_softcap,
+                   chunk=cfg.attn_chunk, k_valid=k_valid)
+
     new_cache = None
     if cache is None:
         # the reference routes this branch through its flash kernel when
@@ -86,10 +98,8 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
         # src/repro/nn/blocks.py:27-31,63), so that gate never opens and
         # it runs mha; the port does the same (kernels.ops.flash_mha stays
         # off the model path)
-        out = mha(q, k, v, kv_map, scale=scale, q_pos=positions,
-                  k_pos=positions, window=window, cap=cfg.attn_softcap,
-                  chunk=cfg.attn_chunk)
-    else:
+        out = parallel_attn(q, k, v)
+    elif "pool_k" in cache:
         # paged serving: write through into the page pools (in place),
         # then attend through the page table.  Decode steps with a regular
         # GQA layout take the fused page-walk op when attention_backend is
@@ -130,5 +140,38 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
         new_cache = {"pool_k": pk, "pool_v": pv}
         if quant:
             new_cache.update(scale_k=sk, scale_v=sv)
+    else:
+        # dense cache: write K/V at [pos, pos+S) in place.  ``pos`` may be
+        # a device tensor (a captured decode step reads it from its input
+        # buffer) or an int
+        ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+        rows = pos + torch.arange(S, device=x.device)
+        ck.index_copy_(1, rows, k.to(ck.dtype))
+        cv.index_copy_(1, rows, v.to(cv.dtype))
+        if S > 1:
+            # prefill (from position 0) attends over the fresh K/V
+            out = parallel_attn(q, k, v)
+        else:
+            # decode: the whole max_len row; slot s of a left-padded row
+            # holds its token at logical position s - pad (pads masked)
+            k_pos = torch.arange(ck.shape[1], device=x.device)
+            k_valid = k_pos < pos + S
+            if pad is not None:
+                k_valid = k_valid[None, :] & (k_pos[None, :] >= pad[:, None])
+                k_pos = k_pos[None, :] - pad[:, None]
+            out = mha(q, ck, cv, kv_map, scale=scale, q_pos=positions,
+                      k_pos=k_pos, window=window, cap=cfg.attn_softcap,
+                      chunk=0, k_valid=k_valid)
+        new_cache = {"k": ck, "v": cv, "pos": pos + S}
     out = out.reshape(B, S, cfg.n_heads_p * hd)
     return linear(p, "wo", out, cfg.mac, cdt), new_cache
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, n_layers: int, *,
+                  device) -> list:
+    """Per layer a dense ``{k, v}`` of zeros ``(batch, max_len, n_kv,
+    hd)`` in the compute dtype (the reference stacks them ``(L, …)``)."""
+    shape = (batch, max_len, cfg.n_kv_p, cfg.head_dim_r)
+    return [{"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+            for _ in range(n_layers)]

@@ -1,4 +1,7 @@
-from .engine import Engine, make_paged_decode_step, make_paged_prefill
+from .engine import (Engine, ServeEngine, generate, make_decode_step,
+                     make_paged_decode_step, make_paged_prefill,
+                     make_prefill)
+from repro_torch.models import init_cache, supports_ragged_mask
 from .paged_cache import PageAllocator, PagedKVCache, PrefixIndex, pages_for
 from .scheduler import (Scheduler, Request, QUEUED, PREFILLING, DECODING,
                         FINISHED, EVICTED)

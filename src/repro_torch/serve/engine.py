@@ -1,6 +1,8 @@
 """Continuous-batching greedy ``Engine`` over the paged KV cache (port of
 ``Engine`` from ``repro/serve/engine.py``, with its prefix cache and
-speculative decoding; telemetry, mesh and sanitizer wait).
+speculative decoding; telemetry, mesh and sanitizer wait), and the
+static-batch ``ServeEngine`` with ``generate`` over the dense KV cache,
+the reference's baseline and the serving CLI's default.
 
 A scheduler admits queued requests into a fixed number of slots under a
 page budget; each engine step runs one prefill chunk per prefilling slot
@@ -11,10 +13,13 @@ in place by every step.
 
 Every step the reference jits runs here as one captured CUDA graph on the
 card (``serve/graphs.py``): the prefill chunk, the decode step, the k
-unrolled draft steps and the verify forward, one graph per shape.
+unrolled draft steps and the verify forward, one graph per shape; the
+static engine's decode step likewise, one graph per (batch, max_len)
+(its prefill stays eager, as the reference jits it per prompt shape).
 """
 from __future__ import annotations
 
+import collections
 import functools
 import time
 from typing import Optional
@@ -23,7 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.macexec import check_drafter
-from repro_torch.models import apply_model, supports_paged_cache
+from repro_torch.device import resolve_device
+from repro_torch.models import (apply_model, init_cache,
+                                supports_paged_cache, supports_ragged_mask)
 from repro_torch.models.lm import paged_cache_layout
 from .graphs import Step
 from .paged_cache import PagedKVCache
@@ -34,6 +41,17 @@ from .spec import greedy_accept, make_spec_draft, make_spec_verify
 def _percentile(xs, q: float) -> float:
     """numpy's linear-interpolation percentile; NaN on an empty sample."""
     return float(np.percentile(xs, q)) if len(xs) else float("nan")
+
+
+def _graphs_on(device: torch.device, cuda_graphs: Optional[bool]) -> bool:
+    """An engine's ``cuda_graphs``: None = on the card only; True on the
+    CPU raises."""
+    if cuda_graphs is None:
+        return device.type == "cuda"
+    if cuda_graphs and device.type != "cuda":
+        raise ValueError("cuda_graphs=True needs the card; the engine runs "
+                         f"on {device}")
+    return bool(cuda_graphs)
 
 
 def make_paged_prefill(cfg):
@@ -109,12 +127,7 @@ class Engine:
         self.kv = PagedKVCache(cfg, n_slots, n_pages, page_size,
                                max_seq_pages, device=device)
         self.device = self.kv.device
-        if cuda_graphs is None:
-            cuda_graphs = self.device.type == "cuda"
-        if cuda_graphs and self.device.type != "cuda":
-            raise ValueError("cuda_graphs=True needs the card; the engine "
-                             f"runs on {self.device}")
-        self.cuda_graphs = bool(cuda_graphs)
+        self.cuda_graphs = _graphs_on(self.device, cuda_graphs)
         self.sched = Scheduler(self.kv, reserve=reserve,
                                prefix_cache=prefix_cache)
         self.spec_k = int(spec_decode)
@@ -458,3 +471,310 @@ class Engine:
                 "draft_mac_mode": self.draft_cfg.mac.mode,
             })
         return m
+
+
+# ---------------------------------------------------------------------------
+# static-batch serving on the dense KV cache
+# ---------------------------------------------------------------------------
+
+def make_prefill(cfg):
+    """Prefill a (B, S) batch into a dense cache from position 0: the last
+    position's logits (B, 1, vocab_p) and the cache, written in place and
+    carrying ``pos + S``."""
+    def prefill(params, cache, tokens):
+        logits, cache = apply_model(params, cfg, tokens, cache=cache)
+        return logits[:, -1:], cache
+    return prefill
+
+
+def make_decode_step(cfg):
+    """One (B, 1) decode step against the dense cache: logits (B, 1,
+    vocab_p) and the cache carrying ``pos + 1``."""
+    def decode_step(params, cache, tokens):
+        return apply_model(params, cfg, tokens, cache=cache)
+    return decode_step
+
+
+def _ragged_pad(cfg, pad_lens):
+    """``pad_lens`` as the reference's ``generate`` takes it: None when no
+    row is padded; refused where left-pad masking is not exact."""
+    if pad_lens is None:
+        return None
+    pad = np.asarray(pad_lens, np.int32).ravel()
+    if not (pad > 0).any():
+        return None                       # uniform batch: the plain path
+    if not supports_ragged_mask(cfg):
+        raise ValueError(
+            f"pad_lens: arch {cfg.arch!r} (family={cfg.family}, "
+            f"flash={cfg.flash_attention}) cannot mask left pads exactly; "
+            "batch equal-length prompts instead")
+    return pad
+
+
+def _pick(lg, greedy: bool, generator):
+    """The next token (B, 1) int32 from last-position logits (B, vocab):
+    argmax, or a sample by the Gumbel-max rule (as
+    ``jax.random.categorical``) with draws from ``generator``."""
+    if not greedy:
+        if generator is None:
+            raise ValueError("sampling (greedy=False) needs a "
+                             "torch.Generator on the logits' device")
+        u = torch.rand(lg.shape, generator=generator, device=lg.device)
+        u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
+        lg = lg.to(torch.float32) - torch.log(-torch.log(u))
+    return torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+
+
+def _static_decode(decode, params, layers, vocab, tok, pos, pad=None):
+    """The static decode step on a dense cache's layers: last-position
+    logits (B, vocab), the greedy token (B, 1) and ``pos + 1``."""
+    cache = {"layers": layers, "pos": pos}
+    if pad is not None:
+        cache["pad"] = pad
+    logits, new = decode(params, cache, tok)
+    lg = logits[:, -1, :vocab]
+    return lg, _pick(lg, True, None), new["pos"]
+
+
+class StaticBatch:
+    """A dense KV cache of ``(batch, max_len)`` and its decode step, which
+    runs as one captured CUDA graph on the card (``serve/graphs.py``
+    ``Step``, one per pad layout) or eagerly (``graphs=False``).
+
+    The step reads its tokens, ``pos`` and ``pad`` from device buffers of
+    its own and writes only the cache rows at ``pos``, so the warm-up run
+    before its capture changes nothing; the loop copies the next token and
+    ``pos + 1`` back into those buffers on the device, and waits for the
+    host only to test ``eos_id``."""
+
+    def __init__(self, params, cfg, batch: int, max_len: int, *, device,
+                 graphs: bool):
+        self.params, self.cfg = params, cfg
+        self.batch, self.max_len = batch, max_len
+        self.device = torch.device(device)
+        self.graphs = graphs
+        cache = init_cache(cfg, batch, max_len, device=self.device)
+        self.layers, self.pos = cache["layers"], cache["pos"]
+        i32 = dict(dtype=torch.int32, device=self.device)
+        self.tok = torch.zeros((batch, 1), **i32)
+        self.pad = torch.zeros((batch,), **i32)
+        self._prefill = make_prefill(cfg)
+        self._decode = make_decode_step(cfg)
+        self.steps = {}                  # ragged (bool) → Step
+        self.decode_steps = 0
+        self._marks = []
+
+    @property
+    def captures(self) -> int:
+        return sum(s.captures for s in self.steps.values())
+
+    def cache_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for layer in self.layers
+                   for t in layer.values())
+
+    def _step(self, ragged: bool) -> Step:
+        if ragged not in self.steps:
+            # bound to the params and the cache, not to self: a graph and
+            # its memory pool go with the last reference to this batch
+            fn = functools.partial(_static_decode, self._decode, self.params,
+                                   self.layers, self.cfg.vocab_size)
+            self.steps[ragged] = Step("decode_ragged" if ragged else "decode",
+                                      fn, self.device, self.graphs)
+        return self.steps[ragged]
+
+    def _mark(self) -> None:
+        """A decode step's start (and the loop's end) on the card's
+        timeline (a CUDA event: no sync) or the host clock."""
+        if self.device.type == "cuda":
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self._marks.append(e)
+        else:
+            self._marks.append(time.perf_counter())
+
+    def step_ms(self) -> list:
+        """Each decode step of the last ``run``, in ms from its start to
+        the next one's (read after the run's tokens reached the host,
+        which waited for the card)."""
+        m = self._marks
+        if self.device.type == "cuda":
+            return [a.elapsed_time(b) for a, b in zip(m, m[1:])]
+        return [(b - a) * 1e3 for a, b in zip(m, m[1:])]
+
+    @torch.inference_mode()
+    def run(self, prompts, max_new: int, *, greedy: bool = True,
+            generator=None, eos_id: Optional[int] = None,
+            pad=None) -> torch.Tensor:
+        """``generate`` on this cache: prompts (batch, S) → tokens (batch,
+        n ≤ max_new) int32 on the device; ``pad`` (batch,) left-pad slots
+        or None.  Each decode step is marked for ``step_ms``."""
+        B, S = prompts.shape
+        if B != self.batch or S + max_new > self.max_len:
+            raise ValueError(f"a ({B}, {S}) batch with {max_new} new tokens "
+                             f"does not fit a ({self.batch}, {self.max_len})"
+                             " cache")
+        for layer in self.layers:
+            for t in layer.values():
+                t.zero_()
+        self.pos.zero_()
+        cache = {"layers": self.layers, "pos": self.pos}
+        ragged = pad is not None
+        if ragged:
+            self.pad.copy_(torch.as_tensor(pad, dtype=torch.int32))
+            cache["pad"] = self.pad
+        logits, cache = self._prefill(self.params, cache,
+                                      prompts.to(self.device))
+        self.pos.copy_(cache["pos"])
+        tok = _pick(logits[:, -1, :self.cfg.vocab_size], greedy, generator)
+        step = self._step(ragged)
+        args = (self.tok, self.pos) + ((self.pad,) if ragged else ())
+        out = torch.empty((B, max_new), dtype=torch.int32, device=self.device)
+        done = torch.zeros((B, 1), dtype=torch.bool, device=self.device)
+        self._marks = []
+        n = 0
+        for i in range(max_new):
+            if eos_id is not None:
+                tok = tok.masked_fill(done, eos_id)
+                done = done | (tok == eos_id)
+            out[:, i:i + 1] = tok
+            n = i + 1
+            if i + 1 == max_new:         # the next logits would be unused
+                break
+            if eos_id is not None and bool(done.all()):
+                break
+            self._mark()
+            self.tok.copy_(tok)
+            lg, nxt, new_pos = step(*args)
+            self.pos.copy_(new_pos)
+            tok = nxt if greedy else _pick(lg, False, generator)
+            self.decode_steps += 1
+        self._mark()
+        return out[:, :n]
+
+
+def generate(params, cfg, prompts, max_new: int = 16,
+             max_len: Optional[int] = None, greedy: bool = True,
+             generator=None, eos_id: Optional[int] = None,
+             pad_lens=None) -> torch.Tensor:
+    """Batched generation over a dense KV cache (the reference's
+    ``generate``): prompts (B, S) → tokens (B, ≤ max_new) int32 on the
+    params' device.
+
+    Greedy, or with ``greedy=False`` sampled from the logits with draws
+    from ``generator`` (a ``torch.Generator`` on that device; the
+    reference's ``jax.random`` draws have no counterpart, so sampled tokens
+    are not the reference's).  ``eos_id``: rows that emit it repeat it from
+    then on, and the loop ends once every row has.  ``pad_lens`` (B,):
+    left-pad slots per row; pad keys are masked and positions shifted, so
+    each row decodes as it would alone (``supports_ragged_mask``).  No
+    decode step is wasted: one prefill and at most ``max_new - 1`` decode
+    steps.  On the card the decode step is a captured CUDA graph
+    (``ServeEngine(cuda_graphs=False)`` runs it eagerly)."""
+    dev = params["embed"]["table"].device
+    prompts = torch.as_tensor(prompts).to(dev)
+    B, S = prompts.shape
+    pad = _ragged_pad(cfg, pad_lens)
+    sb = StaticBatch(params, cfg, B, max_len or (S + max_new), device=dev,
+                     graphs=dev.type == "cuda")
+    return sb.run(prompts, max_new, greedy=greedy, generator=generator,
+                  eos_id=eos_id, pad=pad)
+
+
+class ServeEngine:
+    """Static-batch serving engine: fixed-batch greedy decode over the
+    dense KV cache (the baseline the continuous ``Engine`` is measured
+    against).
+
+    Requests are served in chunks of ``batch_slots``, each left-padded to
+    its longest prompt and run by ``generate`` to completion before the
+    next starts.  Where ``supports_ragged_mask`` holds, the pad slots are
+    masked and positions shifted per row, so each request decodes as it
+    would alone.  A chunk's cache holds ``S + max_new + 8`` positions, as
+    in the reference (whose ``max_len`` argument is kept and, as there,
+    not used).
+
+    On the card each decode step is a captured CUDA graph: one cache and
+    one graph per (chunk size, cache length), kept for later chunks of the
+    same shape (the ``MAX_SHAPES`` most recently used; an older one is
+    dropped with its cache); ``stats()["jit_compiles"]`` counts the
+    captures.  ``cuda_graphs=False`` runs the same functions eagerly.
+    ``device`` defaults to the card; ``params`` must already live there."""
+
+    MAX_SHAPES = 8
+
+    def __init__(self, params, cfg, batch_slots: int = 8,
+                 max_len: int = 512, *, device=None,
+                 cuda_graphs: Optional[bool] = None):
+        self.params, self.cfg = params, cfg
+        self.batch_slots, self.max_len = batch_slots, max_len
+        self.device = resolve_device(device)
+        self.cuda_graphs = _graphs_on(self.device, cuda_graphs)
+        self.batches = {}                # (B, max_len) → StaticBatch
+        self.chunks = []                 # per chunk: its shape and work
+        self.step_ms = []
+
+    def _batch(self, B: int, max_len: int) -> StaticBatch:
+        key = (B, max_len)
+        sb = self.batches.pop(key, None)          # reinserted: most recent
+        if sb is None:
+            if len(self.batches) >= self.MAX_SHAPES:
+                del self.batches[next(iter(self.batches))]
+            sb = StaticBatch(self.params, self.cfg, B, max_len,
+                             device=self.device, graphs=self.cuda_graphs)
+        self.batches[key] = sb
+        return sb
+
+    def run(self, requests, max_new: int = 32,
+            eos_id: Optional[int] = None) -> list:
+        """Serve a list of prompt arrays; the generated ids per request
+        (each chunk's rows as long as its longest)."""
+        results = []
+        ragged_ok = supports_ragged_mask(self.cfg)
+        for i in range(0, len(requests), self.batch_slots):
+            chunk = requests[i:i + self.batch_slots]
+            S = max(len(r) for r in chunk)
+            batch = np.zeros((len(chunk), S), np.int32)
+            pad = np.zeros((len(chunk),), np.int32)
+            for j, r in enumerate(chunk):
+                batch[j, S - len(r):] = r          # left-pad
+                pad[j] = S - len(r)
+            sb = self._batch(len(chunk), S + max_new + 8)
+            c0, n0 = sb.captures, sb.decode_steps
+            toks = sb.run(torch.from_numpy(batch), max_new, eos_id=eos_id,
+                          pad=_ragged_pad(self.cfg, pad) if ragged_ok
+                          else None)
+            toks = toks.cpu().numpy()    # the chunk's end: tokens to host
+            self.step_ms.extend(sb.step_ms())
+            self.chunks.append({"batch": len(chunk), "seq": S,
+                                "max_len": sb.max_len,
+                                "decode_steps": sb.decode_steps - n0,
+                                "captures": sb.captures - c0,
+                                "tokens": int(toks.size)})
+            results.extend(toks)
+        return results
+
+    def stats(self) -> dict:
+        """Totals over every ``run`` so far: chunks, decode steps, tokens,
+        captures (``jit_compiles``, and by (batch, max_len)), decode step
+        ms p50/p99 (card timeline), and the bytes of the dense caches
+        held now."""
+        ch = self.chunks
+        by_shape = collections.Counter()
+        for c in ch:
+            by_shape[(c["batch"], c["max_len"])] += c["captures"]
+        return {
+            "chunks": len(ch),
+            "requests": sum(c["batch"] for c in ch),
+            "decode_steps": sum(c["decode_steps"] for c in ch),
+            "prefill_tokens": sum(c["batch"] * c["seq"] for c in ch),
+            "tokens": sum(c["tokens"] for c in ch),
+            "step_ms_p50": _percentile(self.step_ms, 50),
+            "step_ms_p99": _percentile(self.step_ms, 99),
+            "kv_cache_bytes": sum(b.cache_bytes()
+                                  for b in self.batches.values()),
+            "jit_compiles": sum(by_shape.values()),
+            "jit_compiles_by_shape": dict(by_shape),
+            "mac_mode": self.cfg.mac.mode,
+            "device": str(self.device),
+            "cuda_graphs": self.cuda_graphs,
+        }

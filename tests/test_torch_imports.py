@@ -21,6 +21,11 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+from repro_torch.configs import get_config
+from repro_torch.models import init_cache, supports_ragged_mask  # noqa: F401
+from repro_torch.serve import ServeEngine, generate  # noqa: F401
+for arch in ("qwen1.5-4b", "starcoder2-3b", "gemma2-27b"):
+    get_config(arch)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke  # noqa: F401  (module import only: main() is not run)
 bad = sorted(m for m in sys.modules
@@ -48,7 +53,8 @@ def test_no_jax_or_reference_imports():
     for mod in ("launch.serve", "kernels.flash_attention",
                 "kernels.paged_attention", "quant.kvcache", "nn.paged",
                 "core.search", "ckpt.checkpoint", "parallel.sharding",
-                "serve.spec", "serve.graphs"):
+                "serve.spec", "serve.graphs", "configs.qwen15_4b",
+                "configs.starcoder2_3b", "configs.gemma2_27b"):
         assert f"repro_torch.{mod}" in out["modules"]
 
 

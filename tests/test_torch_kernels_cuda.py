@@ -469,3 +469,46 @@ def test_engine_graphs_give_the_eager_tokens(cuda_device, mode):
         out, st, _ = serve(**kw)
         assert out == eager, kw
         assert st["jit_compiles"] == (3 if kw.get("spec_decode") else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-27b"])
+def test_static_engine_graphs_keep_the_tokens(cuda_device, arch):
+    """Reduced config, exact encoding: the static engine with its decode
+    step as a CUDA graph gives the eager engine's tokens and the CPU's,
+    one capture per chunk shape, and kernel 1 one warm-up forward more."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, to_device
+    from repro_torch.serve import (ServeEngine, exact_encodings,
+                                   prepare_encoded_serving)
+    from repro_torch.kernels.counts import launch_counts
+    cfg = get_config(arch).reduced()
+    with tempfile.TemporaryDirectory() as cache:
+        pe, ce, _ = prepare_encoded_serving(
+            init_model(cfg, seed=0, device="cpu"), cfg,
+            macs_override=exact_encodings(8), device="cpu", cache_dir=cache,
+            verbose=False)
+    rng = np.random.default_rng(0)
+    trace = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in (40, 13, 90, 7, 70)]
+    want = [o.tolist() for o in ServeEngine(pe, ce, batch_slots=2,
+                                            device="cpu").run(trace, 8)]
+    pg = to_device(pe, cuda_device)
+
+    def serve(**kw):
+        eng = ServeEngine(pg, ce, batch_slots=2, device=cuda_device, **kw)
+        before = launch_counts()
+        out = [o.tolist() for o in eng.run(trace, max_new=8)]
+        after = launch_counts()
+        return (out, eng.stats(),
+                after["encoded_matmul"] - before["encoded_matmul"],
+                after["paged_attn"] - before["paged_attn"])
+
+    eager, st_e, n_e, pa_e = serve(cuda_graphs=False)
+    graphed, st_g, n_g, pa_g = serve()
+    assert graphed == eager == want
+    assert st_e["jit_compiles"] == 0 and st_g["jit_compiles"] == 3
+    assert n_g == n_e + 3 * 7 * cfg.n_layers
+    assert pa_e == pa_g == 0
