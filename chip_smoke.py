@@ -13,9 +13,13 @@ Phases (any failure raises and exits non-zero before the result line):
     on the card, at the main path's shapes, a sampled M = 48 program with
     3-bit monomials and ragged shapes (m past one 32-row pass, k and n
     off the tiles); and its rows at m = 4 bit for bit the same rows at
-    m = 20 (speculative verification's m); then at every (k, n) of
-    qwen1.5-4b, starcoder2-3b and gemma2-27b at m = 4 and 32, Wt made on
-    the card (qwen1.5-4b's untied head: 3.1e9 elements, past 2^31);
+    m = 20 (speculative verification's m), and at the static engine's
+    prefills of the main trace (m = 884 and 360); then at every (k, n)
+    of qwen1.5-4b, starcoder2-3b and gemma2-27b at m = 4, 32, 884 and
+    360 (gemma2 also at its long request's static 4200 and 1), Wt made
+    on the card (qwen1.5-4b's untied head: 3.1e9 elements, past 2^31).
+    Every full-width serve below fails if it launches kernel 1 at an
+    (m, k, n) not held here;
  4. kernel 2 (paged attention) against its plain version: ragged lens
     including 0 and page boundaries, f32 and bf16 pools, GQA, window +
     softcap, Sq = 3, 5 and 9 (speculative verification at k = 4 and 8),
@@ -56,12 +60,15 @@ Phases (any failure raises and exits non-zero before the result line):
     after): tokens identical to plain decode, acceptance and tokens per
     round, launch counts by shape;
  6e. the static engine (``ServeEngine`` over the dense KV cache) on the
-    main trace in chunks of 4, graphed (fresh, then warm) and eager:
-    identical tokens, kernel 1 at every linear of every forward and
-    kernel 2 never; against the continuous engine's tokens, each split
-    logged with its position and logit margin (reported: with the
-    encoding's int8 activation codes, a code flipped by another
-    summation order moves later K/V by a code step); the same two
+    main trace in chunks of 4 (each chunk builds its cache and graph
+    anew), graphed (three serves) and eager: identical tokens, kernel 1
+    at every linear of every forward and kernel 2 never; against the
+    continuous engine's tokens, each split logged with its position and
+    logit margin and its origin: both engines run again eagerly while a
+    hook reads the split request's int8 activation codes, and the first
+    position and linear where they differ is logged with the values
+    before rounding; a split must start at a code that f32 order moved
+    across a .5 boundary (``ORIGIN_TOL``), or be a near-tie; the same two
     engines with the fp weights: identical tokens or near-ties under
     ``FP_TIE_RTOL``;
  6f. qwen1.5-4b (4 layers), starcoder2-3b (4) and gemma2-27b (2: one
@@ -70,7 +77,7 @@ Phases (any failure raises and exits non-zero before the result line):
     serving the main trace through the continuous engine (kernel 2) and
     ``ServeEngine``, each graphed and eager (identical tokens), with
     launches by (m, k, n) and by Sq, static against continuous as in 6e
-    (encoded reported, fp gated); gemma2 also serves one 4,200-token
+    (encoded gated on each split's origin, fp as near-ties); gemma2 also serves one 4,200-token
     request past layer 0's 4096 window, whose live layer-0 pools hold
     kernel 2 against its plain version with the window (which must move
     the output); folded bytes and peak memory per arch;
@@ -110,9 +117,12 @@ Phases (any failure raises and exits non-zero before the result line):
     cluster); kernel 3 in f32 and bf16 at the prefill shape; kernel 1
     at the searched U (phase 6b) at its three decode shapes; kernel 1 at
     the verify shape m = 20 and kernel 2 at Sq = 5 and 9 (phase 6d);
-    kernel 1 at each (k, n) of the other dense archs at decode m = 4 and
-    kernel 2 at their head layouts (D = 128, f32 pools, 127-page table),
-    launches from their phase 6f serves.
+    kernel 1 at the static engine's prefill shapes (m = 884 and 360,
+    launches from the 6e serve); kernel 1 at each (k, n) of the other
+    dense archs at decode m = 4 and static prefill m = 884, and kernel 2
+    at their head layouts (D = 128, f32 pools, 127-page table), launches
+    from their phase 6f serves.  Kernel-1 rows of the static path's
+    shapes also carry ``launches_static``, the static serve's count.
 
 Every phase that folds writes its bundle into a fresh directory under
 ``build/`` (git-ignored), logs the free disk first and removes it at its
@@ -123,6 +133,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -156,6 +167,15 @@ LONG_PROMPT = 4200
 # logits within this share of the largest |logit| (f32 summation orders
 # part them by about 1e-6 of it at full width)
 FP_TIE_RTOL = 1e-4
+# with the exact encoding a static/continuous split must start at an int8
+# activation code that f32 summation order moved across a .5 rounding
+# boundary: that code's value within this of the boundary on both sides
+# and every earlier encoded input within this of the other engine's (x /
+# scale units; f32 orders part them by about 4e-5 at full width)
+ORIGIN_TOL = 1e-3
+# kernel 1's (m, k, n) held against its plain version with the exact
+# encoding's U (phases 3); every full-width serve's launches must fall in it
+GATED_EM = set()
 
 
 def log(msg: str) -> None:
@@ -178,6 +198,23 @@ def make_trace(vocab: int, seed: int = 0):
     rng = np.random.default_rng(seed)
     lens = rng.integers(16, 257, N_REQUESTS)
     return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def static_prefill_ms():
+    """Kernel 1's m in the static engine's prefills of the main trace: one
+    per chunk of ``N_SLOTS`` requests, batch x its longest prompt (largest
+    first; the trace's lengths do not depend on the vocab)."""
+    lens = [len(p) for p in make_trace(2)]
+    return sorted({len(lens[c:c + N_SLOTS]) * max(lens[c:c + N_SLOTS])
+                   for c in range(0, N_REQUESTS, N_SLOTS)}, reverse=True)
+
+
+def _check_gated(counts, where):
+    """Every (m, k, n) at which a full-width serve launched kernel 1 was
+    held against the plain version in phases 3."""
+    missed = sorted(set(counts["encoded_matmul_by_shape"]) - GATED_EM)
+    assert not missed, f"kernel 1 ran at (m, k, n) {missed} {where}, never " \
+        "held against its plain version"
 
 
 def time_loop(fn, arg_sets, iters: int = 20) -> float:
@@ -282,16 +319,21 @@ def _arch_em_shapes(cfg):
 
 
 def phase_kernel1_archs(dev):
-    """Kernel 1 at every (k, n) of the other dense archs, decode m = 4 and
-    prefill m = 32, real-size Wt made on the card (qwen1.5-4b's untied
-    head: 8·2560·151936 elements, past 2^31)."""
+    """Kernel 1 at every (k, n) of the other dense archs, at each m their
+    serves run: continuous decode (m = 4) and prefill chunks (32), static
+    prefills of the trace's chunks (``static_prefill_ms``) and, for
+    gemma2, the long request's static prefill and decode (m = 4200 and
+    1); real-size Wt made on the card (qwen1.5-4b's untied head:
+    8·2560·151936 elements, past 2^31)."""
     import torch
     from repro_torch.kernels import encoded_matmul as em
     prog = _program("exact")
     n_cases = 0
     for arch, _ in ARCH_DEPTHS:
+        ms = (N_SLOTS, 32) + tuple(static_prefill_ms()) + (
+            (1, LONG_PROMPT) if arch == "gemma2-27b" else ())
         for k, n in _arch_em_shapes(_arch_cfg(arch)):
-            xs, wt, bias, sh = _em_dev_case(dev, prog, (N_SLOTS, 32), k, n,
+            xs, wt, bias, sh = _em_dev_case(dev, prog, ms, k, n,
                                             seed=k + n)
             for x in xs:
                 out = em.encoded_matmul(x, wt, bias, sh)
@@ -301,13 +343,15 @@ def phase_kernel1_archs(dev):
                 top = ref.abs().max().item()
                 ok = torch.allclose(out, ref, rtol=1e-4, atol=1e-4 * top) \
                     and bool(torch.isfinite(out).all())
-                log(f"[kernel1] {arch:13s} U={prog.n_a_planes} m={x.shape[0]:2d}"
+                log(f"[kernel1] {arch:13s} U={prog.n_a_planes} "
+                    f"m={x.shape[0]:4d}"
                     f" k={k:5d} n={n:6d} (Wt {wt.numel() / 2 ** 31:.2f}x 2^31 "
                     f"elements) max_abs_err={err:.3e} (atol {1e-4 * top:.3e})"
                     f" {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"kernel1 disagrees with plain at "
                                          f"{arch} {(x.shape[0], k, n)}")
+                GATED_EM.add((x.shape[0], k, n))
                 n_cases += 1
                 del out, ref
             del xs, wt, bias
@@ -327,6 +371,9 @@ def phase_kernel1(dev):
     cases += [(tag, prog, m, k, n)
               for tag, prog in (("exact", exact), ("sampled48", sampled))
               for m in (N_SLOTS * (SPEC_K + 1), N_SLOTS * (8 + 1))
+              for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
+    # the static engine's prefills over the main trace (m = 884, 360)
+    cases += [("exact", exact, m, k, n) for m in static_prefill_ms()
               for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
     cases += [("sampled48", sampled, 4, 1024, 2816),
               ("sampled48", sampled, 32, 2816, 1024),
@@ -349,6 +396,8 @@ def phase_kernel1(dev):
         if not ok:
             raise AssertionError(f"kernel1 disagrees with plain at {tag} "
                                  f"{(m, k, n)}")
+        if tag == "exact":
+            GATED_EM.add((m, k, n))
         worst = max(worst, err / max(ref.abs().max().item(), 1e-30))
     log(f"[kernel1] all {len(cases)} cases within tolerance "
         f"(worst err / max|ref| = {worst:.3e})")
@@ -673,11 +722,12 @@ def _forwards(st, chunk_len):
     return +by_m, +attn
 
 
-def _check_counts(counts, st, cfg, chunk_len, where):
+def _check_counts(counts, st, cfg, chunk_len, where, gated=False):
     """Every kernel of the path launched, paged attention once per layer
     per forward that attends through it (prefill chunks take the gather
     path), by query tokens per row; encoded matmul at every linear of
-    every forward, by (m, k, n); flash never."""
+    every forward, by (m, k, n), each of them gated in phases 3 where
+    ``gated``; flash never."""
     by_m, attn = _forwards(st, chunk_len)
     for name in PATH_KERNELS:
         assert counts[name] > 0, f"{name} was not launched {where}"
@@ -691,6 +741,8 @@ def _check_counts(counts, st, cfg, chunk_len, where):
         f"encoded_matmul shapes {counts['encoded_matmul_by_shape']} " \
         f"!= {shapes} {where}"
     assert counts["flash_attention"] == 0, f"flash launched {where}"
+    if gated:
+        _check_gated(counts, where)
 
 
 def _linear_shapes(cfg) -> dict:
@@ -730,10 +782,11 @@ def _static_forwards(chunks):
     return fw
 
 
-def _check_static_counts(counts, chunks, cfg, where):
+def _check_static_counts(counts, chunks, cfg, where, gated=False):
     """Kernel 1 at every linear of every forward of the static serve's
-    ``chunks``, by (m, k, n); kernels 2 and 3 never (its attention is
-    ``mha`` over the dense row)."""
+    ``chunks``, by (m, k, n), each of them gated in phases 3 where
+    ``gated``; kernels 2 and 3 never (its attention is ``mha`` over the
+    dense row)."""
     assert counts["encoded_matmul"] > 0, f"encoded_matmul not launched {where}"
     want = _path_shapes(cfg, _static_forwards(chunks))
     assert counts["encoded_matmul_by_shape"] == want, \
@@ -741,6 +794,8 @@ def _check_static_counts(counts, chunks, cfg, where):
         f"{want} {where}"
     assert counts["paged_attn"] == 0 and counts["flash_attention"] == 0, \
         f"kernel 2 or 3 launched {where}"
+    if gated:
+        _check_gated(counts, where)
 
 
 def _timed_run(eng, rids):
@@ -818,7 +873,8 @@ def phase_serve(dev):
     assert all(0 <= t < cfg.vocab_size for r in rids for t in outs[r])
     log(f"[serve] encoded_matmul launches by (m, k, n): "
         f"{counts['encoded_matmul_by_shape']}")
-    _check_counts(counts, st, cfg, eng.prefill_chunk, "on the main path")
+    _check_counts(counts, st, cfg, eng.prefill_chunk, "on the main path",
+                  gated=True)
     tokens = [outs[r].tolist() for r in rids]
     # the same trace served again on the warm engine (its graphs already
     # captured), three times: tokens/s and its spread within one run
@@ -844,7 +900,8 @@ def phase_serve(dev):
         f"{'identical' if same else 'DIFFERENT'}")
     if not same:
         raise AssertionError("graphed and eager greedy tokens differ")
-    _check_counts(counts_e, st_e, cfg, eager.prefill_chunk, "eagerly")
+    _check_counts(counts_e, st_e, cfg, eager.prefill_chunk, "eagerly",
+                  gated=True)
     del eager
     # full-width logits: finite, and close to the fp model's on one prompt
     toks = torch.from_numpy(trace[0][:16])[None].to(dev)
@@ -904,7 +961,7 @@ def phase_serve_quant(dev, dense):
             len(t) == MAX_NEW for t in toks), "not every request finished"
         assert all(0 <= t < cfg.vocab_size for x in toks for t in x)
         _check_counts(counts, st, cfg, eng.prefill_chunk,
-                      f"with {mode} pools")
+                      f"with {mode} pools", gated=True)
         del eng
         eager, rids_e = _serve(params, cfg, trace, dev, cuda_graphs=False)
         res_e, dt_e, _, st_e = _timed_run(eager, rids_e)
@@ -1040,7 +1097,8 @@ def phase_prefix(dev, info):
             f"{st['prefix_pages_indexed']} pages indexed, copy-on-write "
             f"{st['cow_copies']}")
         _check_counts(counts, st, cfg, eng.prefill_chunk,
-                      f"with the prefix cache {'on' if on else 'off'}")
+                      f"with the prefix cache {'on' if on else 'off'}",
+                      gated=True)
         del eng
     same = runs[True][0] == runs[False][0]
     st = runs[True][2]
@@ -1131,7 +1189,8 @@ def phase_spec(dev, info):
             f"{'identical' if same else 'DIFFERENT'}")
         if not same:
             raise AssertionError(f"spec decoding ({tag}) changed the tokens")
-        _check_counts(counts, st, cfg, eng.prefill_chunk, f"({tag})")
+        _check_counts(counts, st, cfg, eng.prefill_chunk, f"({tag})",
+                      gated=True)
         # the trace again on the warm engine (graphs captured), then each
         # graph's replay alone on the card: a round's device time
         n0 = len(eng.step_ms)
@@ -1246,7 +1305,181 @@ def _routes(params, cfg, toks, dev):
     return {t: lg[0, -1, :V].float() for t, lg in logits.items()}, flips
 
 
-def _split_report(params, cfg, trace, a, b, names, dev, rtol=None):
+def _split_origins(dev, params, cfg, trace, splits, a, b):
+    """Where the static (``a``) and continuous (``b``) engines' tokens
+    first part, for each split ``(i, j, _)`` of ``_split_report``: both
+    engines run again eagerly (their graphed and eager tokens are gated
+    identical) while a hook reads request ``i``'s input to every encoded
+    linear over its activation scale, position by position (the prompt,
+    then each token fed back): the whole trace through the continuous
+    engine, and the request's chunk through a ``StaticBatch`` padded as
+    ``ServeEngine`` pads it.  Logged per split: the first position, and
+    the first linear in forward order there, where the two engines' int8
+    codes differ; the values before rounding on both sides; how far apart
+    every earlier input was; how many codes differ by the split; and the
+    request served alone through the continuous engine.  A diagnosis,
+    not a gate."""
+    import numpy as np
+    import torch
+    from repro_torch.nn.common import activation_recorder
+    from repro_torch.serve import supports_ragged_mask
+    from repro_torch.serve.engine import StaticBatch, _ragged_pad
+    from repro_torch.serve.scheduler import DECODING
+    nodes = [("head", params.get("lm_head", {}))] + [
+        (f"layer {li} {sub}", layer[sub])
+        for li, layer in enumerate(params["layers"])
+        for sub in ("attn", "mlp")]
+    sites = {id(node[k]): (f"{where}/{k}", node[k + "_as"])
+             for where, node in nodes for k in node if k + "_fw" in node}
+    want = {i: j for i, j, _ in splits}
+    order = []
+    # (engine, request) → site → [(prefill?, rows of x / scale)]
+    got = collections.defaultdict(lambda: collections.defaultdict(list))
+
+    def recorder(engine, rows_of):
+        def hook(name, w, x):
+            if id(w) not in sites:
+                return
+            site, sa = sites[id(w)]
+            if site not in order:
+                order.append(site)
+            for i, pre, rows in rows_of(x):
+                got[(engine, i)][site].append((pre, rows.float() / sa))
+        return activation_recorder(hook)
+
+    eng, rids = _serve(params, cfg, trace, dev, cuda_graphs=False)
+    cur = {}
+    chunk_of = eng._prefill_chunk
+
+    def prefill_chunk(req):
+        cur["rid"] = req.rid
+        chunk_of(req)
+        cur.pop("rid")
+    eng._prefill_chunk = prefill_chunk
+    of_rid = {rids[i]: i for i in want}
+
+    def cont_rows(x):
+        if x.shape[1] > 1:                 # a (1, chunk) prefill chunk
+            i = of_rid.get(cur.get("rid"))
+            return [] if i is None else [(i, True, x[0])]
+        return [(i, False, x[eng.requests[rids[i]].slot]) for i in want
+                if eng.requests[rids[i]].state == DECODING]
+    with torch.inference_mode(), recorder("continuous", cont_rows):
+        outs = eng.run()
+    cont = {i: outs[rids[i]].tolist() for i in want}
+    chunk_len = eng.prefill_chunk
+    del eng._prefill_chunk             # the wrapper's cycle would keep eng
+    del eng
+    static, shape_of = {}, {}
+    for c0 in sorted({i - i % N_SLOTS for i in want}):
+        chunk = trace[c0:c0 + N_SLOTS]
+        S = max(map(len, chunk))
+        batch = np.zeros((len(chunk), S), np.int32)
+        pad = np.zeros((len(chunk),), np.int32)
+        for r, p in enumerate(chunk):
+            batch[r, S - len(p):] = p
+            pad[r] = S - len(p)
+        rows = {i - c0: i for i in want if c0 <= i < c0 + N_SLOTS}
+        sb = StaticBatch(params, cfg, len(chunk), S + MAX_NEW + 8,
+                         device=dev, graphs=False)
+
+        def static_rows(x, rows=rows, pad=pad):
+            if x.shape[1] > 1:             # the chunk's prefill
+                return [(i, True, x[r, int(pad[r]):]) for r, i in rows.items()]
+            return [(i, False, x[r]) for r, i in rows.items()]
+        with torch.inference_mode(), recorder("static", static_rows):
+            out = sb.run(torch.from_numpy(batch),
+                         max(want[i] for i in rows.values()) + 1,
+                         pad=_ragged_pad(cfg, pad)
+                         if supports_ragged_mask(cfg) else None)
+        static.update({i: out[r].tolist() for r, i in rows.items()})
+        shape_of.update({i: (len(chunk), S) for i in rows.values()})
+        del sb
+    found = []
+    for i, j in want.items():
+        plen = len(trace[i])
+        n_pos = plen + j                   # the prompt, then j tokens fed
+
+        def series(engine):
+            pieces = got[(engine, i)]
+            return {site: torch.cat(
+                [torch.cat([r for pre, r in pieces[site] if pre])[:plen]]
+                + [r for pre, r in pieces[site] if not pre])[:n_pos]
+                for site in order}
+        xs, xc = series("static"), series("continuous")
+        assert all(xs[t].shape[0] == n_pos == xc[t].shape[0] for t in order)
+
+        def code(t):
+            return torch.clamp(torch.round(t), -127, 127)
+        diff = torch.stack([(code(xs[t]) != code(xc[t])).any(dim=1)
+                            for t in order])               # (sites, pos)
+        apart = torch.stack([(xs[t] != xc[t]).any(dim=1) for t in order])
+        hit0 = apart.any(dim=0).nonzero()
+        if len(hit0):                      # the first input apart at all
+            p0 = int(hit0[0])
+            t0 = order[int(apart[:, p0].nonzero()[0])]
+            first = (f"the first input apart at all is {t0}'s at position "
+                     f"{p0}, by up to "
+                     f"{(xs[t0][p0] - xc[t0][p0]).abs().max().item():.3e}")
+        else:
+            first = "no input apart at all"
+        n_codes = sum(int((code(xs[t]) != code(xc[t])).sum()) for t in order)
+        same_s = static[i][:j + 1] == a[i][:j + 1]
+        same_c = cont[i][:j + 1] == b[i][:j + 1]
+        e1, r1 = _serve(params, cfg, [trace[i]], dev, max_new=j + 1)
+        alone = e1.run()[r1[0]].tolist()
+        del e1
+        verdict = ("the batched continuous serve's" if alone == b[i][:j + 1]
+                   else "the static serve's" if alone == a[i][:j + 1]
+                   else "neither engine's")
+        hit = diff.any(dim=0).nonzero()
+        if len(hit) == 0:
+            log(f"[split-origin] request {i}: no int8 code differs between "
+                f"the engines up to new token {j} ({first}); eager tokens "
+                f"the same as the serves' {same_s and same_c}; alone {alone} "
+                f"({verdict})")
+            found.append({"request": i, "position": None})
+            continue
+        p = int(hit[0])
+        t = order[int(diff[:, p].nonzero()[0])]
+        ch = int((code(xs[t][p]) != code(xc[t][p])).nonzero()[0])
+        before = max([(xs[u][:p] - xc[u][:p]).abs().max().item()
+                      for u in order if p] + [
+            (xs[u][p] - xc[u][p]).abs().max().item()
+            for u in order[:order.index(t)]] + [0.0])
+        gap = (xs[t][p] - xc[t][p]).abs().max().item()
+        edge = max(abs(v - math.floor(v) - 0.5)
+                   for v in (xs[t][p, ch].item(), xc[t][p, ch].item()))
+        B, S = shape_of[i]
+        where = (f"prompt position {p} (the static engine's {B} x {S} "
+                 f"prefill; the continuous engine's prefill chunk "
+                 f"{p // chunk_len}, row {p % chunk_len})" if p < plen else
+                 f"new token {p - plen} fed back (a decode step of each)")
+        log(f"[split-origin] request {i} (prompt {plen}, parts at new token "
+            f"{j}): the first int8 code that differs between the engines is "
+            f"at {where}, {t} channel {ch}: x / scale "
+            f"{xs[t][p, ch].item():.7f} (static) against "
+            f"{xc[t][p, ch].item():.7f} (continuous), {edge:.1e} from the "
+            f".5 boundary; that input row apart "
+            f"by up to {gap:.3e}, every earlier input by up to {before:.3e} "
+            f"(x / scale) with no code different ({first}); by the split "
+            f"{n_codes} "
+            f"codes differ at {int(diff.any(dim=0).sum())} of {n_pos} "
+            f"positions. Eager tokens to the split equal the graphed "
+            f"serves': static {same_s}, continuous {same_c}. Served alone "
+            f"through the continuous engine: {alone} ({verdict})")
+        found.append({"request": i, "position": p, "prompt": plen,
+                      "site": t, "gap": gap, "before": before, "edge": edge,
+                      "first": first,
+                      "codes": n_codes, "alone": verdict})
+    del got, sites
+    gc.collect()
+    torch.cuda.empty_cache()
+    return found
+
+
+def _split_report(params, cfg, trace, a, b, names, dev, rtol=None,
+                  origins=False):
     """Greedy tokens of two engines over ``trace``: each request's first
     split, if any, logged with its position, the two candidates' logit
     margin under each route of ``_routes`` (which differ only in f32
@@ -1255,7 +1488,12 @@ def _split_report(params, cfg, trace, a, b, names, dev, rtol=None):
     ``rtol``, every split must be a near-tie: a margin within ``rtol`` of
     the largest |logit| under every route.  Without it (encoded weights,
     where a flipped code in any earlier token moves later K/V by a code
-    step, ROADMAP Queue C) the splits are reported, not gated."""
+    step, ROADMAP Queue C) the splits are reported, not gated; with
+    ``origins`` (``a`` static, ``b`` continuous, ``trace`` the main one)
+    ``_split_origins`` finds where each split starts, and each must start
+    at a code moved across a rounding boundary by f32 order alone (within
+    ``ORIGIN_TOL``), or, with no code moved, be a near-tie under
+    ``FP_TIE_RTOL``."""
     import numpy as np
     splits = []
     for i, (x, y) in enumerate(zip(a, b)):
@@ -1280,7 +1518,24 @@ def _split_report(params, cfg, trace, a, b, names, dev, rtol=None):
     log(f"[split] {names[0]} vs {names[1]}: {same} of {len(a)} requests "
         f"token for token identical, {len(splits)} split" + (
             f" (gated: a split must be a near-tie within {rtol} of "
-            f"max|logit|)" if rtol is not None else " (reported, not gated)"))
+            f"max|logit|)" if rtol is not None else
+            " (gated on where each starts)" if origins else
+            " (reported, not gated)"))
+    if origins and splits:
+        rel = {i: r for i, _, r in splits}
+        for o in _split_origins(dev, params, cfg, trace, splits, a, b):
+            i = o["request"]
+            if o["position"] is None:
+                ok = rel[i] <= FP_TIE_RTOL
+            else:
+                ok = o["edge"] <= ORIGIN_TOL and o["before"] <= ORIGIN_TOL
+            if not ok:
+                raise AssertionError(
+                    f"{names[0]} and {names[1]} part at request {i} without "
+                    f"a rounding-boundary origin: {o}")
+        log(f"[split] every split starts at a code that f32 order moved "
+            f"across a .5 boundary (within {ORIGIN_TOL} of it, earlier "
+            f"inputs within {ORIGIN_TOL})")
     for i, j, rel in splits:
         if rtol is not None and rel > rtol:
             raise AssertionError(
@@ -1316,18 +1571,20 @@ def phase_static(dev, info):
         f"captures {st['jit_compiles_by_shape']}, not one per chunk shape"
     assert len(toks) == N_REQUESTS and all(len(t) == MAX_NEW for t in toks)
     assert all(0 <= t < cfg.vocab_size for x in toks for t in x)
-    _check_static_counts(counts, eng.chunks, cfg, "in the static serve")
+    _check_static_counts(counts, eng.chunks, cfg, "in the static serve",
+                         gated=True)
     warm = []
     for _ in range(2):
         n0, c0 = len(eng.step_ms), len(eng.chunks)
         toks2, dt2, counts2 = _static_run(eng, trace)
         assert toks2 == toks, "the warm static engine changed the tokens"
         _check_static_counts(counts2, eng.chunks[c0:], cfg,
-                             "in the warm static serve")
+                             "in the warm static serve", gated=True)
         warm.append((n_tok / dt2, float(np.percentile(eng.step_ms[n0:], 50))))
-    log(f"[static] warm engine, 2 more serves: tok/s "
+    log(f"[static] 2 more serves by the same engine (each chunk builds its "
+        f"cache and captures its graph anew): tok/s "
         f"{', '.join(f'{w[0]:.1f}' for w in warm)}, step p50 "
-        f"{', '.join(f'{w[1]:.2f}' for w in warm)} ms; captures still "
+        f"{', '.join(f'{w[1]:.2f}' for w in warm)} ms; captures in all "
         f"{eng.stats()['jit_compiles']}; tokens identical")
     eager, toks_e, dt_e, counts_e = _static(params, cfg, trace, dev,
                                             cuda_graphs=False)
@@ -1338,14 +1595,14 @@ def phase_static(dev, info):
         f"greedy tokens graphs vs eager {'identical' if same else 'DIFFERENT'}")
     if not same:
         raise AssertionError("static engine: graphed and eager tokens differ")
-    _check_static_counts(counts_e, eager.chunks, cfg, "eagerly")
+    _check_static_counts(counts_e, eager.chunks, cfg, "eagerly", gated=True)
     del eager
     log(f"[static] beside the continuous engine (phase 6): tok/s fresh "
         f"{info['tok_s']:.1f} / static {n_tok / dt:.1f}, warm "
         f"{max(info['warm_tok_s']):.1f} / {max(w[0] for w in warm):.1f}, "
         f"eager {info['eager_tok_s']:.1f} / {n_tok / dt_e:.1f}")
     splits = _split_report(params, cfg, trace, toks, info["tokens"],
-                           ("static", "continuous"), dev)
+                           ("static", "continuous"), dev, origins=True)
     del eng
     # the two engines with the fp weights: no activation codes to move, so
     # the routes part by f32 rounding alone
@@ -1455,7 +1712,8 @@ def _long_request(dev, params, cfg, vocab):
     dt = time.perf_counter() - t0
     counts = _read_counts()
     st = eng.stats()
-    _check_counts(counts, st, cfg, eng.prefill_chunk, "on the long request")
+    _check_counts(counts, st, cfg, eng.prefill_chunk, "on the long request",
+                  gated=True)
     cont = [outs[rid].tolist()]
     log(f"[archs] {cfg.arch} long request served in {dt:.2f}s: "
         f"{st['decode_steps']} decode steps, paged_attn by Sq "
@@ -1463,7 +1721,8 @@ def _long_request(dev, params, cfg, vocab):
     del eng
     seng, static, _, counts_s = _static(params, cfg, prompt, dev,
                                         max_new=new)
-    _check_static_counts(counts_s, seng.chunks, cfg, "on the long request")
+    _check_static_counts(counts_s, seng.chunks, cfg, "on the long request",
+                         gated=True)
     del seng
     splits = _split_report(params, cfg, prompt, static, cont,
                            ("static", "continuous"), dev)
@@ -1509,7 +1768,7 @@ def phase_archs(dev):
                 len(t) == MAX_NEW and all(0 <= x < cfg.vocab_size for x in t)
                 for t in toks), f"{arch}: not every request finished"
             _check_counts(counts, st, cfg_enc, eng.prefill_chunk,
-                          f"({arch}, continuous)")
+                          f"({arch}, continuous)", gated=True)
             tag = "graphed" if graphs else "eager"
             res[("continuous", graphs)] = (toks, counts)
             log(f"[archs] {arch} continuous {tag}: "
@@ -1522,7 +1781,7 @@ def phase_archs(dev):
                                             cuda_graphs=graphs)
             st = eng.stats()
             _check_static_counts(counts, eng.chunks, cfg_enc,
-                                 f"({arch}, static)")
+                                 f"({arch}, static)", gated=True)
             res[("static", graphs)] = (toks, counts)
             log(f"[archs] {arch} static {tag}: "
                 f"{sum(map(len, toks)) / dt:.1f} tok/s, step p50 "
@@ -1540,7 +1799,7 @@ def phase_archs(dev):
         splits = _split_report(params_enc, cfg_enc, trace,
                                res[("static", True)][0],
                                res[("continuous", True)][0],
-                               ("static", "continuous"), dev)
+                               ("static", "continuous"), dev, origins=True)
         # the fp weights through both engines (graphed): a split only at
         # a near-tie
         eng, rids = _serve(params, cfg, trace, dev)
@@ -1552,7 +1811,8 @@ def phase_archs(dev):
                                   [outs[r].tolist() for r in rids],
                                   (f"{arch} static fp", "continuous fp"),
                                   dev, rtol=FP_TIE_RTOL)
-        info = {"counts": res[("continuous", True)][1], "cfg": cfg_enc,
+        info = {"counts": res[("continuous", True)][1],
+                "static_counts": res[("static", True)][1], "cfg": cfg_enc,
                 "splits": len(splits), "fp_splits": len(fp_splits)}
         if arch == "gemma2-27b":
             info["long"] = _long_request(dev, params_enc, cfg_enc,
@@ -2124,12 +2384,25 @@ def phase_measure(dev, serve_info):
     # the dense serve's at that shape
     prog = _program("exact")
     by_shape = serve_info["counts"]["encoded_matmul_by_shape"]
+    static_shape = serve_info["static"]["counts"]["encoded_matmul_by_shape"]
     for m in (N_SLOTS, 32):
         for k, n in shapes:
             rows.append(_em_row(
                 dev, prog, m, k, n, 1, f"encoded_matmul_m{m}_k{k}_n{n}",
                 by_shape.get((m, k, n), 0),
                 "decode" if m == N_SLOTS else "prefill", lib))
+    for r in rows:                     # the static serve decodes at m = 4
+        m, k, n = (int(t[1:]) for t in r["name"].split("_")[-3:])
+        r["launches_static"] = static_shape.get((m, k, n), 0)
+    # kernel 1 at the static engine's prefills of the main trace (m =
+    # batch x the chunk's longest prompt); launches: the static serve's
+    for m in static_prefill_ms():
+        for k, n in shapes:
+            rows.append(_em_row(
+                dev, prog, m, k, n, 5,
+                f"encoded_matmul_static_m{m}_k{k}_n{n}",
+                static_shape.get((m, k, n), 0),
+                "static prefill; launches: the static serve", lib))
     # kernel 1 at speculative verification's shapes, m = n_slots·(k+1):
     # 20 at k = 4 and 36 at k = 8, exact U; launches are the self-drafter
     # serve's with that k
@@ -2156,15 +2429,28 @@ def phase_measure(dev, serve_info):
             f"decode, searched {name}: monomials by bits "
             f"{dict(sorted(monos.items()))}; launches: every family at "
             f"this (m, k, n) in the searched serve", lib))
-    # kernel 1 at the other dense archs' decode shapes (m = n_slots), exact
-    # U, Wt made on the card; launches: the arch's continuous serve (6f)
+    # kernel 1 at the other dense archs' decode shapes (m = n_slots) and
+    # at their largest static prefill, exact U, Wt made on the card;
+    # launches: the arch's continuous serve (6f) at decode, its static
+    # serve at the prefill
+    m_pre = static_prefill_ms()[0]
     for arch, _ in ARCH_DEPTHS:
-        a_shape = serve_info["archs"][arch]["counts"]["encoded_matmul_by_shape"]
-        for k, n in _arch_em_shapes(serve_info["archs"][arch]["cfg"]):
+        a = serve_info["archs"][arch]
+        a_shape = a["counts"]["encoded_matmul_by_shape"]
+        s_shape = a["static_counts"]["encoded_matmul_by_shape"]
+        for k, n in _arch_em_shapes(a["cfg"]):
             rows.append(_em_row(
                 dev, _program("exact"), N_SLOTS, k, n, 4,
                 f"encoded_matmul_{arch}_m{N_SLOTS}_k{k}_n{n}",
                 a_shape.get((N_SLOTS, k, n), 0), f"decode, {arch}", lib,
+                on_card=True))
+            rows[-1]["launches_static"] = s_shape.get((N_SLOTS, k, n), 0)
+            torch.cuda.empty_cache()
+            rows.append(_em_row(
+                dev, _program("exact"), m_pre, k, n, 6,
+                f"encoded_matmul_{arch}_static_m{m_pre}_k{k}_n{n}",
+                s_shape.get((m_pre, k, n), 0),
+                f"static prefill, {arch}; launches: its static serve", lib,
                 on_card=True))
             torch.cuda.empty_cache()
     # kernel 2: decode attention, 4 slots × 16 heads × D 64, with dense
@@ -2256,7 +2542,9 @@ def phase_measure(dev, serve_info):
         log(f"[measure] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){floor}, "
-            f"launches on the main path {r['launches']}")
+            f"launches on the main path {r['launches']}" + (
+                f", in the static serve {r['launches_static']}"
+                if "launches_static" in r else ""))
     per_step = serve_info["steps"] + serve_info["chunks"] + 2
     log(f"[measure] launches per engine forward (decode steps + prefill "
         f"chunks + the 2 graph warm-ups = {per_step}): encoded_matmul "

@@ -693,14 +693,12 @@ class ServeEngine:
     in the reference (whose ``max_len`` argument is kept and, as there,
     not used).
 
-    On the card each decode step is a captured CUDA graph: one cache and
-    one graph per (chunk size, cache length), kept for later chunks of the
-    same shape (the ``MAX_SHAPES`` most recently used; an older one is
-    dropped with its cache); ``stats()["jit_compiles"]`` counts the
-    captures.  ``cuda_graphs=False`` runs the same functions eagerly.
-    ``device`` defaults to the card; ``params`` must already live there."""
-
-    MAX_SHAPES = 8
+    Each chunk builds its own cache and, on the card, captures its decode
+    step into a CUDA graph; both are dropped when the chunk ends, as the
+    reference builds its cache per call.  ``stats()["jit_compiles"]``
+    counts the captures.  ``cuda_graphs=False`` runs the same functions
+    eagerly.  ``device`` defaults to the card; ``params`` must already
+    live there."""
 
     def __init__(self, params, cfg, batch_slots: int = 8,
                  max_len: int = 512, *, device=None,
@@ -709,20 +707,8 @@ class ServeEngine:
         self.batch_slots, self.max_len = batch_slots, max_len
         self.device = resolve_device(device)
         self.cuda_graphs = _graphs_on(self.device, cuda_graphs)
-        self.batches = {}                # (B, max_len) → StaticBatch
         self.chunks = []                 # per chunk: its shape and work
         self.step_ms = []
-
-    def _batch(self, B: int, max_len: int) -> StaticBatch:
-        key = (B, max_len)
-        sb = self.batches.pop(key, None)          # reinserted: most recent
-        if sb is None:
-            if len(self.batches) >= self.MAX_SHAPES:
-                del self.batches[next(iter(self.batches))]
-            sb = StaticBatch(self.params, self.cfg, B, max_len,
-                             device=self.device, graphs=self.cuda_graphs)
-        self.batches[key] = sb
-        return sb
 
     def run(self, requests, max_new: int = 32,
             eos_id: Optional[int] = None) -> list:
@@ -738,8 +724,9 @@ class ServeEngine:
             for j, r in enumerate(chunk):
                 batch[j, S - len(r):] = r          # left-pad
                 pad[j] = S - len(r)
-            sb = self._batch(len(chunk), S + max_new + 8)
-            c0, n0 = sb.captures, sb.decode_steps
+            sb = StaticBatch(self.params, self.cfg, len(chunk),
+                             S + max_new + 8, device=self.device,
+                             graphs=self.cuda_graphs)
             toks = sb.run(torch.from_numpy(batch), max_new, eos_id=eos_id,
                           pad=_ragged_pad(self.cfg, pad) if ragged_ok
                           else None)
@@ -747,17 +734,19 @@ class ServeEngine:
             self.step_ms.extend(sb.step_ms())
             self.chunks.append({"batch": len(chunk), "seq": S,
                                 "max_len": sb.max_len,
-                                "decode_steps": sb.decode_steps - n0,
-                                "captures": sb.captures - c0,
+                                "decode_steps": sb.decode_steps,
+                                "captures": sb.captures,
+                                "cache_bytes": sb.cache_bytes(),
                                 "tokens": int(toks.size)})
+            del sb                       # its cache and graph go with it
             results.extend(toks)
         return results
 
     def stats(self) -> dict:
         """Totals over every ``run`` so far: chunks, decode steps, tokens,
         captures (``jit_compiles``, and by (batch, max_len)), decode step
-        ms p50/p99 (card timeline), and the bytes of the dense caches
-        held now."""
+        ms p50/p99 (card timeline), and the bytes of the largest chunk's
+        dense cache."""
         ch = self.chunks
         by_shape = collections.Counter()
         for c in ch:
@@ -770,8 +759,8 @@ class ServeEngine:
             "tokens": sum(c["tokens"] for c in ch),
             "step_ms_p50": _percentile(self.step_ms, 50),
             "step_ms_p99": _percentile(self.step_ms, 99),
-            "kv_cache_bytes": sum(b.cache_bytes()
-                                  for b in self.batches.values()),
+            "kv_cache_bytes": max((c["cache_bytes"] for c in ch),
+                                  default=0),
             "jit_compiles": sum(by_shape.values()),
             "jit_compiles_by_shape": dict(by_shape),
             "mac_mode": self.cfg.mac.mode,

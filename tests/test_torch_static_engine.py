@@ -34,6 +34,7 @@ from repro_torch.models import params_from_jax  # noqa: E402
 from repro_torch.serve import (Engine as TEngine, ServeEngine as TServe,  # noqa: E402
                                exact_encodings, generate as t_generate,
                                prepare_encoded_serving, supports_ragged_mask)
+from repro_torch.serve.engine import StaticBatch  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 VOCAB = 512
@@ -241,20 +242,24 @@ def test_cuda_graphs_need_the_card(models):
         TServe(tp, tcfg, device="cpu", cuda_graphs=True)
 
 
-def test_serve_engine_keeps_the_most_recent_shapes(models, monkeypatch):
-    """Caches are kept per (chunk size, cache length), at most
-    ``MAX_SHAPES`` of them, the least recently used dropped first; a
-    dropped shape is built again and serves the same tokens."""
+def test_serve_engine_builds_each_chunk_cache_anew(models):
+    """Each chunk gets a cache of its own ``S + max_new + 8`` positions,
+    dropped at the chunk's end: the engine holds none between runs, a
+    second run serves the same tokens, and ``kv_cache_bytes`` is the
+    largest chunk's cache."""
     _, (tp, tcfg), _ = models["fp"]
-    monkeypatch.setattr(TServe, "MAX_SHAPES", 2)
     trace = _trace()                     # chunks of 2: three shapes
     eng = TServe(tp, tcfg, batch_slots=2, device="cpu")
     first = eng.run(trace, max_new=4)
-    shapes = [(c["batch"], c["max_len"]) for c in eng.chunks]
-    assert len(set(shapes)) == 3
-    assert list(eng.batches) == shapes[1:]
+    assert not any(isinstance(v, StaticBatch) for v in vars(eng).values())
     again = eng.run(trace[:2], max_new=4)
-    assert list(eng.batches) == [shapes[2], shapes[0]]
     for a, b in zip(again, first[:2]):
         np.testing.assert_array_equal(a, b)
-    assert eng.stats()["chunks"] == 4
+    st = eng.stats()
+    assert st["chunks"] == 4 and st["jit_compiles"] == 0
+    per_pos = (2 * tcfg.n_layers * tcfg.n_kv_p * tcfg.head_dim_r
+               * torch.empty((), dtype=tcfg.cdtype).element_size())
+    want = max(c["batch"] * c["max_len"] for c in eng.chunks) * per_pos
+    assert st["kv_cache_bytes"] == want
+    assert [c["max_len"] for c in eng.chunks[:3]] == [
+        max(map(len, trace[i:i + 2])) + 4 + 8 for i in (0, 2, 4)]
