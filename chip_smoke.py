@@ -59,6 +59,24 @@ Phases (any failure raises and exits non-zero before the result line):
     card at M = 24 (bundle in a fresh ``build/`` directory, removed
     after): tokens identical to plain decode, acceptance and tokens per
     round, launch counts by shape;
+ 6g. telemetry and the allocator sanitizer on the main path (the exact
+    encoding, dense f32 pools, graphed): the trace on engines with
+    telemetry off, tracing on, and tracing with ``time_device`` (tokens
+    identical, repeat-serve tok/s and step p50/p99 printed); traced,
+    timed and sanitized: tokens identical to phase 6, each request's
+    phase spans summing to its span within 1 us, one ``device:decode``
+    span per decode step, registry counters and histogram counts equal to
+    ``stats()`` and the launch counts' forwards, ``jit_compiles`` by step
+    equal to the graphs' captures, the ledger clean, the written Chrome
+    trace and metrics JSON parsed; the drift monitor every 8 steps
+    against the fp params (agreement in [0, 1], tokens identical, its
+    encoded forwards counted in kernel 1's launches at m = 19, 25 and 32,
+    gated in phase 3); spec decoding k = 4 with the monitor fed by
+    verification (gauge = accepted / considered, kernel 1's launches
+    those of phase 6d's k = 4 serve); the shared-prefix trace sanitized
+    with a page shared by a peer (a copy-on-write through the ledger,
+    tokens those of 6c); one serve under ``torch.profiler`` whose dump
+    names kernels 1 and 2;
  6e. the static engine (``ServeEngine`` over the dense KV cache) on the
     main trace in chunks of 4 (each chunk builds its cache and graph
     anew), graphed (three serves) and eager: identical tokens, kernel 1
@@ -176,6 +194,11 @@ ORIGIN_TOL = 1e-3
 # kernel 1's (m, k, n) held against its plain version with the exact
 # encoding's U (phases 3); every full-width serve's launches must fall in it
 GATED_EM = set()
+# phase 6g's drift monitor: a sample every 8 engine steps, of at most 2
+# resident prompts cut to 32 tokens (the monitor's defaults)
+DRIFT_EVERY, DRIFT_MAX_LEN = 8, 32
+# the card's name and power limit (nvidia-smi), logged beside measurements
+SMI = ""
 
 
 def log(msg: str) -> None:
@@ -207,6 +230,12 @@ def static_prefill_ms():
     lens = [len(p) for p in make_trace(2)]
     return sorted({len(lens[c:c + N_SLOTS]) * max(lens[c:c + N_SLOTS])
                    for c in range(0, N_REQUESTS, N_SLOTS)}, reverse=True)
+
+
+def drift_ms():
+    """Kernel 1's m in the drift monitor's encoded forwards over the main
+    trace: each sampled prompt's length, cut to the monitor's 32 tokens."""
+    return sorted({min(len(p), DRIFT_MAX_LEN) for p in make_trace(2)})
 
 
 def _check_gated(counts, where):
@@ -241,6 +270,8 @@ def card_check():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    global SMI
+    SMI = smi
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}"
@@ -374,6 +405,10 @@ def phase_kernel1(dev):
               for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
     # the static engine's prefills over the main trace (m = 884, 360)
     cases += [("exact", exact, m, k, n) for m in static_prefill_ms()
+              for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
+    # the drift monitor's encoded forwards (phase 6g: m = 19, 25; 32 is
+    # the prefill chunk's)
+    cases += [("exact", exact, m, k, n) for m in drift_ms() if m != 32
               for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
     cases += [("sampled48", sampled, 4, 1024, 2816),
               ("sampled48", sampled, 32, 2816, 1024),
@@ -722,13 +757,17 @@ def _forwards(st, chunk_len):
     return +by_m, +attn
 
 
-def _check_counts(counts, st, cfg, chunk_len, where, gated=False):
+def _check_counts(counts, st, cfg, chunk_len, where, gated=False,
+                  extra=None):
     """Every kernel of the path launched, paged attention once per layer
     per forward that attends through it (prefill chunks take the gather
     path), by query tokens per row; encoded matmul at every linear of
     every forward, by (m, k, n), each of them gated in phases 3 where
-    ``gated``; flash never."""
+    ``gated``; flash never.  ``extra``: cacheless encoded forwards beside
+    the serve's (the drift monitor's), {m: forwards}."""
     by_m, attn = _forwards(st, chunk_len)
+    if extra:
+        by_m = by_m + collections.Counter(extra)
     for name in PATH_KERNELS:
         assert counts[name] > 0, f"{name} was not launched {where}"
     want = {sq: cfg.n_layers * n for sq, n in attn.items()}
@@ -990,7 +1029,7 @@ def step_split(dev, params, cfg, trace, steps: int = 10):
     for graphs in (True, False):
         eng, _ = _serve(params, cfg, trace[:N_SLOTS], dev,
                         max_new=4 * MAX_NEW, cuda_graphs=graphs)
-        while eng.counters["prefills"] < N_SLOTS:
+        while eng.metrics["prefills"] < N_SLOTS:
             eng.step()
         eng.step()
         torch.cuda.synchronize()
@@ -1138,7 +1177,8 @@ def phase_prefix(dev, info):
             raise AssertionError(f"copy_page on {mode} pools")
         del kv, leaves, before
     torch.cuda.empty_cache()
-    return {"tok_s": {on: sum(map(len, r[0])) / r[1]
+    return {"tokens": runs[True][0],
+            "tok_s": {on: sum(map(len, r[0])) / r[1]
                       for on, r in runs.items()},
             "hit_rate": st["prefix_hit_rate"],
             "hit_tokens": st["prefix_hit_tokens"],
@@ -1224,6 +1264,240 @@ def phase_spec(dev, info):
             "replay": replay}
         del eng
     del dp, dc
+    torch.cuda.empty_cache()
+    return out
+
+
+def _overhead_serves(dev, params, cfg, trace, tokens, rounds: int = 3):
+    """The main trace on graphed engines with telemetry off, with the
+    trace on, and with the trace and ``time_device``: each engine serves
+    it once (its graphs captured), then ``rounds`` more times, the three
+    engines in turns; tok/s per repeat serve, step p50/p99 over them."""
+    from repro_torch.obs import percentile
+    from repro_torch.serve.telemetry import ServeTelemetry
+    tags = {"off": {}, "trace": dict(trace=True),
+            "trace+time_device": dict(trace=True, time_device=True)}
+    engines, tok_s, steps = {}, collections.defaultdict(list), {}
+    n_tok = sum(map(len, tokens))
+    for rep in range(rounds + 1):
+        for tag, kw in tags.items():
+            if rep == 0:
+                eng, rids = _serve(params, cfg, trace, dev,
+                                   telemetry=ServeTelemetry(**kw))
+                engines[tag] = eng
+            else:
+                eng = engines[tag]
+                rids = [eng.submit(p, max_new=MAX_NEW) for p in trace]
+            n0 = len(eng.step_ms)
+            outs, dt, _, _ = _timed_run(eng, rids)
+            if [outs[r].tolist() for r in rids] != tokens:
+                raise AssertionError(f"telemetry {tag} changed the tokens")
+            if rep:
+                tok_s[tag].append(n_tok / dt)
+                steps.setdefault(tag, []).extend(eng.step_ms[n0:])
+    out = {}
+    for tag in tags:
+        out[tag] = {"tok_s": tok_s[tag],
+                    "step_p50": percentile(steps[tag], 50),
+                    "step_p99": percentile(steps[tag], 99)}
+        log(f"[telemetry] overhead, telemetry {tag}: {rounds} repeat "
+            f"serves in turns, tok/s {_spread(tok_s[tag])}; step p50 "
+            f"{out[tag]['step_p50']:.3f} ms p99 {out[tag]['step_p99']:.3f} "
+            f"ms over {len(steps[tag])} steps ({SMI})")
+    del engines
+    return out
+
+
+def _reconcile(events, rids):
+    """Largest |queued + prefill + decode - request| over the requests'
+    tracks, in µs."""
+    from repro_torch.serve.telemetry import req_tid
+    worst = 0.0
+    for rid in rids:
+        mine = {e["name"]: e for e in events
+                if e["ph"] == "X" and e["tid"] == req_tid(rid)}
+        total = sum(mine[n]["dur"] for n in ("queued", "prefill", "decode"))
+        worst = max(worst, abs(total - mine["request"]["dur"]))
+    return worst
+
+
+def phase_telemetry(dev, info):
+    """Phase 6g: the serving telemetry and the allocator sanitizer on the
+    main path (full-width qwen1.5-0.5b, the exact encoding, dense f32
+    pools, graphed): (a) the trace traced, timed and sanitized; (b) with
+    the drift monitor every 8 steps against the fp params; (c) spec
+    decoding k = 4 with the monitor fed by verification; (d) the
+    shared-prefix trace sanitized, with a page shared by a peer so a
+    request copies it on write; (e) one serve under ``torch.profiler``;
+    and the overhead of tracing and ``time_device``."""
+    import torch
+    from repro_torch.obs import DriftMonitor
+    from repro_torch.obs.profile import TRACE_FILE
+    from repro_torch.serve.telemetry import ServeTelemetry
+    params, cfg = info["params_enc"], info["cfg_enc"]
+    trace, tokens = info["trace"], info["tokens"]
+    out = {"overhead": _overhead_serves(dev, params, cfg, trace, tokens)}
+    # (a) traced, timed and sanitized
+    tel = ServeTelemetry(trace=True, time_device=True)
+    eng, rids = _serve(params, cfg, trace, dev, telemetry=tel, sanitize=True)
+    outs, dt, counts, st = _timed_run(eng, rids)
+    if [outs[r].tolist() for r in rids] != tokens:
+        raise AssertionError("traced, timed, sanitized tokens differ")
+    _check_counts(counts, st, cfg, eng.prefill_chunk,
+                  "traced, timed and sanitized", gated=True)
+    events = tel.tracer.chrome_events()
+    worst = _reconcile(events, rids)
+    n_dev = sum(e["name"] == "device:decode" for e in events)
+    reg = tel.registry
+    led = eng.kv.ledger
+    log(f"[telemetry] (a) traced + timed + sanitized: {len(events)} trace "
+        f"events, phases sum to each request span within {worst:.3f} us; "
+        f"device:decode spans {n_dev} for {st['decode_steps']} decode "
+        f"steps; device decode p50 {st['device_decode_ms_p50']:.3f} ms, "
+        f"prefill p50 {st['device_prefill_ms_p50']:.3f} ms, step p50 "
+        f"{st['step_ms_p50']:.3f} ms; ledger {led.ops} ops, {led.checks} "
+        f"checks; jit_compiles "
+        f"{reg.get('jit_compiles').series()}")
+    if worst > 1.0:
+        raise AssertionError(f"phases part from request spans by {worst} us")
+    want = {"engine_steps": st["steps"], "decode_tokens": st["decode_tokens"],
+            "prefill_chunks": st["prefill_chunks"],
+            "prefills": st["prefills"], "admissions": st["admissions"],
+            "stalls": st["stalls"], "rejects": st["rejects"]}
+    got = {n: reg.counter(n).total() for n in want}
+    hists = {"step_ms": st["steps"], "device_decode_ms": st["decode_steps"],
+             "device_prefill_ms": st["prefill_chunks"]}
+    got_h = {n: reg.histogram(n).count(mac=cfg.mac.mode) for n in hists}
+    caps = {n: s.captures for n, s in eng.steps.items()}
+    jit = {n: reg.counter("jit_compiles").value(fn=n) for n in caps}
+    if not (n_dev == st["decode_steps"] and got == want and got_h == hists
+            and jit == caps and st["device_decode_ms_p50"]
+            <= st["step_ms_p50"] and led.ops > 0
+            and led.checks >= st["steps"]):
+        raise AssertionError(
+            f"telemetry (a): device:decode {n_dev}, counters {got} against "
+            f"{want}, histograms {got_h} against {hists}, jit_compiles "
+            f"{jit} against captures {caps}, device p50 "
+            f"{st['device_decode_ms_p50']} step p50 {st['step_ms_p50']}, "
+            f"ledger {led.ops} ops {led.checks} checks")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="telemetry-", dir=os.path.join(ROOT,
+                                                                "build"))
+    tp, mp = os.path.join(tmp, "t.json"), os.path.join(tmp, "m.json")
+    tel.write(trace_out=tp, metrics_out=mp)
+    with open(tp) as f:
+        n_written = len(json.load(f)["traceEvents"])
+    with open(mp) as f:
+        snap = json.load(f)
+    log(f"[telemetry] (a) wrote {os.path.getsize(tp)} B of trace "
+        f"({n_written} events) and {os.path.getsize(mp)} B of metrics "
+        f"({sum(len(v) for v in snap.values())} metrics); both parse")
+    assert n_written == len(events)
+    assert snap["counters"]["engine_steps"]["series"][""] == st["steps"]
+    shutil.rmtree(tmp)
+    del eng
+    # (b) the drift monitor against the fp params
+    mon = DriftMonitor(info["params"], info["cfg"], every=DRIFT_EVERY,
+                       max_len=DRIFT_MAX_LEN)
+    sampled = collections.Counter()
+    sample = mon.sample
+
+    def counted(p, c, prompts):
+        ms = [min(len(x), mon.max_len) for x in prompts
+              if len(x)][:mon.max_prompts]
+        res = sample(p, c, prompts)
+        if res is not None:
+            sampled.update(ms)
+        return res
+
+    mon.sample = counted
+    tel = ServeTelemetry(drift=mon)
+    eng, rids = _serve(params, cfg, trace, dev, telemetry=tel)
+    outs, dt, counts, st = _timed_run(eng, rids)
+    n_s = tel.registry.counter("drift_samples").total()
+    log(f"[telemetry] (b) drift every {DRIFT_EVERY} steps: top-1 agreement "
+        f"{st['encoded_drift_top1']:.4f}, |dlogit| {mon.last_delta:.4f} "
+        f"(last sample), {n_s:.0f} samples, encoded forwards by m "
+        f"{dict(sampled)}; {sum(map(len, tokens)) / dt:.1f} tok/s ({SMI})")
+    if [outs[r].tolist() for r in rids] != tokens:
+        raise AssertionError("the drift monitor changed the tokens")
+    if not (0.0 <= st["encoded_drift_top1"] <= 1.0 and n_s > 0):
+        raise AssertionError(f"drift gauge {st['encoded_drift_top1']}, "
+                             f"{n_s} samples")
+    _check_counts(counts, st, cfg, eng.prefill_chunk,
+                  "with the drift monitor", gated=True, extra=sampled)
+    out["drift"] = {"top1": st["encoded_drift_top1"],
+                    "abs_logit": mon.last_delta, "samples": n_s}
+    del eng
+    # (c) spec decoding k = 4: drift from verification, no extra forward
+    mon = DriftMonitor(info["params"], info["cfg"], every=DRIFT_EVERY)
+    eng, rids = _serve(params, cfg, trace, dev, spec_decode=SPEC_K,
+                       telemetry=ServeTelemetry(drift=mon))
+    outs, dt, counts, st = _timed_run(eng, rids)
+    ratio = st["spec_accepted_tokens"] / st["spec_draft_tokens"]
+    k4 = info["spec"][f"self_k{SPEC_K}"]["counts"]["encoded_matmul"]
+    log(f"[telemetry] (c) spec k={SPEC_K} with the drift monitor: gauge "
+        f"{st['encoded_drift_top1']:.4f}, accepted/considered {ratio:.4f};"
+        f" kernel 1 launches {counts['encoded_matmul']} (phase 6d k={SPEC_K}"
+        f": {k4})")
+    if [outs[r].tolist() for r in rids] != tokens:
+        raise AssertionError("spec decoding with drift changed the tokens")
+    if st["encoded_drift_top1"] != ratio or counts["encoded_matmul"] != k4:
+        raise AssertionError("spec-decoding drift: gauge or launches off")
+    _check_counts(counts, st, cfg, eng.prefill_chunk,
+                  "spec decoding with the drift monitor", gated=True)
+    del eng
+    # (d) the shared-prefix trace under the ledger, with a copy-on-write
+    ptrace = _prefix_trace(cfg.vocab_size)
+    eng, rids = _serve(params, cfg, ptrace, dev, prefix_cache=True,
+                       sanitize=True)
+    torch.cuda.synchronize()
+    _reset_counts()
+    peer = None
+    while eng.busy:
+        eng.step()
+        if peer is None:
+            for r in eng.sched.active():
+                if r.n_cached % PAGE_SIZE and len(r.out) < r.max_new - 2:
+                    # a peer takes a reference to the page this request
+                    # writes next: its next write copies the page
+                    peer = r.pages[r.n_cached // PAGE_SIZE]
+                    eng.kv.alloc.retain(peer)
+                    break
+    torch.cuda.synchronize()
+    counts, st = _read_counts(), eng.stats()
+    eng.kv.alloc.free([peer])
+    eng.kv.ledger.verify()
+    led = eng.kv.ledger
+    res = eng.results()
+    same = [res[r].tolist() for r in rids] == info["prefix"]["tokens"]
+    log(f"[telemetry] (d) shared-prefix trace sanitized: copy-on-write "
+        f"{st['cow_copies']}, hit tokens {st['prefix_hit_tokens']}, ledger "
+        f"{led.ops} ops {led.checks} checks, tokens against phase 6c "
+        f"{'identical' if same else 'DIFFERENT'}")
+    if not (same and st["cow_copies"] > 0 and led.checks >= st["steps"]):
+        raise AssertionError("prefix trace under the ledger")
+    _check_counts(counts, st, cfg, eng.prefill_chunk,
+                  "sanitized with the prefix cache", gated=True)
+    del eng
+    # (e) one serve under torch.profiler, graphs captured in it
+    pdir = tempfile.mkdtemp(prefix="profile-", dir=os.path.join(ROOT,
+                                                                "build"))
+    eng, rids = _serve(params, cfg, trace[:2], dev, max_new=4,
+                       telemetry=ServeTelemetry(profile_dir=pdir))
+    eng.run()
+    path = os.path.join(pdir, TRACE_FILE)
+    with open(path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    found = {k: sorted(n for n in names if word in n)[:1]
+             for k, word in GRAPH_KERNELS.items()}
+    log(f"[telemetry] (e) profiler dump {os.path.getsize(path)} B, "
+        f"{len(names)} kernel names; kernels 1/2/3: {found}")
+    shutil.rmtree(pdir)
+    if not (found["encoded_matmul"] and found["paged_attn"]):
+        raise AssertionError("the profiler dump names no kernel 1 or 2")
+    del eng
     torch.cuda.empty_cache()
     return out
 
@@ -1700,7 +1974,7 @@ def _long_request(dev, params, cfg, vocab):
     err = (out - ref).abs().max().item()
     moved = (out[s] - glob[s]).abs().max().item()
     log(f"[archs] {cfg.arch} long request: prefill of {LONG_PROMPT} tokens "
-        f"in {eng.counters['prefill_chunks']} chunks, lens {int(lens[s])}, "
+        f"in {eng.metrics['prefill_chunks']} chunks, lens {int(lens[s])}, "
         f"table of {eng.kv.max_seq_pages} pages; kernel 2 on the live layer-0"
         f" pools with window {win}, softcap {cfg.attn_softcap}: max_abs_err "
         f"vs plain {err:.3e}; the window moves the row's output by {moved:.3e}")
@@ -2571,6 +2845,7 @@ def main() -> int:
     serve_info.update(phase_serve_quant(dev, serve_info))
     serve_info["prefix"] = phase_prefix(dev, serve_info)
     serve_info["spec"] = phase_spec(dev, serve_info)
+    serve_info["telemetry"] = phase_telemetry(dev, serve_info)
     serve_info["static"] = phase_static(dev, serve_info)
     for key in ("params", "cfg", "params_enc", "cfg_enc", "trace", "tokens",
                 "stats"):

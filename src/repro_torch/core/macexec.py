@@ -15,6 +15,30 @@ from repro_torch.quant.uniform import quantize_codes
 
 _REGISTRY: dict = {}
 
+# debug-only (``launch/env.py:set_debug_nan``): every linear's output and
+# the logits are checked for non-finite values, and the engines run their
+# steps eagerly, so the first NaN raises at the op that made it
+_DEBUG_NAN = False
+
+
+def set_debug_nan(flag: bool) -> None:
+    """Turn the non-finite check of ``check_finite`` on or off."""
+    global _DEBUG_NAN
+    _DEBUG_NAN = bool(flag)
+
+
+def debug_nan_enabled() -> bool:
+    return _DEBUG_NAN
+
+
+def check_finite(out: torch.Tensor, what: str) -> torch.Tensor:
+    """With ``set_debug_nan`` on, raise ``FloatingPointError`` naming
+    ``what`` when ``out`` holds a NaN or an infinity (one host sync per
+    call); off, return ``out`` untouched at no cost."""
+    if _DEBUG_NAN and not bool(torch.isfinite(out).all()):
+        raise FloatingPointError(f"non-finite value in the output of {what}")
+    return out
+
 
 def register(cls):
     """Class decorator: register a MacExecutor under ``cls.mode``."""

@@ -23,6 +23,13 @@
   # prefix cache, and speculative decoding with a lower-M encoded drafter
   python -m repro_torch.launch.serve --continuous --mac encoded \
       --paged-attn kernel --prefix-cache --spec-decode 4 --draft encoded
+  # telemetry (continuous engine only): lifecycle trace (Perfetto), the
+  # metrics registry, device-time attribution, online drift, profiler
+  # trace and the allocator sanitizer
+  python -m repro_torch.launch.serve --continuous --mac encoded \
+      --encoding exact --paged-attn kernel --trace-out t.json \
+      --metrics-out m.json --time-device --drift-every 8 \
+      --profile-dir prof --sanitize
 
 ``--paged-attn gather`` / ``kernel`` are the reference CLI's ``xla`` /
 ``pallas``: the gathered-page-view path, or the fused page-walk op (the
@@ -75,6 +82,28 @@ def main(argv=None):
                          "prompt pages already prefilled by earlier "
                          "requests; only the uncached suffix is prefilled")
     ap.add_argument("--prefill-chunk", type=int, default=32)
+    # observability: continuous engine only
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the request-lifecycle trace here: Chrome "
+                         "trace-event JSON (open in Perfetto / "
+                         "chrome://tracing), or JSONL when PATH ends in "
+                         ".jsonl; tracing is off without this flag")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the full metrics-registry snapshot "
+                         "(counters/gauges/histograms) as JSON")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="wrap the serving run in a torch.profiler trace "
+                         "(Chrome trace with every kernel's device time, "
+                         "written to DIR/torch_trace.json)")
+    ap.add_argument("--time-device", action="store_true",
+                    help="device-time attribution: wait for the card after "
+                         "every prefill/decode step so device step time "
+                         "separates from host scheduler time (adds a sync "
+                         "per step)")
+    ap.add_argument("--drift-every", type=int, default=0, metavar="N",
+                    help="with --mac encoded: sample dense-vs-encoded "
+                         "top-1 logit agreement online every N engine "
+                         "steps and publish it as a gauge (0 = off)")
     ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
                     help="speculative decoding: draft K tokens per slot "
                          "per round with the drafter, verify all K+1 "
@@ -101,6 +130,14 @@ def main(argv=None):
     ap.add_argument("--calib-batches", type=int, default=4)
     ap.add_argument("--force-calib", action="store_true",
                     help="rebuild the artifact bundle even if cached")
+    ap.add_argument("--debug-nan", action="store_true",
+                    help="raise on the first NaN any linear or the logits "
+                         "produce (debug-only: runs every step eagerly and "
+                         "syncs per linear)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="attach the allocator shadow ledger (validates "
+                         "every page transition + per-step conservation; "
+                         "REPRO_SANITIZE=1 does the same)")
     args = ap.parse_args(argv)
 
     if args.kv_dtype != "bf16" and not args.continuous:
@@ -111,6 +148,9 @@ def main(argv=None):
                  "rounds run against the paged KV cache)")
     if args.spec_decode < 0:
         ap.error("--spec-decode must be >= 0")
+    if args.debug_nan:
+        from repro_torch.launch.env import set_debug_nan
+        set_debug_nan(True)
 
     import numpy as np
     import torch
@@ -127,7 +167,7 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, attention_backend=args.paged_attn,
                               kv_cache_dtype=args.kv_dtype)
     params = init_model(cfg, seed=args.seed, device=dev)
-    params_ref, cfg_ref = params, cfg
+    params_ref, cfg_ref = params, cfg   # dense reference for --drift-every
     if args.mac == "encoded":
         overrides = (exact_encodings(cfg.mac.bits)
                      if args.encoding == "exact" else None)
@@ -174,12 +214,21 @@ def main(argv=None):
         for i, o in enumerate(outs[:3]):
             print(f"req{i}: {list(map(int, o[:10]))} ...")
         return
+    from repro_torch.obs import DriftMonitor
+    from repro_torch.serve.telemetry import ServeTelemetry
+    drift = None
+    if args.drift_every > 0:
+        drift = DriftMonitor(params_ref, cfg_ref, every=args.drift_every)
+    tel = ServeTelemetry(trace=bool(args.trace_out),
+                         time_device=args.time_device, drift=drift,
+                         profile_dir=args.profile_dir)
     engine = Engine(params, cfg, n_slots=args.slots,
                     page_size=args.page_size, n_pages=args.n_pages,
                     reserve=args.reserve, prefill_chunk=args.prefill_chunk,
-                    prefix_cache=args.prefix_cache,
+                    prefix_cache=args.prefix_cache, telemetry=tel,
                     spec_decode=args.spec_decode, draft_params=draft_params,
-                    draft_cfg=draft_cfg, device=dev)
+                    draft_cfg=draft_cfg, sanitize=args.sanitize or None,
+                    device=dev)
     t0 = time.time()
     rids = [engine.submit(r, max_new=args.max_new) for r in reqs]
     outs = engine.run()
@@ -211,6 +260,26 @@ def main(argv=None):
               f"({st['spec_accepted_tokens']}/{st['spec_draft_tokens']} "
               f"drafts accepted over {st['spec_rounds']} rounds, "
               f"drafter={st['draft_mac_mode']})")
+    print(f"  ttft_p50={st['ttft_p50_s']:.3f}s "
+          f"tpot_p50={st['tpot_p50_s']:.4f}s "
+          f"step_p50={st['step_ms_p50']:.2f}ms")
+    if args.time_device:
+        print(f"  device: decode_p50={st['device_decode_ms_p50']:.2f}ms "
+              f"prefill_p50={st['device_prefill_ms_p50']:.2f}ms")
+    if drift is not None and drift.last is not None:
+        # under spec decoding drift comes from verification, which does
+        # not observe |Δlogit|
+        delta = (float("nan") if drift.last_delta is None
+                 else drift.last_delta)
+        print(f"  drift: top1_agreement={drift.last:.4f} "
+              f"abs_logit_delta={delta:.4f}")
+    jsonl = args.trace_out and args.trace_out.endswith(".jsonl")
+    tel.write(trace_out=None if jsonl else args.trace_out,
+              trace_jsonl=args.trace_out if jsonl else None,
+              metrics_out=args.metrics_out)
+    for p in (args.trace_out, args.metrics_out):
+        if p:
+            print(f"  wrote {p}")
     for i, rid in enumerate(rids[:3]):
         print(f"req{i}: {list(map(int, outs[rid][:10]))} ...")
 

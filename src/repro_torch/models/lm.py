@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.macexec import mm
+from repro_torch.core.macexec import check_finite, mm
 from repro_torch.device import resolve_device
 from repro_torch.nn import blocks as B
 from repro_torch.nn.attention import init_kv_cache
@@ -122,7 +122,7 @@ def _head(params, cfg, h):
     else:
         logits = linear(params["lm_head"], "w", h, cfg.mac, cfg.cdtype)
     logits = softcap(logits.to(torch.float32), cfg.final_softcap)
-    return logits.to(cfg.cdtype)
+    return check_finite(logits, "the LM head (logits)").to(cfg.cdtype)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:

@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.layers import MacConfig
+from repro_torch.core.macexec import check_finite
 
 # Calibration hook: when set, ``linear`` reports every call as
 # (name, weight, input) before computing.  Installed only by the
@@ -48,7 +49,7 @@ def linear(p: dict, name: str, x: torch.Tensor, mcfg: MacConfig,
     out = mcfg.executor.apply(p, name, x, mcfg, compute_dtype)
     if name + "_b" in p:
         out = out + p[name + "_b"].to(out.dtype)
-    return out
+    return check_finite(out, f"linear {name!r} ({mcfg.mode})")
 
 
 # --- norms ------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Continuous-batching greedy ``Engine`` over the paged KV cache (port of
-``Engine`` from ``repro/serve/engine.py``, with its prefix cache and
-speculative decoding; telemetry, mesh and sanitizer wait), and the
-static-batch ``ServeEngine`` with ``generate`` over the dense KV cache,
-the reference's baseline and the serving CLI's default.
+``Engine`` from ``repro/serve/engine.py``, with its prefix cache,
+speculative decoding, telemetry and allocator sanitizer; the mesh
+waits), and the static-batch ``ServeEngine`` with ``generate`` over the
+dense KV cache, the reference's baseline and the serving CLI's default.
 
 A scheduler admits queued requests into a fixed number of slots under a
 page budget; each engine step runs one prefill chunk per prefilling slot
@@ -27,30 +27,33 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.macexec import check_drafter
+from repro_torch.analysis.ledger import sanitize_enabled
+from repro_torch.core.macexec import check_drafter, debug_nan_enabled
 from repro_torch.device import resolve_device
 from repro_torch.models import (apply_model, init_cache,
                                 supports_paged_cache, supports_ragged_mask)
 from repro_torch.models.lm import paged_cache_layout
+from repro_torch.obs import CompileTracker, percentile, profiler_trace
 from .graphs import Step
 from .paged_cache import PagedKVCache
 from .scheduler import DECODING, FINISHED, Request, Scheduler
 from .spec import greedy_accept, make_spec_draft, make_spec_verify
-
-
-def _percentile(xs, q: float) -> float:
-    """numpy's linear-interpolation percentile; NaN on an empty sample."""
-    return float(np.percentile(xs, q)) if len(xs) else float("nan")
+from .telemetry import TID_DEVICE, TID_ENGINE, ServeTelemetry, req_tid
 
 
 def _graphs_on(device: torch.device, cuda_graphs: Optional[bool]) -> bool:
-    """An engine's ``cuda_graphs``: None = on the card only; True on the
-    CPU raises."""
+    """An engine's ``cuda_graphs``: None = on the card only, and not
+    while ``set_debug_nan`` is on (a graph replay cannot stop at the first
+    non-finite output); True on the CPU or under ``set_debug_nan``
+    raises."""
     if cuda_graphs is None:
-        return device.type == "cuda"
+        return device.type == "cuda" and not debug_nan_enabled()
     if cuda_graphs and device.type != "cuda":
         raise ValueError("cuda_graphs=True needs the card; the engine runs "
                          f"on {device}")
+    if cuda_graphs and debug_nan_enabled():
+        raise ValueError("cuda_graphs=True under set_debug_nan: a graph "
+                         "replay cannot stop at the first non-finite output")
     return bool(cuda_graphs)
 
 
@@ -99,11 +102,27 @@ class Engine:
     for any drafter; build a cheap one with
     ``repro_torch.serve.encoded.prepare_drafter``.
 
+    ``telemetry``: a ``ServeTelemetry`` (default: metrics only).  Its
+    registry holds the engine's and scheduler's bookkeeping, which
+    ``stats()`` and the read-only ``metrics`` view read back; with
+    ``trace=True`` every step, prefill chunk, decode step, draft and
+    verify is a span on the engine track and every request's lifecycle a
+    track of its own; with ``time_device=True`` the engine waits for the
+    card after each step's replay (``device:*`` spans, ``device_*_ms``
+    histograms); a ``DriftMonitor`` samples dense-vs-encoded agreement
+    every N steps, or, under spec decoding, reads it from verification;
+    ``profile_dir`` runs ``run()`` under ``torch.profiler``.
+
+    ``sanitize``: attach the shadow page ledger to the pool (every
+    allocator transition checked, page conservation verified after every
+    step); None reads ``REPRO_SANITIZE``.
+
     ``cuda_graphs``: None (default) captures every step into a CUDA graph
-    when the engine runs on the card; False runs the same step functions
-    eagerly; True on the CPU raises.  ``stats()["jit_compiles"]`` counts
-    the graphs this engine captured (each after one eager warm-up run of
-    its step, whose kernel launches count as any other).
+    when the engine runs on the card (eagerly while ``set_debug_nan`` is
+    on); False runs the same step functions eagerly; True on the CPU
+    raises.  ``stats()["jit_compiles"]`` counts the graphs this engine
+    captured (each after one eager warm-up run of its step, whose kernel
+    launches count as any other).
 
     ``device`` defaults to the card; pass ``device="cpu"`` for the plain
     PyTorch versions.  ``params`` must already live on that device."""
@@ -112,8 +131,10 @@ class Engine:
                  page_size: int = 16, n_pages: int = 128,
                  max_seq_pages: Optional[int] = None,
                  reserve: str = "conservative", prefill_chunk: int = 32,
-                 prefix_cache: bool = False, spec_decode: int = 0,
-                 draft_params=None, draft_cfg=None, device=None,
+                 prefix_cache: bool = False,
+                 telemetry: Optional[ServeTelemetry] = None,
+                 spec_decode: int = 0, draft_params=None, draft_cfg=None,
+                 sanitize: Optional[bool] = None, device=None,
                  cuda_graphs: Optional[bool] = None):
         if not supports_paged_cache(cfg):
             raise ValueError(f"{cfg.arch!r} cannot serve paged")
@@ -121,15 +142,22 @@ class Engine:
             raise ValueError("prefill_chunk must be >= 1")
         self.params, self.cfg = params, cfg
         self.prefill_chunk = prefill_chunk
+        self.tel = telemetry if telemetry is not None else \
+            ServeTelemetry.disabled()
         if max_seq_pages is None:
             # default: one sequence may hold up to half the pool
             max_seq_pages = max(4, (n_pages - 1) // 2)
+        if sanitize is None:
+            # opt-in shadow page ledger: an env var, so a test suite can
+            # sanitize every engine without touching call sites
+            sanitize = sanitize_enabled()
         self.kv = PagedKVCache(cfg, n_slots, n_pages, page_size,
-                               max_seq_pages, device=device)
+                               max_seq_pages, device=device,
+                               sanitize=sanitize)
         self.device = self.kv.device
         self.cuda_graphs = _graphs_on(self.device, cuda_graphs)
         self.sched = Scheduler(self.kv, reserve=reserve,
-                               prefix_cache=prefix_cache)
+                               prefix_cache=prefix_cache, telemetry=self.tel)
         self.spec_k = int(spec_decode)
         if self.spec_k < 0:
             raise ValueError("spec_decode must be >= 0")
@@ -159,23 +187,128 @@ class Engine:
                 self.draft_params, self.kv.layers))
             self.steps["verify"] = step("verify", functools.partial(
                 make_spec_verify(cfg, self.spec_k), params, self.kv.layers))
+        # graph-capture accounting: deltas over each step's captures since
+        # this engine attached (``copy_page`` is an eager copy: label 0)
+        self.jit_tracker = CompileTracker()
+        for name, st in self.steps.items():
+            self.jit_tracker.track(name, st)
         self.requests = {}
         self._next_rid = 0
         self.clock = 0
-        self.counters = {"steps": 0, "decode_steps": 0, "decode_tokens": 0,
-                         "prefill_tokens": 0, "prefills": 0,
-                         "prefill_chunks": 0, "occupancy_sum": 0.0,
-                         "stalls": 0, "rejects": 0, "spec_rounds": 0,
-                         "spec_draft_tokens": 0, "spec_accepted_tokens": 0}
-        self.step_ms = []
+        self.decode_steps = 0
+        self._init_metrics()
+
+    def _init_metrics(self) -> None:
+        """Registry-backed engine bookkeeping: the reference's metric
+        names, helps and buckets (``metrics`` is a read-only view)."""
+        reg = self.tel.registry
+        self._mac = self.cfg.mac.mode
+        self._c_steps = reg.counter("engine_steps", "engine loop ticks")
+        self._c_decode = reg.counter("decode_tokens",
+                                     "tokens produced by decode steps")
+        self._c_prefill_tok = reg.counter("prefill_tokens",
+                                          "prompt tokens ingested")
+        self._c_prefills = reg.counter("prefills", "completed prefills")
+        self._c_chunks = reg.counter("prefill_chunks",
+                                     "prefill chunk dispatches")
+        self._c_occ = reg.counter("occupancy_sum",
+                                  "per-step busy-slot fraction, summed")
+        self._c_stalls = reg.counter(
+            "stalls", "decode steps a request sat page-starved")
+        self._c_rejects = reg.counter("rejects",
+                                      "requests rejected at submit")
+        self._c_jit = reg.counter(
+            "jit_compiles",
+            "CUDA-graph captures of the serving steps since this engine "
+            "attached (labeled fn=prefill|decode|draft|verify|copy_page)")
+        self._h_step = reg.histogram("step_ms", "engine step wall ms",
+                                     buckets=(1, 2, 5, 10, 25, 50, 100,
+                                              250, 500, 1000))
+        dev_buckets = (0.5, 1, 2, 5, 10, 25, 50, 100, 250, 500)
+        self._h_dev_decode = reg.histogram(
+            "device_decode_ms", "blocked decode-step device ms",
+            buckets=dev_buckets)
+        self._h_dev_prefill = reg.histogram(
+            "device_prefill_ms", "blocked prefill-chunk device ms",
+            buckets=dev_buckets)
+        self._g_pages_free = reg.gauge("pages_free",
+                                       "strictly free pool pages")
+        self._g_pages_cached = reg.gauge(
+            "pages_cached", "ref-0 pages parked in the prefix LRU tier")
+        self._g_pages_held = reg.gauge("pages_held",
+                                       "pages referenced by sequences")
+        self._g_queue = reg.gauge("queue_depth", "requests waiting")
+        self._g_hit_win = reg.gauge(
+            "prefix_windowed_hit_rate",
+            "prefix-cache hit rate over recent admissions")
+        self._g_kv_bpt = reg.gauge(
+            "kv_bytes_per_token",
+            "pool bytes per cached token across layers (values + scales)")
+        self._g_kv_cap = reg.gauge(
+            "kv_capacity_tokens",
+            "token capacity of the allocatable page pool")
+        self._g_kv_bpt.set(self.kv.kv_bytes_per_token())
+        self._g_kv_cap.set((self.kv.n_pages - 1) * self.kv.page_size)
+        self._c_spec_rounds = reg.counter(
+            "spec_rounds", "speculative draft+verify rounds")
+        self._c_spec_prop = reg.counter(
+            "spec_draft_tokens", "draft tokens considered by verification")
+        self._c_spec_acc = reg.counter(
+            "spec_accepted_tokens", "draft tokens accepted by verification")
+        self._g_spec_rate = reg.gauge(
+            "spec_acceptance_rate",
+            "accepted / considered draft tokens, cumulative")
+        self._h_dev_draft = reg.histogram(
+            "device_draft_ms", "blocked draft-k device ms",
+            buckets=dev_buckets)
+        self._h_dev_verify = reg.histogram(
+            "device_verify_ms", "blocked verify-step device ms",
+            buckets=dev_buckets)
+
+    @property
+    def metrics(self) -> dict:
+        """Read-only snapshot with the reference's key set (the engine
+        itself increments registry metrics, not this dict)."""
+        return {
+            "steps": int(self._c_steps.total()),
+            "decode_tokens": int(self._c_decode.total()),
+            "prefill_tokens": int(self._c_prefill_tok.total()),
+            "prefills": int(self._c_prefills.total()),
+            "prefill_chunks": int(self._c_chunks.total()),
+            "occupancy_sum": self._c_occ.total(),
+        }
+
+    @property
+    def step_ms(self) -> list:
+        """Every step's wall ms so far, in order (the ``step_ms``
+        histogram's samples)."""
+        return self._h_step.samples(mac=self._mac)
+
+    @property
+    def _steps(self) -> int:
+        return int(self._c_steps.total())
+
+    def _sync(self) -> None:
+        """``time_device``: wait for the card (a graph replay returns
+        before its kernels finish); the CPU computes synchronously."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ---- API ---------------------------------------------------------------
 
     def submit(self, prompt, max_new: int = 32,
                eos_id: Optional[int] = None) -> int:
         prompt = np.asarray(prompt, np.int32).ravel()
+        tr = self.tel.tracer
         if int(prompt.shape[0]) + max_new > self.kv.max_seq_tokens:
-            self.counters["rejects"] += 1
+            # reject before registering: a raise after registration would
+            # leak a dead rid into self.requests
+            self._c_rejects.inc()
+            if tr.enabled:
+                tr.instant("reject", tid=TID_ENGINE, cat="lifecycle",
+                           args={"plen": int(prompt.shape[0]),
+                                 "max_new": max_new,
+                                 "limit": self.kv.max_seq_tokens})
             raise ValueError(
                 f"request of {prompt.shape[0]} prompt + {max_new} new "
                 f"tokens exceeds the {self.kv.max_seq_tokens}-token "
@@ -188,6 +321,11 @@ class Engine:
                       t_arrive=time.perf_counter())
         self.requests[rid] = req
         self.sched.submit(req)
+        if tr.enabled:
+            tr.thread(req_tid(rid), f"req {rid}")
+            tr.instant("submit", tid=req_tid(rid), cat="lifecycle",
+                       args={"rid": rid, "plen": int(prompt.shape[0]),
+                             "max_new": max_new}, t_s=req.t_arrive)
         return rid
 
     @property
@@ -196,13 +334,15 @@ class Engine:
 
     def run(self, max_steps: int = 100_000) -> dict:
         """Drive the loop until the queue and all slots drain; at most
-        ``max_steps`` steps in this call."""
-        start = self.counters["steps"]
-        while self.busy:
-            if self.counters["steps"] - start >= max_steps:
-                raise RuntimeError(f"engine did not drain within {max_steps}"
-                                   " steps (livelock?)")
-            self.step()
+        ``max_steps`` steps in this call.  With ``telemetry.profile_dir``
+        set, the drain runs under a ``torch.profiler`` trace."""
+        start = self._steps
+        with profiler_trace(self.tel.profile_dir):
+            while self.busy:
+                if self._steps - start >= max_steps:
+                    raise RuntimeError(f"engine did not drain within "
+                                       f"{max_steps} steps (livelock?)")
+                self.step()
         return self.results()
 
     def results(self) -> dict:
@@ -210,15 +350,45 @@ class Engine:
                 for rid, r in self.requests.items() if r.state == FINISHED}
 
     def step(self) -> None:
+        """One scheduler tick, instrumented: a span on the engine track,
+        its wall time in the ``step_ms`` histogram, the allocator and
+        queue gauges refreshed after the work and, with the sanitizer,
+        page conservation verified."""
+        tr = self.tel.tracer
         t0 = time.perf_counter()
-        self._step_impl()
-        self.step_ms.append((time.perf_counter() - t0) * 1e3)
+        try:
+            self._step_impl()
+        finally:
+            t1 = time.perf_counter()
+            self._h_step.observe((t1 - t0) * 1e3, mac=self._mac)
+            if tr.enabled:
+                tr.complete("step", t0, t1, tid=TID_ENGINE, cat="engine",
+                            args={"step": self._steps})
+            self._update_gauges()
+            if self.kv.ledger is not None:
+                self.kv.ledger.verify()
+
+    def _update_gauges(self) -> None:
+        """Pool / queue / prefix gauges (free–held–cached page split)."""
+        al = self.kv.alloc
+        self._g_pages_free.set(al.n_free_strict)
+        self._g_pages_cached.set(al.n_cached)
+        self._g_pages_held.set(al.n_held)
+        self._g_queue.set(len(self.sched.queue))
+        if self.sched.prefix is not None:
+            self._g_hit_win.set(self.sched.prefix.windowed_hit_rate)
 
     # ---- one scheduler tick ------------------------------------------------
 
     def _step_impl(self) -> None:
-        self.counters["steps"] += 1
+        self._c_steps.inc()
         self.clock += 1
+        if self.tel.drift is not None and not self.spec_k:
+            # under spec decoding drift comes from verification
+            # (observe_agreement in _spec_round): no extra forward
+            self.tel.drift.maybe_sample(
+                self._steps, self.params, self.cfg,
+                [r.prompt for r in self.sched.slots if r is not None])
         # admit and run ONE prefill chunk per prefilling slot; a prefill
         # that finishes at EOS frees its slot, so keep admitting until no
         # new slot fills (each request still runs at most one chunk)
@@ -237,7 +407,7 @@ class Engine:
             return
         active = self._runnable()
         worked = set(chunked) | {r.rid for r in active}
-        self.counters["occupancy_sum"] += len(worked) / self.kv.n_slots
+        self._c_occ.inc(len(worked) / self.kv.n_slots)
         if not active:
             self._check_progress(chunked)
             return
@@ -252,16 +422,31 @@ class Engine:
                 self.kv.set_len(r.slot, r.n_cached)
         for req in active:
             tokens[req.slot, 0] = req.out[-1]
+        tr = self.tel.tracer
+        t_d0 = time.perf_counter()
         out = self.steps["decode"](tokens, self.kv.ptab, self.kv.lens)
+        if self.tel.time_device:
+            self._sync()
+            t_d1 = time.perf_counter()
+            self._h_dev_decode.observe((t_d1 - t_d0) * 1e3, mac=self._mac)
+            if tr.enabled:
+                tr.complete("device:decode", t_d0, t_d1, tid=TID_DEVICE,
+                            cat="device", args={"n_active": len(active)})
         toks = out.cpu().numpy()         # the step boundary: tokens to host
-        self.counters["decode_steps"] += 1
+        if tr.enabled:
+            tr.complete("decode_step", t_d0, time.perf_counter(),
+                        tid=TID_ENGINE, cat="engine",
+                        args={"n_active": len(active),
+                              "rids": [r.rid for r in active]})
+        self.decode_steps += 1
         now = time.perf_counter()
         for req in active:
             req.n_cached += 1
             req.out.append(int(toks[req.slot]))
-            self.counters["decode_tokens"] += 1
+            self._c_decode.inc(1, mac=self._mac)
             if req.done:
                 self.sched.finish(req, now)
+                self._trace_finish(req)
 
     def _check_progress(self, chunked) -> None:
         """No request decodes this step: fine while prefill progresses or
@@ -288,6 +473,7 @@ class Engine:
         that do not decode get lens at the end of their own pages, so the
         round's k+1 writes land in the scratch page."""
         k = self.spec_k
+        tr = self.tel.tracer
         active, wins = [], {}
         for req in sorted(self.sched.active(),
                           key=lambda r: (r.t_arrive, r.rid)):
@@ -299,12 +485,15 @@ class Engine:
             elif want > 1 and self.sched.ensure_write_window(req, 1):
                 wins[req.rid] = 1
             else:
-                self.counters["stalls"] += 1
+                self._c_stalls.inc()
+                if tr.enabled:
+                    tr.instant("stall", tid=req_tid(req.rid),
+                               cat="lifecycle", args={"rid": req.rid})
                 continue
             active.append(req)
         active = [r for r in active if r.state == DECODING]  # late evicts
         worked = set(chunked) | {r.rid for r in active}
-        self.counters["occupancy_sum"] += len(worked) / self.kv.n_slots
+        self._c_occ.inc(len(worked) / self.kv.n_slots)
         if not active:
             self._check_progress(chunked)
             return
@@ -320,12 +509,39 @@ class Engine:
         for req in active:
             tokens[req.slot, 0] = req.out[-1]
         draft, verify = self.steps["draft"], self.steps["verify"]
+        t_d0 = time.perf_counter()
         d_toks = draft(tokens, self.kv.ptab, self.kv.lens)
+        if self.tel.time_device:
+            self._sync()
+            t_d1 = time.perf_counter()
+            self._h_dev_draft.observe((t_d1 - t_d0) * 1e3,
+                                      mac=self.draft_cfg.mac.mode)
+            if tr.enabled:
+                tr.complete("device:draft", t_d0, t_d1, tid=TID_DEVICE,
+                            cat="device", args={"k": k,
+                                                "n_active": len(active)})
+        if tr.enabled:
+            tr.complete("draft_step", t_d0, time.perf_counter(),
+                        tid=TID_ENGINE, cat="engine",
+                        args={"k": k, "rids": [r.rid for r in active]})
         # the draft stays on the device: verify reads it, the round's
         # input tokens, page table and lens from the draft step's own
         # tensors, so draft → verify needs no copy and no host sync
+        t_v0 = time.perf_counter()
         v_toks = verify(draft.arg(0), d_toks, draft.arg(1), draft.arg(2))
+        if self.tel.time_device:
+            self._sync()
+            t_v1 = time.perf_counter()
+            self._h_dev_verify.observe((t_v1 - t_v0) * 1e3, mac=self._mac)
+            if tr.enabled:
+                tr.complete("device:verify", t_v0, t_v1, tid=TID_DEVICE,
+                            cat="device", args={"k": k,
+                                                "n_active": len(active)})
         d_np, v_np = d_toks.cpu().numpy(), v_toks.cpu().numpy()
+        if tr.enabled:
+            tr.complete("verify_step", t_v0, time.perf_counter(),
+                        tid=TID_ENGINE, cat="engine",
+                        args={"k": k, "rids": [r.rid for r in active]})
         now = time.perf_counter()
         r_acc = r_cons = 0
         for req in active:
@@ -341,20 +557,29 @@ class Engine:
                         break
             req.out.extend(emit)
             req.n_cached += len(emit)
-            self.counters["decode_tokens"] += len(emit)
+            self._c_decode.inc(len(emit), mac=self._mac)
             r_acc += n_acc
             r_cons += cons
             if req.done:
                 self.sched.finish(req, now)
-        self.counters["spec_rounds"] += 1
-        self.counters["spec_draft_tokens"] += r_cons
-        self.counters["spec_accepted_tokens"] += r_acc
+                self._trace_finish(req)
+        self._c_spec_rounds.inc()
+        self._c_spec_prop.inc(r_cons)
+        self._c_spec_acc.inc(r_acc)
+        prop, acc = self._c_spec_prop.total(), self._c_spec_acc.total()
+        if prop:
+            self._g_spec_rate.set(acc / prop)
+        if self.tel.drift is not None:
+            # drift for free: draft-vs-target top-1 agreement measured on
+            # the verifier's logits, no extra forward
+            self.tel.drift.observe_agreement(r_acc, r_cons)
 
     def _runnable(self):
         """Decoding requests with a page of their own for their next
         write, oldest first (growth may evict younger requests; a request
         that can neither grow nor evict stalls this step)."""
         out = []
+        tr = self.tel.tracer
         for req in sorted(self.sched.active(),
                           key=lambda r: (r.t_arrive, r.rid)):
             if req.state != DECODING:
@@ -362,7 +587,10 @@ class Engine:
             if self.sched.ensure_page(req):
                 out.append(req)
             else:
-                self.counters["stalls"] += 1
+                self._c_stalls.inc()
+                if tr.enabled:
+                    tr.instant("stall", tid=req_tid(req.rid),
+                               cat="lifecycle", args={"rid": req.rid})
         return out
 
     def _prefill_chunk(self, req: Request) -> None:
@@ -380,19 +608,32 @@ class Engine:
         n = int(chunk.shape[0])
         padded = np.zeros((1, C), np.int32)
         padded[0, :n] = chunk
+        tr = self.tel.tracer
+        t_c0 = time.perf_counter()
         toks = self.steps["prefill"](
             padded, self.kv.ptab[req.slot:req.slot + 1],
             np.array([start], np.int32))
+        if self.tel.time_device:
+            self._sync()
+            t_c1 = time.perf_counter()
+            self._h_dev_prefill.observe((t_c1 - t_c0) * 1e3, mac=self._mac)
+            if tr.enabled:
+                tr.complete("device:prefill", t_c0, t_c1, tid=TID_DEVICE,
+                            cat="device", args={"rid": req.rid, "n": n})
+        if tr.enabled:
+            tr.complete("prefill_chunk", t_c0, time.perf_counter(),
+                        tid=TID_ENGINE, cat="engine",
+                        args={"rid": req.rid, "start": start, "n": n})
         req.n_cached = start + n
         self.kv.set_len(req.slot, req.n_cached)
-        self.counters["prefill_chunks"] += 1
-        self.counters["prefill_tokens"] += n
+        self._c_chunks.inc(1, mac=self._mac)
+        self._c_prefill_tok.inc(n, mac=self._mac)
         if req.n_cached < target:
             return
         now = time.perf_counter()
         req.state = DECODING
         req.t_prefill_done = now
-        self.counters["prefills"] += 1
+        self._c_prefills.inc()
         self.sched.note_prefilled(req)
         if not req.out:
             # read before the next prefill replay overwrites the graph's
@@ -400,50 +641,88 @@ class Engine:
             req.out = [int(toks[0, req.plen - 1 - start])]
             if req.t_first is None:
                 req.t_first = now
+                if tr.enabled:
+                    tr.instant("first_token", tid=req_tid(req.rid),
+                               cat="lifecycle", args={"rid": req.rid},
+                               t_s=now)
         if req.done:
             self.sched.finish(req, now)
+            self._trace_finish(req)
+
+    def _trace_finish(self, req: Request) -> None:
+        """Emit the finished request's lifecycle phase spans on its own
+        track: ``queued`` [submit → admit], ``prefill`` [admit → prefill
+        done], ``decode`` [prefill done → finish], contiguous by
+        construction, so their durations sum to the request latency (after
+        an eviction ``queued`` absorbs the earlier rounds)."""
+        tr = self.tel.tracer
+        if not tr.enabled or req.t_finish is None:
+            return
+        tid = req_tid(req.rid)
+        t_admit = req.t_admit if req.t_admit is not None else req.t_arrive
+        t_pf = req.t_prefill_done if req.t_prefill_done is not None \
+            else t_admit
+        args = {"rid": req.rid, "n_out": len(req.out),
+                "evictions": req.n_evictions}
+        tr.complete("request", req.t_arrive, req.t_finish, tid=tid,
+                    cat="lifecycle", args=args)
+        tr.complete("queued", req.t_arrive, t_admit, tid=tid, cat="phase")
+        tr.complete("prefill", t_admit, t_pf, tid=tid, cat="phase")
+        tr.complete("decode", t_pf, req.t_finish, tid=tid, cat="phase")
 
     # ---- reporting ---------------------------------------------------------
 
     def stats(self) -> dict:
-        """Counters plus request-derived percentiles (numpy linear
-        interpolation), with the reference's prefix-cache, copy-on-write
-        and speculative keys.  Latency and TPOT are over finished
-        requests, TTFT over every request with a first token."""
+        """The registry's view plus request-derived percentiles, with the
+        reference's keys (``mesh`` is None: the port serves on one card)
+        and the port's own: ``admissions``, ``decode_steps``,
+        ``attention_backend``, ``device``, ``cuda_graphs`` and
+        ``jit_compiles_by_step``.  Latency and TPOT are over finished
+        requests, TTFT over every request with a first token, in-flight
+        ones included; step percentiles come from the ``step_ms``
+        histogram."""
         reqs = list(self.requests.values())
         fin = [r for r in reqs if r.state == FINISHED]
-        lat = [r.t_finish - r.t_arrive for r in fin]
+        lat = [r.t_finish - r.t_arrive for r in fin
+               if r.t_finish is not None]
         ttft = [r.t_first - r.t_arrive for r in reqs
                 if r.t_first is not None]
         tpot = [(r.t_finish - r.t_first) / (len(r.out) - 1) for r in fin
-                if r.t_first is not None and len(r.out) > 1]
+                if r.t_finish is not None and r.t_first is not None
+                and len(r.out) > 1]
         pfx = self.sched.prefix
         on = pfx is not None        # NOT truthiness: an empty index is falsy
-        m = dict(self.counters)
+        al = self.kv.alloc
+        jit_total = self.jit_tracker.publish(self._c_jit)
+        m = dict(self.metrics)
         m.update({
             "finished": len(fin),
+            "rejects": int(self._c_rejects.total()),
+            "stalls": int(self._c_stalls.total()),
             "admissions": self.sched.n_admissions,
             "evictions": self.sched.n_evictions,
             "cow_copies": self.sched.n_cow_copies,
+            "decode_steps": self.decode_steps,
             "prefix_cache": on,
             "prefix_hit_tokens": pfx.hit_tokens if on else 0,
             "prefix_lookup_tokens": pfx.lookup_tokens if on else 0,
             "prefix_hit_rate": pfx.hit_rate if on else 0.0,
             "prefix_windowed_hit_rate": pfx.windowed_hit_rate if on else 0.0,
             "prefix_pages_indexed": len(pfx) if on else 0,
+            "prefill_chunk": self.prefill_chunk,
             "occupancy": (m["occupancy_sum"] / m["steps"]
                           if m["steps"] else 0.0),
-            "latency_p50_s": _percentile(lat, 50),
-            "latency_p99_s": _percentile(lat, 99),
-            "ttft_p50_s": _percentile(ttft, 50),
-            "ttft_p99_s": _percentile(ttft, 99),
-            "tpot_p50_s": _percentile(tpot, 50),
-            "tpot_p99_s": _percentile(tpot, 99),
-            "step_ms_p50": _percentile(self.step_ms, 50),
-            "step_ms_p99": _percentile(self.step_ms, 99),
-            "pages_free": self.kv.alloc.n_free_strict,
-            "pages_cached": self.kv.alloc.n_cached,
-            "pages_held": self.kv.alloc.n_held,
+            "latency_p50_s": percentile(lat, 50),
+            "latency_p99_s": percentile(lat, 99),
+            "ttft_p50_s": percentile(ttft, 50),
+            "ttft_p99_s": percentile(ttft, 99),
+            "tpot_p50_s": percentile(tpot, 50),
+            "tpot_p99_s": percentile(tpot, 99),
+            "step_ms_p50": self._h_step.percentile(50, mac=self._mac),
+            "step_ms_p99": self._h_step.percentile(99, mac=self._mac),
+            "pages_free": al.n_free_strict,
+            "pages_cached": al.n_cached,
+            "pages_held": al.n_held,
             "kv_pool_bytes": self.kv.mem_bytes(),
             "kv_bytes_per_token": self.kv.kv_bytes_per_token(),
             "kv_capacity_tokens": (self.kv.n_pages - 1) * self.kv.page_size,
@@ -451,25 +730,40 @@ class Engine:
             "page_size": self.kv.page_size,
             "n_pages": self.kv.n_pages,
             "n_slots": self.kv.n_slots,
-            "prefill_chunk": self.prefill_chunk,
             "mac_mode": self.cfg.mac.mode,
             "attention_backend": self.cfg.attention_backend,
             "device": str(self.device),
             "cuda_graphs": self.cuda_graphs,
-            "jit_compiles": sum(s.captures for s in self.steps.values()),
-            "jit_compiles_by_step": {n: s.captures
-                                     for n, s in self.steps.items()},
+            "jit_compiles": jit_total,
+            "jit_compiles_by_step": self.jit_tracker.counts(),
+            "mesh": None,
         })
+        if self.tel.time_device:
+            m["device_decode_ms_p50"] = self._h_dev_decode.percentile(
+                50, mac=self._mac)
+            m["device_prefill_ms_p50"] = self._h_dev_prefill.percentile(
+                50, mac=self._mac)
         if self.spec_k:
-            rounds, prop = m["spec_rounds"], m["spec_draft_tokens"]
+            rounds = int(self._c_spec_rounds.total())
+            prop = int(self._c_spec_prop.total())
+            acc = int(self._c_spec_acc.total())
             m.update({
                 "spec_decode_k": self.spec_k,
-                "spec_acceptance_rate": (m["spec_accepted_tokens"] / prop
-                                         if prop else 0.0),
+                "spec_rounds": rounds,
+                "spec_draft_tokens": prop,
+                "spec_accepted_tokens": acc,
+                "spec_acceptance_rate": acc / prop if prop else 0.0,
                 "spec_tokens_per_round": (m["decode_tokens"] / rounds
                                           if rounds else 0.0),
                 "draft_mac_mode": self.draft_cfg.mac.mode,
             })
+            if self.tel.time_device:
+                m["device_draft_ms_p50"] = self._h_dev_draft.percentile(
+                    50, mac=self.draft_cfg.mac.mode)
+                m["device_verify_ms_p50"] = self._h_dev_verify.percentile(
+                    50, mac=self._mac)
+        if self.tel.drift is not None and self.tel.drift.last is not None:
+            m["encoded_drift_top1"] = self.tel.drift.last
         return m
 
 
@@ -675,7 +969,7 @@ def generate(params, cfg, prompts, max_new: int = 16,
     B, S = prompts.shape
     pad = _ragged_pad(cfg, pad_lens)
     sb = StaticBatch(params, cfg, B, max_len or (S + max_new), device=dev,
-                     graphs=dev.type == "cuda")
+                     graphs=_graphs_on(dev, None))
     return sb.run(prompts, max_new, greedy=greedy, generator=generator,
                   eos_id=eos_id, pad=pad)
 
@@ -757,8 +1051,8 @@ class ServeEngine:
             "decode_steps": sum(c["decode_steps"] for c in ch),
             "prefill_tokens": sum(c["batch"] * c["seq"] for c in ch),
             "tokens": sum(c["tokens"] for c in ch),
-            "step_ms_p50": _percentile(self.step_ms, 50),
-            "step_ms_p99": _percentile(self.step_ms, 99),
+            "step_ms_p50": percentile(self.step_ms, 50),
+            "step_ms_p99": percentile(self.step_ms, 99),
             "kv_cache_bytes": max((c["cache_bytes"] for c in ch),
                                   default=0),
             "jit_compiles": sum(by_shape.values()),

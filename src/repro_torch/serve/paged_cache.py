@@ -237,10 +237,17 @@ class PagedKVCache:
     ``ptab``/``lens`` are numpy, written by the scheduler and copied by
     each step into its own device buffer with its other inputs
     (``serve/graphs.py:Step``).  Unassigned table entries stay 0 →
-    scratch page."""
+    scratch page.
+
+    ``sanitize=True`` attaches the shadow page ledger
+    (``repro_torch.analysis.ledger``): every allocator transition and
+    every ``set_pages``/``set_len``/``copy_page`` call is validated
+    against the page state machine and conservation is asserted after
+    each operation.  Host-only overhead; the ``Engine`` enables it from
+    ``REPRO_SANITIZE=1`` / ``--sanitize``."""
 
     def __init__(self, cfg, n_slots: int, n_pages: int, page_size: int,
-                 max_seq_pages: int, *, device=None):
+                 max_seq_pages: int, *, device=None, sanitize: bool = False):
         if not supports_paged_cache(cfg):
             raise ValueError(f"arch {cfg.arch!r} has no paged-cache support")
         self.cfg = cfg
@@ -254,6 +261,10 @@ class PagedKVCache:
         self.alloc = PageAllocator(n_pages)
         self.ptab = np.zeros((n_slots, self.max_seq_pages), np.int32)
         self.lens = np.zeros((n_slots,), np.int32)
+        self.ledger = None
+        if sanitize:
+            from repro_torch.analysis.ledger import attach_ledger
+            attach_ledger(self)          # sets self.ledger
 
     @property
     def max_seq_tokens(self) -> int:

@@ -24,6 +24,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from .paged_cache import PagedKVCache, PrefixIndex, pages_for
+from .telemetry import ServeTelemetry, req_tid
 
 QUEUED, PREFILLING, DECODING, FINISHED, EVICTED = (
     "queued", "prefilling", "decoding", "finished", "evicted")
@@ -80,7 +81,8 @@ class Scheduler:
     """FCFS continuous-batching scheduler over a PagedKVCache."""
 
     def __init__(self, kv: PagedKVCache, reserve: str = "conservative",
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False,
+                 telemetry: Optional[ServeTelemetry] = None):
         if reserve not in ("conservative", "optimistic"):
             raise ValueError(f"unknown reserve policy {reserve!r}")
         self.kv = kv
@@ -92,6 +94,17 @@ class Scheduler:
         self.n_evictions = 0
         self.n_admissions = 0
         self.n_cow_copies = 0
+        # the engine shares its telemetry, so admit/evict/COW land on the
+        # request-lifecycle trace and in the registry; a standalone
+        # scheduler gets a disabled one
+        self.tel = telemetry if telemetry is not None else \
+            ServeTelemetry.disabled()
+        reg = self.tel.registry
+        self._c_admissions = reg.counter("admissions",
+                                         "requests admitted into slots")
+        self._c_evictions = reg.counter("evictions",
+                                        "recompute preemptions")
+        self._c_cow = reg.counter("cow_copies", "copy-on-write page copies")
 
     def submit(self, req: Request) -> None:
         max_tokens = self.kv.max_seq_tokens
@@ -153,6 +166,13 @@ class Scheduler:
             self.kv.set_pages(slot, req.pages)
             self.kv.set_len(slot, req.n_cached)
             self.n_admissions += 1
+            self._c_admissions.inc()
+            tr = self.tel.tracer
+            if tr.enabled:
+                tr.instant("admit", tid=req_tid(req.rid), cat="lifecycle",
+                           args={"rid": req.rid, "slot": slot,
+                                 "cached_tokens": req.n_cached},
+                           t_s=req.t_admit)
             out.append((slot, req))
         return out
 
@@ -195,6 +215,12 @@ class Scheduler:
                 self.kv.alloc.free([page])
                 self.kv.set_pages(req.slot, req.pages)
                 self.n_cow_copies += 1
+                self._c_cow.inc()
+                if self.tel.tracer.enabled:
+                    self.tel.tracer.instant(
+                        "cow", tid=req_tid(req.rid), cat="lifecycle",
+                        args={"rid": req.rid, "page": page,
+                              "copy": fresh[0]})
         return True
 
     def _alloc_or_evict(self, req: Request, n: int) -> Optional[List[int]]:
@@ -235,6 +261,11 @@ class Scheduler:
         req.n_evictions += 1
         self.n_evictions += 1
         self.queue.appendleft(req)
+        self._c_evictions.inc()
+        if self.tel.tracer.enabled:
+            self.tel.tracer.instant(
+                "evict", tid=req_tid(req.rid), cat="lifecycle",
+                args={"rid": req.rid, "n_out": len(req.out)})
 
     def finish(self, req: Request, t: float) -> None:
         self.kv.reset_slot(req.slot)

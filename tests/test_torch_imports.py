@@ -24,6 +24,9 @@ for n in names:
 from repro_torch.configs import get_config
 from repro_torch.models import init_cache, supports_ragged_mask  # noqa: F401
 from repro_torch.serve import ServeEngine, generate  # noqa: F401
+from repro_torch.serve.telemetry import ServeTelemetry  # noqa: F401
+from repro_torch.obs import DriftMonitor  # noqa: F401
+from repro_torch.analysis.ledger import attach_ledger  # noqa: F401
 for arch in ("qwen1.5-4b", "starcoder2-3b", "gemma2-27b"):
     get_config(arch)
 sys.path.insert(0, sys.argv[1])
@@ -48,13 +51,17 @@ def test_no_jax_or_reference_imports():
     assert out["bad"] == []
     # every subpackage of the port was imported
     for sub in ("configs", "core", "kernels", "models", "nn", "quant",
-                "serve", "data", "launch", "ckpt", "parallel"):
+                "serve", "data", "launch", "ckpt", "parallel", "obs",
+                "analysis"):
         assert f"repro_torch.{sub}" in out["modules"]
     for mod in ("launch.serve", "kernels.flash_attention",
                 "kernels.paged_attention", "quant.kvcache", "nn.paged",
                 "core.search", "ckpt.checkpoint", "parallel.sharding",
                 "serve.spec", "serve.graphs", "configs.qwen15_4b",
-                "configs.starcoder2_3b", "configs.gemma2_27b"):
+                "configs.starcoder2_3b", "configs.gemma2_27b",
+                "obs.stats", "obs.metrics", "obs.trace", "obs.jitcount",
+                "obs.drift", "obs.profile", "analysis.ledger",
+                "serve.telemetry", "launch.env"):
         assert f"repro_torch.{mod}" in out["modules"]
 
 

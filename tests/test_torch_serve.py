@@ -23,6 +23,7 @@ from repro.serve.encoded import prepare_encoded_serving as j_prepare  # noqa: E4
 
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.models import params_from_jax  # noqa: E402
+from repro_torch.obs import percentile  # noqa: E402
 from repro_torch.serve import (Engine as TEngine, exact_encodings,  # noqa: E402
                                prepare_encoded_serving)
 
@@ -125,6 +126,10 @@ def test_submit_rejects_oversize_and_stats(models):
     st = te.stats()
     assert st["rejects"] == 1 and st["finished"] == 2
     assert st["decode_tokens"] == 2 * 2        # first token from prefill
+    # the port's one percentile (``obs.percentile``, the reference's
+    # formula): numpy's linear method within its last bit
     lat = [r.t_finish - r.t_arrive for r in te.requests.values()]
-    assert st["latency_p50_s"] == float(np.percentile(lat, 50))
-    assert st["latency_p99_s"] == float(np.percentile(lat, 99))
+    for q in (50, 99):
+        assert st[f"latency_p{q}_s"] == percentile(lat, q)
+        assert st[f"latency_p{q}_s"] == pytest.approx(
+            float(np.percentile(lat, q)), rel=1e-12, abs=1e-12)
