@@ -49,7 +49,9 @@ Phases (any failure raises and exits non-zero before the result line):
     The dense serve runs three more times on its warm engine (tokens/s and
     its spread), and one decode step with every slot busy is timed on the
     host clock with and without graphs, beside the decode graph's replay
-    alone (the card's busy share);
+    alone (the card's busy share); the decode graph's kernel-1/2/3 nodes,
+    read from the graph itself, must equal what a replay adds to the
+    launch counts (so must the draft and verify graphs' in 6d);
  6c. the prefix cache: a trace where 4 of 8 requests share a 128-token
     prefix, served with the cache on and off (identical tokens, hits > 0),
     and ``copy_page`` on full-width dense, int8 and int4 card pools,
@@ -141,6 +143,27 @@ Phases (any failure raises and exits non-zero before the result line):
     at their head layouts (D = 128, f32 pools, 127-page table), launches
     from their phase 6f serves.  Kernel-1 rows of the static path's
     shapes also carry ``launches_static``, the static serve's count.
+
+ 9. the trainer (run before 8): full-width qwen1.5-0.5b (weights from
+    seed 0, synthetic LM data, AdamW, remat on) trained 10 steps at batch
+    8 x 256 tokens in each MAC mode, ``fp``, ``int8`` (fake quant) and
+    ``encoded`` (QAT with ``EncodedMac.default()``, searched on the card
+    at first use): every loss and gnorm finite, the last loss below the
+    first, kernels 1-3 launched 0 times; step ms p50, tokens/s and peak
+    device memory per mode, and with remat off (fp); the QAT fold's share
+    of an encoded step's device time (``torch.profiler``);
+    ``microbatch=2`` against the full batch (rtol 5e-4 / atol 5e-5); an
+    encoded run of 3 steps against 2 steps, an async checkpoint, a restore
+    into a fresh state and the third step, bit for bit under deterministic
+    algorithms (an op without a deterministic CUDA path is named and the
+    check falls back to that tolerance); the reduced config trained 5
+    steps from one torch-made state on the card and on the CPU (fp losses
+    within 1e-4; int8/encoded step 0's loss and first moments within
+    1e-4, or a parting at step 0 that starts at an int8 code f32 order
+    moved across a .5 boundary; later steps printed, and where they part
+    the first int8 code apart and the params furthest apart); and ``python -m repro_torch.launch.train --steps 12 --batch 4
+    --seq 128 --mac-mode encoded --ckpt-every 6`` at full width, run,
+    step 12's checkpoint removed, run again: it resumes from step 6.
 
 Every phase that folds writes its bundle into a fresh directory under
 ``build/`` (git-ignored), logs the free disk first and removes it at its
@@ -1064,13 +1087,48 @@ GRAPH_KERNELS = {"encoded_matmul": "encoded_matmul", "paged_attn": "paged_attn",
                  "flash_attention": "flash_fwd"}
 
 
+def graph_kernel_counts(graph) -> tuple:
+    """The kernel-1/2/3 nodes of a captured CUDA graph, read from the graph
+    itself: ``CUDAGraph.debug_dump`` (``cudaGraphDebugDotPrint``, verbose)
+    writes every node with its kernel's name, and a replay runs exactly
+    these nodes.  Needs a graph captured with ``keep_graph=True`` (``main``
+    sets ``Step.keep_graph``).  Returns the counts by kind and the number
+    of nodes."""
+    import re
+    path = os.path.join(ROOT, "build", f"graph-{os.getpid()}.dot")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    graph.debug_dump(path)
+    if not os.path.exists(path):
+        raise AssertionError("CUDAGraph.debug_dump wrote no file: the "
+                             "graph was captured without keep_graph")
+    with open(path) as f:
+        text = f.read()
+    os.remove(path)
+    # a node's declaration starts its line; an edge's line starts
+    # ``"graph_1_node_0" -> ...``
+    nodes = re.split(r'(?m)^"graph_\d+_node_\d+"\s*\[', text)[1:]
+    if not nodes:
+        raise AssertionError(f"no node in the graph's dump: {text[:300]!r}")
+    return ({k: sum(word in node for node in nodes)
+             for k, word in GRAPH_KERNELS.items()}, len(nodes))
+
+
 def _replay_split(step):
     """Device time of one replay of ``step``'s graph by kind of kernel
     (``torch.profiler``): kernel 1, kernel 2, the library's matrix
     products (the LM head) and every other kernel, in ms, with counts.
-    Fails unless the replay ran each hand-written kernel as many times as
-    the step adds to its launch counter per replay (``Step.delta``)."""
+    Fails unless the graph holds each hand-written kernel as many times as
+    the step adds to its launch counter per replay (``Step.delta``).  The
+    count is read from the graph's own nodes (``graph_kernel_counts``),
+    not from the profiler: a profiler capture can lose device events (on
+    the H100 machine one capture of 2966 kernels came back with 2953, and
+    in another run three captures in a row each lacked one of kernel 1's
+    168), so its counts are only logged beside the graph's."""
     from repro_torch.launch.kernel_bench import cuda_kernel_times
+    counted = {k: step.delta[k] for k in GRAPH_KERNELS}
+    held, n_nodes = graph_kernel_counts(step.graph)
     out = collections.defaultdict(lambda: [0.0, 0])
     events = cuda_kernel_times(step.graph.replay)
     for name, us in events:
@@ -1080,15 +1138,17 @@ def _replay_split(step):
         out[kind][1] += 1
     total = sum(v[0] for v in out.values())
     log(f"[step] one {step.name} replay under torch.profiler: "
-        f"{len(events)} device kernels, {total:.3f} ms of kernel time: " +
-        ", ".join(f"{k} {v[0]:.3f} ms in {v[1]}"
-                  for k, v in sorted(out.items())))
-    ran = {k: out[k][1] if k in out else 0 for k in GRAPH_KERNELS}
-    counted = {k: step.delta[k] for k in GRAPH_KERNELS}
-    log(f"[step] {step.name} graph: kernels run per replay {ran}, counted "
-        f"per replay {counted}: {'equal' if ran == counted else 'DIFFER'}")
-    if ran != counted:
-        raise AssertionError(f"the {step.name} graph runs {ran} kernels but "
+        f"{len(events)} device events of the graph's {n_nodes} nodes, "
+        f"{total:.3f} ms of kernel time: "
+        + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]}"
+                    for k, v in sorted(out.items())))
+    seen = {k: out[k][1] if k in out else 0 for k in GRAPH_KERNELS}
+    log(f"[step] {step.name} graph: kernels held (run per replay) {held}, "
+        f"counted per replay {counted}: "
+        f"{'equal' if held == counted else 'DIFFER'}; the profiler saw "
+        f"{seen}")
+    if held != counted:
+        raise AssertionError(f"the {step.name} graph runs {held} kernels but "
                              f"its replays count {counted}")
     return {k: v[0] for k, v in out.items()}
 
@@ -2536,6 +2596,477 @@ def _linears_teacher_forced(dev, pe_c, ce_c, pe_g, ce_g, prompt):
         f"{worst:.2e})")
 
 
+# --- phase 9: the trainer -------------------------------------------------
+
+# full-width qwen1.5-0.5b trained in each MAC mode: batch x seq tokens per
+# step (m = 2048 rows per linear), steps per mode, warm-up of the schedule
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 8, 256, 10, 2
+# predicted in PERF.md before the first card run (logged beside the
+# outcome, not gated): the last loss below the first by at least this
+TRAIN_MARGIN = 0.05
+# card against CPU at reduced size: fp losses, and step 0 of the quantized
+# modes (loss and the first moments, which hold the clipped gradient)
+CARD_CPU_RTOL = 1e-4
+# where card and CPU part in a quantized mode, the first int8 code apart
+# must come from f32 order: its two values before rounding within this of
+# each other, relative (the searched encoding's f32 fold sums terms that
+# cancel, so a linear's output parts by up to ~1e-4 between orders; the
+# first card run found layer 0's attn/wo input at -83.4962 on the CPU and
+# -83.5002 on the card, 4.8e-5 apart)
+TRAIN_ORIGIN_RTOL = 1e-4
+
+
+def _train_cfg(mode, mac, reduced=False):
+    """qwen1.5-0.5b (full or reduced) in MAC ``mode`` with encoding
+    ``mac`` (used by 'encoded' only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.layers import MacConfig
+    cfg = get_config("qwen1.5-0.5b")
+    if reduced:
+        cfg = cfg.reduced()
+    if mode != "fp":
+        cfg = dataclasses.replace(cfg, mac=MacConfig(
+            mode=mode, mac=mac if mode == "encoded" else None))
+    return cfg
+
+
+def _train_run(cfg, dev, batches, steps, state=None, **kw):
+    """``steps`` train steps from seed 0's state (or ``state``): the final
+    state, per-step losses, gnorms and host-clock ms (each step ends in a
+    sync), and the peak device memory."""
+    import torch
+    from repro_torch.train import init_train_state, make_train_step
+    if state is None:
+        state = init_train_state(cfg, seed=0, device=dev)
+    step = make_train_step(cfg, warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, ms = [], [], []
+    for i in range(steps):
+        t = time.perf_counter()
+        state, m = step(state, batches[i])
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return state, losses, gnorms, ms, torch.cuda.max_memory_allocated()
+
+
+def _p50(xs):
+    import numpy as np
+    return float(np.median(xs))
+
+
+def _fold_share(step_fn):
+    """Share of the device time of one call of ``step_fn`` spent in
+    kernels launched inside the ``qat_fold`` ranges (the encoded QAT
+    forward's quantize + fold + bitplane product; under remat it runs in
+    the forward and again in the backward's recompute; the backward's own
+    kernels fall outside), from a ``torch.profiler`` chrome trace."""
+    import bisect
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    path = os.path.join(ROOT, "build", f"train-trace-{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        os.remove(path)
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if kernels:
+            break
+    if not kernels:
+        return None
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    ranges = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e.get("name") == "qat_fold")
+    starts = [r[0] for r in ranges]
+    total = fold = 0.0
+    for k in kernels:
+        dur = float(k.get("dur", 0.0))
+        total += dur
+        ts = launch.get(k.get("args", {}).get("correlation"))
+        if ts is None:
+            continue
+        i = bisect.bisect_right(starts, ts) - 1
+        if i >= 0 and ranges[i][0] <= ts <= ranges[i][1]:
+            fold += dur
+    return {"fold_ms": fold / 1e3, "device_ms": total / 1e3,
+            "share": fold / total if total else float("nan"),
+            "ranges": len(ranges)}
+
+
+def _leaf_rel(a, b, prefix=""):
+    """(path, max|a - b| / max|a|) for each leaf of two trees of tensors
+    (b may live on the card)."""
+    for k in sorted(a):
+        if isinstance(a[k], dict):
+            yield from _leaf_rel(a[k], b[k], f"{prefix}{k}/")
+        else:
+            x, y = a[k].float(), b[k].float().cpu()
+            yield (prefix + k, ((x - y).abs().max()
+                                / x.abs().max().clamp_min(1e-30)).item())
+
+
+def _train_flip(dev, cfg, state, batch):
+    """Card against CPU on the same state: the first linear input (forward
+    order) whose int8 activation code differs, with the values before
+    rounding on both sides; None when no code differs."""
+    import numpy as np
+    import torch
+    from repro_torch.models import apply_model, to_device
+    from repro_torch.nn.common import activation_recorder
+    from repro_torch.train import params_of
+    calls = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+             ("mlp", "wi"), ("mlp", "wg"), ("mlp", "wo"))
+    got = {}
+    for name, d in (("cpu", "cpu"), ("cuda", dev)):
+        params = to_device(params_of(state), d)
+        xs = []
+        with torch.no_grad(), activation_recorder(
+                lambda n, w, x: xs.append(x.float().cpu().numpy())):
+            apply_model(params, cfg, torch.as_tensor(batch["tokens"]).to(d))
+        got[name] = xs
+    for c, (a, b) in enumerate(zip(got["cpu"], got["cuda"])):
+        li, (sub, nm) = c // len(calls), calls[c % len(calls)]
+        sa = np.float32(state["params"]["stack"][sub][nm + "_as"][li].item())
+        a, b = a / sa, b / sa
+        ca = np.clip(np.round(a), -127, 127)
+        cb = np.clip(np.round(b), -127, 127)
+        diff = np.flatnonzero(ca != cb)
+        if diff.size:
+            i = diff[0]
+            return (f"layer {li} {sub}/{nm}", float(a.flat[i]),
+                    float(b.flat[i]), int(diff.size))
+    return None
+
+
+def phase_train(dev):
+    """Phase 9: the trainer on full-width qwen1.5-0.5b (see the module
+    docstring)."""
+    from repro_torch.core.mac import EncodedMac
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.serve import exact_encodings
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    mac = EncodedMac.default(device=dev)
+    log(f"[train] EncodedMac.default() in {time.perf_counter() - t:.1f}s: "
+        f"U = {mac.program.n_a_planes} activation planes, V = "
+        f"{mac.program.n_b_planes} weight planes, rmse {mac.spec.rmse:.4g}")
+    exact = exact_encodings()["wq"]
+    ds = SyntheticLMDataset(_train_cfg("fp", None).vocab_size, TRAIN_S,
+                            seed=0)
+    batches = [ds.batch(i, TRAIN_B) for i in range(TRAIN_STEPS)]
+    info = _train_modes(dev, mac, exact, batches)
+    _train_remat_off(dev, batches, info)
+    _train_microbatch(dev, batches)
+    _train_resume(dev, mac, batches)
+    _train_card_cpu(dev, mac, exact)
+    _train_cli()
+    log(f"[train] phase 9 in {time.perf_counter() - t_phase:.1f}s")
+    return info
+
+
+def _train_modes(dev, mac, exact, batches):
+    """10 steps in each MAC mode at full width: gates, times, memory."""
+    import torch
+    from repro_torch.train import make_train_step
+    tok = TRAIN_B * TRAIN_S
+    info = {}
+    # (tag, MAC mode, encoding, the last loss must fall below the first):
+    # the searched default encoding's loss rises at this width in the
+    # reference too (ROADMAP Queue C), so it is recorded, not gated; the
+    # exact encoding computes int8 fake quant's forward bit for bit, so its
+    # first loss must equal the int8 run's and it must fall
+    runs = (("fp", "fp", None, True), ("int8", "int8", None, True),
+            ("encoded", "encoded", mac, False),
+            ("encoded-exact", "encoded", exact, True))
+    for tag, mode, enc, gate in runs:
+        cfg = _train_cfg(mode, enc)
+        _reset_counts()
+        st, losses, gnorms, ms, peak = _train_run(cfg, dev, batches,
+                                                  TRAIN_STEPS)
+        counts = _read_counts()
+        busy = {k: v for k, v in counts.items() if v}
+        if busy:
+            raise AssertionError(f"training ({tag}) launched kernels 1-3: "
+                                 f"{busy}")
+        if not all(map(math.isfinite, losses + gnorms)):
+            raise AssertionError(f"{tag}: non-finite loss or gnorm: "
+                                 f"{losses} {gnorms}")
+        drop = losses[0] - losses[-1]
+        p50 = _p50(ms[1:])
+        info[tag] = dict(p50=p50, peak=peak, drop=drop, losses=losses)
+        log(f"[train] {tag}: {TRAIN_STEPS} steps of {TRAIN_B}x{TRAIN_S}"
+            f"{'' if enc is None else f', U = {enc.program.n_a_planes}'}, "
+            f"losses {[round(x, 4) for x in losses]}, gnorms "
+            f"{[round(x, 3) for x in gnorms]}; first step {ms[0]:.1f} ms, "
+            f"step p50 {p50:.1f} ms (steps 1-{TRAIN_STEPS - 1}), "
+            f"{tok / p50 * 1e3:.0f} tokens/s, peak device memory "
+            f"{peak / 1e9:.2f} GB, remat on; kernels 1-3 launches 0 "
+            f"({SMI})")
+        log(f"[train] {tag}: loss fell by {drop:.4f} over {TRAIN_STEPS} "
+            f"steps (predicted: at least {TRAIN_MARGIN}; "
+            f"{'gated: must fall' if gate else 'not gated'})")
+        if gate and not losses[-1] < losses[0]:
+            raise AssertionError(f"{tag}: the last loss {losses[-1]} is not "
+                                 f"below the first {losses[0]}")
+        if tag == "encoded-exact":
+            rel = abs(losses[0] - info["int8"]["losses"][0]) / losses[0]
+            log(f"[train] encoded-exact step 0 loss against int8's: rel "
+                f"{rel:.2e} (the same forward; gated at {CARD_CPU_RTOL})")
+            if rel > CARD_CPU_RTOL:
+                raise AssertionError("the exact encoding's first loss is not "
+                                     "int8 fake quant's")
+        if tag == "encoded":
+            step = make_train_step(cfg, warmup=TRAIN_WARMUP,
+                                   total_steps=TRAIN_STEPS)
+            share = _fold_share(lambda: step(st, batches[0]))
+            if share is None:
+                log("[train] encoded: the profiler recorded no device "
+                    "kernels; the fold's share is not measured")
+            else:
+                log(f"[train] encoded: QAT fold forward (quantize + fold + "
+                    f"bitplane product, {share['ranges']} ranges: 168 "
+                    f"linears, twice under remat) {share['fold_ms']:.1f} ms "
+                    f"of {share['device_ms']:.1f} ms device time in one "
+                    f"step = {share['share']:.3f} (torch.profiler; the "
+                    f"backward's kernels not counted in the fold)")
+            info[tag]["fold"] = share
+        del st
+        torch.cuda.empty_cache()
+    return info
+
+
+def _train_remat_off(dev, batches, info):
+    import torch
+    tok = TRAIN_B * TRAIN_S
+    # remat off, fp (remat on above): fewer recomputed forwards, more
+    # memory held from the forward to the backward
+    cfg = dataclasses.replace(_train_cfg("fp", None), remat=False)
+    st, losses, _, ms, peak = _train_run(cfg, dev, batches, 4)
+    log(f"[train] fp, remat off: step p50 {_p50(ms[1:]):.1f} ms (steps 1-3)"
+        f", {tok / _p50(ms[1:]) * 1e3:.0f} tokens/s, peak device memory "
+        f"{peak / 1e9:.2f} GB; remat on: {info['fp']['p50']:.1f} ms, "
+        f"{info['fp']['peak'] / 1e9:.2f} GB ({SMI})")
+    del st
+    torch.cuda.empty_cache()
+
+
+
+def _train_microbatch(dev, batches):
+    import torch
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    # microbatching: microbatch=2 (4 chunks) from the same state gives the
+    # full batch's params within the reference's tolerance
+    cfg = _train_cfg("fp", None)
+    s0 = init_train_state(cfg, seed=0, device=dev)
+    full, mf = make_train_step(cfg)(s0, batches[0])
+    mb, mm_ = make_train_step(cfg, microbatch=2)(s0, batches[0])
+    worst = 0.0
+    for a, c in zip(tree_leaves(full["params"]), tree_leaves(mb["params"])):
+        excess = ((a - c).abs() - 5e-5 - 5e-4 * a.abs()).max().item()
+        worst = max(worst, excess)
+    log(f"[train] microbatch=2 against the full batch (fp): max "
+        f"|diff| - (5e-5 + 5e-4|ref|) = {worst:.3e} (<= 0 passes); loss "
+        f"{float(mf['loss']):.6f} full, {float(mm_['loss']):.6f} last "
+        f"chunk")
+    if worst > 0:
+        raise AssertionError("microbatch=2 params differ from the full "
+                             "batch's beyond rtol 5e-4 / atol 5e-5")
+    del s0, full, mb
+    torch.cuda.empty_cache()
+
+
+
+def _train_resume(dev, mac, batches):
+    import warnings
+    import torch
+    from repro_torch.ckpt import async_save_checkpoint, restore_checkpoint
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    # checkpoint and resume, encoded: 3 steps straight, against 2 steps,
+    # an async save, a restore into a fresh state and the third step;
+    # deterministic algorithms so the two third steps match bit for bit
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = _train_cfg("encoded", mac)
+    ck = bundle_dir("train-ckpt")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step = make_train_step(cfg, warmup=TRAIN_WARMUP,
+                                   total_steps=TRAIN_STEPS)
+            st = init_train_state(cfg, seed=0, device=dev)
+            for i in range(2):
+                st, _ = step(st, batches[i])
+            t = time.perf_counter()
+            th = async_save_checkpoint(ck, 2, st)
+            snap_s = time.perf_counter() - t
+            straight, m_a = step(st, batches[2])
+            th.join()
+            write_s = time.perf_counter() - t
+            del st
+            fresh = init_train_state(cfg, seed=1, device=dev)
+            t = time.perf_counter()
+            back = restore_checkpoint(ck, 2, fresh)
+            read_s = time.perf_counter() - t
+            del fresh
+            resumed, m_b = step(back, batches[2])
+            torch.cuda.synchronize()
+        nondet = sorted({str(w.message).split(" does not have")[0]
+                         for w in caught
+                         if "deterministic" in str(w.message)})
+        size = sum(os.path.getsize(os.path.join(dp, f))
+                   for dp, _, fs in os.walk(ck) for f in fs)
+        diff = max((a.float() - c.float()).abs().max().item()
+                   for a, c in zip(tree_leaves(straight),
+                                   tree_leaves(resumed)))
+        log(f"[train] resume (encoded): checkpoint {size / 1e9:.2f} GB, "
+            f"host snapshot {snap_s:.1f}s, written by {write_s:.1f}s "
+            f"(overlapping step 3), restored in {read_s:.1f}s; step 3 loss "
+            f"{float(m_a['loss']):.6f} straight, {float(m_b['loss']):.6f} "
+            f"resumed; max |state diff| {diff:.3e}; ops without a "
+            f"deterministic CUDA path: {nondet or 'none'}")
+        if nondet:
+            worst = max(((a.float() - c.float()).abs() - 5e-5
+                         - 5e-4 * a.float().abs()).max().item()
+                        for a, c in zip(tree_leaves(straight),
+                                        tree_leaves(resumed)))
+            if worst > 0:
+                raise AssertionError("resumed state beyond rtol 5e-4 / "
+                                     "atol 5e-5 of the straight run")
+        elif diff != 0.0 or float(m_a["loss"]) != float(m_b["loss"]):
+            raise AssertionError("resume is not bit for bit under "
+                                 "deterministic algorithms")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ck, ignore_errors=True)
+    del straight, resumed, back
+    torch.cuda.empty_cache()
+
+
+
+def _train_card_cpu(dev, mac, exact):
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import to_device
+    from repro_torch.train import init_train_state, make_train_step
+    # card against CPU at reduced size: the same torch-made state, 5 steps.
+    # fp is held at every step; a quantized mode at step 0 (loss and first
+    # moments, or a parting that starts at an int8 code f32 order moved
+    # across a .5 boundary); later steps are printed, and where they part
+    # the first code apart and the params furthest apart are logged
+    for tag, mode, enc in (("fp", "fp", None), ("int8", "int8", None),
+                           ("encoded", "encoded", mac),
+                           ("encoded-exact", "encoded", exact)):
+        cfg = _train_cfg(mode, enc, reduced=True)
+        rds = SyntheticLMDataset(cfg.vocab_size, 32, seed=0)
+        rb = [rds.batch(i, 4) for i in range(5)]
+        s_cpu = init_train_state(cfg, seed=0, device="cpu")
+        s_gpu = to_device(s_cpu, dev)
+        step = make_train_step(cfg, warmup=TRAIN_WARMUP,
+                               total_steps=TRAIN_STEPS)
+        rows, parted, befores = [], None, []
+        for i in range(5):
+            befores.append((s_cpu, s_gpu))
+            s_cpu, mc = step(s_cpu, rb[i])
+            s_gpu, mg = step(s_gpu, rb[i])
+            rel = abs(float(mc["loss"]) - float(mg["loss"])) / abs(
+                float(mc["loss"]))
+            rows.append(f"{float(mc['loss']):.6f}/{float(mg['loss']):.6f}")
+            if parted is not None:
+                continue
+            worst = ("", 0.0)
+            if i == 0:
+                # the first moments after step 0 are 0.1 x the clipped
+                # gradient
+                worst = max(_leaf_rel(s_cpu["opt"]["m"], s_gpu["opt"]["m"]),
+                            key=lambda t: t[1])
+                log(f"[train] card vs CPU, reduced {tag}, step 0: loss rel "
+                    f"{rel:.2e}, first moments (0.1 x clipped gradient) "
+                    f"worst leaf {worst[0]} rel {worst[1]:.2e}")
+            if rel <= CARD_CPU_RTOL and worst[1] <= CARD_CPU_RTOL:
+                continue
+            if mode == "fp":
+                raise AssertionError(f"fp: card and CPU part at step {i}: "
+                                     f"loss rel {rel:.2e}, {worst}")
+            # the earliest step whose forward, run on both devices from the
+            # CPU's (or else the card's) state before it, moves an int8 code
+            # (a moved code need not part the loss at once, so it may
+            # precede step i)
+            flip = next(((j, f) for j in range(i + 1) for st in befores[j]
+                         for f in [_train_flip(dev, cfg, st, rb[j])]
+                         if f is not None), None)
+            moved = flip is not None and abs(flip[1][1] - flip[1][2]) <= \
+                TRAIN_ORIGIN_RTOL * max(abs(flip[1][1]), 1.0)
+            apart = max(_leaf_rel(befores[i][0]["params"],
+                                  befores[i][1]["params"]),
+                        key=lambda t: t[1])
+            log(f"[train] card vs CPU, reduced {tag}: part at step {i} (loss "
+                f"rel {rel:.2e}); first int8 code apart (step, (site, CPU, "
+                f"card, codes apart)): {flip}; params before step {i} "
+                f"furthest apart: {apart[0]} rel {apart[1]:.2e}")
+            # step 0 starts from one state: there a parting must come from
+            # a code f32 order moved across a .5 boundary; later steps are
+            # reported, not gated (the two devices train their own states)
+            if i == 0 and not moved:
+                raise AssertionError(
+                    f"{tag}: card and CPU part at step 0 (loss rel "
+                    f"{rel:.2e}, {worst}) without an int8 code that f32 "
+                    f"order moved across a .5 boundary: {flip}")
+            parted = (i, flip)
+        log(f"[train] card vs CPU, reduced {tag}: losses CPU/card {rows}"
+            + ("" if parted is None else f" (part at step {parted[0]})"))
+
+
+
+def _train_cli():
+    # the CLI on the card: full width, encoded, checkpoints at 6 and 12;
+    # then step 12's checkpoint removed and the same command again resumes
+    # from step 6 and commits 12 anew
+    ck = bundle_dir("train-cli")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps",
+           "12", "--batch", "4", "--seq", "128", "--mac-mode", "encoded",
+           "--ckpt-every", "6", "--ckpt-dir", ck]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    try:
+        outs = []
+        for run in range(2):
+            t = time.perf_counter()
+            res = subprocess.run(cmd, env=env, capture_output=True,
+                                 text=True, timeout=300, cwd=ROOT)
+            lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
+            log(f"[train] CLI run {run + 1} in "
+                f"{time.perf_counter() - t:.1f}s: " + " | ".join(lines))
+            if res.returncode != 0:
+                raise AssertionError(f"train CLI failed: {res.stderr[-2000:]}")
+            outs.append(lines)
+            committed = sorted(os.listdir(ck))
+            if committed != ["step_00000006", "step_00000012"]:
+                raise AssertionError(f"CLI checkpoints: {committed}")
+            if run == 0:
+                shutil.rmtree(os.path.join(ck, "step_00000012"))
+        if "resuming from step 6" not in outs[1]:
+            raise AssertionError("the CLI did not resume from step 6")
+        last = [ln for ln in outs[0] if ln.startswith("step 11 ")]
+        again = [ln for ln in outs[1] if ln.startswith("step 11 ")]
+        log(f"[train] CLI step 11: straight {last}, resumed {again}")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+
+
 def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib,
             on_card=False):
     """Kernel 1's row of the kernels line: ``prog``'s monomials at (m, k,
@@ -2834,6 +3365,9 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = card_check()
     import torch
+    # keep each engine graph's node list for ``graph_kernel_counts``
+    from repro_torch.serve.graphs import Step
+    Step.keep_graph = True
     phase_build()
     phase_kernel1(dev)
     phase_kernel1_archs(dev)
@@ -2856,6 +3390,7 @@ def main() -> int:
     phase_cpu_parity(dev)
     phase_cpu_parity_archs(dev)
     phase_cpu_parity_search(dev)
+    phase_train(dev)
     rows = phase_measure(dev, serve_info)
     for r in rows:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

@@ -1,5 +1,5 @@
-"""ModelConfig for the port: the fields the dense decoder family reads
-(port of ``repro/configs/base.py``)."""
+"""ModelConfig for the port: the fields the dense decoder family and the
+trainer read (port of ``repro/configs/base.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -65,9 +65,19 @@ class ModelConfig:
     # scale rows in side pools, dequantized inside the paged-attention
     # page loop (quant.kvcache.kv_pool_layout validates it)
     kv_cache_dtype: str = "bf16"
+    # training: per-layer activation checkpointing (torch.utils.checkpoint
+    # where the reference wraps each layer in jax.checkpoint), the global
+    # microbatch for gradient accumulation (0: off), the optimizer
+    aux_loss_weight: float = 0.01
+    mtp: bool = False                # read by the trainer, which refuses it
+    mtp_weight: float = 0.3
+    remat: bool = True
     pad_heads_to: int = 1
     vocab_pad_to: int = 1
+    microbatch: int = 0
     mac: MacConfig = dataclasses.field(default_factory=MacConfig)
+    optimizer: str = "adamw"
+    learning_rate: float = 3e-4
 
     @property
     def head_dim_r(self) -> int:

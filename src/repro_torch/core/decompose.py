@@ -141,6 +141,15 @@ class BitplaneProgram:
         bias = torch.einsum("v,vn->n", S_b, Gv.sum(dim=1)) + c0 * k
         return Wt, bias
 
+    def apply_f32(self, x_codes: torch.Tensor, w_codes: torch.Tensor,
+                  s: torch.Tensor) -> torch.Tensor:
+        """Encoded matmul in f32: (m,k) × (k,n) int codes → (m,n) f32,
+        differentiable in ``s`` (the QAT forward; the serving path folds
+        once and runs kernel 1 instead)."""
+        Wt, bias = self.fold_weights(w_codes, s)
+        A = self.planes(x_codes, "a").to(torch.float32)          # (U, m, k)
+        return torch.einsum("umk,ukn->mn", A, Wt) + bias
+
 
 def decompose(circuit: Circuit) -> BitplaneProgram:
     """Expand a circuit into a BitplaneProgram (static, numpy)."""

@@ -11,15 +11,21 @@ from .macexec import get_executor
 
 @dataclasses.dataclass(frozen=True)
 class MacConfig:
-    """``mode`` names a registered MacExecutor ('fp' or 'encoded_infer').
+    """``mode`` names a registered MacExecutor: 'fp', 'int8' (fake-quant
+    QAT), 'encoded' (encoded-MAC QAT with trainable position weights, one
+    ``_s`` per linear when ``per_layer_s``) or 'encoded_infer' (serving).
 
     ``macs`` holds the per-projection-family encodings of the serving
     path, keyed by the linear's param name ('wq', 'wk', …).  The kernel
     route is not configured here: it follows the tensors' device."""
     mode: str = "fp"
     bits: int = 8
+    per_layer_s: bool = True         # trainable position weights per layer
     mac: Optional[EncodedMac] = None
     macs: Optional[dict] = None
+
+    def with_mode(self, mode: str) -> "MacConfig":
+        return dataclasses.replace(self, mode=mode)
 
     @property
     def executor(self):

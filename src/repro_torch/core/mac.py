@@ -1,5 +1,5 @@
-"""The encoded-MAC handle models carry, its artifacts and the LUT oracle
-(port of ``EncodedMac`` and ``lut_matmul`` from ``repro/core/mac.py``).
+"""The encoded-MAC handle models carry, its artifacts, the LUT oracle and
+the QAT matmul (port of ``repro/core/mac.py``).
 
 Encodings are saved as ``<dir>/<name>.json`` in the reference's schema
 (``{"circuit": …, "s": […], "rmse": …}``), so either package reads the
@@ -90,3 +90,23 @@ def lut_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
     flat = torch.as_tensor(lut, device=x_codes.device).reshape(-1)
     idx = xi[:, :, None] * (1 << bits_b) + wi[None, :, :]
     return flat[idx].sum(dim=1)
+
+
+def encoded_matmul_qat(x: torch.Tensor, w: torch.Tensor, scale_x, scale_w,
+                       s: torch.Tensor, program: BitplaneProgram,
+                       bits: int = 8) -> torch.Tensor:
+    """Differentiable encoded matmul.
+
+    Forward: quantize → encoded (bitplane) matmul → rescale.  Backward:
+    exact position-weight gradients (the output is linear in ``s``);
+    straight-through (fp matmul) gradients for ``x`` and ``w`` — the
+    paper's STE fine-tuning scheme."""
+    from repro_torch.quant.uniform import quantize_codes
+    # a named range for torch.profiler (the fold's share of a train step)
+    with torch.profiler.record_function("qat_fold"):
+        xc = quantize_codes(x.detach(), scale_x, bits)
+        wc = quantize_codes(w.detach(), scale_w, bits)
+        approx = program.apply_f32(xc, wc, s) * (scale_x * scale_w)
+    exact = x @ w
+    # value == approx; d/ds via approx; d/dx, d/dw via the exact term (STE)
+    return approx + (exact - exact.detach())

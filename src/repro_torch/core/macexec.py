@@ -1,9 +1,11 @@
 """MAC backend registry — the single dispatch point for linear-layer MAC
-execution (port of ``repro/core/macexec.py``: the registry, ``FpExecutor``,
-``EncodedInferExecutor`` and the speculative drafter's guard).
+execution (port of ``repro/core/macexec.py``: the registry, the fp, int8
+fake-quant, encoded-MAC QAT and encoded serving executors, and the
+speculative drafter's guard).
 
-An executor owns its param-suffix schema (``_fw``/``_fb`` folded bitplane
-tensors, ``_as``/``_ws`` activation/weight scales), init and apply.
+An executor owns its param-suffix schema (``_s`` position weights,
+``_fw``/``_fb`` folded bitplane tensors, ``_as``/``_ws`` activation/weight
+scales), init and apply.
 """
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import math
 
 import torch
 
-from repro_torch.quant.uniform import quantize_codes
+from repro_torch.quant.uniform import (calibrate_scale, fake_quant,
+                                       quantize_codes)
 
 _REGISTRY: dict = {}
 
@@ -110,7 +113,14 @@ class MacExecutor:
         std = scale if scale is not None else 1.0 / math.sqrt(d_in)
         w = torch.randn((d_in, d_out), generator=generator,
                         dtype=torch.float32) * std
-        return {name: w.to(dtype)}
+        p = {name: w.to(dtype)}
+        p.update(self.aux_init(name, mcfg))
+        return p
+
+    def aux_init(self, name: str, mcfg) -> dict:
+        """The executor's auxiliary leaves (suffix schema) for one
+        linear."""
+        return {}
 
     def apply(self, p: dict, name: str, x: torch.Tensor, mcfg,
               compute_dtype) -> torch.Tensor:
@@ -124,6 +134,56 @@ class FpExecutor(MacExecutor):
 
     def apply(self, p, name, x, mcfg, compute_dtype):
         return mm(x, p[name], compute_dtype)
+
+
+@register
+class Int8Executor(MacExecutor):
+    """int8 fake-quant QAT simulation (the paper's "Orig." columns)."""
+    mode = "int8"
+    param_suffixes = ("_as",)
+
+    def aux_init(self, name, mcfg):
+        return {name + "_as": torch.ones((), dtype=torch.float32)}
+
+    def apply(self, p, name, x, mcfg, compute_dtype):
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        wf = p[name].to(torch.float32)
+        sa = p[name + "_as"].detach()
+        sw = calibrate_scale(wf, mcfg.bits)
+        out = fake_quant(x2, sa, mcfg.bits) @ fake_quant(wf, sw, mcfg.bits)
+        return out.reshape(*lead, -1).to(compute_dtype)
+
+
+@register
+class EncodedQatExecutor(MacExecutor):
+    """Encoded-MAC forward with STE backward + trainable position weights
+    (the paper's "Prop." columns; folds the weights on every call, in f32
+    outside kernel 1, as the reference does outside its Pallas kernel)."""
+    mode = "encoded"
+    param_suffixes = ("_s", "_as")
+
+    def aux_init(self, name, mcfg):
+        p = {name + "_as": torch.ones((), dtype=torch.float32)}
+        if mcfg.per_layer_s:
+            p[name + "_s"] = torch.tensor(mcfg.mac.s_init,
+                                          dtype=torch.float32)
+        return p
+
+    def apply(self, p, name, x, mcfg, compute_dtype):
+        from repro_torch.core.mac import encoded_matmul_qat
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        wf = p[name].to(torch.float32)
+        sa = p[name + "_as"].detach()
+        sw = calibrate_scale(wf, mcfg.bits)
+        s = p.get(name + "_s")
+        if s is None:
+            s = torch.as_tensor(mcfg.mac.s_init, dtype=torch.float32,
+                                device=x.device)
+        out = encoded_matmul_qat(x2, wf, sa, sw, s, mcfg.mac.program,
+                                 mcfg.bits)
+        return out.reshape(*lead, -1).to(compute_dtype)
 
 
 @register

@@ -12,4 +12,5 @@ from .lm import (init_model, apply_model, init_cache,  # noqa: E402
                  init_paged_cache, supports_paged_cache,
                  supports_ragged_mask, params_from_jax,
                  to_device, to_reference_layout,
-                 from_reference_layout, tree_from_reference)
+                 from_reference_layout, tree_from_reference,
+                 stack_layers, unstack_layers, train_state_from_jax)

@@ -11,13 +11,21 @@ Public API:
   init_paged_cache(cfg, n_pages, page_size, *, device) → paged cache
   supports_paged_cache(cfg) / supports_ragged_mask(cfg)
   params_from_jax(tree, cfg, device)             → params
+  train_state_from_jax(state, device)            → train state
+  stack_layers(params) / unstack_layers(tree)    ↔ the reference's stack
   to_reference_layout(tree) / from_reference_layout(tree, n_layers)
   to_device(params, device)                      → params
+
+The no-cache forward is differentiable end to end; with ``cfg.remat`` and
+autograd on, each layer runs under ``torch.utils.checkpoint`` (the
+reference's per-layer ``jax.checkpoint``), so only block inputs stay
+alive between the forward and the backward.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.macexec import check_finite, mm
 from repro_torch.device import resolve_device
@@ -27,6 +35,7 @@ from repro_torch.nn.common import (embed_apply, embed_init, linear,
                                    linear_init, norm_apply, norm_init,
                                    softcap)
 from repro_torch.quant.kvcache import kv_pool_layout
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def init_model(cfg, *, seed: int = 0, device=None) -> dict:
@@ -97,7 +106,12 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None):
     else:
         positions = ar
     windows = cfg.layer_windows
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for i, p_l in enumerate(params["layers"]):
+        if remat:
+            x = checkpoint(_block, p_l, x, cfg, windows[i], positions,
+                           use_reentrant=False)
+            continue
         c_l = None if cache is None else dict(cache["layers"][i], **ctx)
         x, _ = B.decoder_block_apply(p_l, x, cfg, window=windows[i],
                                      cache=c_l, positions=positions)
@@ -112,6 +126,11 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None):
         if pad is not None:
             new_cache["pad"] = pad
     return logits, new_cache
+
+
+def _block(p_l, x, cfg, window, positions):
+    return B.decoder_block_apply(p_l, x, cfg, window=window,
+                                 positions=positions)[0]
 
 
 def _head(params, cfg, h):
@@ -260,3 +279,49 @@ def params_from_jax(tree, cfg, device=None) -> dict:
     except folded ``*_fw`` tensors, which become bf16.  Carries the
     ``encoded_infer`` leaves ``*_fw/_fb/_as/_ws`` too."""
     return tree_from_reference(tree, cfg.n_layers, device)
+
+
+def stack_layers(params: dict) -> dict:
+    """The port's params in the reference's layout: the per-layer dicts
+    under ``"layers"`` become ``"stack"``, whose leaves are ``(L, …)``
+    tensors (``torch.stack``); every other entry as is.  The trainer keeps
+    its state in this layout, so its optimizer state and checkpoints
+    match the reference's leaf for leaf."""
+    return _stack_lists(to_reference_layout(params))
+
+
+def _stack_lists(tree):
+    return {k: _stack_lists(v) if isinstance(v, dict) else
+            (torch.stack(v) if isinstance(v, list) else v)
+            for k, v in tree.items()}
+
+
+def unstack_layers(tree: dict) -> dict:
+    """Inverse of ``stack_layers``: per-layer views of the ``(L, …)``
+    leaves (``unbind``, whose backward is one stack per leaf)."""
+    out = {k: v for k, v in tree.items() if k != "stack"}
+    if "stack" in tree:
+        n = tree_leaves(tree["stack"])[0].shape[0]
+        per_leaf = _unbind(tree["stack"])
+        out["layers"] = [_pick(per_leaf, i) for i in range(n)]
+    return out
+
+
+def _unbind(tree):
+    return {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+
+
+def _pick(tree, i):
+    return {k: _pick(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def train_state_from_jax(state, device=None) -> dict:
+    """The reference's train state (``init_train_state`` or a step's
+    output, numpy leaves) → the port's train state on ``device``: the
+    same tree, ``(L, …)`` layer stacks and optimizer state included, every
+    leaf as is (``step``/``t`` int32 0-d tensors), so both packages start
+    a step from the same numbers."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _np_to_torch(a).to(dev), state)

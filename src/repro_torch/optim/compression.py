@@ -1,0 +1,51 @@
+"""Int8 gradient compression with error feedback (port of
+``repro/optim/compression.py``): each tensor quantized to int8 with a
+symmetric per-tensor scale, the quantization residual kept in an
+error-feedback buffer and added to the next step's gradient
+(Karimireddy et al., 2019).
+
+The int8 error-feedback all-reduce over data-parallel ranks that uses
+these primitives waits for tensor parallelism (ROADMAP Queue A item 3).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+
+def compress_int8(x: torch.Tensor):
+    """x (float) → (codes int8, scale f32 0-d).  Symmetric, per-tensor."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp_min(xf.abs().amax(), 1e-12) / 127.0
+    codes = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def decompress_int8(codes: torch.Tensor, scale: torch.Tensor
+                    ) -> torch.Tensor:
+    return codes.to(torch.float32) * scale
+
+
+def ef_compress_tree(grads, errors):
+    """Apply error feedback, then compress each leaf.
+
+    Returns (codes_tree, scales_tree, new_errors_tree)."""
+    g_leaves, spec = tree_flatten(grads)
+    e_leaves, e_spec = tree_flatten(errors)
+    if e_spec != spec:
+        raise ValueError("ef_compress_tree: grads and errors differ")
+    codes, scales, errs = [], [], []
+    for g, e in zip(g_leaves, e_leaves):
+        corrected = g.to(torch.float32) + e
+        c, s = compress_int8(corrected)
+        codes.append(c)
+        scales.append(s)
+        errs.append(corrected - decompress_int8(c, s))
+    return (tree_unflatten(spec, codes), tree_unflatten(spec, scales),
+            tree_unflatten(spec, errs))
+
+
+def init_error_buffers(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)

@@ -1,4 +1,5 @@
-"""Uniform symmetric quantization (port of ``repro/quant/uniform.py``).
+"""Uniform symmetric quantization with STE (port of
+``repro/quant/uniform.py``).
 
 Codes are signed integers in [-(2^{b-1}-1), 2^{b-1}-1]; rounding is
 round-half-even (``torch.round``) on the f32 quotient ``x / scale`` —
@@ -24,6 +25,41 @@ def quantize_codes(x: torch.Tensor, scale, bits: int = 8) -> torch.Tensor:
     """Float → int8 codes, symmetric round-half-even."""
     m = qmax(bits)
     return torch.clamp(torch.round(x / scale), -m, m).to(torch.int8)
+
+
+def dequantize(codes: torch.Tensor, scale) -> torch.Tensor:
+    return codes.to(torch.float32) * scale
+
+
+class _SteRound(torch.autograd.Function):
+    """round-half-even forward, identity backward (the reference's
+    ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    return _SteRound.apply(x)
+
+
+def fake_quant(x: torch.Tensor, scale, bits: int = 8) -> torch.Tensor:
+    """Quantize-dequantize with straight-through gradients (QAT).
+
+    The clip is ``minimum(maximum(q, -m), m)``, as ``jnp.clip`` computes
+    it: at a value exactly on a bound both ops pass half the gradient, so
+    the clip passes 0.5 there (``torch.clamp`` would pass 1).  The
+    max-abs weight of every linear lands on that tie, since its scale is
+    ``max|w| / qmax``."""
+    m = qmax(bits)
+    q = ste_round(x / scale)
+    lim = torch.full((), float(m), dtype=q.dtype, device=q.device)
+    return torch.minimum(torch.maximum(q, -lim), lim) * scale
 
 
 def code_histogram(values, scale, bits: int = 8) -> np.ndarray:

@@ -33,7 +33,13 @@ from repro_torch.kernels.counts import (add_counts, diff_counts,
 
 class Step:
     """One engine step: ``fn(*inputs)`` eagerly, or captured once into a
-    CUDA graph and replayed (``graphs=True``, the card only)."""
+    CUDA graph and replayed (``graphs=True``, the card only).
+
+    With ``Step.keep_graph`` set before a capture, the graph keeps its
+    node list beside its instantiated form (``CUDAGraph(keep_graph=True)``),
+    so that ``graph.debug_dump(path)`` can write every node it replays."""
+
+    keep_graph = False
 
     def __init__(self, name: str, fn, device, graphs: bool):
         device = torch.device(device)
@@ -107,9 +113,11 @@ class Step:
             self.fn(*args)
         cur.wait_stream(side)
         before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
         with torch.cuda.graph(graph):
             out = self.fn(*args)
+        if self.keep_graph:
+            graph.instantiate()
         self.delta = diff_counts(launch_counts(), before)
         set_launch_counts(before)
         self.graph, self.out = graph, out

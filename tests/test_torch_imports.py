@@ -52,7 +52,7 @@ def test_no_jax_or_reference_imports():
     # every subpackage of the port was imported
     for sub in ("configs", "core", "kernels", "models", "nn", "quant",
                 "serve", "data", "launch", "ckpt", "parallel", "obs",
-                "analysis"):
+                "analysis", "optim", "train"):
         assert f"repro_torch.{sub}" in out["modules"]
     for mod in ("launch.serve", "kernels.flash_attention",
                 "kernels.paged_attention", "quant.kvcache", "nn.paged",
@@ -63,6 +63,34 @@ def test_no_jax_or_reference_imports():
                 "obs.drift", "obs.profile", "analysis.ledger",
                 "serve.telemetry", "launch.env"):
         assert f"repro_torch.{mod}" in out["modules"]
+
+
+TRAINING = ("repro_torch.optim", "repro_torch.optim.optimizers",
+            "repro_torch.optim.schedule", "repro_torch.optim.clip",
+            "repro_torch.optim.compression", "repro_torch.train",
+            "repro_torch.train.trainer", "repro_torch.train.losses",
+            "repro_torch.data.pipeline", "repro_torch.launch.train",
+            "repro_torch.tree")
+
+_PROBE_TRAINING = r"""
+import importlib, json, sys
+for n in sys.argv[1:]:
+    importlib.import_module(n)
+from repro_torch.train import init_train_state, make_train_step  # noqa
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"bad": bad}))
+"""
+
+
+def test_training_modules_import_no_jax():
+    """The trainer's modules, imported alone in a fresh process, pull in
+    neither JAX nor the JAX package."""
+    res = subprocess.run([sys.executable, "-c", _PROBE_TRAINING, *TRAINING],
+                         env=_env(), capture_output=True, text=True,
+                         timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1])["bad"] == []
 
 
 def test_every_module_is_walked():

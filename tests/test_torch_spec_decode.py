@@ -333,6 +333,54 @@ def test_launch_count_bookkeeping():
     assert counts.launch_counts() == before
 
 
+# two kernel nodes and an edge, as ``cudaGraphDebugDotPrint`` (verbose)
+# writes them on the H100 machine (func and node handles cut)
+_DOT = """digraph dot {
+subgraph cluster_1 {
+label="graph_1" graph[style="dashed"];
+"graph_1_node_0"[style="bold" shape="record" label="{KERNEL
+| {ID | 0 (topoId: 1) | _ZN50_GLOBAL__N__9ca351ae_17_encoded_matmul_cu_0ae6f67b21encoded_matmul_kernelILi8EEEvPKaPK13__nv_bfloat16PKfPfiiiiiiNS_9MonoTableE\\<\\<\\<\\{16,8\\},128,52224\\>\\>\\>}
+| {cooperative | 0}
+}"];
+
+"graph_1_node_1"[style="bold" shape="record" label="{KERNEL
+| {ID | 1 (topoId: 0) | _ZN2at6native29vectorized_elementwise_kernelILi4ENS0_15CUDAFunctor_addIfEESt5arrayIPcLm3EEEEviT0_T1_\\<\\<\\<4,128,0\\>\\>\\>}
+| {cooperative | 0}
+}"];
+
+"graph_1_node_0" -> "graph_1_node_1" [headlabel=0];
+}
+}
+"""
+
+
+def test_graph_kernel_counts_reads_the_nodes():
+    """``chip_smoke.graph_kernel_counts`` counts a graph's kernel nodes by
+    kind from its dump, and not the edges between them."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    class Dumped:
+        def debug_dump(self, path):
+            with open(path, "w") as f:
+                f.write(_DOT)
+
+    class Unkept:
+        def debug_dump(self, path):
+            pass
+
+    assert smoke.graph_kernel_counts(Dumped()) == (
+        {"encoded_matmul": 1, "paged_attn": 0, "flash_attention": 0}, 2)
+    with pytest.raises(AssertionError, match="keep_graph"):
+        smoke.graph_kernel_counts(Unkept())
+    assert graphs.Step.keep_graph is False
+
+
 def test_a_registered_counter_is_carried():
     """A wrapper registered after the others is read, set, diffed and
     added with them: nothing outside the registry lists the counters."""
