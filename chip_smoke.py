@@ -161,9 +161,26 @@ Phases (any failure raises and exits non-zero before the result line):
     within 1e-4; int8/encoded step 0's loss and first moments within
     1e-4, or a parting at step 0 that starts at an int8 code f32 order
     moved across a .5 boundary; later steps printed, and where they part
-    the first int8 code apart and the params furthest apart); and ``python -m repro_torch.launch.train --steps 12 --batch 4
-    --seq 128 --mac-mode encoded --ckpt-every 6`` at full width, run,
-    step 12's checkpoint removed, run again: it resumes from step 6.
+    the first int8 code apart and the params furthest apart); and ``python
+    -m repro_torch.launch.train --steps 4 --batch 4 --seq 128 --mac-mode
+    encoded --ckpt-every 2`` at full width, run, step 4's checkpoint
+    removed, run again: it resumes from step 2.
+
+The moe family (``MOE_ARCHS``): phase 3 also gates kernel 1 at every
+(k, n) of qwen3-moe-235b-a22b and deepseek-v3-671b at full width, at each
+m their serves run (the two heads' Wt past 2^32 elements), and phase 4
+kernel 2 at qwen3-moe's 64/4 heads for every pool type.  Phase 6h serves
+both at full width with the depth cut (qwen3-moe 2 of 94 layers, f32;
+deepseek-v3 one dense and one MoE layer, bf16 weights, f32 compute),
+weights drawn on the card: qwen3-moe continuous (dense f32, int8, int4
+pools) and static, deepseek-v3 static, exact encoding and fp, graphed
+and eager (identical tokens), a repeat serve on the same engine
+(identical); launches as the forwards make them, flash never; the
+static-vs-continuous agreement and each engine's MoE drops (recomputed
+from the routing of the eager serves) are logged, not gated (capacity
+follows each call's padded B·S).  Phase 7 holds both reduced configs
+card vs CPU: tokens on both engines, and 5 fp train steps (router aux,
+MTP loss).  Each phase logs its seconds (``[phase]``).
 
 Every phase that folds writes its bundle into a fresh directory under
 ``build/`` (git-ignored), logs the free disk first and removes it at its
@@ -172,6 +189,7 @@ end.  The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -204,6 +222,13 @@ SERVE_P = 127          # the serve's page table: Engine's max_seq_pages
 ARCH_DEPTHS = (("qwen1.5-4b", 4), ("starcoder2-3b", 4), ("gemma2-27b", 2))
 # gemma2's long request (phase 6f): past layer 0's 4096-token window
 LONG_PROMPT = 4200
+# the moe family at full width, depth cut (phase 6h): (arch, layers, the
+# weights' dtype).  qwen3-moe keeps 2 of 94 layers in f32 (19.3 GB of
+# experts); deepseek-v3 its first dense layer and one MoE layer in bf16 (in
+# f32 its 256 experts alone would take 45 GB a layer), as the reference's
+# ``for_mesh`` sets for models past 4e9 parameters; compute stays f32
+MOE_ARCHS = (("qwen3-moe-235b-a22b", 2, "float32"),
+             ("deepseek-v3-671b", 2, "bfloat16"))
 # with fp weights two engines may part only at a near-tie: the candidates'
 # logits within this share of the largest |logit| (f32 summation orders
 # part them by about 1e-6 of it at full width)
@@ -349,10 +374,13 @@ def _em_dev_case(dev, prog, ms, k, n, seed=0):
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     U = prog.n_a_planes
-    wt = torch.randint(-127, 128, (U, k, n), generator=g, device=dev,
-                       dtype=torch.int16).to(torch.bfloat16)
-    wt *= (2.0 ** (torch.arange(U, device=dev) % 8)).to(
-        torch.bfloat16).reshape(U, 1, 1)          # exact: powers of 2
+    # a plane at a time: a 7.4e9-element Wt would need as much again in
+    # int16 at once
+    wt = torch.empty((U, k, n), dtype=torch.bfloat16, device=dev)
+    for u in range(U):
+        wt[u] = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                              dtype=torch.int16).to(torch.bfloat16)
+        wt[u] *= 2.0 ** (u % 8)                   # exact: powers of 2
     bias = torch.randn((n,), generator=g, device=dev) * 100
     xs = [torch.randint(-127, 128, (m, k), generator=g, device=dev,
                         dtype=torch.int8) for m in ms]
@@ -411,6 +439,67 @@ def phase_kernel1_archs(dev):
             del xs, wt, bias
             torch.cuda.empty_cache()
     log(f"[kernel1] {n_cases} cases of the dense archs within tolerance")
+
+
+def _moe_cfg(arch, reduced=False):
+    """A moe arch of ``MOE_ARCHS`` at its cut depth and weight dtype (or
+    reduced), serving paged attention through kernel 2."""
+    from repro_torch.configs import get_config
+    _, depth, pdtype = next(a for a in MOE_ARCHS if a[0] == arch)
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else dataclasses.replace(
+        cfg.with_layers(depth), param_dtype=pdtype)
+    return dataclasses.replace(cfg, attention_backend="kernel")
+
+
+def _moe_ms(arch):
+    """Kernel 1's m in the serves of phase 6h: static prefills of the
+    trace's chunks and decode at batch ``N_SLOTS`` (both engines), and the
+    continuous engine's 32-token prefill chunks where the arch pages."""
+    from repro_torch.models import supports_paged_cache
+    pages = supports_paged_cache(_moe_cfg(arch))
+    return (N_SLOTS,) + ((32,) if pages else ()) + tuple(static_prefill_ms())
+
+
+def phase_kernel1_moe(dev):
+    """Kernel 1 at every (k, n) of the moe archs at full width, at each m
+    their serves run (``_moe_ms``), exact U, real-size Wt made on the
+    card, against its plain version at error 0 (exact-fold magnitudes:
+    every partial sum is an integer both sum exactly): qwen3-moe's head 8 x 4096 x 151936 = 4.98e9 elements and
+    deepseek-v3's 8 x 7168 x 129280 = 7.41e9, past 2^32; deepseek-v3's
+    ``wkr`` (n = 64, one column tile) and ``wk_b``/``wv_b`` (k = 512)."""
+    import torch
+    from repro_torch.kernels import encoded_matmul as em
+    prog = _program("exact")
+    n_cases, worst = 0, 0.0
+    for arch, _, _ in MOE_ARCHS:
+        cfg = _moe_cfg(arch)
+        ms = _moe_ms(arch)
+        shapes = sorted(set(_linear_shapes(cfg)) | set(
+            _linear_shapes(cfg, decode=True)), key=lambda kn: kn[0] * kn[1])
+        for k, n in shapes:
+            xs, wt, bias, sh = _em_dev_case(dev, prog, ms, k, n, seed=k + n)
+            for x in xs:
+                out = em.encoded_matmul(x, wt, bias, sh)
+                ref = em.encoded_matmul_plain(x, wt, bias, sh)
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                ok = err == 0.0 and bool(torch.isfinite(out).all())
+                log(f"[kernel1-moe] {arch:19s} U={prog.n_a_planes} "
+                    f"m={x.shape[0]:4d} k={k:5d} n={n:6d} (Wt "
+                    f"{wt.numel() / 2 ** 32:.2f}x 2^32 elements) "
+                    f"max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"kernel1 disagrees with plain at "
+                                         f"{arch} {(x.shape[0], k, n)}")
+                GATED_EM.add((x.shape[0], k, n))
+                n_cases += 1
+                worst = max(worst, err)
+                del out, ref
+            del xs, wt, bias
+            torch.cuda.empty_cache()
+    log(f"[kernel1-moe] {n_cases} cases of the moe archs, every one at "
+        f"error {worst:.3e} against plain")
 
 
 def phase_kernel1(dev):
@@ -555,7 +644,8 @@ def phase_kernel2_d128(dev):
     """Kernel 2 at head dim 128 (an f32 row of 512 bytes, the kernel's
     largest) with the dense archs' head layouts (20/20 qwen1.5-4b, 24/2
     starcoder2-3b, 32/16 gemma2-27b), Sq 1 and 5, f32, bf16, int8 and int4
-    pools, and gemma2's layout with window 100 and softcap 50."""
+    pools, gemma2's layout with window 100 and softcap 50, and qwen3-moe's
+    64/4 (GQA group 16) at Sq 1."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     ps, D, P = 16, 128, 32
@@ -563,6 +653,8 @@ def phase_kernel2_d128(dev):
     cases = [(Hq, Hkv, sq, None, None) for Hq, Hkv in
              ((20, 20), (24, 2), (32, 16)) for sq in (1, 5)]
     cases += [(32, 16, sq, 100, 50.0) for sq in (1, 5)]
+    # qwen3-moe's decode: 64 query heads over 4 kv heads (group 16), Sq 1
+    cases += [(64, 4, 1, None, None)]
     for mode in ("f32", "bf16", "int8", "int4"):
         for Hq, Hkv, Sq, window, cap in cases:
             ln = [min(x, P * ps - Sq) for x in lens]
@@ -807,41 +899,63 @@ def _check_counts(counts, st, cfg, chunk_len, where, gated=False,
         _check_gated(counts, where)
 
 
-def _linear_shapes(cfg) -> dict:
-    """Encoded linears of one forward by (k, n): per layer wq, wk, wv, wo,
-    wi, wg (gated MLPs) and the MLP's wo, and an untied LM head (a tied
-    head reads the embedding table, an fp product)."""
-    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_r
-    per_layer = [(d, cfg.n_heads_p * hd), (d, cfg.n_kv_p * hd),
-                 (d, cfg.n_kv_p * hd), (cfg.n_heads_p * hd, d), (d, ff),
-                 (ff, d)] + ([(d, ff)] if cfg.gated_mlp else [])
+def _linear_shapes(cfg, decode: bool = False) -> dict:
+    """Encoded linears of one forward by (k, n): per layer the attention's
+    (wq, wk, wv, wo; with MLA wq_a, wq_b, wkv_a, wkr, wo, and in a prefill
+    wk_b, wv_b, which decode reads raw) and the MLP's (wi, wg for gated
+    MLPs, wo: the dense MLP, or a MoE layer's shared expert; the router
+    and routed experts are plain products), and an untied LM head (a tied
+    head reads the embedding table, an fp product).  ``decode``: a
+    one-token step over a cache."""
+    from repro_torch.models import layer_kinds
+    d, hd, H = cfg.d_model, cfg.head_dim_r, cfg.n_heads_p
+    if cfg.use_mla:
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        attn = [(d, cfg.q_lora_rank), (cfg.q_lora_rank, H * (dn + dr)),
+                (d, cfg.kv_lora_rank), (d, dr), (H * dv, d)]
+        if not decode:
+            attn += [(cfg.kv_lora_rank, H * dn), (cfg.kv_lora_rank, H * dv)]
+    else:
+        attn = [(d, H * hd), (d, cfg.n_kv_p * hd), (d, cfg.n_kv_p * hd),
+                (H * hd, d)]
     out = collections.Counter()
-    for kn in per_layer:
-        out[kn] += cfg.n_layers
+    for kind in layer_kinds(cfg):
+        ff = cfg.d_ff if kind == "dense" else \
+            cfg.n_shared_experts * cfg.d_ff_expert
+        gated = cfg.gated_mlp or kind == "moe"
+        mlp = [(d, ff), (ff, d)] + ([(d, ff)] if gated else []) if ff else []
+        for kn in attn + mlp:
+            out[kn] += 1
     if not cfg.tie_embeddings:
         out[(d, cfg.vocab_p)] += 1
     return dict(out)
 
 
-def _path_shapes(cfg, forwards):
+def _path_shapes(cfg, forwards, decode: bool = False):
     """Encoded-matmul launches by (m, k, n) of ``forwards`` ({m: model
     forwards with m rows per linear})."""
     want = collections.Counter()
     for m, times in forwards.items():
-        for (k, n), c in _linear_shapes(cfg).items():
+        for (k, n), c in _linear_shapes(cfg, decode).items():
             want[(m, k, n)] += c * times
     return dict(want)
 
 
 def _static_forwards(chunks):
-    """Encoded-matmul launches by (m, k, n)-forwards of a static serve:
-    per chunk one prefill of batch·seq rows, and its decode steps plus the
+    """Model forwards of a static serve by m, (prefill, decode): per
+    chunk one prefill of batch·seq rows, and its decode steps plus the
     eager warm-up of each graph it captured at batch rows."""
-    fw = collections.Counter()
+    pre, dec = collections.Counter(), collections.Counter()
     for c in chunks:
-        fw[c["batch"] * c["seq"]] += 1
-        fw[c["batch"]] += c["decode_steps"] + c["captures"]
-    return fw
+        pre[c["batch"] * c["seq"]] += 1
+        dec[c["batch"]] += c["decode_steps"] + c["captures"]
+    return pre, dec
+
+
+def _static_shapes(cfg, chunks):
+    pre, dec = _static_forwards(chunks)
+    return dict(collections.Counter(_path_shapes(cfg, pre))
+                + collections.Counter(_path_shapes(cfg, dec, decode=True)))
 
 
 def _check_static_counts(counts, chunks, cfg, where, gated=False):
@@ -850,7 +964,7 @@ def _check_static_counts(counts, chunks, cfg, where, gated=False):
     ``gated``; kernels 2 and 3 never (its attention is ``mha`` over the
     dense row)."""
     assert counts["encoded_matmul"] > 0, f"encoded_matmul not launched {where}"
-    want = _path_shapes(cfg, _static_forwards(chunks))
+    want = _static_shapes(cfg, chunks)
     assert counts["encoded_matmul_by_shape"] == want, \
         f"encoded_matmul shapes {counts['encoded_matmul_by_shape']} != " \
         f"{want} {where}"
@@ -901,9 +1015,7 @@ def phase_serve(dev):
     log(f"[serve] bundle {info['bundle_bytes'] / 1e9:.3f} GB written in "
         f"{info['seconds']['write']:.1f}s")
     shutil.rmtree(cache)
-    fw = sum(t.numel() * t.element_size() for layer in params_enc["layers"]
-             for sub in layer.values() if isinstance(sub, dict)
-             for k, t in sub.items() if k.endswith("_fw"))
+    fw = _fw_bytes(params_enc)
     log(f"[serve] calibrated ({info['calib_tokens']} tokens) and folded "
         f"{info['n_folded']} linears in {time.perf_counter() - t0:.1f}s; "
         f"folded bf16 Wt {fw / 1e9:.3f} GB; device memory "
@@ -1965,10 +2077,10 @@ def _fold_exact(params, cfg):
     bundle (tens of GB at these widths): (params_enc, cfg_enc, seconds)."""
     import torch
     from repro_torch.core.layers import MacConfig
-    from repro_torch.serve import (capture_activation_stats, exact_encodings,
-                                   fold_linear_params)
+    from repro_torch.serve import (arch_families, capture_activation_stats,
+                                   exact_encodings, fold_linear_params)
     from repro_torch.serve.encoded import _merge
-    macs = exact_encodings(cfg.mac.bits)
+    macs = exact_encodings(cfg.mac.bits, arch_families(cfg))
     t0 = time.perf_counter()
     stats = capture_activation_stats(params, cfg)
     torch.cuda.synchronize()
@@ -2079,11 +2191,7 @@ def phase_archs(dev):
         params = init_model(cfg, seed=0, device=dev)
         t_init = time.perf_counter() - t0
         params_enc, cfg_enc, (t_cal, t_fold) = _fold_exact(params, cfg)
-        fw = sum(t.numel() * t.element_size()
-                 for node in [params_enc.get("lm_head", {})] + [
-                     sub for layer in params_enc["layers"]
-                     for sub in layer.values() if isinstance(sub, dict)]
-                 for k, t in node.items() if k.endswith("_fw"))
+        fw = _fw_bytes(params_enc)
         log(f"[archs] {arch}: {cfg.n_layers} of {_arch_cfg(arch).n_layers} "
             f"layers, d={cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads}x"
             f"{cfg.head_dim_r} ff={cfg.d_ff} vocab={cfg.vocab_size} windows "
@@ -2157,6 +2265,299 @@ def phase_archs(dev):
         del params, params_enc
         torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def _drop_tally(on: bool):
+    """While ``on``: each MoE call's dropped (token, choice) pairs,
+    recomputed from its routing plan (``nn.moe.dispatch_plan``), as
+    (device count, pairs) in a list; eager serves only (a graph replay
+    runs no Python)."""
+    import repro_torch.nn.moe as M
+    tally, orig = [], M.dispatch_plan
+
+    def counted(idx, n_experts, cap):
+        plan = orig(idx, n_experts, cap)
+        tally.append(((~plan[2]).sum(), plan[2].numel()))
+        return plan
+    if on:
+        M.dispatch_plan = counted
+    try:
+        yield tally
+    finally:
+        M.dispatch_plan = orig
+
+
+def _drops(tally):
+    """(dropped pairs, pairs) of a ``_drop_tally``, or None if empty."""
+    if not tally:
+        return None
+    return (int(sum(int(d) for d, _ in tally)), sum(n for _, n in tally))
+
+
+def _fw_bytes(tree) -> int:
+    """Bytes of every folded ``*_fw`` leaf of a param tree."""
+    if isinstance(tree, list):
+        return sum(map(_fw_bytes, tree))
+    return sum(_fw_bytes(v) if isinstance(v, (dict, list)) else
+               (v.numel() * v.element_size() if k.endswith("_fw") else 0)
+               for k, v in tree.items())
+
+
+def _agreement(a, b):
+    """Requests of two engines' tokens that are identical, and where the
+    others first part (request, new token)."""
+    parts = [(i, next(j for j, (u, v) in enumerate(zip(x, y)) if u != v))
+             for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    return len(a) - len(parts), parts
+
+
+def _moe_serves(dev, cfg, weights, trace):
+    """The serves of one moe arch (phase 6h): for each of ``weights``
+    ({"exact"/"fp": (params, cfg)}) the continuous engine (where the arch
+    pages; dense f32, int8 and int4 pools for the exact encoding, dense
+    for fp) and ``ServeEngine``, each graphed and eager, and the graphed
+    dense-pool and static serves once more on the same engine.  Gates:
+    every request finished; kernel 1 and 2 launches as the forwards make
+    them (kernel 1 at gated shapes only), flash never; graphed = eager;
+    repeat = first."""
+    from repro_torch.models import supports_paged_cache
+    pages = supports_paged_cache(cfg)
+    res = {}
+    for wname, (p, c) in weights.items():
+        kvs = (("bf16", "int8", "int4") if wname == "exact" else ("bf16",)) \
+            if pages else ()
+        for graphs in (True, False):
+            tag = f"{cfg.arch} {wname} {'graphed' if graphs else 'eager'}"
+            for kv in kvs:
+                ck = dataclasses.replace(c, kv_cache_dtype=kv)
+                with _drop_tally(not graphs) as tally:
+                    eng, rids = _serve(p, ck, trace, dev, cuda_graphs=graphs)
+                    outs, dt, counts, st = _timed_run(eng, rids)
+                toks = [outs[r].tolist() for r in rids]
+                _finished(toks, cfg, tag)
+                where = f"({tag}, continuous, kv {kv})"
+                if wname == "exact":
+                    _check_counts(counts, st, ck, eng.prefill_chunk, where,
+                                  gated=True)
+                else:
+                    _check_fp_counts(counts, st, ck, eng.prefill_chunk, where)
+                rep = None
+                if graphs and kv == "bf16":
+                    rids2 = [eng.submit(q, max_new=MAX_NEW) for q in trace]
+                    outs2 = eng.run()
+                    rep = [outs2[r].tolist() for r in rids2] == toks
+                    if not rep:
+                        raise AssertionError(f"{where}: a repeat serve on "
+                                             "the same engine differs")
+                res[("continuous", wname, kv, graphs)] = (toks, counts)
+                log(f"[moe] {tag} continuous kv {kv}: "
+                    f"{sum(map(len, toks)) / dt:.1f} tok/s, step p50 "
+                    f"{st['step_ms_p50']:.2f} ms, {st['decode_steps']} decode"
+                    f" steps, {st['prefill_chunks']} prefill chunks; "
+                    f"launches kernel 1 {counts['encoded_matmul']}, kernel 2"
+                    f" by Sq {counts['paged_attn_by_sq']}, flash "
+                    f"{counts['flash_attention']}" + (
+                        f"; MoE drops {_drops(tally)} (pairs dropped, pairs)"
+                        if not graphs else "") + (
+                        "; repeat serve identical" if rep else ""))
+                if not graphs:
+                    res[("drops", "continuous", wname, kv)] = _drops(tally)
+                del eng
+            with _drop_tally(not graphs) as tally:
+                eng, toks, dt, counts = _static(p, c, trace, dev,
+                                                cuda_graphs=graphs)
+            st = eng.stats()
+            _finished(toks, cfg, tag)
+            where = f"({tag}, static)"
+            if wname == "exact":
+                _check_static_counts(counts, eng.chunks, c, where, gated=True)
+            else:
+                assert counts["encoded_matmul"] == 0 and \
+                    counts["paged_attn"] == 0 and \
+                    counts["flash_attention"] == 0, f"kernels launched {where}"
+            rep = None
+            if graphs:
+                rep = _static_run(eng, trace)[0] == toks
+                if not rep:
+                    raise AssertionError(f"{where}: a repeat serve on the same"
+                                         " engine differs")
+            if not graphs:
+                res[("drops", "static", wname)] = _drops(tally)
+            res[("static", wname, graphs)] = (toks, counts)
+            log(f"[moe] {tag} static: {sum(map(len, toks)) / dt:.1f} tok/s, "
+                f"step p50 {st['step_ms_p50']:.2f} ms (captures "
+                f"{st['jit_compiles']}, chunks {[(ch['batch'], ch['seq']) for ch in eng.chunks]}); "
+                f"launches kernel 1 by (m, k, n) "
+                f"{counts['encoded_matmul_by_shape']}" + (
+                    f"; MoE drops {_drops(tally)}" if not graphs else "") + (
+                    "; repeat serve identical" if rep else ""))
+            del eng
+    for key in [k for k in res if k[0] != "drops" and k[-1] is True]:
+        same = res[key][0] == res[key[:-1] + (False,)][0]
+        log(f"[moe] {cfg.arch} {key[:-1]}: greedy tokens graphed vs "
+            f"eager {'identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"{cfg.arch} {key[:-1]}: graphed and "
+                                 "eager tokens differ")
+    for wname in weights:
+        if pages:
+            n_same, parts = _agreement(res[("static", wname, True)][0],
+                                       res[("continuous", wname, "bf16",
+                                            True)][0])
+            log(f"[moe] {cfg.arch} {wname}: static vs continuous (not gated:"
+                " each call's capacity depends on its padded B·S) "
+                f"{n_same} of {len(trace)} requests identical, parts "
+                f"(request, new token) {parts}; MoE drops (pairs dropped, "
+                f"pairs) static {res[('drops', 'static', wname)]}, "
+                f"continuous {res[('drops', 'continuous', wname, 'bf16')]}")
+        else:
+            log(f"[moe] {cfg.arch} {wname}: MoE drops of the static serve "
+                f"(pairs dropped, pairs) {res[('drops', 'static', wname)]}")
+    return res
+
+
+def _finished(toks, cfg, where):
+    assert len(toks) == N_REQUESTS and all(
+        len(t) == MAX_NEW and all(0 <= x < cfg.vocab_size for x in t)
+        for t in toks), f"{where}: not every request finished"
+
+
+def _check_fp_counts(counts, st, cfg, chunk_len, where):
+    """fp weights on the continuous engine: kernel 2 once per layer per
+    decode forward, kernels 1 and 3 never."""
+    _, attn = _forwards(st, chunk_len)
+    want = {sq: cfg.n_layers * n for sq, n in attn.items()}
+    assert counts["paged_attn_by_sq"] == want, \
+        f"paged_attn by Sq {counts['paged_attn_by_sq']} != {want} {where}"
+    assert counts["encoded_matmul"] == 0 and \
+        counts["flash_attention"] == 0, f"kernel 1 or 3 launched {where}"
+
+
+def phase_moe(dev):
+    """Phase 6h: the moe family at full width and cut depth
+    (``MOE_ARCHS``), weights from seed 0 drawn on the card, the exact
+    encoding calibrated and folded there (no bundle write): qwen3-moe on
+    both engines, deepseek-v3 (MLA: no paging) on ``ServeEngine``; fp
+    weights too (``_moe_serves``); peak device memory per arch."""
+    import torch
+    from repro_torch.models import init_model
+    out = {}
+    for arch, _, _ in MOE_ARCHS:
+        cfg = _moe_cfg(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_model(cfg, seed=0, device=dev, init_device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        params_enc, cfg_enc, (t_cal, t_fold) = _fold_exact(params, cfg)
+        log(f"[moe] {arch}: {cfg.n_layers} of {_arch_cfg(arch).n_layers} "
+            f"layers ({cfg.first_k_dense} dense), d={cfg.d_model}, "
+            f"experts {cfg.n_experts} top-{cfg.top_k} ff {cfg.d_ff_expert} "
+            f"+ {cfg.n_shared_experts} shared, router {cfg.router_type}, "
+            f"mla {cfg.use_mla}, vocab {cfg.vocab_size}; weights "
+            f"{cfg.param_dtype}, compute {cfg.compute_dtype}; init on the "
+            f"card {t_init:.1f}s, calibration {t_cal:.1f}s, fold "
+            f"{t_fold:.1f}s; folded bf16 Wt {_fw_bytes(params_enc) / 1e9:.3f}"
+            f" GB; device memory {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+            f" GB; {SMI}")
+        trace = make_trace(cfg.vocab_size)
+        res = _moe_serves(dev, cfg, {"exact": (params_enc, cfg_enc),
+                                     "fp": (params, cfg)}, trace)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[moe] {arch}: peak device memory {peak / 1e9:.2f} GB, "
+            f"phase 6h part {time.perf_counter() - t0:.1f}s")
+        if peak >= 80e9:
+            raise AssertionError(f"{arch}: peak device memory {peak / 1e9} GB")
+        cont = res.get(("continuous", "exact", "bf16", True))
+        out[arch] = {"cfg": cfg_enc, "peak_gb": peak / 1e9,
+                     "counts": cont[1] if cont else None,
+                     "static_counts": res[("static", "exact", True)][1],
+                     "paged": {kv: res[("continuous", "exact", kv, True)][1][
+                         "paged_attn"] for kv in ("bf16", "int8", "int4")
+                         if ("continuous", "exact", kv, True) in res}}
+        del params, params_enc, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_cpu_parity_moe(dev):
+    """Phase 7 for the moe archs, reduced: the exact encoding folded on
+    the CPU serves the main trace on the card (kernels) and on the CPU
+    (plain versions), qwen3-moe through the continuous engine with dense,
+    int8 and int4 pools and through ``ServeEngine``, deepseek-v3 through
+    ``ServeEngine``: identical greedy tokens.  Then 5 fp train steps of
+    each reduced config (router aux; deepseek-v3's MTP loss) on both
+    devices from one torch-made state: loss and aux within
+    ``CARD_CPU_RTOL`` at every step."""
+    import torch
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import init_model, supports_paged_cache, to_device
+    from repro_torch.serve import (arch_families, exact_encodings,
+                                   prepare_encoded_serving)
+    from repro_torch.train import init_train_state, make_train_step
+    for arch, _, _ in MOE_ARCHS:
+        cfg = _moe_cfg(arch, reduced=True)
+        p_cpu = init_model(cfg, seed=0, device="cpu")
+        cache = bundle_dir("parity-" + arch)
+        pe_cpu, ce, _ = prepare_encoded_serving(
+            p_cpu, cfg, device="cpu", cache_dir=cache, verbose=False,
+            macs_override=exact_encodings(cfg.mac.bits, arch_families(cfg)))
+        shutil.rmtree(cache)
+        pe_gpu = to_device(pe_cpu, dev)
+        trace = make_trace(cfg.vocab_size)
+        outs = {}
+        kvs = ("bf16", "int8", "int4") if supports_paged_cache(cfg) else ()
+        for where, device, params in (("cpu", "cpu", pe_cpu),
+                                      ("cuda", dev, pe_gpu)):
+            for kv in kvs:
+                ck = dataclasses.replace(ce, kv_cache_dtype=kv)
+                eng, rids = _serve(params, ck, trace, device)
+                _reset_counts()
+                res = eng.run()
+                counts = _read_counts()
+                if where == "cuda":
+                    _check_counts(counts, eng.stats(), ck, eng.prefill_chunk,
+                                  f"({arch} reduced kv {kv}, on the card)")
+                outs[(f"continuous kv {kv}", where)] = [
+                    res[r].tolist() for r in rids]
+            seng, toks, _, counts = _static(params, ce, trace, device)
+            if where == "cuda":
+                _check_static_counts(counts, seng.chunks, ce,
+                                     f"({arch} reduced, on the card)")
+            outs[("static", where)] = toks
+        for name in sorted({k[0] for k in outs}):
+            same = outs[(name, "cpu")] == outs[(name, "cuda")]
+            log(f"[parity] {arch} reduced, {name}: greedy tokens card "
+                f"(kernels) vs CPU (plain) {'identical' if same else 'DIFFERENT'}"
+                f" ({sum(map(len, outs[(name, 'cpu')]))} tokens)")
+            if not same:
+                raise AssertionError(f"{arch} reduced {name}: card and CPU "
+                                     "greedy tokens differ")
+        s_cpu = init_train_state(cfg, seed=0, device="cpu")
+        s_gpu = to_device(s_cpu, dev)
+        step = make_train_step(cfg, warmup=TRAIN_WARMUP,
+                               total_steps=TRAIN_STEPS)
+        rds = SyntheticLMDataset(cfg.vocab_size, 32, seed=0)
+        rows = []
+        for i in range(5):
+            b = rds.batch(i, 4)
+            s_cpu, mc = step(s_cpu, b)
+            s_gpu, mg = step(s_gpu, b)
+            rel = {k: abs(float(mc[k]) - float(mg[k])) / max(
+                abs(float(mc[k])), 1e-30) for k in ("loss", "aux")}
+            rows.append(f"{float(mc['loss']):.6f}/{float(mg['loss']):.6f} "
+                        f"aux {float(mc['aux']):.6f}/{float(mg['aux']):.6f}")
+            if max(rel.values()) > CARD_CPU_RTOL:
+                raise AssertionError(f"{arch} reduced fp train: card and CPU "
+                                     f"part at step {i}: {rel}")
+        log(f"[parity] {arch} reduced fp train (mtp {cfg.mtp}, router "
+            f"{cfg.router_type}): loss and aux CPU/card within "
+            f"{CARD_CPU_RTOL} at every step: {rows}")
+    torch.cuda.empty_cache()
 
 
 def phase_cpu_parity(dev):
@@ -2283,9 +2684,7 @@ def phase_serve_search(dev):
             f"monomials by bits {dict(sorted(arity.items()))}), M="
             f"{m.spec.m_bits}, weighted RMSE {m.spec.rmse:.3f}, searched in "
             f"{sec['search'][name]:.3f}s on the card")
-    fw = sum(t.numel() * t.element_size() for layer in params_enc["layers"]
-             for sub in layer.values() if isinstance(sub, dict)
-             for k, t in sub.items() if k.endswith("_fw"))
+    fw = _fw_bytes(params_enc)
     log(f"[search] key {sec['key']:.2f}s, calibration {sec['calibrate']:.2f}s"
         f" ({info['calib_tokens']} tokens), row weights "
         f"{sec['row_weights']:.2f}s, search {sum(sec['search'].values()):.2f}"
@@ -3032,13 +3431,14 @@ def _train_card_cpu(dev, mac, exact):
 
 
 def _train_cli():
-    # the CLI on the card: full width, encoded, checkpoints at 6 and 12;
-    # then step 12's checkpoint removed and the same command again resumes
-    # from step 6 and commits 12 anew
+    # the CLI on the card: full width, encoded, checkpoints at 2 and 4;
+    # then step 4's checkpoint removed and the same command again resumes
+    # from step 2 and commits 4 anew (4 steps: an encoded step costs about
+    # the same at any m, so this cut keeps the path and halves its time)
     ck = bundle_dir("train-cli")
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps",
-           "12", "--batch", "4", "--seq", "128", "--mac-mode", "encoded",
-           "--ckpt-every", "6", "--ckpt-dir", ck]
+           "4", "--batch", "4", "--seq", "128", "--mac-mode", "encoded",
+           "--ckpt-every", "2", "--ckpt-dir", ck]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     env.pop("CUBLAS_WORKSPACE_CONFIG", None)
     try:
@@ -3054,17 +3454,29 @@ def _train_cli():
                 raise AssertionError(f"train CLI failed: {res.stderr[-2000:]}")
             outs.append(lines)
             committed = sorted(os.listdir(ck))
-            if committed != ["step_00000006", "step_00000012"]:
+            if committed != ["step_00000002", "step_00000004"]:
                 raise AssertionError(f"CLI checkpoints: {committed}")
             if run == 0:
-                shutil.rmtree(os.path.join(ck, "step_00000012"))
-        if "resuming from step 6" not in outs[1]:
-            raise AssertionError("the CLI did not resume from step 6")
-        last = [ln for ln in outs[0] if ln.startswith("step 11 ")]
-        again = [ln for ln in outs[1] if ln.startswith("step 11 ")]
-        log(f"[train] CLI step 11: straight {last}, resumed {again}")
+                shutil.rmtree(os.path.join(ck, "step_00000004"))
+        if "resuming from step 2" not in outs[1]:
+            raise AssertionError("the CLI did not resume from step 2")
+        last = [ln for ln in outs[0] if ln.startswith("step 3 ")]
+        again = [ln for ln in outs[1] if ln.startswith("step 3 ")]
+        log(f"[train] CLI step 3: straight {last}, resumed {again}")
     finally:
         shutil.rmtree(ck, ignore_errors=True)
+
+
+def _time_once(fn, args) -> float:
+    """ms of one call of ``fn`` on the card (CUDA events)."""
+    import torch
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    fn(*args)
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e)
 
 
 def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib,
@@ -3073,7 +3485,11 @@ def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib,
     n), kernel and plain version timed over 4 input sets (``on_card``:
     made on the card, as many as take 128 MB of Wt, 1 to 4), and the
     library yardstick: the same function as one bf16 product of the 0/1
-    planes (m, U·k) by Wt (U·k, n), f32 out (the bias add left out)."""
+    planes (m, U·k) by Wt (U·k, n), f32 out (the bias add left out).
+    A Wt past 1 GB is timed over 4 calls of the kernel and the library,
+    and one call of the plain version, which holds Wt in f32 twice
+    (29.6 GB each for deepseek-v3's head) and so runs on an emptied
+    cache after its first call."""
     import torch
     from repro_torch.kernels import encoded_matmul as em
     from repro_torch.kernels.ref import planes_ref
@@ -3088,18 +3504,26 @@ def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib,
             sets.append((x, wt, bias, sh))
     else:
         sets = _em_case(dev, prog, m, k, n, seed=seed, copies=4)
+    big = U * k * n * 2 > 1e9
+    iters = 4 if big else 40
+    torch.cuda.empty_cache()
     out, ref = em.encoded_matmul(*sets[0]), em.encoded_matmul_plain(*sets[0])
     err = (out - ref).abs().max().item()
     if not torch.allclose(out, ref, rtol=1e-4,
                           atol=1e-4 * ref.abs().max().item()):
         raise AssertionError(f"{name}: kernel 1 disagrees with plain "
                              f"(max abs err {err:.3e})")
-    ms = time_graph(em.encoded_matmul, sets)
-    plain_ms = time_loop(em.encoded_matmul_plain, sets)
+    del out, ref
+    ms = time_graph(em.encoded_matmul, sets, iters=iters)
+    if big:
+        torch.cuda.empty_cache()
+        plain_ms = _time_once(em.encoded_matmul_plain, sets[0])
+    else:
+        plain_ms = time_loop(em.encoded_matmul_plain, sets)
     lib_sets = [(planes_ref(x, sh).to(torch.bfloat16).permute(1, 0, 2)
                  .reshape(m, U * k).contiguous(), wt.reshape(U * k, n))
                 for x, wt, _, sh in sets]
-    lib_ms = time_graph(lib[0], lib_sets)
+    lib_ms = time_graph(lib[0], lib_sets, iters=iters)
     nbytes = m * k + U * k * n * 2 + n * 4 + m * n * 4
     ops = 2.0 * m * k * n * U
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
@@ -3174,6 +3598,38 @@ def _pa_row(dev, mode, sq, Hq, Hkv, D, P, lens, window, cap, name, note,
         "shape": f"B={B} Sq={sq} Hq={Hq} Hkv={Hkv} D={D} ps={ps} P={P} "
                  f"lens={lens} window={window} cap={cap} {note}, "
                  f"{nbytes / 1e6:.3f} MB"}
+
+
+def _moe_em_rows(dev, moe, lib, m_pre):
+    """Kernel 1's rows at the moe archs' shapes (phase 6h), exact U, Wt
+    made on the card, at decode (m = n_slots) and at the largest static
+    prefill ``m_pre``; launches: qwen3-moe's continuous serve
+    (deepseek-v3: its static serve) at decode, the static serve at the
+    prefill; Wt past 1 GB timed over 4 calls instead of 40."""
+    import torch
+    rows = []
+    for arch, _, _ in MOE_ARCHS:
+        a = moe[arch]
+        s_shape = a["static_counts"]["encoded_matmul_by_shape"]
+        d_shape = (a["counts"] or a["static_counts"])[
+            "encoded_matmul_by_shape"]
+        cfg = a["cfg"]
+        shapes = sorted(set(_linear_shapes(cfg)) | set(
+            _linear_shapes(cfg, decode=True)), key=lambda kn: kn[0] * kn[1])
+        for k, n in shapes:
+            for m, tag, launches, seed in (
+                    (N_SLOTS, "decode", d_shape.get((N_SLOTS, k, n), 0), 4),
+                    (m_pre, "static prefill", s_shape.get((m_pre, k, n), 0),
+                     6)):
+                rows.append(_em_row(
+                    dev, _program("exact"), m, k, n, seed,
+                    f"encoded_matmul_{arch}_"
+                    f"{'static_' if m == m_pre else ''}m{m}_k{k}_n{n}",
+                    launches, f"{tag}, {arch}", lib, on_card=True))
+                if m == N_SLOTS:
+                    rows[-1]["launches_static"] = s_shape.get((m, k, n), 0)
+                torch.cuda.empty_cache()
+    return rows
 
 
 def phase_measure(dev, serve_info):
@@ -3258,6 +3714,7 @@ def phase_measure(dev, serve_info):
                 f"static prefill, {arch}; launches: its static serve", lib,
                 on_card=True))
             torch.cuda.empty_cache()
+    rows += _moe_em_rows(dev, serve_info["moe"], lib, m_pre)
     # kernel 2: decode attention, 4 slots × 16 heads × D 64, with dense
     # f32, int8 and packed-int4 pools, at a 32-page table and at the
     # serve's 127-page table (the same lens, so the same bytes); then at
@@ -3296,6 +3753,19 @@ def phase_measure(dev, serve_info):
             SERVE_P, lens, cfg.layer_windows[0], cfg.attn_softcap,
             f"paged_attn_{arch}_p{SERVE_P}", f"f32 pools, {arch} heads",
             serve_info["archs"][arch]["counts"]["paged_attn"], seed=8))
+    # kernel 2 at qwen3-moe's 64/4 heads (group 16), D 128, f32 / int8 /
+    # int4 pools and the serve's table; launches: its continuous serves
+    # with each pool type (phase 6h)
+    qcfg = serve_info["moe"]["qwen3-moe-235b-a22b"]["cfg"]
+    for mode in ("bf16", "int8", "int4"):
+        rows.append(_pa_row(
+            dev, mode, 1, qcfg.n_heads_p, qcfg.n_kv_p, qcfg.head_dim_r,
+            SERVE_P, lens, None, None,
+            f"paged_attn_qwen3-moe{'' if mode == 'bf16' else '_' + mode}"
+            f"_p{SERVE_P}",
+            "f32 pools" if mode == "bf16" else f"{mode} pools + f32 scales",
+            serve_info["moe"]["qwen3-moe-235b-a22b"]["paged"][mode],
+            seed=9))
     # kernel 3 at the prefill shape of full-width qwen1.5-0.5b: B 4, S 1024,
     # 16 heads, D 64, causal; flattened (B·H, S, D) as flash_mha hands it
     # to the kernel.  Not on the serving path: launches 0 (the reference's
@@ -3361,6 +3831,14 @@ def phase_measure(dev, serve_info):
     return rows
 
 
+def _phase(fn, *args):
+    """Run one phase and log its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {fn.__name__} in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     dev = card_check()
@@ -3368,30 +3846,33 @@ def main() -> int:
     # keep each engine graph's node list for ``graph_kernel_counts``
     from repro_torch.serve.graphs import Step
     Step.keep_graph = True
-    phase_build()
-    phase_kernel1(dev)
-    phase_kernel1_archs(dev)
-    phase_kernel2(dev)
-    phase_kernel2_quant(dev)
-    phase_kernel2_d128(dev)
-    phase_flash(dev)
-    serve_info = phase_serve(dev)
-    serve_info.update(phase_serve_quant(dev, serve_info))
-    serve_info["prefix"] = phase_prefix(dev, serve_info)
-    serve_info["spec"] = phase_spec(dev, serve_info)
-    serve_info["telemetry"] = phase_telemetry(dev, serve_info)
-    serve_info["static"] = phase_static(dev, serve_info)
+    _phase(phase_build)
+    _phase(phase_kernel1, dev)
+    _phase(phase_kernel1_archs, dev)
+    _phase(phase_kernel1_moe, dev)
+    _phase(phase_kernel2, dev)
+    _phase(phase_kernel2_quant, dev)
+    _phase(phase_kernel2_d128, dev)
+    _phase(phase_flash, dev)
+    serve_info = _phase(phase_serve, dev)
+    serve_info.update(_phase(phase_serve_quant, dev, serve_info))
+    serve_info["prefix"] = _phase(phase_prefix, dev, serve_info)
+    serve_info["spec"] = _phase(phase_spec, dev, serve_info)
+    serve_info["telemetry"] = _phase(phase_telemetry, dev, serve_info)
+    serve_info["static"] = _phase(phase_static, dev, serve_info)
     for key in ("params", "cfg", "params_enc", "cfg_enc", "trace", "tokens",
                 "stats"):
         del serve_info[key]
     torch.cuda.empty_cache()
-    serve_info["search"] = phase_serve_search(dev)
-    serve_info["archs"] = phase_archs(dev)
-    phase_cpu_parity(dev)
-    phase_cpu_parity_archs(dev)
-    phase_cpu_parity_search(dev)
-    phase_train(dev)
-    rows = phase_measure(dev, serve_info)
+    serve_info["search"] = _phase(phase_serve_search, dev)
+    serve_info["archs"] = _phase(phase_archs, dev)
+    serve_info["moe"] = _phase(phase_moe, dev)
+    _phase(phase_cpu_parity, dev)
+    _phase(phase_cpu_parity_archs, dev)
+    _phase(phase_cpu_parity_moe, dev)
+    _phase(phase_cpu_parity_search, dev)
+    _phase(phase_train, dev)
+    rows = _phase(phase_measure, dev, serve_info)
     for r in rows:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(r[key]):

@@ -1,2 +1,2 @@
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeSpec
 from .registry import get_config, list_archs

@@ -1,5 +1,6 @@
-"""ModelConfig for the port: the fields the dense decoder family and the
-trainer read (port of ``repro/configs/base.py``)."""
+"""ModelConfig for the port: the fields the dense and MoE/MLA decoder
+families, the serving engines and the trainer read, and the input-shape
+cells (port of ``repro/configs/base.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +15,22 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _pad_to(x: int, m: int) -> int:
     return x if m <= 1 else ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str              # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k":  ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k":   ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +63,28 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     local_global_period: int = 0
     global_layers: Tuple[int, ...] = ()
+    # moe: routed experts (softmax or DeepSeek's sigmoid router), shared
+    # experts, a dense prefix of ``first_k_dense`` layers
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    n_shared_experts: int = 0
+    first_k_dense: int = 0
+    router_type: str = "softmax"
+    norm_topk: bool = True
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    # mla: multi-head latent attention with decoupled RoPE; multi-token
+    # prediction (a training-only head)
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    mla_absorb: bool = False
+    mtp: bool = False
+    mtp_weight: float = 0.3
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     attn_chunk: int = 1024
@@ -68,9 +107,6 @@ class ModelConfig:
     # training: per-layer activation checkpointing (torch.utils.checkpoint
     # where the reference wraps each layer in jax.checkpoint), the global
     # microbatch for gradient accumulation (0: off), the optimizer
-    aux_loss_weight: float = 0.01
-    mtp: bool = False                # read by the trainer, which refuses it
-    mtp_weight: float = 0.3
     remat: bool = True
     pad_heads_to: int = 1
     vocab_pad_to: int = 1
@@ -78,6 +114,7 @@ class ModelConfig:
     mac: MacConfig = dataclasses.field(default_factory=MacConfig)
     optimizer: str = "adamw"
     learning_rate: float = 3e-4
+    sub_quadratic: bool = False       # runs long_500k?
 
     @property
     def head_dim_r(self) -> int:
@@ -119,8 +156,8 @@ class ModelConfig:
         return out
 
     def reduced(self) -> "ModelConfig":
-        """Tiny same-family config for CPU tests (the dense-family part of
-        the reference's ``reduced``)."""
+        """Tiny same-family config for CPU tests (the reference's
+        ``reduced`` for the fields the port has)."""
         return dataclasses.replace(
             self,
             n_layers=min(self.n_layers, 2),
@@ -128,11 +165,56 @@ class ModelConfig:
             n_heads=max(2, min(self.n_heads, 4)),
             n_kv_heads=max(1, min(self.n_kv_heads, 2)),
             head_dim=32,
-            d_ff=256,
+            d_ff=256, d_ff_expert=64 if self.d_ff_expert else 0,
             vocab_size=512,
+            n_experts=min(self.n_experts, 8),
+            top_k=min(self.top_k, 2),
+            first_k_dense=min(self.first_k_dense, 1),
+            q_lora_rank=48 if self.q_lora_rank else 0,
+            kv_lora_rank=32 if self.kv_lora_rank else 0,
+            qk_nope_dim=32 if self.qk_nope_dim else 0,
+            qk_rope_dim=16 if self.qk_rope_dim else 0,
+            v_head_dim=32 if self.v_head_dim else 0,
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else None,
             attn_chunk=64,
             global_layers=tuple(g for g in self.global_layers if g < 2),
             param_dtype="float32", compute_dtype="float32",
             pad_heads_to=1, vocab_pad_to=1)
+
+    def with_layers(self, n_layers: int) -> "ModelConfig":
+        """The same widths, depth cut to ``n_layers`` (a port-only helper
+        for the card, where a full-depth MoE model does not fit): a moe
+        arch keeps at most ``n_layers - 1`` layers of its dense prefix,
+        so one MoE layer stays."""
+        first = self.first_k_dense
+        if self.n_experts:
+            first = min(first, n_layers - 1)
+        return dataclasses.replace(self, n_layers=n_layers,
+                                   first_k_dense=first)
+
+    def approx_params(self) -> float:
+        """Rough parameter count (the reference's, for its dtype and
+        optimizer policy)."""
+        d, L = self.d_model, self.n_layers
+        hd = self.head_dim_r
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        if self.use_mla:
+            attn = d * self.q_lora_rank \
+                + self.q_lora_rank * self.n_heads * (self.qk_nope_dim
+                                                     + self.qk_rope_dim) \
+                + d * (self.kv_lora_rank + self.qk_rope_dim) \
+                + self.kv_lora_rank * self.n_heads * (self.qk_nope_dim
+                                                      + self.v_head_dim) \
+                + self.n_heads * self.v_head_dim * d
+        if self.n_experts:
+            ff = 3 * d * self.d_ff_expert * (self.n_experts
+                                             + self.n_shared_experts)
+            ff_dense = 3 * d * self.d_ff if self.first_k_dense else 0
+            total = (L - self.first_k_dense) * (attn + ff) \
+                + self.first_k_dense * (attn + ff_dense)
+        else:
+            total = L * (attn + (3 if self.gated_mlp else 2) * d * self.d_ff)
+        total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return float(total)

@@ -1,5 +1,5 @@
-"""--arch registry: the reference's dense-family archs, the ones the port
-serves (the other families wait, ROADMAP Queue A)."""
+"""--arch registry: the reference's dense- and moe-family archs, the ones
+the port serves (the other families wait, ROADMAP Queue A)."""
 from __future__ import annotations
 
 import importlib
@@ -9,6 +9,8 @@ _ARCHS = {
     "qwen1.5-4b": "qwen15_4b",
     "gemma2-27b": "gemma2_27b",
     "starcoder2-3b": "starcoder2_3b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 

@@ -23,6 +23,18 @@
   # prefix cache, and speculative decoding with a lower-M encoded drafter
   python -m repro_torch.launch.serve --continuous --mac encoded \
       --paged-attn kernel --prefix-cache --spec-decode 4 --draft encoded
+  # the moe family: qwen3-moe on both engines (continuous: paged pools,
+  # kernel 2), deepseek-v3 (MLA, static only); on the card full width
+  # with the depth cut (--layers) and, for deepseek-v3, bf16 weights
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --arch qwen3-moe-235b-a22b --continuous --paged-attn kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --arch deepseek-v3-671b --mac encoded --encoding exact
+  python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \
+      --layers 2 --continuous --paged-attn kernel --mac encoded \
+      --encoding exact
+  python -m repro_torch.launch.serve --arch deepseek-v3-671b --layers 2 \
+      --param-dtype bfloat16 --mac encoded --encoding exact
   # telemetry (continuous engine only): lifecycle trace (Perfetto), the
   # metrics registry, device-time attribution, online drift, profiler
   # trace and the allocator sanitizer
@@ -36,7 +48,9 @@
 CUDA kernel on the card, its plain PyTorch version on the CPU).  On the
 card every continuous engine step, and the static engine's decode step,
 runs as a captured CUDA graph.  ``--arch`` takes the four dense-family
-archs (``configs/registry.py``).  The
+archs and the two moe-family ones (``configs/registry.py``); MLA
+(deepseek-v3) cannot page and serves static only.  ``--layers`` cuts the
+depth (full width), ``--param-dtype`` sets the weights' dtype.  The
 weights are random, made from ``--seed``; the request trace comes from
 ``numpy.random.default_rng(0)`` as in the reference CLI.
 """
@@ -52,6 +66,13 @@ def main(argv=None):
     from repro_torch.configs import list_archs
     ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0, metavar="N",
+                    help="keep N layers at full width (a moe arch keeps "
+                         "at least one MoE layer); 0 = the arch's depth")
+    ap.add_argument("--param-dtype", default=None,
+                    choices=["float32", "bfloat16"],
+                    help="the weights' dtype (default: the config's); "
+                         "compute stays in the config's dtype")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) runs the kernels on the card; "
                          "'cpu' runs their plain PyTorch versions")
@@ -157,19 +178,24 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.models import init_model
-    from repro_torch.serve import (Engine, ServeEngine, exact_encodings,
-                                   prepare_drafter, prepare_encoded_serving)
+    from repro_torch.serve import (Engine, ServeEngine, arch_families,
+                                   exact_encodings, prepare_drafter,
+                                   prepare_encoded_serving)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = cfg.with_layers(args.layers)
+    if args.param_dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
     cfg = dataclasses.replace(cfg, attention_backend=args.paged_attn,
                               kv_cache_dtype=args.kv_dtype)
     params = init_model(cfg, seed=args.seed, device=dev)
     params_ref, cfg_ref = params, cfg   # dense reference for --drift-every
     if args.mac == "encoded":
-        overrides = (exact_encodings(cfg.mac.bits)
+        overrides = (exact_encodings(cfg.mac.bits, arch_families(cfg))
                      if args.encoding == "exact" else None)
         t0 = time.time()
         params, cfg, info = prepare_encoded_serving(

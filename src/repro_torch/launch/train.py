@@ -6,6 +6,11 @@
   # on the card: full-width qwen1.5-0.5b, encoded-MAC QAT
   PYTHONPATH=src python -m repro_torch.launch.train --steps 200 \
       --batch 8 --seq 256 --mac-mode encoded --ckpt-dir /tmp/ckpt
+  # the moe family (router aux loss; deepseek-v3 adds the MTP loss)
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
+      --arch deepseek-v3-671b --steps 4 --batch 2 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced \
+      --arch qwen3-moe-235b-a22b --steps 20 --mac-mode encoded
 
 The reference's loop (``repro/launch/train.py``): config → train state
 (weights from seed 0) → data pipeline (deterministic per step, prefetch,

@@ -1,20 +1,28 @@
-"""Decoder-only LM, dense family (port of ``repro/models/lm.py``).
+"""Decoder-only LM, dense and moe families (port of
+``repro/models/lm.py``).
 
 Params are a nested dict of tensors with the reference's leaf names; the
-layer stack is a list of per-layer dicts under ``"layers"`` (the reference
-stacks them ``(L, …)`` under ``"stack"`` for its scan).
+layers of every stage are one flat list of per-layer dicts under
+``"layers"``, in the order they run (the reference stacks each stage
+``(L, …)`` under its own name for its scan: ``"stack"`` for the dense
+family; ``"dense_prefix"`` and ``"moe_stack"`` for the moe family,
+``layer_stages``).  deepseek-v3's multi-token-prediction head sits under
+``"mtp"``, as in the reference.
 
 Public API:
-  init_model(cfg, *, seed, device)               → params
-  apply_model(params, cfg, tokens, cache=None)   → (logits, new_cache)
-  init_cache(cfg, batch, max_len, *, device)     → dense KV cache
+  init_model(cfg, *, seed, device, init_device)   → params
+  apply_model(params, cfg, tokens, cache=None)    → (logits, new_cache)
+      (+ aux with return_aux, + hidden with return_hidden)
+  mtp_logits(params, cfg, h, tokens)              → MTP logits
+  init_cache(cfg, batch, max_len, *, device)      → dense KV / MLA cache
   init_paged_cache(cfg, n_pages, page_size, *, device) → paged cache
   supports_paged_cache(cfg) / supports_ragged_mask(cfg)
-  params_from_jax(tree, cfg, device)             → params
-  train_state_from_jax(state, device)            → train state
-  stack_layers(params) / unstack_layers(tree)    ↔ the reference's stack
-  to_reference_layout(tree) / from_reference_layout(tree, n_layers)
-  to_device(params, device)                      → params
+  layer_stages(cfg)                               → [(name, kind, n)]
+  params_from_jax(tree, cfg, device)              → params
+  train_state_from_jax(state, device)             → train state
+  stack_layers(params, cfg) / unstack_layers(tree) ↔ the reference's stages
+  to_reference_layout(tree, cfg) / from_reference_layout(tree)
+  to_device(params, device)                       → params
 
 The no-cache forward is differentiable end to end; with ``cfg.remat`` and
 autograd on, each layer runs under ``torch.utils.checkpoint`` (the
@@ -34,52 +42,99 @@ from repro_torch.nn.attention import init_kv_cache
 from repro_torch.nn.common import (embed_apply, embed_init, linear,
                                    linear_init, norm_apply, norm_init,
                                    softcap)
+from repro_torch.nn.mla import init_mla_cache
 from repro_torch.quant.kvcache import kv_pool_layout
 from repro_torch.tree import tree_leaves, tree_map
 
+# the reference's stage names, in the order their layers run
+STAGE_NAMES = ("dense_prefix", "moe_stack", "stack")
 
-def init_model(cfg, *, seed: int = 0, device=None) -> dict:
-    """Random params from ``seed``, made on the CPU (so every device gets
-    the same numbers) and moved to ``device`` (default: the card)."""
-    dev = resolve_device(device)
+
+def layer_stages(cfg) -> list:
+    """(name, kind, n_layers) of each stage, as the reference's
+    ``_stages``: the moe family's dense prefix (``first_k_dense``) and
+    its MoE stack; one dense ``"stack"`` otherwise.  The other families
+    are not ported (ROADMAP Queue A)."""
+    if cfg.family == "moe":
+        st = []
+        if cfg.first_k_dense:
+            st.append(("dense_prefix", "dense", cfg.first_k_dense))
+        st.append(("moe_stack", "moe", cfg.n_layers - cfg.first_k_dense))
+        return st
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP: remaining archs)")
+                                  "(ROADMAP Queue A: remaining archs)")
+    return [("stack", "dense", cfg.n_layers)]
+
+
+def layer_kinds(cfg) -> list:
+    """Each layer's kind ('dense' or 'moe'), in the order they run."""
+    return [kind for _, kind, n in layer_stages(cfg) for _ in range(n)]
+
+
+def init_model(cfg, *, seed: int = 0, device=None, init_device="cpu"
+               ) -> dict:
+    """Random params from ``seed``, drawn on ``init_device`` and moved to
+    ``device`` (default: the card).  The CPU draws by default, so every
+    device gets the same numbers; a full-width model is drawn on the card
+    in seconds (``init_device="cuda"``: other numbers from the same
+    seed)."""
+    dev = resolve_device(device)
+    kinds = layer_kinds(cfg)
     if cfg.mac.executor.requires_prepared_params:
         raise ValueError(
             f"init_model cannot initialize mac mode {cfg.mac.mode!r}; init "
             "in 'fp' mode and transform via "
             "serve.encoded.prepare_encoded_serving")
-    gen = torch.Generator().manual_seed(seed)
-    p = {"embed": embed_init(gen, cfg.vocab_p, cfg.d_model, cfg.pdtype)}
-    p.update(norm_init(cfg.d_model, cfg.norm, cfg.pdtype, "final_norm"))
-    if not cfg.tie_embeddings:
-        p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_p, "w",
-                                   cfg.mac, False, cfg.pdtype)
-    p["layers"] = [B.decoder_block_init(gen, cfg)
-                   for _ in range(cfg.n_layers)]
+    gen = torch.Generator(device=init_device).manual_seed(seed)
+    with torch.device(init_device):
+        p = {"embed": embed_init(gen, cfg.vocab_p, cfg.d_model, cfg.pdtype)}
+        p.update(norm_init(cfg.d_model, cfg.norm, cfg.pdtype, "final_norm"))
+        if not cfg.tie_embeddings:
+            p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_p, "w",
+                                       cfg.mac, False, cfg.pdtype)
+        p["layers"] = []
+        for kind in kinds:
+            p["layers"].append(B.decoder_block_init(gen, cfg, kind))
+            if torch.device(init_device).type == "cpu":
+                # a layer at a time to the device: a full-width model
+                # never sits on the host whole
+                p["layers"][-1] = to_device(p["layers"][-1], dev)
+        if cfg.mtp:
+            p["mtp"] = {"proj": linear_init(gen, 2 * cfg.d_model,
+                                            cfg.d_model, "w", cfg.mac,
+                                            False, cfg.pdtype),
+                        "block": B.decoder_block_init(gen, cfg, "dense")}
+            p["mtp"].update(norm_init(cfg.d_model, cfg.norm, cfg.pdtype,
+                                      "mtp_norm"))
     return to_device(p, dev)
 
 
 def to_device(tree, device):
-    """A param tree (nested dicts / lists of tensors) moved to ``device``."""
+    """A tree of tensors (nested dicts, lists, tuples; ``None`` leaves, as
+    in an optimizer's state) moved to ``device``."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    if tree is None:
+        return None
     return tree.to(device)
 
 
-def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None):
-    """tokens (B, S) → (logits (B, S, vocab_p), new_cache).
+def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None,
+                return_aux: bool = False, return_hidden: bool = False):
+    """tokens (B, S) → (logits (B, S, vocab_p), new_cache[, aux][, h]).
 
     ``cache``: None; a paged cache ``{"layers": [{pool_k, pool_v[,
     scale_k, scale_v]}, …], "pages": (B, P) int32, "lens": (B,) int32}``;
-    or a dense cache ``{"layers": [{k, v}, …], "pos"[, "pad"]}``
-    (``init_cache``; ``pos`` an int or a 0-d tensor, ``pad`` (B,) the
-    left-pad slots of each row).  The cache's tensors are written in place;
-    the returned cache shares them and carries ``lens + S`` (paged) or
-    ``pos + S`` (dense)."""
+    or a dense cache ``{"layers": [{k, v} or {ckv, kr}, …], "pos"[,
+    "pad"]}`` (``init_cache``; ``pos`` an int or a 0-d tensor, ``pad``
+    (B,) the left-pad slots of each row).  The cache's tensors are
+    written in place; the returned cache shares them and carries ``lens +
+    S`` (paged) or ``pos + S`` (dense).  ``return_aux`` adds the MoE
+    layers' summed auxiliary loss (0-d f32), ``return_hidden`` the final
+    normed hidden state (B, S, d) (the MTP head's input)."""
     Bn, S = tokens.shape
     x = embed_apply(params["embed"], tokens, cfg.cdtype)
     if cfg.embed_scale:
@@ -106,15 +161,20 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None):
     else:
         positions = ar
     windows = cfg.layer_windows
+    kinds = layer_kinds(cfg)
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p_l in enumerate(params["layers"]):
         if remat:
-            x = checkpoint(_block, p_l, x, cfg, windows[i], positions,
-                           use_reentrant=False)
-            continue
-        c_l = None if cache is None else dict(cache["layers"][i], **ctx)
-        x, _ = B.decoder_block_apply(p_l, x, cfg, window=windows[i],
-                                     cache=c_l, positions=positions)
+            x, a = checkpoint(_block, p_l, x, cfg, kinds[i], windows[i],
+                              positions, use_reentrant=False)
+        else:
+            c_l = None if cache is None else dict(cache["layers"][i], **ctx)
+            x, _, a = B.decoder_block_apply(p_l, x, cfg, ffn=kinds[i],
+                                            window=windows[i], cache=c_l,
+                                            positions=positions)
+        if kinds[i] == "moe":
+            aux = aux + a
     h = norm_apply(params, x, cfg.norm, cfg.norm_eps, "final_norm")
     logits = _head(params, cfg, h)
     new_cache = None
@@ -125,12 +185,18 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None):
         new_cache = {"layers": cache["layers"], "pos": cache["pos"] + S}
         if pad is not None:
             new_cache["pad"] = pad
-    return logits, new_cache
+    out = (logits, new_cache)
+    if return_aux:
+        out += (aux,)
+    if return_hidden:
+        out += (h,)
+    return out
 
 
-def _block(p_l, x, cfg, window, positions):
-    return B.decoder_block_apply(p_l, x, cfg, window=window,
-                                 positions=positions)[0]
+def _block(p_l, x, cfg, kind, window, positions):
+    x, _, aux = B.decoder_block_apply(p_l, x, cfg, ffn=kind, window=window,
+                                      positions=positions)
+    return x, aux
 
 
 def _head(params, cfg, h):
@@ -144,28 +210,43 @@ def _head(params, cfg, h):
     return check_finite(logits, "the LM head (logits)").to(cfg.cdtype)
 
 
+def mtp_logits(params, cfg, h, tokens):
+    """DeepSeek-style multi-token-prediction head: predicts token t+2 from
+    (h_t, emb(t+1)) through one dense block.  Returns logits (B, S-1,
+    vocab_p)."""
+    e = embed_apply(params["embed"], tokens[:, 1:], cfg.cdtype)
+    hin = torch.cat([h[:, :-1], e], dim=-1)
+    x = linear(params["mtp"]["proj"], "w", hin, cfg.mac, cfg.cdtype)
+    x, _, _ = B.decoder_block_apply(params["mtp"]["block"], x, cfg,
+                                    ffn="dense", window=None)
+    x = norm_apply(params["mtp"], x, cfg.norm, cfg.norm_eps, "mtp_norm")
+    return _head(params, cfg, x)
+
+
 def init_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:
-    """Dense KV cache: per layer ``k/v (batch, max_len, n_kv, hd)`` zeros
-    in the compute dtype, and ``pos`` 0 (a 0-d int32 tensor)."""
+    """Dense decode cache: per layer ``k/v (batch, max_len, n_kv, hd)``,
+    or with MLA the latent ``ckv (batch, max_len, r)`` and ``kr (batch,
+    max_len, rope_dim)``, zeros in the compute dtype; and ``pos`` 0 (a
+    0-d int32 tensor)."""
     dev = resolve_device(device)
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP: remaining archs)")
+    layer_stages(cfg)                       # refuses unported families
+    init = init_mla_cache if cfg.use_mla else init_kv_cache
     return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-            "layers": init_kv_cache(cfg, batch, max_len, cfg.n_layers,
-                                    device=dev)}
+            "layers": init(cfg, batch, max_len, cfg.n_layers, device=dev)}
 
 
 def supports_paged_cache(cfg) -> bool:
-    """Block paging needs plain per-layer (k, v) attention: the dense
-    family."""
-    return cfg.family == "dense"
+    """Block paging needs a plain per-layer (k, v) cache: dense/moe GQA
+    attention without MLA latents."""
+    return cfg.family in ("dense", "moe") and not cfg.use_mla
 
 
 def supports_ragged_mask(cfg) -> bool:
     """Whether left-pad masking (``pad_lens``) is exact for this arch:
     plain GQA attention over a dense cache (the paged predicate), and no
-    flash prefill, whose summation order a solo run would not share."""
+    flash prefill, whose summation order a solo run would not share.
+    MLA latents ingest the pads, which stay unmasked, as in the
+    reference."""
     return supports_paged_cache(cfg) and not cfg.flash_attention
 
 
@@ -202,15 +283,18 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, *, device=None):
 # bridges to and from the reference's layout
 # ---------------------------------------------------------------------------
 
-def to_reference_layout(tree: dict) -> dict:
+def to_reference_layout(tree: dict, cfg) -> dict:
     """A tree in the port's layout (params, or a delta of folded leaves)
-    in the reference's: the per-layer dicts under ``"layers"`` become
-    ``"stack"``, whose leaves are lists with one entry per layer (the
-    reference's ``(L, …)`` arrays, to be stacked by whoever writes or
-    hashes them); every other entry as is."""
+    in the reference's: the per-layer dicts under ``"layers"`` go to
+    their stages (``layer_stages``), whose leaves are lists with one
+    entry per layer (the reference's ``(L, …)`` arrays, to be stacked by
+    whoever writes or hashes them); every other entry as is."""
     out = {k: v for k, v in tree.items() if k != "layers"}
     if tree.get("layers"):
-        out["stack"] = _gather_layers(tree["layers"])
+        i = 0
+        for name, _, n in layer_stages(cfg):
+            out[name] = _gather_layers(tree["layers"][i:i + n])
+            i += n
     return out
 
 
@@ -220,13 +304,23 @@ def _gather_layers(layers: list) -> dict:
             for k, v in layers[0].items()}
 
 
-def from_reference_layout(tree: dict, n_layers: int) -> dict:
-    """Inverse of ``to_reference_layout``: the reference's ``"stack"`` of
-    ``(L, …)`` leaves becomes ``"layers"``, a list of ``n_layers``
-    per-layer dicts of slices; every other entry as is."""
-    out = {k: v for k, v in tree.items() if k != "stack"}
-    if "stack" in tree:
-        out["layers"] = [_slice(tree["stack"], i) for i in range(n_layers)]
+def _stage_items(tree: dict):
+    """(name, n_layers) of the reference stages in ``tree``, in run order
+    (n from the stage's first leaf)."""
+    for name in STAGE_NAMES:
+        if name in tree:
+            yield name, len(tree_leaves(tree[name])[0])
+
+
+def from_reference_layout(tree: dict) -> dict:
+    """Inverse of ``to_reference_layout``: every stage's ``(L, …)``
+    leaves become per-layer dicts of slices, one flat ``"layers"`` list in
+    run order; every other entry as is."""
+    out = {k: v for k, v in tree.items() if k not in STAGE_NAMES}
+    layers = [_slice(tree[name], i) for name, n in _stage_items(tree)
+              for i in range(n)]
+    if layers:
+        out["layers"] = layers
     return out
 
 
@@ -264,30 +358,34 @@ def _slice(tree, i):
             for k, v in tree.items()}
 
 
-def tree_from_reference(tree: dict, n_layers: int, device) -> dict:
+def tree_from_reference(tree: dict, device) -> dict:
     """A reference-layout tree of numpy leaves (params or a folded-leaf
     delta) → the port's layout as tensors on ``device``; folded ``*_fw``
     leaves become bf16 (from f32, or from the bf16 bits the port's
     bundles store as uint16)."""
-    return _convert(from_reference_layout(tree, n_layers),
-                    resolve_device(device))
+    return _convert(from_reference_layout(tree), resolve_device(device))
 
 
 def params_from_jax(tree, cfg, device=None) -> dict:
     """The reference's param tree (numpy leaves; stacked ``(L, …)`` leaves
-    under ``"stack"``) → the port's params on ``device``, every leaf as is
-    except folded ``*_fw`` tensors, which become bf16.  Carries the
-    ``encoded_infer`` leaves ``*_fw/_fb/_as/_ws`` too."""
-    return tree_from_reference(tree, cfg.n_layers, device)
+    under its stage names) → the port's params for ``cfg`` on ``device``,
+    every leaf as is except folded ``*_fw`` tensors, which become bf16.
+    Carries the ``encoded_infer`` leaves ``*_fw/_fb/_as/_ws`` too."""
+    want = [(name, n) for name, _, n in layer_stages(cfg)]
+    got = list(_stage_items(tree))
+    if got != want:
+        raise ValueError(f"the tree's stages {got} are not {cfg.arch}'s "
+                         f"{want}")
+    return tree_from_reference(tree, device)
 
 
-def stack_layers(params: dict) -> dict:
+def stack_layers(params: dict, cfg) -> dict:
     """The port's params in the reference's layout: the per-layer dicts
-    under ``"layers"`` become ``"stack"``, whose leaves are ``(L, …)``
-    tensors (``torch.stack``); every other entry as is.  The trainer keeps
-    its state in this layout, so its optimizer state and checkpoints
-    match the reference's leaf for leaf."""
-    return _stack_lists(to_reference_layout(params))
+    under ``"layers"`` become the stages of ``cfg``, whose leaves are
+    ``(L, …)`` tensors (``torch.stack``); every other entry as is.  The
+    trainer keeps its state in this layout, so its optimizer state and
+    checkpoints match the reference's leaf for leaf."""
+    return _stack_lists(to_reference_layout(params, cfg))
 
 
 def _stack_lists(tree):
@@ -297,13 +395,16 @@ def _stack_lists(tree):
 
 
 def unstack_layers(tree: dict) -> dict:
-    """Inverse of ``stack_layers``: per-layer views of the ``(L, …)``
-    leaves (``unbind``, whose backward is one stack per leaf)."""
-    out = {k: v for k, v in tree.items() if k != "stack"}
-    if "stack" in tree:
-        n = tree_leaves(tree["stack"])[0].shape[0]
-        per_leaf = _unbind(tree["stack"])
-        out["layers"] = [_pick(per_leaf, i) for i in range(n)]
+    """Inverse of ``stack_layers``: per-layer views of every stage's
+    ``(L, …)`` leaves (``unbind``, whose backward is one stack per leaf),
+    one flat ``"layers"`` list in run order."""
+    out = {k: v for k, v in tree.items() if k not in STAGE_NAMES}
+    layers = []
+    for name, n in _stage_items(tree):
+        per_leaf = _unbind(tree[name])
+        layers += [_pick(per_leaf, i) for i in range(n)]
+    if layers:
+        out["layers"] = layers
     return out
 
 

@@ -1,16 +1,30 @@
-"""Dense decoder block (port of the dense part of ``repro/nn/blocks.py``).
-Every block is (init, apply) with apply(params, x, cfg, *, window, cache,
-positions) → (x_out, new_cache)."""
+"""Decoder blocks of the dense and moe families (port of the dense/MoE
+part of ``repro/nn/blocks.py``): GQA attention or MLA, then a dense MLP
+or a mixture of experts.  Every block is (init, apply) with
+apply(params, x, cfg, *, ffn, window, cache, positions) → (x_out,
+new_cache, aux), ``aux`` the router's auxiliary loss (0 for a dense
+MLP)."""
 from __future__ import annotations
+
+import torch
 
 from .attention import attn_apply, attn_init
 from .common import mlp_apply, mlp_init, norm_apply, norm_init
+from .mla import mla_apply, mla_init
+from .moe import moe_apply, moe_init
 
 
-def decoder_block_init(generator, cfg) -> dict:
-    p = {"attn": attn_init(generator, cfg),
-         "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mac,
-                         cfg.gated_mlp, cfg.mlp_bias, cfg.pdtype)}
+def decoder_block_init(generator, cfg, ffn: str = "dense") -> dict:
+    p = {}
+    if cfg.use_mla:
+        p["mla"] = mla_init(generator, cfg)
+    else:
+        p["attn"] = attn_init(generator, cfg)
+    if ffn == "moe":
+        p["moe"] = moe_init(generator, cfg)
+    else:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mac,
+                            cfg.gated_mlp, cfg.mlp_bias, cfg.pdtype)
     p.update(norm_init(cfg.d_model, cfg.norm, cfg.pdtype, "ln1"))
     p.update(norm_init(cfg.d_model, cfg.norm, cfg.pdtype, "ln2"))
     if cfg.post_norm:
@@ -19,16 +33,25 @@ def decoder_block_init(generator, cfg) -> dict:
     return p
 
 
-def decoder_block_apply(p, x, cfg, *, window=None, cache=None,
-                        positions=None):
+def decoder_block_apply(p, x, cfg, *, ffn: str = "dense", window=None,
+                        cache=None, positions=None):
     h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln1")
-    a, new_cache = attn_apply(p["attn"], h, cfg, window=window, cache=cache,
-                              positions=positions)
+    if cfg.use_mla:
+        a, new_cache = mla_apply(p["mla"], h, cfg, cache=cache,
+                                 positions=positions)
+    else:
+        a, new_cache = attn_apply(p["attn"], h, cfg, window=window,
+                                  cache=cache, positions=positions)
     if cfg.post_norm:
         a = norm_apply(p, a, cfg.norm, cfg.norm_eps, "ln1p")
     x = x + a
     h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln2")
-    f = mlp_apply(p["mlp"], h, cfg.mac, cfg.act, cfg.gated_mlp, cfg.cdtype)
+    if ffn == "moe":
+        f, aux = moe_apply(p["moe"], h, cfg)
+    else:
+        f = mlp_apply(p["mlp"], h, cfg.mac, cfg.act, cfg.gated_mlp,
+                      cfg.cdtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.post_norm:
         f = norm_apply(p, f, cfg.norm, cfg.norm_eps, "ln2p")
-    return x + f, new_cache
+    return x + f, new_cache, aux

@@ -96,7 +96,9 @@ def embed_init(generator, vocab: int, d: int, dtype=torch.float32) -> dict:
 
 
 def embed_apply(p: dict, ids: torch.Tensor, compute_dtype) -> torch.Tensor:
-    return p["table"].to(compute_dtype)[ids.long()]
+    # the rows, then the cast (the same values as the reference's cast of
+    # the table, without a copy of a bf16 table in f32 on every call)
+    return p["table"][ids.long()].to(compute_dtype)
 
 
 # --- rotary -------------------------------------------------------------------

@@ -1,0 +1,173 @@
+"""Mixture-of-Experts with capacity-based sort dispatch (port of
+``repro/nn/moe.py``, its single-device branch; the expert-parallel
+``shard_map`` branch waits for tensor parallelism, ROADMAP Queue A).
+
+Routing is softmax top-k with the switch-style load-balance loss, or
+DeepSeek-V3's sigmoid router, which selects on ``scores + bias`` but
+weights by the unbiased scores and has no auxiliary loss.  The router and
+the routed experts are plain f32 products in every MAC mode, as in the
+reference (they never go through ``linear``); a shared expert is an
+``mlp_apply`` under ``cfg.mac``.
+
+Every step is a fixed-shape tensor program (no host sync), so a
+forward with MoE layers captures into a CUDA graph.  Two choices keep its
+results independent of the run: top-k is a stable descending sort (the
+reference's ``lax.top_k`` puts the lower index first on ties, which
+``torch.topk`` does not promise), and the combine sums each token's k
+contributions in the reference's scatter order, one add at a time,
+instead of an atomic ``index_add_``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .attention_mha import softmax_f32
+from .common import act_fn, mlp_apply, mlp_init
+
+_F32 = torch.float32
+# the expert stacks are cast to f32 (the reference's einsum promotion)
+# this many bytes of f32 weight at a time, so bf16 stacks never make a
+# whole f32 copy (256 x 7168 x 2048 experts would take 15 GB each)
+_CAST_BYTES = 1 << 30
+
+
+def moe_init(generator, cfg) -> dict:
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    std = 1.0 / math.sqrt(d)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=generator, dtype=_F32)
+
+    # in place: a full-width stack is 15 GB of f32 before its cast
+    p = {"router": {"w": randn(d, E).mul_(std)},
+         "experts_wi": randn(E, d, f).mul_(std).to(cfg.pdtype),
+         "experts_wg": randn(E, d, f).mul_(std).to(cfg.pdtype),
+         "experts_wo": randn(E, f, d).div_(math.sqrt(f)).to(cfg.pdtype)}
+    if cfg.router_type == "sigmoid":
+        p["router"]["bias"] = torch.zeros((E,), dtype=_F32)
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(generator, d, cfg.n_shared_experts * f,
+                               cfg.mac, gated=True, dtype=cfg.pdtype)
+    return p
+
+
+def top_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (T, k) of the k largest entries of each row, largest first
+    and, on ties, the lower index first (``jax.lax.top_k``'s order)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[:, :k]
+
+
+def route(p: dict, x2: torch.Tensor, cfg):
+    """Router → (topk_idx (T,k) int32, topk_w (T,k) f32, aux_loss 0-d)."""
+    logits = x2.to(_F32) @ p["router"]["w"].to(_F32)
+    k = cfg.top_k
+    if cfg.router_type == "sigmoid":          # DeepSeek-V3, aux-free
+        scores = torch.sigmoid(logits)
+        idx = top_k(scores + p["router"]["bias"][None, :], k)
+        w = torch.gather(scores, 1, idx)
+        w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+        aux = torch.zeros((), dtype=_F32, device=x2.device)
+    else:
+        probs = softmax_f32(logits)
+        idx = top_k(probs, k)
+        w = torch.gather(probs, 1, idx)
+        if cfg.norm_topk:
+            w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+        # switch-style load balance: E · Σ_e f_e · P̄_e
+        E = cfg.n_experts
+        first = torch.zeros((x2.shape[0], E), dtype=_F32, device=x2.device)
+        first.scatter_(1, idx[:, :1], 1.0)
+        aux = E * torch.sum(first.mean(0) * probs.mean(0))
+    return idx.to(torch.int32), w.to(_F32), aux
+
+
+def capacity(cfg, n_tokens: int) -> int:
+    """Slots per expert for a call over ``n_tokens`` tokens (B·S, pads
+    included, as the reference counts them)."""
+    return max(4, int(cfg.capacity_factor * n_tokens * cfg.top_k
+                      / cfg.n_experts))
+
+
+def dispatch_plan(idx: torch.Tensor, n_experts: int, cap: int):
+    """The reference's sort dispatch of (token, choice) pairs: ``order``
+    (stable argsort by expert), ``tid_s`` (each sorted pair's token),
+    ``keep`` (within its expert's first ``cap``) and ``slot`` (its row
+    in the ``(E·cap + 1)`` buffer; the last row takes the dropped)."""
+    T, k = idx.shape
+    key = idx.reshape(-1).long()
+    order = torch.sort(key, stable=True).indices
+    key_s = key[order]
+    tid_s = torch.div(order, k, rounding_mode="floor")
+    counts = torch.zeros((n_experts,), dtype=torch.long, device=idx.device)
+    counts.scatter_add_(0, key_s, torch.ones_like(key_s))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T * k, device=idx.device) - starts[key_s]
+    keep = rank < cap
+    slot = torch.where(keep, key_s * cap + rank,
+                       torch.full_like(key_s, n_experts * cap))
+    return order, tid_s, keep, slot
+
+
+def _expert_ffn_local(wi, wg, wo, buf, act):
+    """Every expert over its capacity rows: buf (E, C, d) → (E, C, d) f32.
+    Products in f32 (bf16 weights cast a chunk of experts at a time); the
+    hidden state is rounded to the weights' dtype before ``wo``, as the
+    reference does."""
+    E, f = wi.shape[0], wi.shape[2]
+    step = E if wi.dtype == _F32 else \
+        max(1, _CAST_BYTES // (wi.shape[1] * f * 4))
+    outs = []
+    for e0 in range(0, E, step):
+        sl = slice(e0, e0 + step)
+        b = buf[sl].to(_F32)
+        h = torch.bmm(b, wi[sl].to(_F32))
+        g = torch.bmm(b, wg[sl].to(_F32))
+        h = act_fn(act)(g) * h
+        outs.append(torch.bmm(h.to(wi.dtype).to(_F32), wo[sl].to(_F32)))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+
+
+def dispatch_compute(x2, idx, w, wi, wg, wo, *, capacity: int, act: str):
+    """Capacity-based sort dispatch + expert FFN + combine: x2 (T,d)
+    tokens, idx/w (T,k) routing, wi/wg/wo the (E, …) expert stacks →
+    (T, d) f32."""
+    T, d = x2.shape
+    k = idx.shape[1]
+    E = wi.shape[0]
+    order, tid_s, keep, slot = dispatch_plan(idx, E, capacity)
+    buf = torch.zeros((E * capacity + 1, d), dtype=x2.dtype,
+                      device=x2.device)
+    buf[slot] = x2[tid_s]
+    y = _expert_ffn_local(wi, wg, wo,
+                          buf[:-1].reshape(E, capacity, d), act)
+    y = torch.cat([y.reshape(E * capacity, d).to(_F32),
+                   torch.zeros((1, d), dtype=_F32, device=x2.device)], 0)
+    wgt_s = w.reshape(-1)[order]
+    contrib = y[slot] * torch.where(keep, wgt_s, 0.0)[:, None]
+    # the combine: token t's k pairs, added one at a time in their
+    # sorted order (the reference's scatter-add order), from 0
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(T * k, device=x2.device)
+    seq = torch.sort(pos.reshape(T, k), dim=1).values     # sorted slots
+    c = contrib[seq]                                       # (T, k, d)
+    out = torch.zeros((T, d), dtype=_F32, device=x2.device)
+    for j in range(k):
+        out = out + c[:, j]
+    return out
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg):
+    """MoE FFN over x (B, S, d) → (out, aux_loss)."""
+    B, S, d = x.shape
+    x2 = x.reshape(B * S, d)
+    idx, w, aux = route(p, x2, cfg)
+    out = dispatch_compute(x2, idx, w, p["experts_wi"], p["experts_wg"],
+                           p["experts_wo"], capacity=capacity(cfg, B * S),
+                           act=cfg.act)
+    out = out.to(cfg.cdtype)
+    if cfg.n_shared_experts:
+        out = out + mlp_apply(p["shared"], x2, cfg.mac, cfg.act, True,
+                              cfg.cdtype)
+    return out.reshape(B, S, d), aux

@@ -7,6 +7,7 @@ from .scheduler import (Scheduler, Request, QUEUED, PREFILLING, DECODING,
                         FINISHED, EVICTED)
 from .encoded import (prepare_encoded_serving, capture_activation_stats,
                       family_row_weights, search_family_encodings,
-                      fold_linear_params, exact_encodings, prepare_drafter)
+                      fold_linear_params, exact_encodings, arch_families,
+                      prepare_drafter)
 from .spec import (greedy_accept, rejection_sample, make_spec_draft,
                    make_spec_verify)

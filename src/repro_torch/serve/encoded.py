@@ -5,10 +5,12 @@ serve pipeline (port of ``repro/serve/encoded.py``).
     model with a recorder hook in ``nn.common.linear`` and keep, per
     linear call site, the activation max-abs and a value subsample of
     every call (``x.reshape(-1)[::stride]``, the reference's flattening
-    order).  Sites are keyed by (layer index, sub-module, name) —
-    attention ``wo`` and MLP ``wo`` share a name, not a key — where the
-    reference keys by a hash of the weight; both give the same per-layer
-    statistics.
+    order).  Sites are keyed by (layer index, sub-module path, name) —
+    attention ``wo`` and MLP ``wo`` share a name, not a key; a shared
+    expert's sub-module path is ``"moe/shared"`` — where the reference keys by
+    a hash of the weight; both give the same per-layer statistics.  The
+    router and the routed experts never pass through ``linear``, so they
+    produce no record and stay fp, as in the reference.
  2. **search** — per projection family (the linear's param name) the
     paper's random search plus annealed refinement (``core.search``), with
     every least-squares fit weighted by the calibration stream's joint
@@ -61,17 +63,27 @@ from repro_torch.quant.uniform import (calibrate_scale, code_histogram, qmax,
 ARTIFACT_VERSION = 1
 DEFAULT_CACHE_DIR = os.path.join(_ARTIFACT_DIR, "serving")
 FAMILIES = ("wq", "wk", "wv", "wo", "wi", "wg", "w")
+# the projection families of an MLA arch (deepseek-v3): its attention's
+# linears, the dense/shared-expert MLPs' and the head's
+MLA_FAMILIES = ("wq_a", "wq_b", "wkv_a", "wkr", "wk_b", "wv_b", "wo",
+                "wi", "wg", "w")
 # errors that mark a bundle as unreadable (it is then rebuilt)
 _BUNDLE_ERRORS = (OSError, ValueError, KeyError, json.JSONDecodeError,
                   zipfile.BadZipFile, EOFError)
 
 
-def exact_encodings(bits: int = 8) -> dict:
-    """The bit-exact AND-plane encoding for every projection family
-    (``--encoding exact``): U = ``bits`` activation planes, RMSE 0."""
+def arch_families(cfg) -> tuple:
+    """The projection families an arch's linears fall in."""
+    return MLA_FAMILIES if cfg.use_mla else FAMILIES
+
+
+def exact_encodings(bits: int = 8, families=FAMILIES) -> dict:
+    """The bit-exact AND-plane encoding for every projection family in
+    ``families`` (``--encoding exact``; ``arch_families(cfg)`` for an
+    arch): U = ``bits`` activation planes, RMSE 0."""
     circ, s = exact_product_circuit(bits, bits)
     mac = EncodedMac.from_spec(EncodingSpec(circ, s, 0.0))
-    return {n: mac for n in FAMILIES}
+    return {n: mac for n in families}
 
 
 # ---------------------------------------------------------------------------
@@ -81,30 +93,43 @@ def exact_encodings(bits: int = 8) -> dict:
 @dataclasses.dataclass
 class CalibStats:
     """Per-call-site activation statistics from the calibration stream,
-    keyed by (layer | None, sub-module, name)."""
+    keyed by (layer | None, sub-module path ("/"-joined), name)."""
     amax: dict          # site -> max |x| over the stream
     samples: dict       # site -> list of per-call f32 value subsamples
     n_tokens: int = 0
 
 
 def _linear_sites(params) -> dict:
-    """{id(weight): (layer, sub, name)} for every linear weight."""
+    """{id(weight): (layer, sub-module path, name)} for every 2-D weight
+    of a layer (in any sub-module) and the untied head; only those a
+    ``linear`` call reads get a record."""
     sites = {}
+
+    def walk(node, li, path):
+        for name, t in node.items():
+            if isinstance(t, dict):
+                walk(t, li, f"{path}/{name}" if path else name)
+            elif isinstance(t, torch.Tensor) and t.dim() == 2:
+                sites[id(t)] = (li, path, name)
+
     for li, layer in enumerate(params["layers"]):
-        for sub in ("attn", "mlp"):
-            for name, t in layer[sub].items():
-                if name in FAMILIES and t.dim() == 2:
-                    sites[id(t)] = (li, sub, name)
+        walk(layer, li, "")
     if "lm_head" in params:
         sites[id(params["lm_head"]["w"])] = (None, "lm_head", "w")
     return sites
 
 
-def _site_order(site):
-    """The reference's order of sites: its tree's sorted keys (``lm_head``
-    before ``stack``), then the layers of a stacked leaf."""
-    li, sub, name = site
-    return (li is not None, sub, name, li or 0)
+def _site_order_of(params):
+    """The reference's order of sites: the head first (its tree's
+    ``lm_head`` precedes the stages), then each stage in run order (the
+    dense prefix before the MoE stack) by sorted path, and the layers of
+    a stacked leaf in turn."""
+    def order(site):
+        li, path, name = site
+        if li is None:
+            return (0, False, path, name, 0)
+        return (1, "moe" in params["layers"][li], path, name, li)
+    return order
 
 
 @torch.inference_mode()
@@ -138,8 +163,11 @@ def capture_activation_stats(params, cfg, *, n_batches: int = 4,
     return stats
 
 
-def _node(params, li, sub):
-    return params[sub] if li is None else params["layers"][li][sub]
+def _node(params, li, path):
+    node = params if li is None else params["layers"][li]
+    for k in path.split("/"):
+        node = node[k]
+    return node
 
 
 # ---------------------------------------------------------------------------
@@ -158,9 +186,9 @@ def family_row_weights(params, stats: CalibStats, bits: int,
     family in the reference's order."""
     fam_a: dict = {}
     fam_w: dict = {}
-    for key in sorted(stats.amax, key=_site_order):
-        li, sub, name = key
-        w = _node(params, li, sub)[name].to(torch.float32)
+    for key in sorted(stats.amax, key=_site_order_of(params)):
+        li, path, name = key
+        w = _node(params, li, path)[name].to(torch.float32)
         sw = float(calibrate_scale(w, bits))
         fam_w[name] = fam_w.get(name, 0.0) + code_histogram(w, sw, bits)
         sa = max(stats.amax[key], 1e-8) / qmax(bits)
@@ -211,30 +239,61 @@ def search_family_encodings(row_weights: dict, bits: int, m_bits,
 # 3. fold
 # ---------------------------------------------------------------------------
 
+# the fold's f32 temporaries (the weight planes and W̃) are made for
+# this many bytes of W̃ at a time: a full-width head (deepseek-v3's
+# 7168 x 129280 at U = 8) would take 30 GB of each at once
+_FOLD_BYTES = 1 << 31
+
+
+def _fold_by_columns(program, wc, s):
+    """``program.fold_weights`` of the codes ``wc (k, n)`` in column
+    slices of at most ``_FOLD_BYTES`` of f32 W̃, each rounded to bf16 as it
+    is made: (W̃ (U, k, n) bf16, bias (n,) f32).  A column of W̃ and of the
+    bias depends on that column of the weight alone, so the slices give
+    the one-pass fold's numbers."""
+    k, n = wc.shape
+    U = program.n_a_planes
+    step = max(1, _FOLD_BYTES // (4 * U * k))
+    if step >= n:
+        Wt, b = program.fold_weights(wc, s)
+        return Wt.to(torch.bfloat16), b
+    Wt = torch.empty((U, k, n), dtype=torch.bfloat16, device=wc.device)
+    b = torch.empty((n,), dtype=torch.float32, device=wc.device)
+    for c0 in range(0, n, step):
+        w_c, b_c = program.fold_weights(wc[:, c0:c0 + step], s)
+        Wt[:, :, c0:c0 + step] = w_c
+        b[c0:c0 + step] = b_c
+        del w_c
+    return Wt, b
+
+
 @torch.inference_mode()
 def fold_linear_params(params, stats: CalibStats, macs: dict,
                        bits: int) -> dict:
     """The folded-leaf delta in the port's layout (``{"layers": [{sub:
-    {…}}, …], "lm_head": {…}}``): per calibrated site ``name_fw (U,k,n)``
+    {…}}, …], "lm_head": {…}}``, sub-modules nested as in the params):
+    per calibrated site ``name_fw (U,k,n)``
     bf16, ``name_fb (n,)`` f32, ``name_as``, ``name_ws`` (0-d f32), each
     folded with its family's encoding, on the weights' device, one linear
     at a time."""
     delta: dict = {"layers": [{} for _ in params["layers"]]}
     qm = np.float32(qmax(bits))
-    for (li, sub, name), amax in stats.amax.items():
+    for (li, path, name), amax in stats.amax.items():
         if name not in macs:
             continue
         mac = macs[name]
-        w = _node(params, li, sub)[name].to(torch.float32)
+        w = _node(params, li, path)[name].to(torch.float32)
         sw = calibrate_scale(w, bits)
         wc = quantize_codes(w, sw, bits)
         s = torch.as_tensor(np.asarray(mac.spec.s, np.float32),
                             device=w.device)
-        Wt, b = mac.program.fold_weights(wc, s)
+        Wt, b = _fold_by_columns(mac.program, wc, s)
         sa = np.maximum(np.float32(amax), np.float32(1e-8)) / qm
         node = delta if li is None else delta["layers"][li]
-        node.setdefault(sub, {}).update({
-            name + "_fw": Wt.to(torch.bfloat16),
+        for k in path.split("/"):
+            node = node.setdefault(k, {})
+        node.update({
+            name + "_fw": Wt,
             name + "_fb": b,
             name + "_as": torch.tensor(sa, dtype=torch.float32,
                                        device=w.device),
@@ -302,13 +361,14 @@ def _leaves_in_reference_order(tree):
             yield v
 
 
-def _params_fingerprint(params) -> str:
+def _params_fingerprint(params, cfg) -> str:
     """sha1 over every leaf's shape and bytes in the reference's leaf
     order, stacked leaves as ``(L, …)`` arrays (hashed layer by layer: the
     bytes of a C-order stack are its layers' bytes in turn).  The same
     params give the reference's fingerprint."""
     h = hashlib.sha1()
-    for leaf in _leaves_in_reference_order(to_reference_layout(params)):
+    for leaf in _leaves_in_reference_order(to_reference_layout(params,
+                                                               cfg)):
         parts = leaf if isinstance(leaf, list) else [leaf]
         shape = tuple(parts[0].shape)
         if isinstance(leaf, list):
@@ -332,7 +392,7 @@ def _bundle_key(cfg, params, opts: dict) -> str:
     ident = dict(opts)
     ident.update(version=ARTIFACT_VERSION, arch=cfg.arch,
                  n_layers=cfg.n_layers, d_model=cfg.d_model,
-                 params=_params_fingerprint(params))
+                 params=_params_fingerprint(params, cfg))
     blob = json.dumps(ident, sort_keys=True, default=str)
     return hashlib.sha1(blob.encode()).hexdigest()[:12]
 
@@ -353,7 +413,7 @@ def _save_bundle(bundle: str, key: str, cfg, opts: dict, macs: dict,
     for name, mac in macs.items():
         EncodedMac.save(mac.spec, f"enc_{name}", artifact_dir=bundle)
     save_array_tree(os.path.join(bundle, "folded.npz"),
-                    _host_tree(to_reference_layout(delta)))
+                    _host_tree(to_reference_layout(delta, cfg)))
     manifest = {
         "version": ARTIFACT_VERSION, "key": key, "arch": cfg.arch,
         "opts": dict(opts),
@@ -395,7 +455,7 @@ def _load_bundle(bundle: str, key: str, cfg, dev):
         if leaf_key.endswith("_fw") and a.dtype != want:
             raise ValueError(f"{leaf_key}: {a.dtype}, manifest says "
                              f"{fw_dtype}")
-    return macs, tree_from_reference(tree, cfg.n_layers, dev)
+    return macs, tree_from_reference(tree, dev)
 
 
 def _flat_items(tree, prefix=""):

@@ -138,6 +138,13 @@ class Engine:
                  cuda_graphs: Optional[bool] = None):
         if not supports_paged_cache(cfg):
             raise ValueError(f"{cfg.arch!r} cannot serve paged")
+        if cfg.family == "moe" and (prefix_cache or spec_decode):
+            # a MoE layer's capacity depends on the tokens of the call, so
+            # a cached prefix or a verify forward would not recompute what
+            # a plain serve computes; neither is ported for this family
+            raise ValueError(
+                f"{cfg.arch!r}: the prefix cache and speculative decoding "
+                "are not ported for the moe family (ROADMAP Queue A)")
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         self.params, self.cfg = params, cfg

@@ -4,14 +4,18 @@ inside the model) — port of ``repro/train/trainer.py``.
 
 The train state is the reference's tree: ``{"params", "opt", "step"}``
 with the params in the reference's layout (per-layer leaves stacked
-``(L, …)`` under ``"stack"``, ``models.stack_layers``), so the optimizer
-state and the step checkpoints are the reference's leaf for leaf.  The
-step is functional: it returns a new state and leaves its input intact.
+``(L, …)`` under each stage's name, ``models.stack_layers``), so the
+optimizer state and the step checkpoints are the reference's leaf for
+leaf.  The step is functional: it returns a new state and leaves its
+input intact.
 
-Not ported yet: multi-token prediction (``cfg.mtp``, with the MoE family,
-ROADMAP Queue A item 4) and the int8 error-feedback all-reduce over
-data-parallel ranks (``grad_compress``, with tensor parallelism, Queue A
-item 3); both raise.
+The loss is the reference's: the LM loss, plus ``mtp_weight`` times the
+multi-token-prediction head's loss with ``cfg.mtp``, plus
+``aux_loss_weight`` times the MoE layers' summed router loss (switch-style
+load balance for a softmax router, 0 for the sigmoid router, whose
+``bias`` gets a zero gradient).  Not ported yet: the int8 error-feedback
+all-reduce over data-parallel ranks (``grad_compress``, with tensor
+parallelism, ROADMAP Queue A item 3), which raises.
 """
 from __future__ import annotations
 
@@ -20,8 +24,8 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import (apply_model, init_model, stack_layers,
-                                unstack_layers)
+from repro_torch.models import (apply_model, init_model, mtp_logits,
+                                stack_layers, unstack_layers)
 from repro_torch.optim import (clip_by_global_norm, make_optimizer,
                                warmup_cosine)
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -32,11 +36,7 @@ TrainState = dict      # {"params", "opt", "step"}
 _F32 = torch.float32
 
 
-def _refuse(cfg, grad_compress: bool) -> None:
-    if cfg.mtp:
-        raise NotImplementedError(
-            "multi-token prediction (cfg.mtp) is not ported yet: it comes "
-            "with the MoE family (ROADMAP Queue A item 4)")
+def _refuse(grad_compress: bool) -> None:
     if grad_compress:
         raise NotImplementedError(
             "the int8 error-feedback gradient all-reduce (grad_compress) "
@@ -49,9 +49,9 @@ def init_train_state(cfg, seed: int = 0, device=None,
     """Params from ``seed`` (``init_model``) in the reference's layout, the
     optimizer's zero state and step 0, on ``device`` (default: the
     card)."""
-    _refuse(cfg, grad_compress)
+    _refuse(grad_compress)
     dev = resolve_device(device)
-    params = stack_layers(init_model(cfg, seed=seed, device=dev))
+    params = stack_layers(init_model(cfg, seed=seed, device=dev), cfg)
     opt = make_optimizer(cfg.optimizer)
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -74,17 +74,20 @@ def make_train_step(cfg, *, total_steps: int = 10000, warmup: int = 100,
     optimizer step per step; the metrics are the last chunk's, as the
     reference's scan reports them).  metrics: ``loss``, ``aux``, ``gnorm``
     (before clipping) and ``lr``, 0-d f32 tensors."""
-    _refuse(cfg, grad_compress)
+    _refuse(grad_compress)
     opt = make_optimizer(cfg.optimizer)
     lr_fn = warmup_cosine(cfg.learning_rate, warmup, total_steps)
 
     def loss_fn(params, batch):
-        logits, _ = apply_model(unstack_layers(params), cfg,
-                                batch["tokens"])
-        # the dense family has no auxiliary loss (the reference's is 0)
-        aux = torch.zeros((), dtype=_F32, device=logits.device)
+        p = unstack_layers(params)
+        logits, _, aux, h = apply_model(p, cfg, batch["tokens"],
+                                        return_aux=True, return_hidden=True)
         S = batch["labels"].shape[1]
         loss = lm_loss(logits[:, -S:], batch["labels"])
+        if cfg.mtp:
+            l2 = mtp_logits(p, cfg, h[:, -S:], batch["tokens"])
+            loss = loss + cfg.mtp_weight * lm_loss(l2[:, :-1],
+                                                   batch["labels"][:, 2:])
         return loss + cfg.aux_loss_weight * aux, (loss, aux)
 
     def grad_of(params, batch):

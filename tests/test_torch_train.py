@@ -403,9 +403,17 @@ def test_loss_decreases():
 
 
 def test_mtp_and_grad_compress_raise():
+    """The int8 error-feedback all-reduce (``grad_compress``) still
+    raises; multi-token prediction is ported with the moe family
+    (``tests/test_torch_moe_train.py``) and now builds a step, which adds
+    its loss on a dense arch too."""
     cfg = _tiny_train_cfg()
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        make_train_step(dataclasses.replace(cfg, mtp=True))
+    mtp = dataclasses.replace(cfg, mtp=True)
+    st = init_train_state(mtp, seed=0, device="cpu")
+    assert "mtp" in st["params"]
+    b = SyntheticLMDataset(cfg.vocab_size, seq_len=16, seed=1).batch(0, 2)
+    _, m = make_train_step(mtp)(st, b)
+    assert np.isfinite(float(m["loss"]))
     with pytest.raises(NotImplementedError, match="Queue A item 3"):
         make_train_step(cfg, grad_compress=True)
     with pytest.raises(NotImplementedError, match="Queue A item 3"):
