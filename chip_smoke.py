@@ -182,6 +182,35 @@ follows each call's padded B·S).  Phase 7 holds both reduced configs
 card vs CPU: tokens on both engines, and 5 fp train steps (router aux,
 MTP loss).  Each phase logs its seconds (``[phase]``).
 
+The prefix cache and speculative decoding on qwen3-moe: phase 3 gates
+kernel 1 at its verify m = 20 too, and phase 4 kernel 2 at its verify
+shapes (64/4 heads, D 128, Sq 5 and 9: 80 and 144 rows a kv head, which
+f32 pools take in two chunks of shared memory) for every pool type over
+a 127-page table.  Phase 6h serves the shared-prefix trace of 6c with
+the cache on and off and the main trace with spec decoding (k = 4, the
+``self`` drafter), exact encoding, f32 pools, graphed and eager
+(identical), the draft and verify graphs' kernel nodes counted; cache on
+vs off and spec vs plain are logged with each eager run's MoE drops and
+gated as identical only where both drop 0 pairs (each call's capacity
+follows its own padded B·S).  Phase 7 holds qwen3-moe reduced with the
+prefix cache and with spec decoding card vs CPU.
+
+The vlm and hybrid families (``NEW_ARCHS``): phase 3 also gates kernel 1
+at every (k, n) of phi-3-vision-4.2b and hymba-1.5b at decode m = 4 and
+their static prefills (hymba's with its 128 meta tokens, m = 4·(S +
+128); its ``wbcdt``, n = 132, is the first unaligned n of a serve).
+Phase 6i serves both at full width, 4 of 32 layers (hymba: layer 0
+global, layers 1-3 windowed at 2048), weights drawn on the card, through
+``ServeEngine`` (neither pages) with the exact encoding and fp weights,
+graphed and eager (identical), a repeat serve identical; launches by
+(m, k, n), kernels 2 and 3 never; folded bytes, peak memory, step p50
+and tok/s.  Phase 7 holds both reduced configs card vs CPU
+(``ServeEngine``; phi-3-vision through ``generate`` with an ``img`` from
+the seed; 5 fp train steps), and serves reduced qwen1.5-0.5b through the
+serve CLI with ``--mac int8`` on both engines.  Phase 8 adds kernel 1's
+rows at the new archs' shapes and qwen3-moe's verify m, and kernel 2's
+at Sq 5 and 9 with a group of 16.
+
 Every phase that folds writes its bundle into a fresh directory under
 ``build/`` (git-ignored), logs the free disk first and removes it at its
 end.  The last line is ``{"ok": true, "device": {...}}``.
@@ -229,6 +258,9 @@ LONG_PROMPT = 4200
 # ``for_mesh`` sets for models past 4e9 parameters; compute stays f32
 MOE_ARCHS = (("qwen3-moe-235b-a22b", 2, "float32"),
              ("deepseek-v3-671b", 2, "bfloat16"))
+# the vlm and hybrid families at full width, depth cut (phase 6i): hymba
+# keeps layer 0 global and windows layers 1-3 at 2048
+NEW_ARCHS = (("phi-3-vision-4.2b", 4), ("hymba-1.5b", 4))
 # with fp weights two engines may part only at a near-tie: the candidates'
 # logits within this share of the largest |logit| (f32 summation orders
 # part them by about 1e-6 of it at full width)
@@ -271,12 +303,14 @@ def make_trace(vocab: int, seed: int = 0):
     return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
 
 
-def static_prefill_ms():
+def static_prefill_ms(meta: int = 0):
     """Kernel 1's m in the static engine's prefills of the main trace: one
-    per chunk of ``N_SLOTS`` requests, batch x its longest prompt (largest
-    first; the trace's lengths do not depend on the vocab)."""
+    per chunk of ``N_SLOTS`` requests, batch x (its longest prompt + the
+    arch's ``meta`` tokens) (largest first; the trace's lengths do not
+    depend on the vocab)."""
     lens = [len(p) for p in make_trace(2)]
-    return sorted({len(lens[c:c + N_SLOTS]) * max(lens[c:c + N_SLOTS])
+    return sorted({len(lens[c:c + N_SLOTS]) * (max(lens[c:c + N_SLOTS])
+                                               + meta)
                    for c in range(0, N_REQUESTS, N_SLOTS)}, reverse=True)
 
 
@@ -454,11 +488,14 @@ def _moe_cfg(arch, reduced=False):
 
 def _moe_ms(arch):
     """Kernel 1's m in the serves of phase 6h: static prefills of the
-    trace's chunks and decode at batch ``N_SLOTS`` (both engines), and the
-    continuous engine's 32-token prefill chunks where the arch pages."""
+    trace's chunks and decode at batch ``N_SLOTS`` (both engines, and the
+    draft steps), and where the arch pages the continuous engine's
+    32-token prefill chunks (with the prefix cache too) and speculative
+    verification at k = ``SPEC_K`` (m = N_SLOTS·(k+1))."""
     from repro_torch.models import supports_paged_cache
     pages = supports_paged_cache(_moe_cfg(arch))
-    return (N_SLOTS,) + ((32,) if pages else ()) + tuple(static_prefill_ms())
+    return (N_SLOTS,) + ((32, N_SLOTS * (SPEC_K + 1)) if pages else ()) \
+        + tuple(static_prefill_ms())
 
 
 def phase_kernel1_moe(dev):
@@ -500,6 +537,57 @@ def phase_kernel1_moe(dev):
             torch.cuda.empty_cache()
     log(f"[kernel1-moe] {n_cases} cases of the moe archs, every one at "
         f"error {worst:.3e} against plain")
+
+
+def _new_cfg(arch, reduced=False):
+    """A vlm or hybrid arch of ``NEW_ARCHS`` at its cut depth (or
+    reduced)."""
+    from repro_torch.configs import get_config
+    depth = next(d for a, d in NEW_ARCHS if a == arch)
+    cfg = get_config(arch)
+    return cfg.reduced() if reduced else cfg.with_layers(depth)
+
+
+def phase_kernel1_new(dev):
+    """Kernel 1 at every (k, n) of phi-3-vision-4.2b and hymba-1.5b at
+    full width, at each m their static serves run: decode (m = 4) and the
+    static prefills of the trace's chunks, hymba's with its 128 meta
+    tokens (``static_prefill_ms(meta)``); hymba's ``wbcdt`` (k 3200, n
+    132) is the first serving shape whose n is not a multiple of 8 (the
+    element-by-element fill and a ragged last n-tile).  Real-size Wt made
+    on the card."""
+    import torch
+    from repro_torch.kernels import encoded_matmul as em
+    prog = _program("exact")
+    n_cases = 0
+    for arch, _ in NEW_ARCHS:
+        cfg = _new_cfg(arch)
+        ms = (N_SLOTS,) + tuple(static_prefill_ms(cfg.meta_tokens))
+        for k, n in _arch_em_shapes(cfg):
+            xs, wt, bias, sh = _em_dev_case(dev, prog, ms, k, n,
+                                            seed=k + n)
+            for x in xs:
+                out = em.encoded_matmul(x, wt, bias, sh)
+                ref = em.encoded_matmul_plain(x, wt, bias, sh)
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                top = ref.abs().max().item()
+                ok = torch.allclose(out, ref, rtol=1e-4, atol=1e-4 * top) \
+                    and bool(torch.isfinite(out).all())
+                log(f"[kernel1-new] {arch:17s} U={prog.n_a_planes} "
+                    f"m={x.shape[0]:4d} k={k:5d} n={n:6d} "
+                    f"max_abs_err={err:.3e} (atol {1e-4 * top:.3e}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"kernel1 disagrees with plain at "
+                                         f"{arch} {(x.shape[0], k, n)}")
+                GATED_EM.add((x.shape[0], k, n))
+                n_cases += 1
+                del out, ref
+            del xs, wt, bias
+            torch.cuda.empty_cache()
+    log(f"[kernel1-new] {n_cases} cases of the vlm and hybrid archs within "
+        "tolerance")
 
 
 def phase_kernel1(dev):
@@ -645,19 +733,26 @@ def phase_kernel2_d128(dev):
     largest) with the dense archs' head layouts (20/20 qwen1.5-4b, 24/2
     starcoder2-3b, 32/16 gemma2-27b), Sq 1 and 5, f32, bf16, int8 and int4
     pools, gemma2's layout with window 100 and softcap 50, and qwen3-moe's
-    64/4 (GQA group 16) at Sq 1."""
+    64/4 (GQA group 16) at Sq 1, and at Sq 5 and 9 (its verify forwards:
+    80 and 144 rows a kv head; f32 pools take them in two chunks) over a
+    127-page table, one row filling it."""
     import torch
     from repro_torch.kernels import paged_attention as pa
-    ps, D, P = 16, 128, 32
+    ps, D = 16, 128
     lens = [0, 16, 17, 511]
     cases = [(Hq, Hkv, sq, None, None) for Hq, Hkv in
              ((20, 20), (24, 2), (32, 16)) for sq in (1, 5)]
     cases += [(32, 16, sq, 100, 50.0) for sq in (1, 5)]
-    # qwen3-moe's decode: 64 query heads over 4 kv heads (group 16), Sq 1
+    # qwen3-moe's decode: 64 query heads over 4 kv heads (group 16), Sq 1;
+    # and its verify forwards at k = 4 and 8 (80 and 144 rows a kv head)
+    # over the serve's 127-page table, lens up to the table's end
     cases += [(64, 4, 1, None, None)]
+    cases += [(64, 4, sq, None, None, SERVE_P) for sq in (SPEC_K + 1, 9)]
     for mode in ("f32", "bf16", "int8", "int4"):
-        for Hq, Hkv, Sq, window, cap in cases:
-            ln = [min(x, P * ps - Sq) for x in lens]
+        for Hq, Hkv, Sq, window, cap, *pp in cases:
+            P = pp[0] if pp else 32
+            ln = [min(x, P * ps - Sq) for x in
+                  (lens if not pp else [0, 100, 1000, P * ps])]
             seed = Hq + Hkv + Sq
             if mode in ("f32", "bf16"):
                 dt = torch.float32 if mode == "f32" else torch.bfloat16
@@ -902,7 +997,8 @@ def _check_counts(counts, st, cfg, chunk_len, where, gated=False,
 def _linear_shapes(cfg, decode: bool = False) -> dict:
     """Encoded linears of one forward by (k, n): per layer the attention's
     (wq, wk, wv, wo; with MLA wq_a, wq_b, wkv_a, wkr, wo, and in a prefill
-    wk_b, wv_b, which decode reads raw) and the MLP's (wi, wg for gated
+    wk_b, wv_b, which decode reads raw), a hybrid layer's SSM (win, wbcdt,
+    wout; its wdt is a plain product) and the MLP's (wi, wg for gated
     MLPs, wo: the dense MLP, or a MoE layer's shared expert; the router
     and routed experts are plain products), and an untied LM head (a tied
     head reads the embedding table, an fp product).  ``decode``: a
@@ -920,11 +1016,16 @@ def _linear_shapes(cfg, decode: bool = False) -> dict:
                 (H * hd, d)]
     out = collections.Counter()
     for kind in layer_kinds(cfg):
-        ff = cfg.d_ff if kind == "dense" else \
+        ff = cfg.d_ff if kind != "moe" else \
             cfg.n_shared_experts * cfg.d_ff_expert
         gated = cfg.gated_mlp or kind == "moe"
         mlp = [(d, ff), (ff, d)] + ([(d, ff)] if gated else []) if ff else []
-        for kn in attn + mlp:
+        ssm = []
+        if kind == "hybrid":               # win, wbcdt, wout (wdt: plain)
+            di = cfg.ssm_expand * d
+            ssm = [(d, 2 * di), (di, max(1, d // 16) + 2 * cfg.ssm_state),
+                   (di, d)]
+        for kn in attn + mlp + ssm:
             out[kn] += 1
     if not cfg.tie_embeddings:
         out[(d, cfg.vocab_p)] += 1
@@ -941,19 +1042,20 @@ def _path_shapes(cfg, forwards, decode: bool = False):
     return dict(want)
 
 
-def _static_forwards(chunks):
+def _static_forwards(chunks, meta: int = 0):
     """Model forwards of a static serve by m, (prefill, decode): per
-    chunk one prefill of batch·seq rows, and its decode steps plus the
-    eager warm-up of each graph it captured at batch rows."""
+    chunk one prefill of batch·(seq + meta tokens) rows, and its decode
+    steps plus the eager warm-up of each graph it captured at batch
+    rows."""
     pre, dec = collections.Counter(), collections.Counter()
     for c in chunks:
-        pre[c["batch"] * c["seq"]] += 1
+        pre[c["batch"] * (c["seq"] + meta)] += 1
         dec[c["batch"]] += c["decode_steps"] + c["captures"]
     return pre, dec
 
 
 def _static_shapes(cfg, chunks):
-    pre, dec = _static_forwards(chunks)
+    pre, dec = _static_forwards(chunks, cfg.meta_tokens)
     return dict(collections.Counter(_path_shapes(cfg, pre))
                 + collections.Counter(_path_shapes(cfg, dec, decode=True)))
 
@@ -2417,6 +2519,105 @@ def _moe_serves(dev, cfg, weights, trace):
     return res
 
 
+def _moe_cache_spec(dev, cfg, params, trace, res):
+    """Phase 6h's prefix cache and speculative decoding on a paged moe
+    arch (the exact encoding, dense f32 pools): the shared-prefix trace of
+    6c with the cache on and off, and the main trace with spec decoding at
+    k = ``SPEC_K`` (``self`` drafter); each graphed and eager (identical
+    tokens), the graphed engine serving again (identical with the cache
+    off; with the cache on or spec decoding logged only: a warm index hits
+    every prompt, and a round's non-decoding rows attend over stale
+    positions, so the repeat routes other MoE batches); launches as
+    the forwards make them, at gated shapes; the draft and verify graphs'
+    kernel nodes equal to what a replay counts (the MoE dispatch captured
+    beside kernels 1 and 2).  Each call's capacity follows its own padded
+    B·S, so cache on vs off and spec vs plain (``res``: the plain serve of
+    ``_moe_serves``) are logged with the eager runs' MoE drops and gated
+    as identical only where both drop 0 pairs."""
+    out = {}
+    ptrace = _prefix_trace(cfg.vocab_size)
+    for name, tr, kw in (("prefix off", ptrace, {}),
+                         ("prefix on", ptrace, dict(prefix_cache=True)),
+                         (f"spec k={SPEC_K}", trace,
+                          dict(spec_decode=SPEC_K))):
+        for graphs in (True, False):
+            tag = f"{cfg.arch} exact {name} {'graphed' if graphs else 'eager'}"
+            with _drop_tally(not graphs) as tally:
+                eng, rids = _serve(params, cfg, tr, dev, cuda_graphs=graphs,
+                                   **kw)
+                outs, dt, counts, st = _timed_run(eng, rids)
+            toks = [outs[r].tolist() for r in rids]
+            _finished(toks, cfg, tag)
+            _check_counts(counts, st, cfg, eng.prefill_chunk, f"({tag})",
+                          gated=True)
+            if kw.get("prefix_cache") and st["prefix_hit_tokens"] <= 0:
+                raise AssertionError(f"{tag}: no prefix hit")
+            note = ""
+            if graphs:
+                rids2 = [eng.submit(q, max_new=MAX_NEW) for q in tr]
+                outs2 = eng.run()
+                toks2 = [outs2[r].tolist() for r in rids2]
+                if kw:
+                    # not gated: with the cache on, the warm index hits
+                    # every prompt's cached pages, so the repeat prefills
+                    # other suffixes; under spec decoding the rows of
+                    # slots that do not decode in a round attend over
+                    # their pages' stale positions, which the first serve
+                    # found zeroed; either way other MoE batches
+                    n2, p2 = _agreement(toks2, toks)
+                    note = (f"; repeat serve (prefix hits "
+                            f"{eng.stats()['prefix_hit_tokens']}) {n2} of "
+                            f"{len(toks)} identical, parts {p2} (logged)")
+                elif toks2 != toks:
+                    raise AssertionError(f"{tag}: a repeat serve on the "
+                                         "same engine differs")
+                else:
+                    note = "; repeat serve identical"
+                if "spec_decode" in kw:
+                    for step in ("draft", "verify"):
+                        _replay_split(eng.steps[step])
+            drops = None if graphs else _drops(tally)
+            log(f"[moe] {tag}: {sum(map(len, toks)) / dt:.1f} tok/s, step "
+                f"p50 {st['step_ms_p50']:.2f} ms, prefill tokens "
+                f"{st['prefill_tokens']} in {st['prefill_chunks']} chunks, "
+                f"prefix hits {st['prefix_hit_tokens']}" + (
+                    f", {st['spec_rounds']} spec rounds, acceptance "
+                    f"{st['spec_acceptance_rate']:.3f}"
+                    if "spec_decode" in kw else "")
+                + f"; launches kernel 1 {counts['encoded_matmul']}, kernel 2 "
+                f"by Sq {counts['paged_attn_by_sq']}, flash "
+                f"{counts['flash_attention']}" + (
+                    f"; MoE drops {drops} (pairs dropped, pairs)"
+                    if drops else "") + note)
+            out[(name, graphs)] = {"tokens": toks, "counts": counts,
+                                   "stats": st, "drops": drops,
+                                   "tok_s": sum(map(len, toks)) / dt}
+            del eng
+        same = out[(name, True)]["tokens"] == out[(name, False)]["tokens"]
+        log(f"[moe] {cfg.arch} {name}: greedy tokens graphed vs eager "
+            f"{'identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"{cfg.arch} {name}: graphed and eager "
+                                 "tokens differ")
+    plain = {"tokens": res[("continuous", "exact", "bf16", True)][0],
+             "drops": res[("drops", "continuous", "exact", "bf16")]}
+    for a, b in ((out[("prefix on", False)], out[("prefix off", False)]),
+                 (out[(f"spec k={SPEC_K}", False)], plain)):
+        n_same, parts = _agreement(a["tokens"], b["tokens"])
+        no_drop = a["drops"][0] == 0 and b["drops"][0] == 0
+        what = ("cache on vs off" if b is not plain
+                else f"spec k={SPEC_K} vs plain")
+        log(f"[moe] {cfg.arch} {what}: {n_same} of {len(a['tokens'])} "
+            f"requests identical, parts (request, new token) {parts}; MoE "
+            f"drops {a['drops']} vs {b['drops']}"
+            + (" (both 0: gated)" if no_drop else " (not gated: capacity "
+               "follows each call's padded B·S)"))
+        if no_drop and parts:
+            raise AssertionError(f"{cfg.arch} {what}: tokens differ with no "
+                                 "pair dropped")
+    return out
+
+
 def _finished(toks, cfg, where):
     assert len(toks) == N_REQUESTS and all(
         len(t) == MAX_NEW and all(0 <= x < cfg.vocab_size for x in t)
@@ -2439,9 +2640,10 @@ def phase_moe(dev):
     (``MOE_ARCHS``), weights from seed 0 drawn on the card, the exact
     encoding calibrated and folded there (no bundle write): qwen3-moe on
     both engines, deepseek-v3 (MLA: no paging) on ``ServeEngine``; fp
-    weights too (``_moe_serves``); peak device memory per arch."""
+    weights too (``_moe_serves``); qwen3-moe's prefix cache and spec
+    decoding (``_moe_cache_spec``); peak device memory per arch."""
     import torch
-    from repro_torch.models import init_model
+    from repro_torch.models import init_model, supports_paged_cache
     out = {}
     for arch, _, _ in MOE_ARCHS:
         cfg = _moe_cfg(arch)
@@ -2466,6 +2668,9 @@ def phase_moe(dev):
         trace = make_trace(cfg.vocab_size)
         res = _moe_serves(dev, cfg, {"exact": (params_enc, cfg_enc),
                                      "fp": (params, cfg)}, trace)
+        cache_spec = None
+        if supports_paged_cache(cfg):
+            cache_spec = _moe_cache_spec(dev, cfg_enc, params_enc, trace, res)
         peak = torch.cuda.max_memory_allocated(dev)
         log(f"[moe] {arch}: peak device memory {peak / 1e9:.2f} GB, "
             f"phase 6h part {time.perf_counter() - t0:.1f}s")
@@ -2477,19 +2682,307 @@ def phase_moe(dev):
                      "static_counts": res[("static", "exact", True)][1],
                      "paged": {kv: res[("continuous", "exact", kv, True)][1][
                          "paged_attn"] for kv in ("bf16", "int8", "int4")
-                         if ("continuous", "exact", kv, True) in res}}
+                         if ("continuous", "exact", kv, True) in res},
+                     "spec_counts": cache_spec[(f"spec k={SPEC_K}", True)][
+                         "counts"] if cache_spec else None}
         del params, params_enc, res
         gc.collect()
         torch.cuda.empty_cache()
     return out
 
 
+def phase_new_archs(dev):
+    """Phase 6i: phi-3-vision-4.2b and hymba-1.5b (``NEW_ARCHS``) at full
+    width, 4 of 32 layers (hymba: layer 0 global, layers 1-3 windowed at
+    2048), weights drawn on the card, the exact encoding calibrated and
+    folded there (no bundle write).  Neither pages, so each serves the main
+    trace through ``ServeEngine``, with and without the encoding, graphed
+    and eager (identical tokens), the graphed engine once more (identical);
+    kernel 1 at every linear of every forward (hymba's static prefills at
+    m = 4·(S + 128): its meta tokens) at gated shapes, kernels 2 and 3
+    never; folded bytes, peak memory, step p50 and tok/s."""
+    import torch
+    from repro_torch.models import init_model
+    out = {}
+    for arch, depth in NEW_ARCHS:
+        cfg = _new_cfg(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_model(cfg, seed=0, device=dev, init_device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        params_enc, cfg_enc, (t_cal, t_fold) = _fold_exact(params, cfg)
+        fw = _fw_bytes(params_enc)
+        log(f"[new] {arch}: {cfg.n_layers} of {_arch_cfg(arch).n_layers} "
+            f"layers, family {cfg.family}, d={cfg.d_model} heads "
+            f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim_r} ff={cfg.d_ff} "
+            f"vocab={cfg.vocab_size} tied head {cfg.tie_embeddings}, "
+            f"windows {cfg.layer_windows}, meta tokens {cfg.meta_tokens}, "
+            f"ssm state {cfg.ssm_state}, patches {cfg.n_patches}; init on "
+            f"the card {t_init:.1f}s, calibration {t_cal:.1f}s, fold "
+            f"{t_fold:.1f}s; folded bf16 Wt {fw / 1e9:.3f} GB; {SMI}")
+        trace = make_trace(cfg.vocab_size)
+        res = {}
+        for wname, (p, c) in (("exact", (params_enc, cfg_enc)),
+                              ("fp", (params, cfg))):
+            for graphs in (True, False):
+                tag = f"{arch} {wname} {'graphed' if graphs else 'eager'}"
+                eng, toks, dt, counts = _static(p, c, trace, dev,
+                                                cuda_graphs=graphs)
+                st = eng.stats()
+                _finished(toks, cfg, tag)
+                where = f"({tag}, static)"
+                if wname == "exact":
+                    _check_static_counts(counts, eng.chunks, c, where,
+                                         gated=True)
+                else:
+                    assert counts["encoded_matmul"] == 0 and \
+                        counts["paged_attn"] == 0 and \
+                        counts["flash_attention"] == 0, \
+                        f"kernels launched {where}"
+                note = ""
+                if graphs:
+                    if _static_run(eng, trace)[0] != toks:
+                        raise AssertionError(f"{where}: a repeat serve on "
+                                             "the same engine differs")
+                    note = "; repeat serve identical"
+                res[(wname, graphs)] = (toks, counts, st,
+                                        sum(map(len, toks)) / dt)
+                log(f"[new] {tag} static: {sum(map(len, toks)) / dt:.1f} "
+                    f"tok/s, step p50 {st['step_ms_p50']:.2f} ms p99 "
+                    f"{st['step_ms_p99']:.2f} ms (captures "
+                    f"{st['jit_compiles']}, chunks "
+                    f"{[(ch['batch'], ch['seq']) for ch in eng.chunks]}, "
+                    f"dense cache {st['kv_cache_bytes'] / 1e6:.1f} MB); "
+                    f"launches kernel 1 by (m, k, n) "
+                    f"{counts['encoded_matmul_by_shape']}, kernel 2 "
+                    f"{counts['paged_attn']}, flash "
+                    f"{counts['flash_attention']}{note}")
+                del eng
+            same = res[(wname, True)][0] == res[(wname, False)][0]
+            log(f"[new] {arch} {wname}: greedy tokens graphed vs eager "
+                f"{'identical' if same else 'DIFFERENT'}")
+            if not same:
+                raise AssertionError(f"{arch} {wname}: graphed and eager "
+                                     "tokens differ")
+        n_same, parts = _agreement(res[("exact", True)][0],
+                                   res[("fp", True)][0])
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[new] {arch}: exact encoding vs fp weights {n_same} of "
+            f"{len(trace)} requests identical, parts {parts} (logged); "
+            f"peak device memory {peak / 1e9:.2f} GB, phase 6i part "
+            f"{time.perf_counter() - t0:.1f}s")
+        out[arch] = {"cfg": cfg_enc, "static_counts": res[("exact", True)][1],
+                     "fw_gb": fw / 1e9, "peak_gb": peak / 1e9,
+                     "rows": {k: (v[2]["step_ms_p50"], v[3])
+                              for k, v in res.items()}}
+        del params, params_enc, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _encoded_sites(params) -> dict:
+    """{id(fp weight): (path, activation scale on the host)} of every
+    folded linear of a param tree, sub-modules at any depth."""
+    out = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{path}/{k}")
+            elif k + "_fw" in node:
+                out[id(v)] = (f"{path}/{k}", node[k + "_as"].float().cpu())
+    walk({k: v for k, v in params.items() if k != "layers"}, "")
+    for li, layer in enumerate(params["layers"]):
+        walk(layer, f"layer {li}")
+    return out
+
+
+def _card_cpu_origin(dev, trees, cfg, batch, max_new, extras, tag):
+    """Where a static batch's greedy tokens first part between the CPU
+    (plain versions) and the card (kernels): both run ``batch`` again
+    eagerly through a ``StaticBatch`` (``extras`` into the prefill) while
+    a hook reads every encoded linear's input over its activation scale,
+    in forward order.  The first int8 code apart must sit within
+    ``ORIGIN_TOL`` of a .5 boundary on both sides (f32 order moved it);
+    raises otherwise, or if no code is apart."""
+    import torch
+    from repro_torch.nn.common import activation_recorder
+    from repro_torch.serve.engine import StaticBatch
+    calls = {}
+    for where, params in trees.items():
+        d = "cpu" if where == "cpu" else dev
+        sites = _encoded_sites(params)
+        rec = []
+
+        def hook(name, w, x, sites=sites, rec=rec):
+            if id(w) in sites:
+                site, sa = sites[id(w)]
+                rec.append((site, x.float().cpu() / sa))
+        sb = StaticBatch(params, cfg, batch.shape[0],
+                         batch.shape[1] + max_new + cfg.meta_tokens,
+                         device=d, graphs=False)
+        with torch.inference_mode(), activation_recorder(hook):
+            sb.run(torch.from_numpy(batch), max_new, extras=extras)
+        calls[where] = rec
+        del sb
+    before = 0.0
+    for n, ((site, xc), (_, xg)) in enumerate(zip(calls["cpu"],
+                                                  calls["cuda"])):
+        qc, qg = (torch.clamp(torch.round(t), -127, 127) for t in (xc, xg))
+        apart = (qc != qg).nonzero()
+        if len(apart):
+            idx = tuple(apart[0].tolist())
+            u, v = xc[idx].item(), xg[idx].item()
+            edge = max(abs(t - math.floor(t) - 0.5) for t in (u, v))
+            log(f"[{tag}] card vs CPU: the first int8 code apart is at "
+                f"linear call {n} ({site}, element {idx}): x / scale "
+                f"{u:.7f} (CPU) against {v:.7f} (card), {edge:.1e} from the "
+                f".5 boundary; every earlier input apart by up to "
+                f"{before:.3e}")
+            if edge > ORIGIN_TOL:
+                raise AssertionError(f"{tag}: card and CPU part at an int8 "
+                                     f"code {edge} from a .5 boundary")
+            return edge
+        before = max(before, (xc - xg).abs().max().item())
+    raise AssertionError(f"{tag}: card and CPU tokens part with every int8 "
+                         f"code equal (inputs apart by up to {before:.3e})")
+
+
+def phase_cpu_parity_new(dev):
+    """Phase 7 for the vlm and hybrid archs, reduced: the exact encoding
+    folded on the CPU serves the main trace through ``ServeEngine`` on the
+    card (kernels) and on the CPU (plain versions): identical greedy
+    tokens, or, where a chunk's tokens part, a split that starts at an
+    int8 code f32 order moved across a .5 boundary (``_card_cpu_origin``;
+    hymba's reduced trace parts so at a layer-0 ``attn/wo`` input);
+    phi-3-vision through ``generate``
+    with an ``img`` made from the seed too; then 5 fp train steps of each
+    from one torch-made state (phi-3-vision's batches with an ``img``):
+    loss within ``CARD_CPU_RTOL`` at every step."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import init_model, to_device
+    from repro_torch.serve import (arch_families, exact_encodings, generate,
+                                   prepare_encoded_serving)
+    from repro_torch.train import init_train_state, make_train_step
+    for arch, _ in NEW_ARCHS:
+        cfg = _new_cfg(arch, reduced=True)
+        p_cpu = init_model(cfg, seed=0, device="cpu")
+        cache = bundle_dir("parity-" + arch)
+        pe_cpu, ce, _ = prepare_encoded_serving(
+            p_cpu, cfg, device="cpu", cache_dir=cache, verbose=False,
+            macs_override=exact_encodings(cfg.mac.bits, arch_families(cfg)))
+        shutil.rmtree(cache)
+        pe_gpu = to_device(pe_cpu, dev)
+        trace = make_trace(cfg.vocab_size)
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32)
+        img = rng.normal(size=(2, cfg.n_patches, cfg.d_model)).astype(
+            np.float32) if cfg.n_patches else None
+        outs = {}
+        for where, device, params in (("cpu", "cpu", pe_cpu),
+                                      ("cuda", dev, pe_gpu)):
+            seng, toks, _, counts = _static(params, ce, trace, device)
+            if where == "cuda":
+                _check_static_counts(counts, seng.chunks, ce,
+                                     f"({arch} reduced, on the card)")
+            outs[("static", where)] = toks
+            if img is not None:
+                outs[("generate with img", where)] = generate(
+                    params, ce, prompts, max_new=8,
+                    extras={"img": img}).cpu().tolist()
+        trees = {"cpu": pe_cpu, "cuda": pe_gpu}
+        for name in sorted({k[0] for k in outs}):
+            a, b = outs[(name, "cpu")], outs[(name, "cuda")]
+            n_same, parts = _agreement(a, b)
+            log(f"[parity] {arch} reduced, {name}: greedy tokens card "
+                f"(kernels) vs CPU (plain) {n_same} of {len(a)} identical, "
+                f"parts (request, new token) {parts}")
+            if name == "static":
+                # each chunk that parts: the origin of its first split
+                for c0 in sorted({i - i % N_SLOTS for i, _ in parts}):
+                    chunk = trace[c0:c0 + N_SLOTS]
+                    S = max(map(len, chunk))
+                    batch = np.zeros((len(chunk), S), np.int32)
+                    for r, q in enumerate(chunk):
+                        batch[r, S - len(q):] = q
+                    j = max(t for i, t in parts if c0 <= i < c0 + N_SLOTS)
+                    _card_cpu_origin(dev, trees, ce, batch, j + 1, None,
+                                     f"parity {arch} chunk {c0 // N_SLOTS}")
+            elif parts:
+                _card_cpu_origin(dev, trees, ce, prompts,
+                                 max(t for _, t in parts) + 1,
+                                 {"img": img}, f"parity {arch} {name}")
+        s_cpu = init_train_state(cfg, seed=0, device="cpu")
+        s_gpu = to_device(s_cpu, dev)
+        step = make_train_step(cfg, warmup=TRAIN_WARMUP,
+                               total_steps=TRAIN_STEPS)
+        rds = SyntheticLMDataset(cfg.vocab_size, 32, seed=0)
+        rows = []
+        for i in range(5):
+            b = rds.batch(i, 4)
+            if img is not None:
+                b["img"] = np.random.default_rng(10 + i).normal(
+                    size=(4, cfg.n_patches, cfg.d_model)).astype(np.float32)
+            s_cpu, mc = step(s_cpu, b)
+            s_gpu, mg = step(s_gpu, b)
+            rel = abs(float(mc["loss"]) - float(mg["loss"])) / max(
+                abs(float(mc["loss"])), 1e-30)
+            rows.append(f"{float(mc['loss']):.6f}/{float(mg['loss']):.6f}")
+            if rel > CARD_CPU_RTOL:
+                raise AssertionError(f"{arch} reduced fp train: card and CPU "
+                                     f"part at step {i}: {rel}")
+        log(f"[parity] {arch} reduced fp train: loss CPU/card within "
+            f"{CARD_CPU_RTOL} at every step: {rows}")
+    torch.cuda.empty_cache()
+
+
+def phase_cli_int8(dev):
+    """``python -m repro_torch.launch.serve --reduced --mac int8`` on the
+    card, in this process, on the static and the continuous engine (fused
+    kernel 2): every request served, the int8 fake-quant executor named,
+    kernel 1 never launched (int8 is plain PyTorch, as in the
+    reference)."""
+    import io
+    from repro_torch.launch import serve as cli
+    for extra in ([], ["--continuous", "--paged-attn", "kernel"]):
+        argv = ["--reduced", "--mac", "int8", "--requests", "6",
+                "--max-new", "8"] + extra
+        buf = io.StringIO()
+        _reset_counts()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        counts = _read_counts()
+        text = buf.getvalue()
+        served = [ln for ln in text.splitlines() if ln.startswith("served")]
+        # the continuous engine counts decode tokens (6 x 7), as the
+        # reference's CLI does
+        ok = (len(served) == 1 and "served 6 requests, " +
+              ("42" if extra else "48") + " tokens" in served[0]
+              and "mac=int8" in served[0]
+              and counts["encoded_matmul"] == 0
+              and (counts["paged_attn"] > 0) == bool(extra))
+        log(f"[cli] {' '.join(argv)}: {served} kernel 2 launches "
+            f"{counts['paged_attn']}, kernel 1 {counts['encoded_matmul']} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the serve CLI with --mac int8 {extra}: "
+                                 f"{text[-2000:]}")
+
+
 def phase_cpu_parity_moe(dev):
     """Phase 7 for the moe archs, reduced: the exact encoding folded on
     the CPU serves the main trace on the card (kernels) and on the CPU
     (plain versions), qwen3-moe through the continuous engine with dense,
-    int8 and int4 pools and through ``ServeEngine``, deepseek-v3 through
-    ``ServeEngine``: identical greedy tokens.  Then 5 fp train steps of
+    int8 and int4 pools, with the prefix cache (the shared-prefix trace)
+    and with spec decoding (k = ``SPEC_K``, dense pools), and through
+    ``ServeEngine``, deepseek-v3 through ``ServeEngine``: identical greedy
+    tokens.  Then 5 fp train steps of
     each reduced config (router aux; deepseek-v3's MTP loss) on both
     devices from one torch-made state: loss and aux within
     ``CARD_CPU_RTOL`` at every step."""
@@ -2524,6 +3017,23 @@ def phase_cpu_parity_moe(dev):
                                   f"({arch} reduced kv {kv}, on the card)")
                 outs[(f"continuous kv {kv}", where)] = [
                     res[r].tolist() for r in rids]
+            if kvs:
+                # the prefix cache over the shared-prefix trace, and spec
+                # decoding (self drafter) over the main trace
+                for name, tr, kw in (
+                        ("prefix cache", _prefix_trace(ce.vocab_size),
+                         dict(prefix_cache=True)),
+                        (f"spec k={SPEC_K}", trace,
+                         dict(spec_decode=SPEC_K))):
+                    eng, rids = _serve(params, ce, tr, device, **kw)
+                    _reset_counts()
+                    res = eng.run()
+                    counts = _read_counts()
+                    if where == "cuda":
+                        _check_counts(counts, eng.stats(), ce,
+                                      eng.prefill_chunk,
+                                      f"({arch} reduced {name}, on the card)")
+                    outs[(name, where)] = [res[r].tolist() for r in rids]
             seng, toks, _, counts = _static(params, ce, trace, device)
             if where == "cuda":
                 _check_static_counts(counts, seng.chunks, ce,
@@ -3632,6 +4142,42 @@ def _moe_em_rows(dev, moe, lib, m_pre):
     return rows
 
 
+def _new_em_rows(dev, serve_info, lib):
+    """Kernel 1's rows at the vlm and hybrid archs' (k, n) (phase 6i), at
+    decode (m = n_slots) and at the largest static prefill (hymba's with
+    its meta tokens), launches from the exact static serve; and at
+    qwen3-moe's verify m = n_slots·(k+1) = 20, launches from its spec
+    serve (phase 6h).  Exact U, Wt made on the card."""
+    import torch
+    rows = []
+    for arch, _ in NEW_ARCHS:
+        a = serve_info["new"][arch]
+        cfg, s_shape = a["cfg"], a["static_counts"]["encoded_matmul_by_shape"]
+        m_pre = static_prefill_ms(cfg.meta_tokens)[0]
+        for k, n in _arch_em_shapes(cfg):
+            for m, tag, seed in ((N_SLOTS, "decode", 4),
+                                 (m_pre, "static prefill", 6)):
+                rows.append(_em_row(
+                    dev, _program("exact"), m, k, n, seed,
+                    f"encoded_matmul_{arch}_"
+                    f"{'static_' if m == m_pre else ''}m{m}_k{k}_n{n}",
+                    s_shape.get((m, k, n), 0), f"{tag}, {arch}; launches: "
+                    "its static serve", lib, on_card=True))
+                torch.cuda.empty_cache()
+    moe = serve_info["moe"]["qwen3-moe-235b-a22b"]
+    v_shape = (moe["spec_counts"] or {}).get("encoded_matmul_by_shape", {})
+    m = N_SLOTS * (SPEC_K + 1)
+    for k, n in _arch_em_shapes(moe["cfg"]):
+        rows.append(_em_row(
+            dev, _program("exact"), m, k, n, 3,
+            f"encoded_matmul_qwen3-moe_m{m}_k{k}_n{n}",
+            v_shape.get((m, k, n), 0),
+            f"speculative verify, k={SPEC_K}, qwen3-moe", lib,
+            on_card=True))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_measure(dev, serve_info):
     """Kernel, plain and library times at the main path's shapes."""
     import torch
@@ -3715,6 +4261,7 @@ def phase_measure(dev, serve_info):
                 on_card=True))
             torch.cuda.empty_cache()
     rows += _moe_em_rows(dev, serve_info["moe"], lib, m_pre)
+    rows += _new_em_rows(dev, serve_info, lib)
     # kernel 2: decode attention, 4 slots × 16 heads × D 64, with dense
     # f32, int8 and packed-int4 pools, at a 32-page table and at the
     # serve's 127-page table (the same lens, so the same bytes); then at
@@ -3766,6 +4313,22 @@ def phase_measure(dev, serve_info):
             "f32 pools" if mode == "bf16" else f"{mode} pools + f32 scales",
             serve_info["moe"]["qwen3-moe-235b-a22b"]["paged"][mode],
             seed=9))
+    # kernel 2 at qwen3-moe's verify forwards (Sq = 5 and 9: 80 and 144
+    # rows a kv head, D 128; f32 pools take them in two chunks), each pool
+    # type; launches: its spec k = 4 serve (phase 6h; no k = 8 serve runs
+    # on moe)
+    spec_sq = (serve_info["moe"]["qwen3-moe-235b-a22b"]["spec_counts"]
+               or {}).get("paged_attn_by_sq", {})
+    for mode in ("bf16", "int8", "int4"):
+        for sq in (SPEC_K + 1, 9):
+            rows.append(_pa_row(
+                dev, mode, sq, qcfg.n_heads_p, qcfg.n_kv_p, qcfg.head_dim_r,
+                SERVE_P, lens, None, None,
+                f"paged_attn_qwen3-moe_sq{sq}"
+                f"{'' if mode == 'bf16' else '_' + mode}_p{SERVE_P}",
+                ("f32 pools" if mode == "bf16" else f"{mode} pools + f32 "
+                 f"scales") + f" (speculative verify, k={sq - 1})",
+                spec_sq.get(sq, 0) if mode == "bf16" else 0, seed=11))
     # kernel 3 at the prefill shape of full-width qwen1.5-0.5b: B 4, S 1024,
     # 16 heads, D 64, causal; flattened (B·H, S, D) as flash_mha hands it
     # to the kernel.  Not on the serving path: launches 0 (the reference's
@@ -3850,6 +4413,7 @@ def main() -> int:
     _phase(phase_kernel1, dev)
     _phase(phase_kernel1_archs, dev)
     _phase(phase_kernel1_moe, dev)
+    _phase(phase_kernel1_new, dev)
     _phase(phase_kernel2, dev)
     _phase(phase_kernel2_quant, dev)
     _phase(phase_kernel2_d128, dev)
@@ -3867,9 +4431,12 @@ def main() -> int:
     serve_info["search"] = _phase(phase_serve_search, dev)
     serve_info["archs"] = _phase(phase_archs, dev)
     serve_info["moe"] = _phase(phase_moe, dev)
+    serve_info["new"] = _phase(phase_new_archs, dev)
     _phase(phase_cpu_parity, dev)
     _phase(phase_cpu_parity_archs, dev)
     _phase(phase_cpu_parity_moe, dev)
+    _phase(phase_cpu_parity_new, dev)
+    _phase(phase_cli_int8, dev)
     _phase(phase_cpu_parity_search, dev)
     _phase(phase_train, dev)
     rows = _phase(phase_measure, dev, serve_info)

@@ -1,6 +1,6 @@
-"""ModelConfig for the port: the fields the dense and MoE/MLA decoder
-families, the serving engines and the trainer read, and the input-shape
-cells (port of ``repro/configs/base.py``)."""
+"""ModelConfig for the port: the fields the dense, MoE/MLA, vlm and
+hybrid decoder families, the serving engines and the trainer read, and
+the input-shape cells (port of ``repro/configs/base.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -85,6 +85,14 @@ class ModelConfig:
     mla_absorb: bool = False
     mtp: bool = False
     mtp_weight: float = 0.3
+    # ssm / hybrid (hymba): the selective scan's state, expansion and conv
+    # width, and the learned meta tokens that lead every sequence
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    meta_tokens: int = 0
+    # vlm: patch embeddings that replace the prompt's leading positions
+    n_patches: int = 0
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     attn_chunk: int = 1024
@@ -177,7 +185,10 @@ class ModelConfig:
             v_head_dim=32 if self.v_head_dim else 0,
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else None,
+            meta_tokens=min(self.meta_tokens, 8),
+            n_patches=min(self.n_patches, 16),
             attn_chunk=64,
+            ssm_state=min(self.ssm_state, 8) if self.ssm_state else 0,
             global_layers=tuple(g for g in self.global_layers if g < 2),
             param_dtype="float32", compute_dtype="float32",
             pad_heads_to=1, vocab_pad_to=1)
@@ -216,5 +227,8 @@ class ModelConfig:
                 + self.first_k_dense * (attn + ff_dense)
         else:
             total = L * (attn + (3 if self.gated_mlp else 2) * d * self.d_ff)
+            if self.family == "hybrid":
+                di = self.ssm_expand * d
+                total += L * (2 * d * di + di * d)
         total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return float(total)

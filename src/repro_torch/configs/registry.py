@@ -1,5 +1,6 @@
-"""--arch registry: the reference's dense- and moe-family archs, the ones
-the port serves (the other families wait, ROADMAP Queue A)."""
+"""--arch registry: the reference's dense-, moe-, vlm- and hybrid-family
+archs, the ones the port serves (xlstm and encdec wait, ROADMAP Queue
+A)."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +12,8 @@ _ARCHS = {
     "starcoder2-3b": "starcoder2_3b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "hymba-1.5b": "hymba_1p5b",
+    "phi-3-vision-4.2b": "phi3_vision_4p2b",
 }
 
 

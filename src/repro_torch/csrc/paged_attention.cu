@@ -58,6 +58,11 @@
 //    each rescaled from its max to the row's: block z writes its slice of
 //    the (R, D) output, divided by max(l, 1e-30).  No workspace, no
 //    second launch, fixed sum order.
+//  * The q rows and the block's sums of RC rows at a time sit in shared
+//    memory: RC = R when they fit in 227 KB, else the rows run in chunks
+//    of RC (a multiple of the rows per pass), each merged and written
+//    before the next (f32 pools at D = 128 and G = 16 with Sq 5 or 9: two
+//    chunks).  A row's arithmetic does not depend on its chunk.
 // Pools: dense (the q dtype), int8, or uint8 holding packed int4 (byte i
 // of a row holds dim i in its low nibble and dim i + D/2 in its high
 // nibble, each offset by 8), with f32 scale rows (n_pages, ps, Hkv).
@@ -151,14 +156,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// RC: rows per chunk.  A block holds the q rows and the block's sums of
+// RC rows at a time; when all R rows do not fit in shared memory the
+// block takes them in chunks of RC (a multiple of the rows per pass),
+// each merged across the cluster and written before the next.
 struct Shape {
-  int Sq, Hq, Hkv, D, ps, P, G, R, np, lpt, bp, spw, window, has_cap;
+  int Sq, Hq, Hkv, D, ps, P, G, R, np, lpt, bp, spw, RC, window, has_cap;
   float scale, cap;
 };
 
+constexpr size_t kMaxSmem = 227 * 1024;        // dynamic shared memory of a block
+
 // Shared memory of a block, in bytes: the warps' K and V rings, the q
-// rows, the row's page ids, the warps' scores, the warps' row maxima, the
-// warps' sums of one pass and the block's sums and maxima.
+// rows of a chunk, the row's page ids, the warps' scores, the warps' row
+// maxima, the warps' sums of one pass and the block's sums and maxima of
+// a chunk.
 struct Layout {
   int stage, q, pages, scores, wmax, warp_state, block_state, total;
 };
@@ -168,12 +180,12 @@ __host__ __device__ inline Layout layout(const Shape& s, int rows_per_pass) {
   const int rp = s.R < rows_per_pass ? s.R : rows_per_pass;
   L.stage = align16(s.ps * s.np * 16 + s.ps * 4);  // K or V rows, then their scales
   L.q = kWarps * 2 * kStages * L.stage;
-  L.pages = L.q + align16(s.R * s.D * 4);
+  L.pages = L.q + align16(s.RC * s.D * 4);
   L.scores = L.pages + align16(s.P * 4);
   L.wmax = L.scores + align16(kWarps * rp * s.spw * 4);
   L.warp_state = L.wmax + align16(kWarps * rp * 4);
   L.block_state = L.warp_state + kWarps * rp * (s.D + 1) * 4;
-  L.total = L.block_state + s.R * (s.D + 2) * 4;
+  L.total = L.block_state + s.RC * (s.D + 2) * 4;
   return L;
 }
 
@@ -220,16 +232,10 @@ paged_attn_kernel(const T* __restrict__ q, const unsigned char* __restrict__ poo
   const int rp = min(R, RP);
   float* sb = reinterpret_cast<float*>(smem + L.scores) + warp * rp * s.spw;
 
-  // lens, the page ids and the scaled q rows, all loads in flight at once
+  // lens and the page ids (the q rows load with each chunk's)
   const int ln = lens[b];
   for (int i = tid; i < s.P; i += kThreads) pg_s[i] = pages[(size_t)b * s.P + i];
   const float scale_t = to_f(from_f<T>(s.scale));
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int r = i / D, d = i - r * D, sq = r / G, g = r - sq * G;
-    const float qv = to_f(q[(((size_t)b * s.Sq + sq) * s.Hq + h * G + g) * D + d]);
-    q_s[i] = to_f(from_f<T>(qv * scale_t));  // scaled in storage dtype
-  }
-  __syncthreads();
 
   // this rank's run of pages, at least one reference K block (bp pages),
   // and this warp's share: every kWarps-th page
@@ -257,208 +263,218 @@ paged_attn_kernel(const T* __restrict__ q, const unsigned char* __restrict__ poo
   const uint32_t kring = (uint32_t)__cvta_generic_to_shared(kring_p);
   const uint32_t vring = (uint32_t)__cvta_generic_to_shared(vring_p);
 
-  for (int r0 = 0; r0 < R; r0 += RP) {
-    // rows of this pass; rows past R (in the last pass) run on q = 0 and
-    // are never written
-    const int rows = min(RP, R - r0);
-    float qr[RP][ND], mx[RP];
-    int q_pos[RP];
-#pragma unroll
-    for (int r = 0; r < RP; ++r) {
-      mx[r] = kNegInf;
-      q_pos[r] = ln + (r0 + r) / G;
-#pragma unroll
-      for (int j = 0; j < ND; ++j)
-        qr[r][j] = act && r < rows ? q_s[(r0 + r) * D + dim_of<MODE, ND>(c, j, D)] : 0.f;
-    }
-    // the first two K pages and the first two V pages load at once, one
-    // cp.async group each
-    for (int i = 0; i < kStages; ++i) {
-      if (i < cnt) LOAD_PAGE(pool_k, scale_k, i, kring + i * L.stage);
-      cp_async_commit();
-    }
-    for (int i = 0; i < kStages; ++i) {
-      if (i < cnt) LOAD_PAGE(pool_v, scale_v, i, vring + i * L.stage);
-      cp_async_commit();
-    }
-    // pass 1: the scores of this warp's K pages, kept in shared memory
-    for (int i = 0; i < cnt; ++i) {
-      if (i < kStages)                           // page i has landed (this lane's part)
-        cp_async_wait<2 * kStages - 1>();
-      else
-        cp_async_wait<kStages - 1>();
-      __syncwarp();                              // ... and every lane's
-      const unsigned char* st = kring_p + (i % kStages) * L.stage;
-      const float* sc = reinterpret_cast<const float*>(st + s.ps * rb);
-      const int k0 = (p_begin + warp + i * kWarps) * s.ps;
-#pragma unroll 2
-      for (int it = 0; it < steps; ++it) {
-        const int t = it * tpi + ts;
-        const bool tok = t < s.ps;
-        float kv[ND];
-        if (act && tok) {
-          widen<T, MODE>(*reinterpret_cast<const uint4*>(st + t * rb + c * 16),
-                         MODE == kDense ? 1.f : sc[t], kv);
-        } else {
-#pragma unroll
-          for (int j = 0; j < ND; ++j) kv[j] = 0.f;
-        }
-        float part[RP];
-#pragma unroll
-        for (int r = 0; r < RP; ++r) {
-          float a = 0.f;
-#pragma unroll
-          for (int j = 0; j < ND; ++j) a = fmaf(qr[r][j], kv[j], a);
-          part[r] = a;
-        }
-        for (int o = lpt / 2; o > 0; o >>= 1)    // the score, in each lane of the token
-#pragma unroll
-          for (int r = 0; r < RP; ++r) part[r] += __shfl_xor_sync(0xffffffffu, part[r], o);
-#pragma unroll
-        for (int r = 0; r < RP; ++r) {
-          float x = part[r];
-          if (s.has_cap) x = s.cap * tanhf(x / s.cap);
-          const int dist = q_pos[r] - (k0 + t);
-          x = tok && dist >= 0 && dist < s.window ? x : kNegInf;
-          mx[r] = fmaxf(mx[r], x);
-          if (c == 0 && tok && r < rows) sb[r * s.spw + i * s.ps + t] = x;
-        }
-      }
-      __syncwarp();                              // every lane is done with the stage
-      if (i + kStages < cnt)
-        LOAD_PAGE(pool_k, scale_k, i + kStages, kring + (i % kStages) * L.stage);
-      cp_async_commit();
-    }
-    // one max per row over the block: token groups, then warps
-    for (int o = lpt; o < 32; o <<= 1)
-#pragma unroll
-      for (int r = 0; r < RP; ++r) mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
-    if (lane == 0)
-#pragma unroll
-      for (int r = 0; r < RP; ++r)
-        if (r < rows) wmax[warp * rp + r] = mx[r];
-    __syncthreads();
-    float m_r[RP], l[RP], acc[RP][ND];
-#pragma unroll
-    for (int r = 0; r < RP; ++r) {
-      m_r[r] = kNegInf;
-      if (r < rows)
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) m_r[r] = fmaxf(m_r[r], wmax[w * rp + r]);
-      l[r] = 0.f;
-#pragma unroll
-      for (int j = 0; j < ND; ++j) acc[r][j] = 0.f;
-    }
-    // pass 2: p = exp(s - m) against the block's max, and the sums of p
-    // and p * v over this warp's V pages
-    cp_async_wait<0>();                          // V pages 0 and 1 (and every K page)
-    __syncwarp();
-    for (int i = 0; i < cnt; ++i) {
-      if (i >= kStages) {
-        cp_async_wait<kStages - 1>();            // page i has landed (this lane's part)
-        __syncwarp();                            // ... and every lane's
-      }
-      const unsigned char* st = vring_p + (i % kStages) * L.stage;
-      const float* sc = reinterpret_cast<const float*>(st + s.ps * rb);
-#pragma unroll 2
-      for (int it = 0; it < steps; ++it) {
-        const int t = it * tpi + ts;
-        const bool tok = t < s.ps;
-        float vv[ND];
-        if (act && tok) {
-          widen<T, MODE>(*reinterpret_cast<const uint4*>(st + t * rb + c * 16),
-                         MODE == kDense ? 1.f : sc[t], vv);
-        } else {
-#pragma unroll
-          for (int j = 0; j < ND; ++j) vv[j] = 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < RP; ++r) {
-          const float x = tok && r < rows ? sb[r * s.spw + i * s.ps + t] : kNegInf;
-          const float pe = x == kNegInf ? 0.f : expf(x - m_r[r]);   // masked keys add 0
-          l[r] += pe;
-#pragma unroll
-          for (int j = 0; j < ND; ++j) acc[r][j] = fmaf(pe, vv[j], acc[r][j]);
-        }
-      }
-      __syncwarp();                              // every lane is done with the stage
-      if (i + kStages < cnt)
-        LOAD_PAGE(pool_v, scale_v, i + kStages, vring + (i % kStages) * L.stage);
-      cp_async_commit();
-    }
-    cp_async_wait<0>();
-    // the token groups of the warp add up: lanes lpt, 2 lpt, ... apart
-    for (int o = lpt; o < 32; o <<= 1) {
-#pragma unroll
-      for (int r = 0; r < RP; ++r) {
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
-#pragma unroll
-        for (int j = 0; j < ND; ++j) acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], o);
-      }
-    }
-    if (ts == 0 && act) {
-#pragma unroll
-      for (int r = 0; r < RP; ++r) {
-        if (r >= rows) break;
-        float* w = ws + (warp * rp + r) * DW;
-#pragma unroll
-        for (int j = 0; j < ND; ++j) w[dim_of<MODE, ND>(c, j, D)] = acc[r][j];
-        if (c == 0) w[D] = l[r];
-      }
+  for (int c0 = 0; c0 < R; c0 += s.RC) {
+    // the scaled q rows of this chunk of rows [c0, c0 + rc)
+    const int rc = min(s.RC, R - c0);
+    for (int i = tid; i < rc * D; i += kThreads) {
+      const int r = c0 + i / D, d = i % D, sq = r / G, g = r - sq * G;
+      const float qv = to_f(q[(((size_t)b * s.Sq + sq) * s.Hq + h * G + g) * D + d]);
+      q_s[i] = to_f(from_f<T>(qv * scale_t));  // scaled in storage dtype
     }
     __syncthreads();
-    // the warps' sums add up in warp order: the block's sums of these
-    // rows, then the block's max beside them
-    for (int e = tid; e < rows * DB; e += kThreads) {
-      const int r = e / DB, d = e - r * DB;
-      float v = kNegInf;
-      if (d <= D) {
-        v = 0.f;
+    for (int r0 = c0; r0 < c0 + rc; r0 += RP) {
+      // rows of this pass; rows past the chunk (in its last pass) run on
+      // q = 0 and are never written
+      const int rows = min(RP, c0 + rc - r0);
+      float qr[RP][ND], mx[RP];
+      int q_pos[RP];
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) v += ws[(w * rp + r) * DW + d];
-      } else {
+      for (int r = 0; r < RP; ++r) {
+        mx[r] = kNegInf;
+        q_pos[r] = ln + (r0 + r) / G;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) v = fmaxf(v, wmax[w * rp + r]);
+        for (int j = 0; j < ND; ++j)
+          qr[r][j] = act && r < rows ? q_s[(r0 - c0 + r) * D + dim_of<MODE, ND>(c, j, D)] : 0.f;
       }
-      bs[(r0 + r) * DB + d] = v;
+      // the first two K pages and the first two V pages load at once, one
+      // cp.async group each
+      for (int i = 0; i < kStages; ++i) {
+        if (i < cnt) LOAD_PAGE(pool_k, scale_k, i, kring + i * L.stage);
+        cp_async_commit();
+      }
+      for (int i = 0; i < kStages; ++i) {
+        if (i < cnt) LOAD_PAGE(pool_v, scale_v, i, vring + i * L.stage);
+        cp_async_commit();
+      }
+      // pass 1: the scores of this warp's K pages, kept in shared memory
+      for (int i = 0; i < cnt; ++i) {
+        if (i < kStages)                           // page i has landed (this lane's part)
+          cp_async_wait<2 * kStages - 1>();
+        else
+          cp_async_wait<kStages - 1>();
+        __syncwarp();                              // ... and every lane's
+        const unsigned char* st = kring_p + (i % kStages) * L.stage;
+        const float* sc = reinterpret_cast<const float*>(st + s.ps * rb);
+        const int k0 = (p_begin + warp + i * kWarps) * s.ps;
+#pragma unroll 2
+        for (int it = 0; it < steps; ++it) {
+          const int t = it * tpi + ts;
+          const bool tok = t < s.ps;
+          float kv[ND];
+          if (act && tok) {
+            widen<T, MODE>(*reinterpret_cast<const uint4*>(st + t * rb + c * 16),
+                           MODE == kDense ? 1.f : sc[t], kv);
+          } else {
+#pragma unroll
+            for (int j = 0; j < ND; ++j) kv[j] = 0.f;
+          }
+          float part[RP];
+#pragma unroll
+          for (int r = 0; r < RP; ++r) {
+            float a = 0.f;
+#pragma unroll
+            for (int j = 0; j < ND; ++j) a = fmaf(qr[r][j], kv[j], a);
+            part[r] = a;
+          }
+          for (int o = lpt / 2; o > 0; o >>= 1)    // the score, in each lane of the token
+#pragma unroll
+            for (int r = 0; r < RP; ++r) part[r] += __shfl_xor_sync(0xffffffffu, part[r], o);
+#pragma unroll
+          for (int r = 0; r < RP; ++r) {
+            float x = part[r];
+            if (s.has_cap) x = s.cap * tanhf(x / s.cap);
+            const int dist = q_pos[r] - (k0 + t);
+            x = tok && dist >= 0 && dist < s.window ? x : kNegInf;
+            mx[r] = fmaxf(mx[r], x);
+            if (c == 0 && tok && r < rows) sb[r * s.spw + i * s.ps + t] = x;
+          }
+        }
+        __syncwarp();                              // every lane is done with the stage
+        if (i + kStages < cnt)
+          LOAD_PAGE(pool_k, scale_k, i + kStages, kring + (i % kStages) * L.stage);
+        cp_async_commit();
+      }
+      // one max per row over the block: token groups, then warps
+      for (int o = lpt; o < 32; o <<= 1)
+#pragma unroll
+        for (int r = 0; r < RP; ++r) mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
+      if (lane == 0)
+#pragma unroll
+        for (int r = 0; r < RP; ++r)
+          if (r < rows) wmax[warp * rp + r] = mx[r];
+      __syncthreads();
+      float m_r[RP], l[RP], acc[RP][ND];
+#pragma unroll
+      for (int r = 0; r < RP; ++r) {
+        m_r[r] = kNegInf;
+        if (r < rows)
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) m_r[r] = fmaxf(m_r[r], wmax[w * rp + r]);
+        l[r] = 0.f;
+#pragma unroll
+        for (int j = 0; j < ND; ++j) acc[r][j] = 0.f;
+      }
+      // pass 2: p = exp(s - m) against the block's max, and the sums of p
+      // and p * v over this warp's V pages
+      cp_async_wait<0>();                          // V pages 0 and 1 (and every K page)
+      __syncwarp();
+      for (int i = 0; i < cnt; ++i) {
+        if (i >= kStages) {
+          cp_async_wait<kStages - 1>();            // page i has landed (this lane's part)
+          __syncwarp();                            // ... and every lane's
+        }
+        const unsigned char* st = vring_p + (i % kStages) * L.stage;
+        const float* sc = reinterpret_cast<const float*>(st + s.ps * rb);
+#pragma unroll 2
+        for (int it = 0; it < steps; ++it) {
+          const int t = it * tpi + ts;
+          const bool tok = t < s.ps;
+          float vv[ND];
+          if (act && tok) {
+            widen<T, MODE>(*reinterpret_cast<const uint4*>(st + t * rb + c * 16),
+                           MODE == kDense ? 1.f : sc[t], vv);
+          } else {
+#pragma unroll
+            for (int j = 0; j < ND; ++j) vv[j] = 0.f;
+          }
+#pragma unroll
+          for (int r = 0; r < RP; ++r) {
+            const float x = tok && r < rows ? sb[r * s.spw + i * s.ps + t] : kNegInf;
+            const float pe = x == kNegInf ? 0.f : expf(x - m_r[r]);   // masked keys add 0
+            l[r] += pe;
+#pragma unroll
+            for (int j = 0; j < ND; ++j) acc[r][j] = fmaf(pe, vv[j], acc[r][j]);
+          }
+        }
+        __syncwarp();                              // every lane is done with the stage
+        if (i + kStages < cnt)
+          LOAD_PAGE(pool_v, scale_v, i + kStages, vring + (i % kStages) * L.stage);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+      // the token groups of the warp add up: lanes lpt, 2 lpt, ... apart
+      for (int o = lpt; o < 32; o <<= 1) {
+#pragma unroll
+        for (int r = 0; r < RP; ++r) {
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+#pragma unroll
+          for (int j = 0; j < ND; ++j) acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], o);
+        }
+      }
+      if (ts == 0 && act) {
+#pragma unroll
+        for (int r = 0; r < RP; ++r) {
+          if (r >= rows) break;
+          float* w = ws + (warp * rp + r) * DW;
+#pragma unroll
+          for (int j = 0; j < ND; ++j) w[dim_of<MODE, ND>(c, j, D)] = acc[r][j];
+          if (c == 0) w[D] = l[r];
+        }
+      }
+      __syncthreads();
+      // the warps' sums add up in warp order: the block's sums of these
+      // rows, then the block's max beside them
+      for (int e = tid; e < rows * DB; e += kThreads) {
+        const int r = e / DB, d = e - r * DB;
+        float v = kNegInf;
+        if (d <= D) {
+          v = 0.f;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) v += ws[(w * rp + r) * DW + d];
+        } else {
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) v = fmaxf(v, wmax[w * rp + r]);
+        }
+        bs[(r0 - c0 + r) * DB + d] = v;
+      }
+      __syncthreads();                             // the buffers are free for the next pass
     }
-    __syncthreads();                             // the buffers are free for the next pass
-  }
 
-  // the cluster's blocks meet in rank order, each rescaled from its max to
-  // the row's; block z writes its slice
-  cluster.sync();
-  const int n_el = R * D, per_el = (n_el + CL - 1) / CL;
-  const int e_end = min(n_el, (z + 1) * per_el);
-  for (int e = z * per_el + tid; e < e_end; e += kThreads) {
-    const int r = e / D, d = e - r * D, sq = r / G, g = r - sq * G;
-    float mk[kMaxCluster], lk[kMaxCluster], ak[kMaxCluster];
+    // the cluster's blocks meet in rank order, each rescaled from its max to
+    // the row's; block z writes its slice of the chunk
+    cluster.sync();
+    const int n_el = rc * D, per_el = (n_el + CL - 1) / CL;
+    const int e_end = min(n_el, (z + 1) * per_el);
+    for (int e = z * per_el + tid; e < e_end; e += kThreads) {
+      const int rl = e / D, r = c0 + rl, d = e - rl * D, sq = r / G, g = r - sq * G;
+      float mk[kMaxCluster], lk[kMaxCluster], ak[kMaxCluster];
 #pragma unroll
-    for (int k = 0; k < kMaxCluster; ++k) {     // every remote read in flight at once
-      if (k < CL) {
-        const float* rs = cluster.map_shared_rank(bs, k) + r * DB;
-        mk[k] = rs[D + 1];
-        lk[k] = rs[D];
-        ak[k] = rs[d];
+      for (int k = 0; k < kMaxCluster; ++k) {     // every remote read in flight at once
+        if (k < CL) {
+          const float* rs = cluster.map_shared_rank(bs, k) + rl * DB;
+          mk[k] = rs[D + 1];
+          lk[k] = rs[D];
+          ak[k] = rs[d];
+        }
       }
-    }
-    float mx = kNegInf;
+      float mx = kNegInf;
 #pragma unroll
-    for (int k = 0; k < kMaxCluster; ++k)
-      if (k < CL) mx = fmaxf(mx, mk[k]);
-    float lsum = 0.f, asum = 0.f;
+      for (int k = 0; k < kMaxCluster; ++k)
+        if (k < CL) mx = fmaxf(mx, mk[k]);
+      float lsum = 0.f, asum = 0.f;
 #pragma unroll
-    for (int k = 0; k < kMaxCluster; ++k) {
-      if (k < CL) {
-        const float w = expf(mk[k] - mx);
-        lsum = fmaf(lk[k], w, lsum);
-        asum = fmaf(ak[k], w, asum);
+      for (int k = 0; k < kMaxCluster; ++k) {
+        if (k < CL) {
+          const float w = expf(mk[k] - mx);
+          lsum = fmaf(lk[k], w, lsum);
+          asum = fmaf(ak[k], w, asum);
+        }
       }
+      out[(((size_t)b * s.Sq + sq) * s.Hq + h * G + g) * D + d] =
+          from_f<T>(asum / fmaxf(lsum, 1e-30f));
     }
-    out[(((size_t)b * s.Sq + sq) * s.Hq + h * G + g) * D + d] =
-        from_f<T>(asum / fmaxf(lsum, 1e-30f));
+    cluster.sync();  // the sums are read: the next chunk may overwrite them, blocks may exit
   }
-  cluster.sync();                                // the sums are read; blocks may exit
 #undef LOAD_PAGE
 }
 
@@ -486,8 +502,16 @@ template <typename T, int MODE, int RP>
 cudaError_t launch(const void* q, const void* pk, const void* pv, const float* sk,
                    const float* sv, const int* pages, const int* lens, void* out, int B, int cl,
                    const Shape& s, cudaStream_t stream) {
-  const size_t bytes = layout(s, RP).total;
-  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  // rows per chunk: all R rows when they fit, else the fewest chunks of
+  // a multiple of RP rows that fit
+  Shape sh = s;
+  for (int n = 1;; ++n) {
+    const int rc = ((s.R + n - 1) / n + RP - 1) / RP * RP;
+    sh.RC = rc < s.R ? rc : s.R;
+    if ((size_t)layout(sh, RP).total <= kMaxSmem || sh.RC <= RP) break;
+  }
+  const size_t bytes = layout(sh, RP).total;
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
   static size_t configured = 48 * 1024;  // raised once per size, before any capture
   if (bytes > configured) {
     cudaError_t err = cudaFuncSetAttribute(paged_attn_kernel<T, MODE, RP>,
@@ -500,7 +524,6 @@ cudaError_t launch(const void* q, const void* pk, const void* pv, const float* s
   const unsigned char* pkp = static_cast<const unsigned char*>(pk);
   const unsigned char* pvp = static_cast<const unsigned char*>(pv);
   T* op = static_cast<T*>(out);
-  Shape sh = s;
   void* args[] = {&qp, &pkp, &pvp, &sk, &sv, &pages, &lens, &op, &sh};
   return launch_cluster(reinterpret_cast<const void*>(paged_attn_kernel<T, MODE, RP>), args, B,
                         s.Hkv, cl, bytes, stream);
@@ -570,7 +593,7 @@ extern "C" int paged_attn_launch(int dtype, int kv_mode, const void* q,
   const int bp = ps < 128 ? 128 / ps : 1;
   const int run = bp > (P + cluster - 1) / cluster ? bp : (P + cluster - 1) / cluster;
   const int spw = (run + kWarps - 1) / kWarps * ps;
-  Shape s{Sq, Hq, Hkv, D, ps, P, G, Sq * G, np, lpt, bp, spw, window, has_cap, scale, cap};
+  Shape s{Sq, Hq, Hkv, D, ps, P, G, Sq * G, np, lpt, bp, spw, Sq * G, window, has_cap, scale, cap};
   const auto* pg = static_cast<const int*>(pages);
   const auto* ln = static_cast<const int*>(lens);
   const auto* sk = static_cast<const float*>(scale_k);

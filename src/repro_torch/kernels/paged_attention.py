@@ -41,8 +41,12 @@ path's sizes, so the launch and a few dependent loads set its time
 
 Sq ≤ ``MAX_SQ`` query tokens per row fold into the group axis (row
 ``s·G + g``): speculative verification scores k+1 tokens per row in one
-launch.  The reference kernel has no cap; this one is sized for k ≤ 15
-(its shared memory holds ``Sq·G`` query rows and their sums).
+launch.  The reference kernel has no cap; this one is sized for k ≤ 15.
+A block's shared memory holds the q rows and the sums of a chunk of the
+``Sq·G`` rows: all of them when they fit in 227 KB, else the fewest chunks
+that fit (f32 pools at D = 128 and a group of 16, as qwen3-moe's verify
+forward at Sq 5 and 9 has, take two), each merged across the cluster and
+written before the next; a row's sums do not depend on its chunk.
 """
 from __future__ import annotations
 

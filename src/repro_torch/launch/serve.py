@@ -35,6 +35,17 @@
       --encoding exact
   python -m repro_torch.launch.serve --arch deepseek-v3-671b --layers 2 \
       --param-dtype bfloat16 --mac encoded --encoding exact
+  # the prefix cache and speculative decoding on qwen3-moe; the int8
+  # fake-quant executor on both engines; the vlm and hybrid archs (static)
+  python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \
+      --layers 2 --continuous --paged-attn kernel --prefix-cache \
+      --spec-decode 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --mac int8 --continuous
+  python -m repro_torch.launch.serve --arch phi-3-vision-4.2b --layers 4 \
+      --mac encoded --encoding exact
+  python -m repro_torch.launch.serve --arch hymba-1.5b --layers 4 \
+      --mac encoded --encoding exact
   # telemetry (continuous engine only): lifecycle trace (Perfetto), the
   # metrics registry, device-time attribution, online drift, profiler
   # trace and the allocator sanitizer
@@ -48,8 +59,11 @@
 CUDA kernel on the card, its plain PyTorch version on the CPU).  On the
 card every continuous engine step, and the static engine's decode step,
 runs as a captured CUDA graph.  ``--arch`` takes the four dense-family
-archs and the two moe-family ones (``configs/registry.py``); MLA
-(deepseek-v3) cannot page and serves static only.  ``--layers`` cuts the
+archs, the two moe-family ones, phi-3-vision-4.2b (vlm) and hymba-1.5b
+(hybrid) (``configs/registry.py``); MLA (deepseek-v3), a vlm and a
+hybrid arch cannot page and serve static only (the CLI, as the
+reference's, feeds a vlm no image).  ``--mac int8`` serves the int8
+fake-quant executor (plain PyTorch on every device: no kernel).  ``--layers`` cuts the
 depth (full width), ``--param-dtype`` sets the weights' dtype.  The
 weights are random, made from ``--seed``; the request trace comes from
 ``numpy.random.default_rng(0)`` as in the reference CLI.
@@ -77,7 +91,7 @@ def main(argv=None):
                     help="'cuda' (default) runs the kernels on the card; "
                          "'cpu' runs their plain PyTorch versions")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mac", default="fp", choices=["fp", "encoded"])
+    ap.add_argument("--mac", default="fp", choices=["fp", "int8", "encoded"])
     ap.add_argument("--encoding", default="search",
                     choices=["search", "exact"],
                     help="search = task-specific per-family search (paper); "
@@ -176,6 +190,7 @@ def main(argv=None):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core.layers import MacConfig
     from repro_torch.device import resolve_device
     from repro_torch.models import init_model
     from repro_torch.serve import (Engine, ServeEngine, arch_families,
@@ -190,6 +205,8 @@ def main(argv=None):
         cfg = cfg.with_layers(args.layers)
     if args.param_dtype:
         cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
+    if args.mac == "int8":
+        cfg = dataclasses.replace(cfg, mac=MacConfig(mode="int8"))
     cfg = dataclasses.replace(cfg, attention_backend=args.paged_attn,
                               kv_cache_dtype=args.kv_dtype)
     params = init_model(cfg, seed=args.seed, device=dev)

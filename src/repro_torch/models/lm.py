@@ -1,17 +1,21 @@
-"""Decoder-only LM, dense and moe families (port of
+"""Decoder-only LM, dense, moe, vlm and hybrid families (port of
 ``repro/models/lm.py``).
 
 Params are a nested dict of tensors with the reference's leaf names; the
 layers of every stage are one flat list of per-layer dicts under
 ``"layers"``, in the order they run (the reference stacks each stage
-``(L, …)`` under its own name for its scan: ``"stack"`` for the dense
-family; ``"dense_prefix"`` and ``"moe_stack"`` for the moe family,
-``layer_stages``).  deepseek-v3's multi-token-prediction head sits under
-``"mtp"``, as in the reference.
+``(L, …)`` under its own name for its scan: ``"stack"`` for the dense,
+vlm and hybrid families; ``"dense_prefix"`` and ``"moe_stack"`` for the
+moe family, ``layer_stages``).  deepseek-v3's multi-token-prediction head
+sits under ``"mtp"``, hymba's meta tokens under ``"meta"``, as in the
+reference.  A hybrid layer nests its attention and SSM params under
+``"attn"`` and ``"ssm"``, and its cache holds ``{"attn": {k, v}, "ssm":
+{conv, h}}``.
 
 Public API:
   init_model(cfg, *, seed, device, init_device)   → params
-  apply_model(params, cfg, tokens, cache=None)    → (logits, new_cache)
+  apply_model(params, cfg, tokens, img=None, cache=None)
+                                                  → (logits, new_cache)
       (+ aux with return_aux, + hidden with return_hidden)
   mtp_logits(params, cfg, h, tokens)              → MTP logits
   init_cache(cfg, batch, max_len, *, device)      → dense KV / MLA cache
@@ -43,6 +47,7 @@ from repro_torch.nn.common import (embed_apply, embed_init, linear,
                                    linear_init, norm_apply, norm_init,
                                    softcap)
 from repro_torch.nn.mla import init_mla_cache
+from repro_torch.nn.ssm import init_ssm_cache
 from repro_torch.quant.kvcache import kv_pool_layout
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -53,7 +58,8 @@ STAGE_NAMES = ("dense_prefix", "moe_stack", "stack")
 def layer_stages(cfg) -> list:
     """(name, kind, n_layers) of each stage, as the reference's
     ``_stages``: the moe family's dense prefix (``first_k_dense``) and
-    its MoE stack; one dense ``"stack"`` otherwise.  The other families
+    its MoE stack; the hybrid family's ``"stack"`` of hybrid blocks; one
+    dense ``"stack"`` for the dense and vlm families.  xlstm and encdec
     are not ported (ROADMAP Queue A)."""
     if cfg.family == "moe":
         st = []
@@ -61,14 +67,17 @@ def layer_stages(cfg) -> list:
             st.append(("dense_prefix", "dense", cfg.first_k_dense))
         st.append(("moe_stack", "moe", cfg.n_layers - cfg.first_k_dense))
         return st
-    if cfg.family != "dense":
+    if cfg.family == "hybrid":
+        return [("stack", "hybrid", cfg.n_layers)]
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   "(ROADMAP Queue A: remaining archs)")
     return [("stack", "dense", cfg.n_layers)]
 
 
 def layer_kinds(cfg) -> list:
-    """Each layer's kind ('dense' or 'moe'), in the order they run."""
+    """Each layer's kind ('dense', 'moe' or 'hybrid'), in the order they
+    run."""
     return [kind for _, kind, n in layer_stages(cfg) for _ in range(n)]
 
 
@@ -93,9 +102,15 @@ def init_model(cfg, *, seed: int = 0, device=None, init_device="cpu"
         if not cfg.tie_embeddings:
             p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_p, "w",
                                        cfg.mac, False, cfg.pdtype)
+        if cfg.meta_tokens:
+            p["meta"] = (torch.randn((cfg.meta_tokens, cfg.d_model),
+                                     generator=gen, dtype=torch.float32)
+                         * 0.02).to(cfg.pdtype)
         p["layers"] = []
         for kind in kinds:
-            p["layers"].append(B.decoder_block_init(gen, cfg, kind))
+            p["layers"].append(B.hybrid_block_init(gen, cfg)
+                               if kind == "hybrid" else
+                               B.decoder_block_init(gen, cfg, kind))
             if torch.device(init_device).type == "cpu":
                 # a layer at a time to the device: a full-width model
                 # never sits on the host whole
@@ -122,17 +137,26 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None,
+def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, cache=None,
                 return_aux: bool = False, return_hidden: bool = False):
-    """tokens (B, S) → (logits (B, S, vocab_p), new_cache[, aux][, h]).
+    """tokens (B, S) → (logits (B, S', vocab_p), new_cache[, aux][, h]);
+    S' = S, plus ``cfg.meta_tokens`` where they are prepended.
+
+    ``img`` (B, n_patches, d): a vlm's patch embeddings, which replace the
+    leading ``min(n_patches, S)`` positions of the embedded prompt.  Meta
+    tokens (hymba) lead the sequence in training and in a prefill (no
+    cache, or S > 1 from position 0); a decode step finds them already in
+    the cache.
 
     ``cache``: None; a paged cache ``{"layers": [{pool_k, pool_v[,
     scale_k, scale_v]}, …], "pages": (B, P) int32, "lens": (B,) int32}``;
-    or a dense cache ``{"layers": [{k, v} or {ckv, kr}, …], "pos"[,
-    "pad"]}`` (``init_cache``; ``pos`` an int or a 0-d tensor, ``pad``
-    (B,) the left-pad slots of each row).  The cache's tensors are
-    written in place; the returned cache shares them and carries ``lens +
-    S`` (paged) or ``pos + S`` (dense).  ``return_aux`` adds the MoE
+    or a dense cache ``{"layers": [{k, v}, {ckv, kr} or {attn, ssm}, …],
+    "pos"[, "pad"]}`` (``init_cache``; ``pos`` an int or a 0-d tensor,
+    ``pad`` (B,) the left-pad slots of each row).  The cache's tensors are
+    written in place, except a hybrid layer's SSM state, which the
+    returned cache carries as new tensors; the returned cache shares the
+    rest and carries ``lens + S`` (paged) or ``pos + S`` (dense).
+    ``return_aux`` adds the MoE
     layers' summed auxiliary loss (0-d f32), ``return_hidden`` the final
     normed hidden state (B, S, d) (the MTP head's input)."""
     Bn, S = tokens.shape
@@ -140,6 +164,14 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None,
     if cfg.embed_scale:
         x = x * torch.full((), np.sqrt(cfg.d_model), dtype=cfg.cdtype,
                            device=x.device)
+    if img is not None and cfg.n_patches:
+        n_img = min(cfg.n_patches, S)          # patches lead the prompt
+        x = torch.cat([img[:, :n_img].to(x.dtype), x[:, n_img:]], 1)
+    if cfg.meta_tokens and (cache is None or S > 1):
+        meta = params["meta"].to(x.dtype)[None].expand(
+            Bn, cfg.meta_tokens, cfg.d_model)
+        x = torch.cat([meta, x], 1)
+        S = S + cfg.meta_tokens
     paged = cache is not None and "pages" in cache
     pad = cache.get("pad") if (cache is not None and not paged) else None
     ar = torch.arange(S, device=x.device)
@@ -164,12 +196,21 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None,
     kinds = layer_kinds(cfg)
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = None if cache is None else list(cache["layers"])
     for i, p_l in enumerate(params["layers"]):
         if remat:
             x, a = checkpoint(_block, p_l, x, cfg, kinds[i], windows[i],
                               positions, use_reentrant=False)
+        elif kinds[i] == "hybrid":
+            c_l = None if cache is None else {
+                "attn": dict(layers[i]["attn"], **ctx),
+                "ssm": layers[i]["ssm"]}
+            x, c2, a = B.hybrid_block_apply(p_l, x, cfg, window=windows[i],
+                                            cache=c_l, positions=positions)
+            if c2 is not None:
+                layers[i] = {"attn": layers[i]["attn"], "ssm": c2["ssm"]}
         else:
-            c_l = None if cache is None else dict(cache["layers"][i], **ctx)
+            c_l = None if cache is None else dict(layers[i], **ctx)
             x, _, a = B.decoder_block_apply(p_l, x, cfg, ffn=kinds[i],
                                             window=windows[i], cache=c_l,
                                             positions=positions)
@@ -182,7 +223,7 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None,
         new_cache = {"layers": cache["layers"], "pages": cache["pages"],
                      "lens": cache["lens"] + S}
     elif cache is not None:
-        new_cache = {"layers": cache["layers"], "pos": cache["pos"] + S}
+        new_cache = {"layers": layers, "pos": cache["pos"] + S}
         if pad is not None:
             new_cache["pad"] = pad
     out = (logits, new_cache)
@@ -194,8 +235,12 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, cache=None,
 
 
 def _block(p_l, x, cfg, kind, window, positions):
-    x, _, aux = B.decoder_block_apply(p_l, x, cfg, ffn=kind, window=window,
-                                      positions=positions)
+    if kind == "hybrid":
+        x, _, aux = B.hybrid_block_apply(p_l, x, cfg, window=window,
+                                         positions=positions)
+    else:
+        x, _, aux = B.decoder_block_apply(p_l, x, cfg, ffn=kind,
+                                          window=window, positions=positions)
     return x, aux
 
 
@@ -224,29 +269,38 @@ def mtp_logits(params, cfg, h, tokens):
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:
-    """Dense decode cache: per layer ``k/v (batch, max_len, n_kv, hd)``,
-    or with MLA the latent ``ckv (batch, max_len, r)`` and ``kr (batch,
-    max_len, rope_dim)``, zeros in the compute dtype; and ``pos`` 0 (a
-    0-d int32 tensor)."""
+    """Dense decode cache: per layer ``k/v (batch, max_len + meta_tokens,
+    n_kv, hd)``, or with MLA the latent ``ckv (batch, max_len, r)`` and
+    ``kr (batch, max_len, rope_dim)``, zeros in the compute dtype; a
+    hybrid layer ``{"attn": {k, v}, "ssm": {conv, h}}``
+    (``nn.ssm.init_ssm_cache``); and ``pos`` 0 (a 0-d int32 tensor)."""
     dev = resolve_device(device)
-    layer_stages(cfg)                       # refuses unported families
-    init = init_mla_cache if cfg.use_mla else init_kv_cache
+    kinds = layer_kinds(cfg)                # refuses unported families
+    max_len = max_len + cfg.meta_tokens
+    if "hybrid" in kinds:
+        att = init_kv_cache(cfg, batch, max_len, cfg.n_layers, device=dev)
+        ssm = init_ssm_cache(cfg, batch, cfg.n_layers, device=dev)
+        layers = [{"attn": a, "ssm": s_} for a, s_ in zip(att, ssm)]
+    else:
+        init = init_mla_cache if cfg.use_mla else init_kv_cache
+        layers = init(cfg, batch, max_len, cfg.n_layers, device=dev)
     return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-            "layers": init(cfg, batch, max_len, cfg.n_layers, device=dev)}
+            "layers": layers}
 
 
 def supports_paged_cache(cfg) -> bool:
     """Block paging needs a plain per-layer (k, v) cache: dense/moe GQA
-    attention without MLA latents."""
-    return cfg.family in ("dense", "moe") and not cfg.use_mla
+    attention without MLA latents, recurrent state, or meta tokens."""
+    return (cfg.family in ("dense", "moe") and not cfg.use_mla
+            and not cfg.meta_tokens)
 
 
 def supports_ragged_mask(cfg) -> bool:
     """Whether left-pad masking (``pad_lens``) is exact for this arch:
     plain GQA attention over a dense cache (the paged predicate), and no
     flash prefill, whose summation order a solo run would not share.
-    MLA latents ingest the pads, which stay unmasked, as in the
-    reference."""
+    MLA latents, SSM state and meta tokens ingest the pads, which stay
+    unmasked, as in the reference."""
     return supports_paged_cache(cfg) and not cfg.flash_attention
 
 

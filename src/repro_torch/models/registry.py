@@ -11,19 +11,23 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     """{name: (shape tuple, torch dtype)} for the given shape cell.
 
-    train   → tokens (B,S), labels (B,S)
-    prefill → tokens (B,S)
+    train   → tokens (B,S), labels (B,S) (+ img for vlm)
+    prefill → tokens (B,S) (+ img for vlm)
     decode  → tokens (B,1)  (the cache is built separately)
 
-    The encdec and vlm families' extra inputs wait with those families
-    (ROADMAP Queue A)."""
+    The encdec family's ``enc_x`` waits with that family (ROADMAP Queue
+    A)."""
     B, S = shape.global_batch, shape.seq_len
     i32 = torch.int32
     if shape.kind == "train":
-        return {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
-    if shape.kind == "prefill":
-        return {"tokens": ((B, S), i32)}
-    return {"tokens": ((B, 1), i32)}
+        out = {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
+    elif shape.kind == "prefill":
+        out = {"tokens": ((B, S), i32)}
+    else:
+        out = {"tokens": ((B, 1), i32)}
+    if shape.kind != "decode" and cfg.family == "vlm" and cfg.n_patches:
+        out["img"] = ((B, cfg.n_patches, cfg.d_model), cfg.cdtype)
+    return out
 
 
 def runnable(cfg: ModelConfig, shape: ShapeSpec) -> tuple:

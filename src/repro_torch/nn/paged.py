@@ -36,12 +36,36 @@ def _page_slots(pages: torch.Tensor, positions: torch.Tensor, ps: int):
     return pid, positions % ps
 
 
+def _last_writer(pid: torch.Tensor, off: torch.Tensor, ps: int):
+    """For each of the (B, S) writes, the flat index of the last write in
+    row-major order to the same (page, offset): rows that route to the
+    scratch page may collide there, and the reference's sequential scatter
+    keeps the last value.  Every write of a slot then carries that value,
+    so the result does not depend on the order a parallel scatter applies
+    them in (on the card, where ``index_put_`` with repeated indices is
+    not deterministic)."""
+    flat = (pid * ps + off).reshape(-1)
+    srt, perm = torch.sort(flat, stable=True)
+    last = torch.searchsorted(srt, srt, right=True) - 1
+    src = torch.empty_like(perm)
+    src[perm] = perm[last]
+    return src
+
+
+def _write(dst: torch.Tensor, pid, off, rows: torch.Tensor) -> None:
+    """``dst[pid, off] = rows`` (rows (B, S, …)), the last write winning
+    where slots repeat."""
+    src = _last_writer(pid, off, dst.shape[1])
+    dst[pid, off] = rows.reshape(src.shape[0], *rows.shape[2:])[src] \
+        .reshape(rows.shape)
+
+
 def scatter_kv(pool: torch.Tensor, pages: torch.Tensor,
                positions: torch.Tensor, val: torch.Tensor) -> None:
     """Write ``val`` (B, S, H, D) at absolute ``positions`` (B, S) through
     the page table, in place."""
     pid, off = _page_slots(pages, positions, pool.shape[1])
-    pool[pid, off] = val.to(pool.dtype)
+    _write(pool, pid, off, val.to(pool.dtype))
 
 
 def scatter_kv_quant(pool: torch.Tensor, scale: torch.Tensor,
@@ -52,8 +76,8 @@ def scatter_kv_quant(pool: torch.Tensor, scale: torch.Tensor,
     through the page table, in place."""
     q, s = quantize_kv(val, kv_mode_of(pool))
     pid, off = _page_slots(pages, positions, pool.shape[1])
-    pool[pid, off] = q
-    scale[pid, off] = s
+    _write(pool, pid, off, q)
+    _write(scale, pid, off, s)
 
 
 def gather_kv(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:

@@ -67,6 +67,10 @@ FAMILIES = ("wq", "wk", "wv", "wo", "wi", "wg", "w")
 # linears, the dense/shared-expert MLPs' and the head's
 MLA_FAMILIES = ("wq_a", "wq_b", "wkv_a", "wkr", "wk_b", "wv_b", "wo",
                 "wi", "wg", "w")
+# the projection families of a hybrid arch (hymba): the attention's and
+# MLP's, and the SSM's in-, B/C/dt- and out-projections (its conv, wdt,
+# meta tokens and tied head stay fp)
+HYBRID_FAMILIES = FAMILIES + ("win", "wbcdt", "wout")
 # errors that mark a bundle as unreadable (it is then rebuilt)
 _BUNDLE_ERRORS = (OSError, ValueError, KeyError, json.JSONDecodeError,
                   zipfile.BadZipFile, EOFError)
@@ -74,7 +78,9 @@ _BUNDLE_ERRORS = (OSError, ValueError, KeyError, json.JSONDecodeError,
 
 def arch_families(cfg) -> tuple:
     """The projection families an arch's linears fall in."""
-    return MLA_FAMILIES if cfg.use_mla else FAMILIES
+    if cfg.use_mla:
+        return MLA_FAMILIES
+    return HYBRID_FAMILIES if cfg.family == "hybrid" else FAMILIES
 
 
 def exact_encodings(bits: int = 8, families=FAMILIES) -> dict:

@@ -34,6 +34,7 @@ from repro_torch.models import (apply_model, init_cache,
                                 supports_paged_cache, supports_ragged_mask)
 from repro_torch.models.lm import paged_cache_layout
 from repro_torch.obs import CompileTracker, percentile, profiler_trace
+from repro_torch.tree import tree_leaves
 from .graphs import Step
 from .paged_cache import PagedKVCache
 from .scheduler import DECODING, FINISHED, Request, Scheduler
@@ -102,6 +103,13 @@ class Engine:
     for any drafter; build a cheap one with
     ``repro_torch.serve.encoded.prepare_drafter``.
 
+    On the moe family each MoE call sizes its expert capacity from its own
+    padded B·S, as in the reference: a prefill of only the uncached
+    suffix, a draft step and a verify forward route other batches than a
+    plain serve's calls, so where capacity drops pairs the tokens may part
+    from ``prefix_cache=False`` / ``spec_decode=0`` (they stay the
+    reference engine's).
+
     ``telemetry``: a ``ServeTelemetry`` (default: metrics only).  Its
     registry holds the engine's and scheduler's bookkeeping, which
     ``stats()`` and the read-only ``metrics`` view read back; with
@@ -138,13 +146,6 @@ class Engine:
                  cuda_graphs: Optional[bool] = None):
         if not supports_paged_cache(cfg):
             raise ValueError(f"{cfg.arch!r} cannot serve paged")
-        if cfg.family == "moe" and (prefix_cache or spec_decode):
-            # a MoE layer's capacity depends on the tokens of the call, so
-            # a cached prefix or a verify forward would not recompute what
-            # a plain serve computes; neither is ported for this family
-            raise ValueError(
-                f"{cfg.arch!r}: the prefix cache and speculative decoding "
-                "are not ported for the moe family (ROADMAP Queue A)")
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         self.params, self.cfg = params, cfg
@@ -781,9 +782,11 @@ class Engine:
 def make_prefill(cfg):
     """Prefill a (B, S) batch into a dense cache from position 0: the last
     position's logits (B, 1, vocab_p) and the cache, written in place and
-    carrying ``pos + S``."""
-    def prefill(params, cache, tokens):
-        logits, cache = apply_model(params, cfg, tokens, cache=cache)
+    carrying ``pos + S`` (a hybrid arch's new SSM state in new tensors).
+    ``extras``: the model's other prefill inputs (a vlm's ``img``)."""
+    def prefill(params, cache, tokens, **extras):
+        logits, cache = apply_model(params, cfg, tokens, cache=cache,
+                                    **extras)
         return logits[:, -1:], cache
     return prefill
 
@@ -826,15 +829,31 @@ def _pick(lg, greedy: bool, generator):
     return torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
 
 
+def _ssm_states(layers) -> list:
+    """The SSM state of each hybrid layer of a dense cache (``{conv,
+    h}``), in layer order; empty for other archs."""
+    return [layer["ssm"] for layer in layers if "ssm" in layer]
+
+
 def _static_decode(decode, params, layers, vocab, tok, pos, pad=None):
     """The static decode step on a dense cache's layers: last-position
-    logits (B, vocab), the greedy token (B, 1) and ``pos + 1``."""
+    logits (B, vocab), the greedy token (B, 1), ``pos + 1`` and the
+    hybrid layers' new SSM states (new tensors: the step reads the state
+    and does not write it, so its warm-up before a capture changes
+    nothing)."""
     cache = {"layers": layers, "pos": pos}
     if pad is not None:
         cache["pad"] = pad
     logits, new = decode(params, cache, tok)
     lg = logits[:, -1, :vocab]
-    return lg, _pick(lg, True, None), new["pos"]
+    return lg, _pick(lg, True, None), new["pos"], _ssm_states(new["layers"])
+
+
+def _commit_states(layers, states) -> None:
+    """Copy new SSM states into the cache's own tensors (in place)."""
+    for old, new in zip(_ssm_states(layers), states):
+        for k in old:
+            old[k].copy_(new[k])
 
 
 class StaticBatch:
@@ -844,9 +863,11 @@ class StaticBatch:
 
     The step reads its tokens, ``pos`` and ``pad`` from device buffers of
     its own and writes only the cache rows at ``pos``, so the warm-up run
-    before its capture changes nothing; the loop copies the next token and
-    ``pos + 1`` back into those buffers on the device, and waits for the
-    host only to test ``eos_id``."""
+    before its capture changes nothing; the loop copies the next token,
+    ``pos + 1`` and a hybrid arch's new SSM states back into those buffers
+    on the device, and waits for the host only to test ``eos_id``.  A
+    hybrid or meta-token arch's cache holds ``max_len + meta_tokens``
+    rows (``init_cache``)."""
 
     def __init__(self, params, cfg, batch: int, max_len: int, *, device,
                  graphs: bool):
@@ -870,8 +891,8 @@ class StaticBatch:
         return sum(s.captures for s in self.steps.values())
 
     def cache_bytes(self) -> int:
-        return sum(t.numel() * t.element_size() for layer in self.layers
-                   for t in layer.values())
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(self.layers))
 
     def _step(self, ragged: bool) -> Step:
         if ragged not in self.steps:
@@ -905,27 +926,31 @@ class StaticBatch:
     @torch.inference_mode()
     def run(self, prompts, max_new: int, *, greedy: bool = True,
             generator=None, eos_id: Optional[int] = None,
-            pad=None) -> torch.Tensor:
+            pad=None, extras: Optional[dict] = None) -> torch.Tensor:
         """``generate`` on this cache: prompts (batch, S) → tokens (batch,
         n ≤ max_new) int32 on the device; ``pad`` (batch,) left-pad slots
-        or None.  Each decode step is marked for ``step_ms``."""
+        or None; ``extras`` the prefill's other inputs (a vlm's ``img``),
+        moved to the device.  Each decode step is marked for
+        ``step_ms``."""
         B, S = prompts.shape
         if B != self.batch or S + max_new > self.max_len:
             raise ValueError(f"a ({B}, {S}) batch with {max_new} new tokens "
                              f"does not fit a ({self.batch}, {self.max_len})"
                              " cache")
-        for layer in self.layers:
-            for t in layer.values():
-                t.zero_()
+        for t in tree_leaves(self.layers):
+            t.zero_()
         self.pos.zero_()
         cache = {"layers": self.layers, "pos": self.pos}
         ragged = pad is not None
         if ragged:
             self.pad.copy_(torch.as_tensor(pad, dtype=torch.int32))
             cache["pad"] = self.pad
+        extras = {k: torch.as_tensor(v).to(self.device)
+                  for k, v in (extras or {}).items()}
         logits, cache = self._prefill(self.params, cache,
-                                      prompts.to(self.device))
+                                      prompts.to(self.device), **extras)
         self.pos.copy_(cache["pos"])
+        _commit_states(self.layers, _ssm_states(cache["layers"]))
         tok = _pick(logits[:, -1, :self.cfg.vocab_size], greedy, generator)
         step = self._step(ragged)
         args = (self.tok, self.pos) + ((self.pad,) if ragged else ())
@@ -945,8 +970,9 @@ class StaticBatch:
                 break
             self._mark()
             self.tok.copy_(tok)
-            lg, nxt, new_pos = step(*args)
+            lg, nxt, new_pos, states = step(*args)
             self.pos.copy_(new_pos)
+            _commit_states(self.layers, states)
             tok = nxt if greedy else _pick(lg, False, generator)
             self.decode_steps += 1
         self._mark()
@@ -954,9 +980,9 @@ class StaticBatch:
 
 
 def generate(params, cfg, prompts, max_new: int = 16,
-             max_len: Optional[int] = None, greedy: bool = True,
-             generator=None, eos_id: Optional[int] = None,
-             pad_lens=None) -> torch.Tensor:
+             max_len: Optional[int] = None, extras: Optional[dict] = None,
+             greedy: bool = True, generator=None,
+             eos_id: Optional[int] = None, pad_lens=None) -> torch.Tensor:
     """Batched generation over a dense KV cache (the reference's
     ``generate``): prompts (B, S) → tokens (B, ≤ max_new) int32 on the
     params' device.
@@ -967,18 +993,23 @@ def generate(params, cfg, prompts, max_new: int = 16,
     are not the reference's).  ``eos_id``: rows that emit it repeat it from
     then on, and the loop ends once every row has.  ``pad_lens`` (B,):
     left-pad slots per row; pad keys are masked and positions shifted, so
-    each row decodes as it would alone (``supports_ragged_mask``).  No
-    decode step is wasted: one prefill and at most ``max_new - 1`` decode
-    steps.  On the card the decode step is a captured CUDA graph
+    each row decodes as it would alone (``supports_ragged_mask``; refused
+    for MLA, SSM and meta-token archs, whose state ingests the pads).
+    ``extras``: the prefill's other inputs, such as a vlm's ``img`` (B,
+    n_patches, d); the decode steps take none.  The cache holds ``max_len``
+    (default ``S + max_new + meta_tokens``) plus ``meta_tokens`` rows, as
+    the reference's.  No decode step is wasted: one prefill and at most
+    ``max_new - 1`` decode steps.  On the card the decode step is a captured CUDA graph
     (``ServeEngine(cuda_graphs=False)`` runs it eagerly)."""
     dev = params["embed"]["table"].device
     prompts = torch.as_tensor(prompts).to(dev)
     B, S = prompts.shape
     pad = _ragged_pad(cfg, pad_lens)
-    sb = StaticBatch(params, cfg, B, max_len or (S + max_new), device=dev,
+    sb = StaticBatch(params, cfg, B,
+                     max_len or (S + max_new + cfg.meta_tokens), device=dev,
                      graphs=_graphs_on(dev, None))
     return sb.run(prompts, max_new, greedy=greedy, generator=generator,
-                  eos_id=eos_id, pad=pad)
+                  eos_id=eos_id, pad=pad, extras=extras)
 
 
 class ServeEngine:
@@ -990,9 +1021,11 @@ class ServeEngine:
     its longest prompt and run by ``generate`` to completion before the
     next starts.  Where ``supports_ragged_mask`` holds, the pad slots are
     masked and positions shifted per row, so each request decodes as it
-    would alone.  A chunk's cache holds ``S + max_new + 8`` positions, as
+    would alone; MLA latents, SSM state and meta tokens ingest the pads
+    unmasked, as in the reference.  A chunk's cache holds ``S + max_new +
+    8 + meta_tokens`` positions (plus ``meta_tokens``, ``init_cache``), as
     in the reference (whose ``max_len`` argument is kept and, as there,
-    not used).
+    not used).  No image reaches a vlm's prefill, as in the reference.
 
     Each chunk builds its own cache and, on the card, captures its decode
     step into a CUDA graph; both are dropped when the chunk ends, as the
@@ -1026,8 +1059,8 @@ class ServeEngine:
                 batch[j, S - len(r):] = r          # left-pad
                 pad[j] = S - len(r)
             sb = StaticBatch(self.params, self.cfg, len(chunk),
-                             S + max_new + 8, device=self.device,
-                             graphs=self.cuda_graphs)
+                             S + max_new + 8 + self.cfg.meta_tokens,
+                             device=self.device, graphs=self.cuda_graphs)
             toks = sb.run(torch.from_numpy(batch), max_new, eos_id=eos_id,
                           pad=_ragged_pad(self.cfg, pad) if ragged_ok
                           else None)

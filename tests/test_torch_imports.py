@@ -28,11 +28,14 @@ from repro_torch.serve.telemetry import ServeTelemetry  # noqa: F401
 from repro_torch.obs import DriftMonitor  # noqa: F401
 from repro_torch.analysis.ledger import attach_ledger  # noqa: F401
 for arch in ("qwen1.5-4b", "starcoder2-3b", "gemma2-27b",
-             "qwen3-moe-235b-a22b", "deepseek-v3-671b"):
+             "qwen3-moe-235b-a22b", "deepseek-v3-671b",
+             "phi-3-vision-4.2b", "hymba-1.5b"):
     get_config(arch)
 from repro_torch.models import input_specs, mtp_logits, runnable  # noqa
 from repro_torch.nn.moe import moe_apply  # noqa: F401
 from repro_torch.nn.mla import mla_apply  # noqa: F401
+from repro_torch.nn.ssm import ssm_apply  # noqa: F401
+from repro_torch.nn.blocks import hybrid_block_apply  # noqa: F401
 sys.path.insert(0, sys.argv[1])
 import chip_smoke  # noqa: F401  (module import only: main() is not run)
 bad = sorted(m for m in sys.modules
@@ -67,7 +70,8 @@ def test_no_jax_or_reference_imports():
                 "obs.drift", "obs.profile", "analysis.ledger",
                 "serve.telemetry", "launch.env", "nn.moe", "nn.mla",
                 "nn.blocks", "models.registry", "configs.qwen3_moe_235b",
-                "configs.deepseek_v3_671b"):
+                "configs.deepseek_v3_671b", "nn.ssm",
+                "configs.phi3_vision_4p2b", "configs.hymba_1p5b"):
         assert f"repro_torch.{mod}" in out["modules"]
 
 

@@ -6,7 +6,9 @@ page tables and lens after every step, and its tokens, against the JAX
 archs on the static ``ServeEngine`` (tokens against the JAX
 ``ServeEngine``; deepseek-v3's MLA latents keep the pads unmasked, as in
 the reference), a bundle the reference built being a cache hit in the
-port, and what the engines refuse for this family.
+port, and what the engines refuse for this family (MLA cannot page;
+qwen3-moe takes the prefix cache and speculative decoding, held to the
+reference in ``tests/test_torch_moe_spec_prefix.py``).
 
 The port calibrates and folds on its own for serving (the encoded cases
 cover its calibration over MoE and MLA layers: shared experts, dense
@@ -274,9 +276,14 @@ def test_engines_refuse_what_the_family_cannot_do(arch):
             generate(tp, tcfg, np.zeros((2, 4), np.int32), max_new=2,
                      pad_lens=[1, 0])
         return
+    # qwen3-moe pages, and takes the prefix cache and spec decoding as the
+    # reference's Engine does (tests/test_torch_moe_spec_prefix.py holds
+    # both to the reference)
     for kw in (dict(prefix_cache=True), dict(spec_decode=2)):
-        with pytest.raises(ValueError, match="moe family"):
-            TEngine(tp, tcfg, device="cpu", **kw)
+        eng = TEngine(tp, tcfg, device="cpu", **kw)
+        assert (eng.sched.prefix is not None) == ("prefix_cache" in kw)
+        assert eng.spec_k == kw.get("spec_decode", 0)
+        assert ("verify" in eng.steps) == bool(eng.spec_k)
 
 
 def test_fold_by_columns_equals_one_pass(monkeypatch):
