@@ -211,6 +211,24 @@ serve CLI with ``--mac int8`` on both engines.  Phase 8 adds kernel 1's
 rows at the new archs' shapes and qwen3-moe's verify m, and kernel 2's
 at Sq 5 and 9 with a group of 16.
 
+The xlstm and encdec families (``XLSTM_ARCH``, ``WHISPER_ARCH``):
+phase 3 also gates kernel 1 at every (k, n) of xlstm-1.3b at decode m = 4
+and the static prefills (the sLSTM FFN's ``wup``, n = 5460, takes the
+unaligned-n fill; its ``wo``, k = 2730, a ragged last k-tile).  Phase 6j
+serves xlstm-1.3b at full width, 8 of 48 blocks (7 mLSTM, 1 sLSTM),
+weights drawn on the card, through ``ServeEngine`` with the exact
+encoding and fp weights, graphed and eager (identical), a repeat serve
+identical, kernel 1 at every linear of every forward and kernels 2 and 3
+never, and the sLSTM block's share of a prefill; and whisper-large-v3 at
+full width, 4 + 4 of 32 + 32 layers, fp and ``--mac int8``, through
+``generate`` with 1500 frames of ``enc_x`` from the seed (graphed =
+eager, a repeat identical) and once through ``ServeEngine`` without
+``enc_x`` as the CLI serves it; kernels 1-3 never (whisper serves no
+encoded MAC, as in the reference).  Phase 7 holds reduced xlstm (one
+mLSTM and one sLSTM block, exact encoding, ``ServeEngine``) and reduced
+whisper (``generate`` with ``enc_x``) card vs CPU, and 5 fp train steps
+of each.  Phase 8 adds kernel 1's rows at xlstm-1.3b's shapes.
+
 Every phase that folds writes its bundle into a fresh directory under
 ``build/`` (git-ignored), logs the free disk first and removes it at its
 end.  The last line is ``{"ok": true, "device": {...}}``.
@@ -261,6 +279,13 @@ MOE_ARCHS = (("qwen3-moe-235b-a22b", 2, "float32"),
 # the vlm and hybrid families at full width, depth cut (phase 6i): hymba
 # keeps layer 0 global and windows layers 1-3 at 2048
 NEW_ARCHS = (("phi-3-vision-4.2b", 4), ("hymba-1.5b", 4))
+# the xlstm and encdec families at full width, depth cut (phase 6j):
+# xlstm-1.3b keeps 8 of 48 blocks, one group of 7 mLSTM and 1 sLSTM
+# (a multiple of its slstm_every, where the reference's two layer orders
+# agree); whisper-large-v3 4 of its 32 encoder and 4 of its 32 decoder
+# layers, its encoder fed Whisper's 30-s window after the conv stem
+XLSTM_ARCH, XLSTM_DEPTH = "xlstm-1.3b", 8
+WHISPER_ARCH, WHISPER_DEPTH, WHISPER_FRAMES = "whisper-large-v3", 4, 1500
 # with fp weights two engines may part only at a near-tie: the candidates'
 # logits within this share of the largest |logit| (f32 summation orders
 # part them by about 1e-6 of it at full width)
@@ -548,21 +573,15 @@ def _new_cfg(arch, reduced=False):
     return cfg.reduced() if reduced else cfg.with_layers(depth)
 
 
-def phase_kernel1_new(dev):
-    """Kernel 1 at every (k, n) of phi-3-vision-4.2b and hymba-1.5b at
-    full width, at each m their static serves run: decode (m = 4) and the
-    static prefills of the trace's chunks, hymba's with its 128 meta
-    tokens (``static_prefill_ms(meta)``); hymba's ``wbcdt`` (k 3200, n
-    132) is the first serving shape whose n is not a multiple of 8 (the
-    element-by-element fill and a ragged last n-tile).  Real-size Wt made
-    on the card."""
+def _gate_em_archs(dev, tag, cases):
+    """Kernel 1 against its plain version at every (k, n) of each (arch,
+    cfg, ms) of ``cases``, at each m of ``ms``; real-size Wt made on the
+    card.  Each gated (m, k, n) joins ``GATED_EM``."""
     import torch
     from repro_torch.kernels import encoded_matmul as em
     prog = _program("exact")
     n_cases = 0
-    for arch, _ in NEW_ARCHS:
-        cfg = _new_cfg(arch)
-        ms = (N_SLOTS,) + tuple(static_prefill_ms(cfg.meta_tokens))
+    for arch, cfg, ms in cases:
         for k, n in _arch_em_shapes(cfg):
             xs, wt, bias, sh = _em_dev_case(dev, prog, ms, k, n,
                                             seed=k + n)
@@ -574,7 +593,7 @@ def phase_kernel1_new(dev):
                 top = ref.abs().max().item()
                 ok = torch.allclose(out, ref, rtol=1e-4, atol=1e-4 * top) \
                     and bool(torch.isfinite(out).all())
-                log(f"[kernel1-new] {arch:17s} U={prog.n_a_planes} "
+                log(f"[{tag}] {arch:17s} U={prog.n_a_planes} "
                     f"m={x.shape[0]:4d} k={k:5d} n={n:6d} "
                     f"max_abs_err={err:.3e} (atol {1e-4 * top:.3e}) "
                     f"{'ok' if ok else 'FAIL'}")
@@ -586,8 +605,49 @@ def phase_kernel1_new(dev):
                 del out, ref
             del xs, wt, bias
             torch.cuda.empty_cache()
-    log(f"[kernel1-new] {n_cases} cases of the vlm and hybrid archs within "
-        "tolerance")
+    log(f"[{tag}] {n_cases} cases within tolerance")
+
+
+def phase_kernel1_new(dev):
+    """Kernel 1 at every (k, n) of phi-3-vision-4.2b and hymba-1.5b at
+    full width, at each m their static serves run: decode (m = 4) and the
+    static prefills of the trace's chunks, hymba's with its 128 meta
+    tokens (``static_prefill_ms(meta)``); hymba's ``wbcdt`` (k 3200, n
+    132) is the first serving shape whose n is not a multiple of 8 (the
+    element-by-element fill and a ragged last n-tile)."""
+    cases = []
+    for arch, _ in NEW_ARCHS:
+        cfg = _new_cfg(arch)
+        cases.append((arch, cfg, (N_SLOTS,)
+                      + tuple(static_prefill_ms(cfg.meta_tokens))))
+    _gate_em_archs(dev, "kernel1-new", cases)
+
+
+def _xlstm_cfg(reduced=False):
+    """xlstm-1.3b at its cut depth, or reduced with one mLSTM and one
+    sLSTM block (``reduced()`` alone keeps no sLSTM block)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(XLSTM_ARCH)
+    if reduced:
+        return dataclasses.replace(cfg.reduced(), slstm_every=2)
+    return cfg.with_layers(XLSTM_DEPTH)
+
+
+def _whisper_cfg(reduced=False):
+    from repro_torch.configs import get_config
+    cfg = get_config(WHISPER_ARCH)
+    return cfg.reduced() if reduced else cfg.with_layers(WHISPER_DEPTH)
+
+
+def phase_kernel1_xlstm(dev):
+    """Kernel 1 at every (k, n) of xlstm-1.3b at full width (the mLSTM's
+    wi 2048x8192 and wo 4096x2048, the sLSTM's wi 2048x8192, wup
+    2048x5460 and wo 2730x2048, the head 2048x50304), at the m its static
+    serve runs: decode (m = 4) and the static prefills of the trace's
+    chunks.  ``wup``'s n = 5460 takes the unaligned-n fill, ``wo``'s k =
+    2730 a zero-filled ragged k-tile."""
+    _gate_em_archs(dev, "kernel1-xlstm", [
+        (XLSTM_ARCH, _xlstm_cfg(), (N_SLOTS,) + tuple(static_prefill_ms()))])
 
 
 def phase_kernel1(dev):
@@ -1000,7 +1060,9 @@ def _linear_shapes(cfg, decode: bool = False) -> dict:
     wk_b, wv_b, which decode reads raw), a hybrid layer's SSM (win, wbcdt,
     wout; its wdt is a plain product) and the MLP's (wi, wg for gated
     MLPs, wo: the dense MLP, or a MoE layer's shared expert; the router
-    and routed experts are plain products), and an untied LM head (a tied
+    and routed experts are plain products), an xLSTM layer's (the mLSTM's
+    wi and wo, the sLSTM's wi, wup and wo; its conv, q/k/v blocks, gates
+    and recurrence are plain products), and an untied LM head (a tied
     head reads the embedding table, an fp product).  ``decode``: a
     one-token step over a cache."""
     from repro_torch.models import layer_kinds
@@ -1016,6 +1078,12 @@ def _linear_shapes(cfg, decode: bool = False) -> dict:
                 (H * hd, d)]
     out = collections.Counter()
     for kind in layer_kinds(cfg):
+        if kind in ("mlstm", "slstm"):     # wi, wo; wi, wup, wo
+            di, ff = int(cfg.mlstm_proj_factor * d), int(4 * d / 3)
+            for kn in ([(d, 2 * di), (di, d)] if kind == "mlstm" else
+                       [(d, 4 * d), (d, 2 * ff), (ff, d)]):
+                out[kn] += 1
+            continue
         ff = cfg.d_ff if kind != "moe" else \
             cfg.n_shared_experts * cfg.d_ff_expert
         gated = cfg.gated_mlp or kind == "moe"
@@ -2694,93 +2762,237 @@ def phase_moe(dev):
 def phase_new_archs(dev):
     """Phase 6i: phi-3-vision-4.2b and hymba-1.5b (``NEW_ARCHS``) at full
     width, 4 of 32 layers (hymba: layer 0 global, layers 1-3 windowed at
-    2048), weights drawn on the card, the exact encoding calibrated and
-    folded there (no bundle write).  Neither pages, so each serves the main
-    trace through ``ServeEngine``, with and without the encoding, graphed
-    and eager (identical tokens), the graphed engine once more (identical);
-    kernel 1 at every linear of every forward (hymba's static prefills at
-    m = 4·(S + 128): its meta tokens) at gated shapes, kernels 2 and 3
-    never; folded bytes, peak memory, step p50 and tok/s."""
+    2048), through ``_serve_static_arch``: exact encoding and fp, graphed,
+    eager and a repeat serve."""
+    return {arch: _serve_static_arch(dev, arch, _new_cfg(arch), "new")
+            for arch, _ in NEW_ARCHS}
+
+
+def _serve_static_arch(dev, arch, cfg, tag, extra=None):
+    """An arch that cannot page at full width with its depth cut, weights
+    drawn on the card, the exact encoding calibrated and folded there (no
+    bundle write): the main trace through ``ServeEngine``, with and
+    without the encoding, graphed and eager (identical tokens), the
+    graphed engine once more (identical); kernel 1 at every linear of
+    every forward (a meta-token arch's static prefills at m = 4·(S +
+    meta)) at gated shapes, kernels 2 and 3 never; folded bytes, peak
+    memory, step p50 and tok/s.  ``extra(params_enc, cfg_enc, trace)``
+    runs before the params go and adds its dict to the result."""
     import torch
     from repro_torch.models import init_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device=dev, init_device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    params_enc, cfg_enc, (t_cal, t_fold) = _fold_exact(params, cfg)
+    fw = _fw_bytes(params_enc)
+    log(f"[{tag}] {arch}: {cfg.n_layers} of {_arch_cfg(arch).n_layers} "
+        f"layers, family {cfg.family}, d={cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim_r} ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} tied head {cfg.tie_embeddings}, "
+        f"windows {cfg.layer_windows}, meta tokens {cfg.meta_tokens}, "
+        f"ssm state {cfg.ssm_state}, patches {cfg.n_patches}, slstm every "
+        f"{cfg.slstm_every}; init on the card {t_init:.1f}s, calibration "
+        f"{t_cal:.1f}s, fold {t_fold:.1f}s; folded bf16 Wt "
+        f"{fw / 1e9:.3f} GB; {SMI}")
+    trace = make_trace(cfg.vocab_size)
+    res = {}
+    for wname, (p, c) in (("exact", (params_enc, cfg_enc)),
+                          ("fp", (params, cfg))):
+        for graphs in (True, False):
+            what = f"{arch} {wname} {'graphed' if graphs else 'eager'}"
+            eng, toks, dt, counts = _static(p, c, trace, dev,
+                                            cuda_graphs=graphs)
+            st = eng.stats()
+            _finished(toks, cfg, what)
+            where = f"({what}, static)"
+            if wname == "exact":
+                _check_static_counts(counts, eng.chunks, c, where,
+                                     gated=True)
+            else:
+                assert counts["encoded_matmul"] == 0 and \
+                    counts["paged_attn"] == 0 and \
+                    counts["flash_attention"] == 0, \
+                    f"kernels launched {where}"
+            note = ""
+            if graphs:
+                if _static_run(eng, trace)[0] != toks:
+                    raise AssertionError(f"{where}: a repeat serve on "
+                                         "the same engine differs")
+                note = "; repeat serve identical"
+            res[(wname, graphs)] = (toks, counts, st,
+                                    sum(map(len, toks)) / dt)
+            log(f"[{tag}] {what} static: {sum(map(len, toks)) / dt:.1f} "
+                f"tok/s, step p50 {st['step_ms_p50']:.2f} ms p99 "
+                f"{st['step_ms_p99']:.2f} ms (captures "
+                f"{st['jit_compiles']}, chunks "
+                f"{[(ch['batch'], ch['seq']) for ch in eng.chunks]}, "
+                f"dense cache {st['kv_cache_bytes'] / 1e6:.1f} MB); "
+                f"launches kernel 1 by (m, k, n) "
+                f"{counts['encoded_matmul_by_shape']}, kernel 2 "
+                f"{counts['paged_attn']}, flash "
+                f"{counts['flash_attention']}{note}")
+            del eng
+        same = res[(wname, True)][0] == res[(wname, False)][0]
+        log(f"[{tag}] {arch} {wname}: greedy tokens graphed vs eager "
+            f"{'identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"{arch} {wname}: graphed and eager "
+                                 "tokens differ")
+    n_same, parts = _agreement(res[("exact", True)][0], res[("fp", True)][0])
+    out = {"cfg": cfg_enc, "static_counts": res[("exact", True)][1],
+           "fw_gb": fw / 1e9,
+           "rows": {k: (v[2]["step_ms_p50"], v[3]) for k, v in res.items()}}
+    if extra is not None:
+        out.update(extra(params_enc, cfg_enc, trace))
+    peak = torch.cuda.max_memory_allocated(dev)
+    out["peak_gb"] = peak / 1e9
+    log(f"[{tag}] {arch}: exact encoding vs fp weights {n_same} of "
+        f"{len(trace)} requests identical, parts {parts} (logged); peak "
+        f"device memory {peak / 1e9:.2f} GB, part "
+        f"{time.perf_counter() - t0:.1f}s")
+    del params, params_enc, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _slstm_share(dev, params, cfg, trace):
+    """The sLSTM block's share of a static prefill at the trace's first
+    chunk (batch x its longest prompt, eager): the model's cached prefill
+    and the sLSTM block alone on an input of that shape, each the median
+    of 3 timed calls (CUDA events)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import init_cache, layer_kinds
+    from repro_torch.nn import blocks as B
+    from repro_torch.nn.xlstm import init_slstm_cache
+    chunk = trace[:N_SLOTS]
+    S = max(map(len, chunk))
+    toks = np.zeros((len(chunk), S), np.int32)
+    for r, q in enumerate(chunk):
+        toks[r, S - len(q):] = q
+    toks = torch.from_numpy(toks).to(dev)
+    i_s = layer_kinds(cfg).index("slstm")
+    x = torch.randn((len(chunk), S, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+
+    def full():
+        from repro_torch.models import apply_model
+        apply_model(params, cfg, toks,
+                    cache=init_cache(cfg, len(chunk), S + 1, device=dev))
+
+    def slstm():
+        B.slstm_block_apply(params["layers"][i_s], x, cfg,
+                            cache=init_slstm_cache(cfg, len(chunk), 1,
+                                                   device=dev)[0])
+    with torch.inference_mode():
+        full()
+        slstm()
+        t_full = sorted(_time_once(full, ()) for _ in range(3))[1]
+        t_s = sorted(_time_once(slstm, ()) for _ in range(3))[1]
+    log(f"[xw] {XLSTM_ARCH} exact static prefill of ({len(chunk)}, {S}) "
+        f"tokens, eager: {t_full:.2f} ms; its sLSTM block alone "
+        f"{t_s:.2f} ms, a share of {t_s / t_full:.3f} ({S} sequential "
+        f"steps); {SMI}")
+    return {"prefill_ms": t_full, "slstm_ms": t_s, "share": t_s / t_full,
+            "prefill_shape": (len(chunk), S)}
+
+
+def _whisper_prompts(cfg, B=N_SLOTS, S=64, seed=0):
+    """(B, S) prompts and (B, WHISPER_FRAMES, d) frames from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    frames = rng.normal(size=(B, WHISPER_FRAMES, cfg.d_model)).astype(
+        np.float32)
+    return toks, frames
+
+
+def _whisper_serves(dev):
+    """whisper-large-v3 at full width, 4 + 4 layers, fp and ``--mac
+    int8`` (each from ``init_model`` in its mode: the same weights),
+    weights drawn on the card: ``generate`` of 4 prompts with 1500 frames
+    each, graphed and eager (identical), graphed again (identical), and
+    one ``ServeEngine`` serve of the main trace without ``enc_x``, as the
+    CLI serves it; kernels 1-3 never."""
+    import torch
+    from repro_torch.core.layers import MacConfig
+    from repro_torch.models import init_model
+    from repro_torch.serve import generate
+    cfg = _whisper_cfg()
+    toks, frames = _whisper_prompts(cfg)
+    enc_x = torch.from_numpy(frames).to(dev)
     out = {}
-    for arch, depth in NEW_ARCHS:
-        cfg = _new_cfg(arch)
+    for mode in ("fp", "int8"):
+        c = dataclasses.replace(cfg, mac=MacConfig(mode=mode))
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        params = init_model(cfg, seed=0, device=dev, init_device=dev)
-        torch.cuda.synchronize()
-        t_init = time.perf_counter() - t0
-        params_enc, cfg_enc, (t_cal, t_fold) = _fold_exact(params, cfg)
-        fw = _fw_bytes(params_enc)
-        log(f"[new] {arch}: {cfg.n_layers} of {_arch_cfg(arch).n_layers} "
-            f"layers, family {cfg.family}, d={cfg.d_model} heads "
-            f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim_r} ff={cfg.d_ff} "
-            f"vocab={cfg.vocab_size} tied head {cfg.tie_embeddings}, "
-            f"windows {cfg.layer_windows}, meta tokens {cfg.meta_tokens}, "
-            f"ssm state {cfg.ssm_state}, patches {cfg.n_patches}; init on "
-            f"the card {t_init:.1f}s, calibration {t_cal:.1f}s, fold "
-            f"{t_fold:.1f}s; folded bf16 Wt {fw / 1e9:.3f} GB; {SMI}")
-        trace = make_trace(cfg.vocab_size)
+        params = init_model(c, seed=0, device=dev, init_device=dev)
         res = {}
-        for wname, (p, c) in (("exact", (params_enc, cfg_enc)),
-                              ("fp", (params, cfg))):
-            for graphs in (True, False):
-                tag = f"{arch} {wname} {'graphed' if graphs else 'eager'}"
-                eng, toks, dt, counts = _static(p, c, trace, dev,
-                                                cuda_graphs=graphs)
-                st = eng.stats()
-                _finished(toks, cfg, tag)
-                where = f"({tag}, static)"
-                if wname == "exact":
-                    _check_static_counts(counts, eng.chunks, c, where,
-                                         gated=True)
-                else:
-                    assert counts["encoded_matmul"] == 0 and \
-                        counts["paged_attn"] == 0 and \
-                        counts["flash_attention"] == 0, \
-                        f"kernels launched {where}"
-                note = ""
-                if graphs:
-                    if _static_run(eng, trace)[0] != toks:
-                        raise AssertionError(f"{where}: a repeat serve on "
-                                             "the same engine differs")
-                    note = "; repeat serve identical"
-                res[(wname, graphs)] = (toks, counts, st,
-                                        sum(map(len, toks)) / dt)
-                log(f"[new] {tag} static: {sum(map(len, toks)) / dt:.1f} "
-                    f"tok/s, step p50 {st['step_ms_p50']:.2f} ms p99 "
-                    f"{st['step_ms_p99']:.2f} ms (captures "
-                    f"{st['jit_compiles']}, chunks "
-                    f"{[(ch['batch'], ch['seq']) for ch in eng.chunks]}, "
-                    f"dense cache {st['kv_cache_bytes'] / 1e6:.1f} MB); "
-                    f"launches kernel 1 by (m, k, n) "
-                    f"{counts['encoded_matmul_by_shape']}, kernel 2 "
-                    f"{counts['paged_attn']}, flash "
-                    f"{counts['flash_attention']}{note}")
-                del eng
-            same = res[(wname, True)][0] == res[(wname, False)][0]
-            log(f"[new] {arch} {wname}: greedy tokens graphed vs eager "
-                f"{'identical' if same else 'DIFFERENT'}")
-            if not same:
-                raise AssertionError(f"{arch} {wname}: graphed and eager "
-                                     "tokens differ")
-        n_same, parts = _agreement(res[("exact", True)][0],
-                                   res[("fp", True)][0])
+        for graphs in (True, False, True):
+            torch.cuda.synchronize()
+            _reset_counts()
+            t1 = time.perf_counter()
+            got = generate(params, c, toks, max_new=MAX_NEW,
+                           extras={"enc_x": enc_x}, cuda_graphs=graphs)
+            got = got.cpu().tolist()
+            dt = time.perf_counter() - t1
+            counts = _read_counts()
+            what = f"{WHISPER_ARCH} {mode} {'graphed' if graphs else 'eager'}"
+            assert counts["encoded_matmul"] == 0 and \
+                counts["paged_attn"] == 0 and \
+                counts["flash_attention"] == 0, f"kernels launched ({what})"
+            assert len(got) == len(toks) and all(
+                len(t) == MAX_NEW and all(0 <= x < cfg.vocab_size
+                                          for x in t) for t in got), \
+                f"{what}: not every row finished"
+            key = "repeat" if ("graphed" in res and graphs) else \
+                ("graphed" if graphs else "eager")
+            res[key] = got
+            log(f"[xw] {what} generate ({toks.shape[0]}, {toks.shape[1]}) "
+                f"tokens + {WHISPER_FRAMES} frames, {MAX_NEW} new: "
+                f"{toks.shape[0] * MAX_NEW / dt:.1f} tok/s, "
+                f"{dt:.3f} s (prefill, encoder included)")
+        for key in ("eager", "repeat"):
+            if res[key] != res["graphed"]:
+                raise AssertionError(f"{WHISPER_ARCH} {mode}: {key} "
+                                     "generate differs from graphed")
+        eng, stoks, dt, counts = _static(params, c, make_trace(c.vocab_size),
+                                         dev)
+        st = eng.stats()
+        assert counts["encoded_matmul"] == 0 and counts["paged_attn"] == 0 \
+            and counts["flash_attention"] == 0, \
+            f"kernels launched ({WHISPER_ARCH} {mode} ServeEngine)"
+        _finished(stoks, cfg, f"{WHISPER_ARCH} {mode} ServeEngine")
         peak = torch.cuda.max_memory_allocated(dev)
-        log(f"[new] {arch}: exact encoding vs fp weights {n_same} of "
-            f"{len(trace)} requests identical, parts {parts} (logged); "
-            f"peak device memory {peak / 1e9:.2f} GB, phase 6i part "
-            f"{time.perf_counter() - t0:.1f}s")
-        out[arch] = {"cfg": cfg_enc, "static_counts": res[("exact", True)][1],
-                     "fw_gb": fw / 1e9, "peak_gb": peak / 1e9,
-                     "rows": {k: (v[2]["step_ms_p50"], v[3])
-                              for k, v in res.items()}}
-        del params, params_enc, res
-        gc.collect()
-        torch.cuda.empty_cache()
+        log(f"[xw] {WHISPER_ARCH} {mode}: graphed, eager and repeat "
+            f"generate identical; ServeEngine without enc_x (zero cross "
+            f"cache, as the CLI): {sum(map(len, stoks)) / dt:.1f} tok/s, "
+            f"step p50 {st['step_ms_p50']:.2f} ms p99 "
+            f"{st['step_ms_p99']:.2f} ms; peak device memory "
+            f"{peak / 1e9:.2f} GB; part {time.perf_counter() - t0:.1f}s")
+        out[mode] = {"peak_gb": peak / 1e9, "serve_tok_s":
+                     sum(map(len, stoks)) / dt,
+                     "step_ms_p50": st["step_ms_p50"]}
+        del params, eng
+    return out
+
+
+def phase_xlstm_whisper(dev):
+    """Phase 6j: xlstm-1.3b (8 of 48 blocks: 7 mLSTM, 1 sLSTM) through
+    ``_serve_static_arch`` with the sLSTM block's share of a prefill, and
+    whisper-large-v3 (4 + 4 layers) through ``_whisper_serves``."""
+    out = {XLSTM_ARCH: _serve_static_arch(
+        dev, XLSTM_ARCH, _xlstm_cfg(), "xw",
+        extra=lambda p, c, trace: {"slstm": _slstm_share(dev, p, c,
+                                                         trace)})}
+    out[WHISPER_ARCH] = _whisper_serves(dev)
     return out
 
 
@@ -2937,6 +3149,122 @@ def phase_cpu_parity_new(dev):
             if rel > CARD_CPU_RTOL:
                 raise AssertionError(f"{arch} reduced fp train: card and CPU "
                                      f"part at step {i}: {rel}")
+        log(f"[parity] {arch} reduced fp train: loss CPU/card within "
+            f"{CARD_CPU_RTOL} at every step: {rows}")
+    torch.cuda.empty_cache()
+
+
+def _generate_tie(params, cfg, prompts, extras, a, b):
+    """Where two greedy generations ``a`` and ``b`` of ``prompts`` first
+    part (row, new token), the two candidates' logit margin over the
+    largest |logit| from a no-cache forward of the prompt and ``a``'s
+    tokens before it, on ``params``' device; None where they agree."""
+    import numpy as np
+    import torch
+    from repro_torch.models import apply_model
+    for i, (x, y) in enumerate(zip(a, b)):
+        j = next((j for j, (u, v) in enumerate(zip(x, y)) if u != v), None)
+        if j is None:
+            continue
+        dev = params["embed"]["table"].device
+        toks = torch.from_numpy(np.concatenate(
+            [prompts[i], np.asarray(x[:j], np.int32)])[None]).to(dev)
+        kw = {k: torch.as_tensor(v[i:i + 1]).to(dev)
+              for k, v in (extras or {}).items()}
+        with torch.inference_mode():
+            lg = apply_model(params, cfg, toks, **kw)[0][0, -1].float()
+        return i, j, abs((lg[x[j]] - lg[y[j]]).item()) / \
+            lg.abs().max().item()
+    return None
+
+
+def phase_cpu_parity_xw(dev):
+    """Phase 7 for the xlstm and encdec archs, reduced: xlstm with one
+    mLSTM and one sLSTM block, the exact encoding folded on the CPU,
+    serves the main trace through ``ServeEngine`` on the card (kernel 1)
+    and on the CPU (plain versions): identical greedy tokens, or a split
+    whose first int8 code apart sits within ``ORIGIN_TOL`` of a .5
+    boundary (``_card_cpu_origin``); whisper (fp) through ``generate``
+    with ``enc_x`` from the seed: identical tokens, or a first split that
+    is a near-tie within ``FP_TIE_RTOL`` of max|logit|; then 5 fp train
+    steps of each from one torch-made state (whisper's batches with
+    ``enc_x``): loss within ``CARD_CPU_RTOL`` at every step."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import init_model, to_device
+    from repro_torch.serve import (arch_families, exact_encodings, generate,
+                                   prepare_encoded_serving)
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = _xlstm_cfg(reduced=True)
+    p_cpu = init_model(cfg, seed=0, device="cpu")
+    cache = bundle_dir("parity-xlstm")
+    pe_cpu, ce, _ = prepare_encoded_serving(
+        p_cpu, cfg, device="cpu", cache_dir=cache, verbose=False,
+        macs_override=exact_encodings(cfg.mac.bits, arch_families(cfg)))
+    shutil.rmtree(cache)
+    pe_gpu = to_device(pe_cpu, dev)
+    trace = make_trace(cfg.vocab_size)
+    outs = {}
+    for where, device, params in (("cpu", "cpu", pe_cpu),
+                                  ("cuda", dev, pe_gpu)):
+        seng, toks, _, counts = _static(params, ce, trace, device)
+        if where == "cuda":
+            _check_static_counts(counts, seng.chunks, ce,
+                                 f"({XLSTM_ARCH} reduced, on the card)")
+        outs[where] = toks
+    n_same, parts = _agreement(outs["cpu"], outs["cuda"])
+    log(f"[parity] {XLSTM_ARCH} reduced (mLSTM + sLSTM), static: greedy "
+        f"tokens card (kernels) vs CPU (plain) {n_same} of {len(trace)} "
+        f"identical, parts (request, new token) {parts}")
+    trees = {"cpu": pe_cpu, "cuda": pe_gpu}
+    for c0 in sorted({i - i % N_SLOTS for i, _ in parts}):
+        chunk = trace[c0:c0 + N_SLOTS]
+        S = max(map(len, chunk))
+        batch = np.zeros((len(chunk), S), np.int32)
+        for r, q in enumerate(chunk):
+            batch[r, S - len(q):] = q
+        j = max(t for i, t in parts if c0 <= i < c0 + N_SLOTS)
+        _card_cpu_origin(dev, trees, ce, batch, j + 1, None,
+                         f"parity {XLSTM_ARCH} chunk {c0 // N_SLOTS}")
+    wcfg = _whisper_cfg(reduced=True)
+    w_cpu = init_model(wcfg, seed=0, device="cpu")
+    w_gpu = to_device(w_cpu, dev)
+    prompts, frames = _whisper_prompts(wcfg, S=48)
+    frames = frames[:, :48]
+    got = {where: generate(p, wcfg, prompts, max_new=MAX_NEW,
+                           extras={"enc_x": frames}).cpu().tolist()
+           for where, p in (("cpu", w_cpu), ("cuda", w_gpu))}
+    tie = _generate_tie(w_cpu, wcfg, prompts, {"enc_x": frames},
+                        got["cpu"], got["cuda"])
+    log(f"[parity] {WHISPER_ARCH} reduced, generate with enc_x (48 "
+        f"frames): greedy tokens card vs CPU "
+        f"{'identical' if tie is None else f'part at {tie[:2]}'}"
+        + ("" if tie is None else f", a margin of {tie[2]:.2e} of "
+           f"max|logit| (gated <= {FP_TIE_RTOL})"))
+    if tie is not None and tie[2] > FP_TIE_RTOL:
+        raise AssertionError(f"{WHISPER_ARCH} reduced: card and CPU part "
+                             f"without a near-tie: {tie}")
+    for arch, c in ((XLSTM_ARCH, cfg), (WHISPER_ARCH, wcfg)):
+        s_cpu = init_train_state(c, seed=0, device="cpu")
+        s_gpu = to_device(s_cpu, dev)
+        step = make_train_step(c, warmup=TRAIN_WARMUP,
+                               total_steps=TRAIN_STEPS)
+        rds = SyntheticLMDataset(c.vocab_size, 32, seed=0)
+        rows = []
+        for i in range(5):
+            b = rds.batch(i, 4)
+            if c.family == "encdec":
+                b["enc_x"] = np.random.default_rng(10 + i).normal(
+                    size=(4, 8, c.d_model)).astype(np.float32)
+            s_cpu, mc = step(s_cpu, b)
+            s_gpu, mg = step(s_gpu, b)
+            rel = abs(float(mc["loss"]) - float(mg["loss"])) / max(
+                abs(float(mc["loss"])), 1e-30)
+            rows.append(f"{float(mc['loss']):.6f}/{float(mg['loss']):.6f}")
+            if rel > CARD_CPU_RTOL:
+                raise AssertionError(f"{arch} reduced fp train: card and "
+                                     f"CPU part at step {i}: {rel}")
         log(f"[parity] {arch} reduced fp train: loss CPU/card within "
             f"{CARD_CPU_RTOL} at every step: {rows}")
     torch.cuda.empty_cache()
@@ -4178,6 +4506,29 @@ def _new_em_rows(dev, serve_info, lib):
     return rows
 
 
+def _xlstm_em_rows(dev, serve_info, lib):
+    """Kernel 1's rows at xlstm-1.3b's (k, n) (phase 6j: the sLSTM FFN's
+    ``wup`` at n = 5460 and ``wo`` at k = 2730 among them), at decode (m =
+    n_slots) and at the largest static prefill, launches from its exact
+    static serve.  Exact U, Wt made on the card."""
+    import torch
+    rows = []
+    a = serve_info["xw"][XLSTM_ARCH]
+    cfg, s_shape = a["cfg"], a["static_counts"]["encoded_matmul_by_shape"]
+    m_pre = static_prefill_ms()[0]
+    for k, n in _arch_em_shapes(cfg):
+        for m, tag, seed in ((N_SLOTS, "decode", 4),
+                             (m_pre, "static prefill", 6)):
+            rows.append(_em_row(
+                dev, _program("exact"), m, k, n, seed,
+                f"encoded_matmul_{XLSTM_ARCH}_"
+                f"{'static_' if m == m_pre else ''}m{m}_k{k}_n{n}",
+                s_shape.get((m, k, n), 0), f"{tag}, {XLSTM_ARCH}; "
+                "launches: its static serve", lib, on_card=True))
+            torch.cuda.empty_cache()
+    return rows
+
+
 def phase_measure(dev, serve_info):
     """Kernel, plain and library times at the main path's shapes."""
     import torch
@@ -4262,6 +4613,7 @@ def phase_measure(dev, serve_info):
             torch.cuda.empty_cache()
     rows += _moe_em_rows(dev, serve_info["moe"], lib, m_pre)
     rows += _new_em_rows(dev, serve_info, lib)
+    rows += _xlstm_em_rows(dev, serve_info, lib)
     # kernel 2: decode attention, 4 slots × 16 heads × D 64, with dense
     # f32, int8 and packed-int4 pools, at a 32-page table and at the
     # serve's 127-page table (the same lens, so the same bytes); then at
@@ -4414,6 +4766,7 @@ def main() -> int:
     _phase(phase_kernel1_archs, dev)
     _phase(phase_kernel1_moe, dev)
     _phase(phase_kernel1_new, dev)
+    _phase(phase_kernel1_xlstm, dev)
     _phase(phase_kernel2, dev)
     _phase(phase_kernel2_quant, dev)
     _phase(phase_kernel2_d128, dev)
@@ -4432,10 +4785,12 @@ def main() -> int:
     serve_info["archs"] = _phase(phase_archs, dev)
     serve_info["moe"] = _phase(phase_moe, dev)
     serve_info["new"] = _phase(phase_new_archs, dev)
+    serve_info["xw"] = _phase(phase_xlstm_whisper, dev)
     _phase(phase_cpu_parity, dev)
     _phase(phase_cpu_parity_archs, dev)
     _phase(phase_cpu_parity_moe, dev)
     _phase(phase_cpu_parity_new, dev)
+    _phase(phase_cpu_parity_xw, dev)
     _phase(phase_cli_int8, dev)
     _phase(phase_cpu_parity_search, dev)
     _phase(phase_train, dev)

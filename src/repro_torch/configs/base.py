@@ -1,6 +1,7 @@
-"""ModelConfig for the port: the fields the dense, MoE/MLA, vlm and
-hybrid decoder families, the serving engines and the trainer read, and
-the input-shape cells (port of ``repro/configs/base.py``)."""
+"""ModelConfig for the port: the fields the dense, MoE/MLA, vlm, hybrid
+and xlstm decoder families, the encdec family, the serving engines and
+the trainer read, and the input-shape cells (port of
+``repro/configs/base.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -91,6 +92,17 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_conv: int = 4
     meta_tokens: int = 0
+    # xlstm: one sLSTM block per ``slstm_every`` blocks (0: none), the
+    # mLSTM's up-projection factor and its chunkwise-parallel chunk
+    slstm_every: int = 0
+    mlstm_proj_factor: float = 2.0
+    chunk_size: int = 256
+    # encdec (whisper): encoder and decoder depths, decoder tokens per
+    # encoder frame, the decoder's learned position table
+    enc_layers: int = 0
+    dec_layers: int = 0
+    enc_len_ratio: int = 4
+    max_pos_embed: int = 32768
     # vlm: patch embeddings that replace the prompt's leading positions
     n_patches: int = 0
     param_dtype: str = "float32"
@@ -150,9 +162,10 @@ class ModelConfig:
 
     @property
     def layer_windows(self):
-        """Per-layer sliding windows (None entries = global)."""
+        """Per-layer sliding windows (None entries = global); an encdec
+        arch's are its decoder's."""
         out = []
-        for i in range(self.n_layers):
+        for i in range(self.dec_layers or self.n_layers):
             if self.local_global_period:
                 out.append(self.sliding_window
                            if i % self.local_global_period == 0 else None)
@@ -169,6 +182,8 @@ class ModelConfig:
         return dataclasses.replace(
             self,
             n_layers=min(self.n_layers, 2),
+            enc_layers=min(self.enc_layers, 2),
+            dec_layers=min(self.dec_layers, 2),
             d_model=128,
             n_heads=max(2, min(self.n_heads, 4)),
             n_kv_heads=max(1, min(self.n_kv_heads, 2)),
@@ -187,7 +202,7 @@ class ModelConfig:
             if self.sliding_window else None,
             meta_tokens=min(self.meta_tokens, 8),
             n_patches=min(self.n_patches, 16),
-            attn_chunk=64,
+            chunk_size=32, attn_chunk=64, max_pos_embed=2048,
             ssm_state=min(self.ssm_state, 8) if self.ssm_state else 0,
             global_layers=tuple(g for g in self.global_layers if g < 2),
             param_dtype="float32", compute_dtype="float32",
@@ -197,7 +212,19 @@ class ModelConfig:
         """The same widths, depth cut to ``n_layers`` (a port-only helper
         for the card, where a full-depth MoE model does not fit): a moe
         arch keeps at most ``n_layers - 1`` layers of its dense prefix,
-        so one MoE layer stays."""
+        so one MoE layer stays; an encdec arch keeps ``n_layers`` encoder
+        and ``n_layers`` decoder layers; an xlstm arch only a multiple of
+        ``slstm_every``, where the reference's scanned and unrolled layer
+        orders agree."""
+        if self.family == "encdec":
+            return dataclasses.replace(self, n_layers=2 * n_layers,
+                                       enc_layers=n_layers,
+                                       dec_layers=n_layers)
+        if self.slstm_every and n_layers % self.slstm_every:
+            raise ValueError(
+                f"{self.arch}: {n_layers} layers is not a multiple of "
+                f"slstm_every={self.slstm_every}; the reference's scanned "
+                "and unrolled xLSTM layer orders part there")
         first = self.first_k_dense
         if self.n_experts:
             first = min(first, n_layers - 1)
@@ -207,7 +234,8 @@ class ModelConfig:
     def approx_params(self) -> float:
         """Rough parameter count (the reference's, for its dtype and
         optimizer policy)."""
-        d, L = self.d_model, self.n_layers
+        d, L = self.d_model, (self.n_layers or
+                              self.enc_layers + self.dec_layers)
         hd = self.head_dim_r
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
             + self.n_heads * hd * d
@@ -225,6 +253,10 @@ class ModelConfig:
             ff_dense = 3 * d * self.d_ff if self.first_k_dense else 0
             total = (L - self.first_k_dense) * (attn + ff) \
                 + self.first_k_dense * (attn + ff_dense)
+        elif self.family == "xlstm":
+            di = int(self.mlstm_proj_factor * d)
+            total = L * (d * 2 * di + 3 * di * (di // max(self.n_heads, 1))
+                         + di * d)
         else:
             total = L * (attn + (3 if self.gated_mlp else 2) * d * self.d_ff)
             if self.family == "hybrid":

@@ -1,6 +1,5 @@
-"""--arch registry: the reference's dense-, moe-, vlm- and hybrid-family
-archs, the ones the port serves (xlstm and encdec wait, ROADMAP Queue
-A)."""
+"""--arch registry: every arch of the reference (the dense, moe, vlm,
+hybrid, xlstm and encdec families)."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +13,8 @@ _ARCHS = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "hymba-1.5b": "hymba_1p5b",
     "phi-3-vision-4.2b": "phi3_vision_4p2b",
+    "xlstm-1.3b": "xlstm_1p3b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 
@@ -24,6 +25,6 @@ def list_archs() -> list[str]:
 def get_config(arch: str):
     if arch not in _ARCHS:
         raise KeyError(f"unknown arch {arch!r}; the port serves "
-                       f"{list(_ARCHS)} (ROADMAP: remaining archs)")
+                       f"{list(_ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")
     return mod.CONFIG

@@ -46,6 +46,15 @@
       --mac encoded --encoding exact
   python -m repro_torch.launch.serve --arch hymba-1.5b --layers 4 \
       --mac encoded --encoding exact
+  # the xlstm and encdec families (static); whisper serves fp or int8
+  # (its calibration needs encoder inputs: --mac encoded raises, as in
+  # the reference), and the CLI, as the reference's, feeds it no enc_x
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --arch xlstm-1.3b --mac encoded --encoding exact
+  python -m repro_torch.launch.serve --arch xlstm-1.3b --layers 8 \
+      --mac encoded --encoding exact
+  python -m repro_torch.launch.serve --arch whisper-large-v3 --layers 4 \
+      --mac int8
   # telemetry (continuous engine only): lifecycle trace (Perfetto), the
   # metrics registry, device-time attribution, online drift, profiler
   # trace and the allocator sanitizer
@@ -58,13 +67,17 @@
 ``pallas``: the gathered-page-view path, or the fused page-walk op (the
 CUDA kernel on the card, its plain PyTorch version on the CPU).  On the
 card every continuous engine step, and the static engine's decode step,
-runs as a captured CUDA graph.  ``--arch`` takes the four dense-family
-archs, the two moe-family ones, phi-3-vision-4.2b (vlm) and hymba-1.5b
-(hybrid) (``configs/registry.py``); MLA (deepseek-v3), a vlm and a
-hybrid arch cannot page and serve static only (the CLI, as the
-reference's, feeds a vlm no image).  ``--mac int8`` serves the int8
-fake-quant executor (plain PyTorch on every device: no kernel).  ``--layers`` cuts the
-depth (full width), ``--param-dtype`` sets the weights' dtype.  The
+runs as a captured CUDA graph.  ``--arch`` takes every arch of the
+reference (``configs/registry.py``): the four dense-family archs, the
+two moe-family ones, phi-3-vision-4.2b (vlm), hymba-1.5b (hybrid),
+xlstm-1.3b (xlstm) and whisper-large-v3 (encdec); MLA (deepseek-v3), a
+vlm, a hybrid, an xlstm and an encdec arch cannot page and serve static
+only (the CLI, as the reference's, feeds a vlm no image and an encdec
+arch no ``enc_x``).  ``--mac int8`` serves the int8 fake-quant executor
+(plain PyTorch on every device: no kernel).  ``--layers`` cuts the depth
+(full width; an encdec arch keeps N encoder and N decoder layers, an
+xlstm arch takes only a multiple of its ``slstm_every``),
+``--param-dtype`` sets the weights' dtype.  The
 weights are random, made from ``--seed``; the request trace comes from
 ``numpy.random.default_rng(0)`` as in the reference CLI.
 """
@@ -82,7 +95,9 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=0, metavar="N",
                     help="keep N layers at full width (a moe arch keeps "
-                         "at least one MoE layer); 0 = the arch's depth")
+                         "at least one MoE layer, an encdec arch N encoder "
+                         "and N decoder layers; an xlstm arch takes a "
+                         "multiple of slstm_every); 0 = the arch's depth")
     ap.add_argument("--param-dtype", default=None,
                     choices=["float32", "bfloat16"],
                     help="the weights' dtype (default: the config's); "
@@ -202,7 +217,10 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers:
-        cfg = cfg.with_layers(args.layers)
+        try:
+            cfg = cfg.with_layers(args.layers)
+        except ValueError as e:
+            ap.error(f"--layers: {e}")
     if args.param_dtype:
         cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
     if args.mac == "int8":

@@ -11,6 +11,9 @@
       --arch deepseek-v3-671b --steps 4 --batch 2 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --reduced \
       --arch qwen3-moe-235b-a22b --steps 20 --mac-mode encoded
+  # the xlstm family, in every MAC mode
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
+      --arch xlstm-1.3b --steps 4 --batch 2 --seq 32
 
 The reference's loop (``repro/launch/train.py``): config → train state
 (weights from seed 0) → data pipeline (deterministic per step, prefetch,
@@ -18,7 +21,10 @@ straggler skip) → train steps with async checkpoints (each joined before
 the next starts), an emergency checkpoint on SIGTERM, and a resume from
 the newest committed checkpoint under ``--ckpt-dir``.  ``--mac-mode
 encoded`` trains with ``EncodedMac.default()`` (searched on the card and
-cached on first use).  The reference's mesh options (``--devices``,
+cached on first use).  An encdec arch (whisper-large-v3) stops at its
+first step with the reference's ``AssertionError``: the synthetic token
+stream has no encoder frames ``enc_x`` (``make_train_step`` takes batches
+that carry them).  The reference's mesh options (``--devices``,
 ``--grad-compress``) wait for tensor parallelism (ROADMAP Queue A item 3)
 and are refused.
 """

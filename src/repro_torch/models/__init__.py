@@ -9,7 +9,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .lm import (init_model, apply_model, mtp_logits,  # noqa: E402
-                 init_cache, init_paged_cache, supports_paged_cache,
+                 init_cache, init_paged_cache, reset_cache,
+                 supports_paged_cache,
                  layer_stages, layer_kinds,
                  supports_ragged_mask, params_from_jax,
                  to_device, to_reference_layout,

@@ -1,24 +1,30 @@
-"""Decoder-only LM, dense, moe, vlm and hybrid families (port of
-``repro/models/lm.py``).
+"""Decoder-only LMs of the dense, moe, vlm, hybrid and xlstm families and
+the encdec dispatch (port of ``repro/models/lm.py``).
 
 Params are a nested dict of tensors with the reference's leaf names; the
 layers of every stage are one flat list of per-layer dicts under
 ``"layers"``, in the order they run (the reference stacks each stage
 ``(L, …)`` under its own name for its scan: ``"stack"`` for the dense,
 vlm and hybrid families; ``"dense_prefix"`` and ``"moe_stack"`` for the
-moe family, ``layer_stages``).  deepseek-v3's multi-token-prediction head
-sits under ``"mtp"``, hymba's meta tokens under ``"meta"``, as in the
-reference.  A hybrid layer nests its attention and SSM params under
-``"attn"`` and ``"ssm"``, and its cache holds ``{"attn": {k, v}, "ssm":
-{conv, h}}``.
+moe family; ``"xlstm"``, itself ``{"mlstm": …, "slstm": …}``, for the
+xlstm family; ``"enc"`` and ``"dec"`` for the encdec family,
+``layer_stages``).  deepseek-v3's multi-token-prediction head sits under
+``"mtp"``, hymba's meta tokens under ``"meta"``, whisper's decoder
+position table under ``"pos_table"``, as in the reference.  A hybrid
+layer nests its attention and SSM params under ``"attn"`` and ``"ssm"``,
+and its cache holds ``{"attn": {k, v}, "ssm": {conv, h}}``; an xLSTM
+layer's params and cache sit under ``"mlstm"`` or ``"slstm"``.  The
+xLSTM layers run in the reference's scanned order: groups of
+``n_mlstm // n_slstm`` mLSTM blocks, each followed by one sLSTM block.
 
 Public API:
   init_model(cfg, *, seed, device, init_device)   → params
-  apply_model(params, cfg, tokens, img=None, cache=None)
+  apply_model(params, cfg, tokens, img=None, enc_x=None, cache=None)
                                                   → (logits, new_cache)
       (+ aux with return_aux, + hidden with return_hidden)
   mtp_logits(params, cfg, h, tokens)              → MTP logits
-  init_cache(cfg, batch, max_len, *, device)      → dense KV / MLA cache
+  init_cache(cfg, batch, max_len, *, device, enc_len) → dense cache
+  reset_cache(layers)                             → a cache back to init
   init_paged_cache(cfg, n_pages, page_size, *, device) → paged cache
   supports_paged_cache(cfg) / supports_ragged_mask(cfg)
   layer_stages(cfg)                               → [(name, kind, n)]
@@ -48,19 +54,30 @@ from repro_torch.nn.common import (embed_apply, embed_init, linear,
                                    softcap)
 from repro_torch.nn.mla import init_mla_cache
 from repro_torch.nn.ssm import init_ssm_cache
+from repro_torch.nn.xlstm import M_INIT, init_mlstm_cache, init_slstm_cache
 from repro_torch.quant.kvcache import kv_pool_layout
 from repro_torch.tree import tree_leaves, tree_map
+from .encdec import apply_encdec, init_encdec, init_encdec_cache
 
 # the reference's stage names, in the order their layers run
-STAGE_NAMES = ("dense_prefix", "moe_stack", "stack")
+STAGE_NAMES = ("dense_prefix", "moe_stack", "stack", "xlstm", "enc", "dec")
+# the keys of a dense cache layer that hold a recurrent state (returned
+# by a cached forward in new tensors, never written in place)
+STATE_KEYS = ("ssm", "mlstm", "slstm")
 
 
 def layer_stages(cfg) -> list:
     """(name, kind, n_layers) of each stage, as the reference's
     ``_stages``: the moe family's dense prefix (``first_k_dense``) and
-    its MoE stack; the hybrid family's ``"stack"`` of hybrid blocks; one
-    dense ``"stack"`` for the dense and vlm families.  xlstm and encdec
-    are not ported (ROADMAP Queue A)."""
+    its MoE stack; the hybrid family's ``"stack"`` of hybrid blocks; the
+    xlstm family's ``"xlstm"`` stage; the encdec family's encoder
+    (``"enc"``) and decoder (``"dec"``); one dense ``"stack"`` for the
+    dense and vlm families."""
+    if cfg.family == "encdec":
+        return [("enc", "encoder", cfg.enc_layers),
+                ("dec", "xattn", cfg.dec_layers)]
+    if cfg.family == "xlstm":
+        return [("xlstm", "xlstm", cfg.n_layers)]
     if cfg.family == "moe":
         st = []
         if cfg.first_k_dense:
@@ -70,15 +87,47 @@ def layer_stages(cfg) -> list:
     if cfg.family == "hybrid":
         return [("stack", "hybrid", cfg.n_layers)]
     if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP Queue A: remaining archs)")
+        raise NotImplementedError(f"unknown family {cfg.family!r}")
     return [("stack", "dense", cfg.n_layers)]
 
 
+def _xlstm_order(n_m: int, n_s: int) -> list:
+    """(sub-stack, index) of each xLSTM layer in run order: the
+    reference's scanned order, groups of ``n_m // n_s`` mLSTM blocks each
+    followed by one sLSTM block (all mLSTM without sLSTM blocks)."""
+    if not n_s:
+        return [("mlstm", i) for i in range(n_m)]
+    per, rem = divmod(n_m, n_s)
+    if rem:
+        raise ValueError(f"{n_m} mLSTM blocks do not split into {n_s} "
+                         "groups (the reference's scan cannot run them)")
+    out = []
+    for g in range(n_s):
+        out += [("mlstm", g * per + j) for j in range(per)]
+        out.append(("slstm", g))
+    return out
+
+
+def _xlstm_counts(cfg, n: int) -> tuple:
+    n_s = n // cfg.slstm_every if cfg.slstm_every else 0
+    return n - n_s, n_s
+
+
 def layer_kinds(cfg) -> list:
-    """Each layer's kind ('dense', 'moe' or 'hybrid'), in the order they
-    run."""
-    return [kind for _, kind, n in layer_stages(cfg) for _ in range(n)]
+    """Each layer's kind ('dense', 'moe', 'hybrid', 'mlstm', 'slstm',
+    'encoder' or 'xattn'), in the order they run."""
+    out = []
+    for _, kind, n in layer_stages(cfg):
+        if kind == "xlstm":
+            out += [s for s, _ in _xlstm_order(*_xlstm_counts(cfg, n))]
+        else:
+            out += [kind] * n
+    return out
+
+
+_BLOCK_INIT = {"hybrid": B.hybrid_block_init, "mlstm": B.mlstm_block_init,
+               "slstm": B.slstm_block_init}
+_XLSTM_APPLY = {"mlstm": B.mlstm_block_apply, "slstm": B.slstm_block_apply}
 
 
 def init_model(cfg, *, seed: int = 0, device=None, init_device="cpu"
@@ -96,7 +145,17 @@ def init_model(cfg, *, seed: int = 0, device=None, init_device="cpu"
             "in 'fp' mode and transform via "
             "serve.encoded.prepare_encoded_serving")
     gen = torch.Generator(device=init_device).manual_seed(seed)
+
+    def place(layer):
+        # a layer at a time to the device: a full-width model never sits
+        # on the host whole
+        if torch.device(init_device).type == "cpu":
+            return to_device(layer, dev)
+        return layer
+
     with torch.device(init_device):
+        if cfg.family == "encdec":
+            return to_device(init_encdec(gen, cfg, place), dev)
         p = {"embed": embed_init(gen, cfg.vocab_p, cfg.d_model, cfg.pdtype)}
         p.update(norm_init(cfg.d_model, cfg.norm, cfg.pdtype, "final_norm"))
         if not cfg.tie_embeddings:
@@ -106,15 +165,10 @@ def init_model(cfg, *, seed: int = 0, device=None, init_device="cpu"
             p["meta"] = (torch.randn((cfg.meta_tokens, cfg.d_model),
                                      generator=gen, dtype=torch.float32)
                          * 0.02).to(cfg.pdtype)
-        p["layers"] = []
-        for kind in kinds:
-            p["layers"].append(B.hybrid_block_init(gen, cfg)
-                               if kind == "hybrid" else
-                               B.decoder_block_init(gen, cfg, kind))
-            if torch.device(init_device).type == "cpu":
-                # a layer at a time to the device: a full-width model
-                # never sits on the host whole
-                p["layers"][-1] = to_device(p["layers"][-1], dev)
+        p["layers"] = [place(_BLOCK_INIT[kind](gen, cfg)
+                             if kind in _BLOCK_INIT else
+                             B.decoder_block_init(gen, cfg, kind))
+                       for kind in kinds]
         if cfg.mtp:
             p["mtp"] = {"proj": linear_init(gen, 2 * cfg.d_model,
                                             cfg.d_model, "w", cfg.mac,
@@ -137,8 +191,9 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, cache=None,
-                return_aux: bool = False, return_hidden: bool = False):
+def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, enc_x=None,
+                cache=None, return_aux: bool = False,
+                return_hidden: bool = False):
     """tokens (B, S) → (logits (B, S', vocab_p), new_cache[, aux][, h]);
     S' = S, plus ``cfg.meta_tokens`` where they are prepended.
 
@@ -146,19 +201,31 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, cache=None,
     leading ``min(n_patches, S)`` positions of the embedded prompt.  Meta
     tokens (hymba) lead the sequence in training and in a prefill (no
     cache, or S > 1 from position 0); a decode step finds them already in
-    the cache.
+    the cache.  ``enc_x`` (B, S_enc, d): an encdec arch's encoder frames
+    (``models.encdec.apply_encdec``: required without a cache; with one,
+    a prefill that fills the cross K/V).
 
     ``cache``: None; a paged cache ``{"layers": [{pool_k, pool_v[,
     scale_k, scale_v]}, …], "pages": (B, P) int32, "lens": (B,) int32}``;
-    or a dense cache ``{"layers": [{k, v}, {ckv, kr} or {attn, ssm}, …],
-    "pos"[, "pad"]}`` (``init_cache``; ``pos`` an int or a 0-d tensor,
-    ``pad`` (B,) the left-pad slots of each row).  The cache's tensors are
-    written in place, except a hybrid layer's SSM state, which the
-    returned cache carries as new tensors; the returned cache shares the
-    rest and carries ``lens + S`` (paged) or ``pos + S`` (dense).
-    ``return_aux`` adds the MoE
-    layers' summed auxiliary loss (0-d f32), ``return_hidden`` the final
-    normed hidden state (B, S, d) (the MTP head's input)."""
+    or a dense cache ``{"layers": [{k, v}, {ckv, kr}, {attn, ssm},
+    {mlstm}, {slstm} or {k, v, ck, cv}, …], "pos"[, "pad"]}``
+    (``init_cache``; ``pos`` an int or a 0-d tensor, ``pad`` (B,) the
+    left-pad slots of each row).  The cache's tensors are written in
+    place, except the recurrent states (``STATE_KEYS``: a hybrid layer's
+    SSM state, an xLSTM layer's), which the returned cache carries as new
+    tensors; the returned cache shares the rest and carries ``lens + S``
+    (paged) or ``pos + S`` (dense).  ``return_aux`` adds the MoE layers'
+    summed auxiliary loss (0-d f32), ``return_hidden`` the final normed
+    hidden state (B, S, d) (the MTP head's input)."""
+    if cfg.family == "encdec":
+        h, new_cache = apply_encdec(params, cfg, tokens, enc_x=enc_x,
+                                    cache=cache)
+        out = (_head(params, cfg, h), new_cache)
+        if return_aux:
+            out += (torch.zeros((), dtype=torch.float32, device=h.device),)
+        if return_hidden:
+            out += (h,)
+        return out
     Bn, S = tokens.shape
     x = embed_apply(params["embed"], tokens, cfg.cdtype)
     if cfg.embed_scale:
@@ -209,6 +276,11 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, cache=None,
                                             cache=c_l, positions=positions)
             if c2 is not None:
                 layers[i] = {"attn": layers[i]["attn"], "ssm": c2["ssm"]}
+        elif kinds[i] in _XLSTM_APPLY:
+            c_l = None if cache is None else layers[i][kinds[i]]
+            x, c2, a = _XLSTM_APPLY[kinds[i]](p_l, x, cfg, cache=c_l)
+            if c2 is not None:
+                layers[i] = {kinds[i]: c2}
         else:
             c_l = None if cache is None else dict(layers[i], **ctx)
             x, _, a = B.decoder_block_apply(p_l, x, cfg, ffn=kinds[i],
@@ -235,7 +307,9 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, cache=None,
 
 
 def _block(p_l, x, cfg, kind, window, positions):
-    if kind == "hybrid":
+    if kind in _XLSTM_APPLY:
+        x, _, aux = _XLSTM_APPLY[kind](p_l, x, cfg)
+    elif kind == "hybrid":
         x, _, aux = B.hybrid_block_apply(p_l, x, cfg, window=window,
                                          positions=positions)
     else:
@@ -268,14 +342,27 @@ def mtp_logits(params, cfg, h, tokens):
     return _head(params, cfg, x)
 
 
-def init_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:
+def init_cache(cfg, batch: int, max_len: int, *, device=None,
+               enc_len: int = None) -> dict:
     """Dense decode cache: per layer ``k/v (batch, max_len + meta_tokens,
     n_kv, hd)``, or with MLA the latent ``ckv (batch, max_len, r)`` and
     ``kr (batch, max_len, rope_dim)``, zeros in the compute dtype; a
     hybrid layer ``{"attn": {k, v}, "ssm": {conv, h}}``
-    (``nn.ssm.init_ssm_cache``); and ``pos`` 0 (a 0-d int32 tensor)."""
+    (``nn.ssm.init_ssm_cache``); an xLSTM layer ``{"mlstm": {C, n, m,
+    conv}}`` or ``{"slstm": {h, c, m, n}}`` (``nn.xlstm``, m at
+    ``M_INIT``); an encdec decoder layer ``{k, v, ck, cv}`` with
+    ``enc_len`` cross frames (``models.encdec.init_encdec_cache``); and
+    ``pos`` 0 (a 0-d int32 tensor)."""
     dev = resolve_device(device)
-    kinds = layer_kinds(cfg)                # refuses unported families
+    kinds = layer_kinds(cfg)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    if cfg.family == "encdec":
+        return {"pos": pos, "layers": init_encdec_cache(
+            cfg, batch, max_len, enc_len, device=dev)}
+    if cfg.family == "xlstm":
+        init = {"mlstm": init_mlstm_cache, "slstm": init_slstm_cache}
+        return {"pos": pos, "layers": [
+            {k: init[k](cfg, batch, 1, device=dev)[0]} for k in kinds]}
     max_len = max_len + cfg.meta_tokens
     if "hybrid" in kinds:
         att = init_kv_cache(cfg, batch, max_len, cfg.n_layers, device=dev)
@@ -284,8 +371,20 @@ def init_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:
     else:
         init = init_mla_cache if cfg.use_mla else init_kv_cache
         layers = init(cfg, batch, max_len, cfg.n_layers, device=dev)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-            "layers": layers}
+    return {"pos": pos, "layers": layers}
+
+
+def reset_cache(layers) -> None:
+    """A dense cache's layers back to ``init_cache``'s values, in place:
+    zeros, and ``M_INIT`` in the xLSTM states' stabilizer ``m``."""
+    for layer in layers:
+        for key, t in layer.items():
+            if isinstance(t, dict):
+                for k, leaf in t.items():
+                    leaf.fill_(M_INIT if key in ("mlstm", "slstm")
+                               and k == "m" else 0)
+            else:
+                t.zero_()
 
 
 def supports_paged_cache(cfg) -> bool:
@@ -340,14 +439,24 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, *, device=None):
 def to_reference_layout(tree: dict, cfg) -> dict:
     """A tree in the port's layout (params, or a delta of folded leaves)
     in the reference's: the per-layer dicts under ``"layers"`` go to
-    their stages (``layer_stages``), whose leaves are lists with one
-    entry per layer (the reference's ``(L, …)`` arrays, to be stacked by
-    whoever writes or hashes them); every other entry as is."""
+    their stages (``layer_stages``; the xlstm stage's mLSTM and sLSTM
+    layers to its ``"mlstm"`` and ``"slstm"`` sub-stacks), whose leaves
+    are lists with one entry per layer (the reference's ``(L, …)`` arrays,
+    to be stacked by whoever writes or hashes them); every other entry as
+    is."""
     out = {k: v for k, v in tree.items() if k != "layers"}
     if tree.get("layers"):
+        kinds = layer_kinds(cfg)
         i = 0
-        for name, _, n in layer_stages(cfg):
-            out[name] = _gather_layers(tree["layers"][i:i + n])
+        for name, kind, n in layer_stages(cfg):
+            layers = tree["layers"][i:i + n]
+            if kind == "xlstm":
+                out[name] = {sub: _gather_layers(
+                    [lay for lay, k in zip(layers, kinds[i:i + n])
+                     if k == sub]) for sub in ("mlstm", "slstm")
+                    if sub in kinds[i:i + n]}
+            else:
+                out[name] = _gather_layers(layers)
             i += n
     return out
 
@@ -358,12 +467,21 @@ def _gather_layers(layers: list) -> dict:
             for k, v in layers[0].items()}
 
 
+def _run_order(name: str, stage) -> list:
+    """(sub-stack key or None, index) of each layer of the reference stage
+    ``name`` in run order (counts from the first leaf of each stack)."""
+    if name == "xlstm":
+        n = {k: len(tree_leaves(v)[0]) for k, v in stage.items()}
+        return _xlstm_order(n.get("mlstm", 0), n.get("slstm", 0))
+    return [(None, i) for i in range(len(tree_leaves(stage)[0]))]
+
+
 def _stage_items(tree: dict):
-    """(name, n_layers) of the reference stages in ``tree``, in run order
-    (n from the stage's first leaf)."""
+    """(name, run order) of the reference stages in ``tree``, in run
+    order."""
     for name in STAGE_NAMES:
         if name in tree:
-            yield name, len(tree_leaves(tree[name])[0])
+            yield name, _run_order(name, tree[name])
 
 
 def from_reference_layout(tree: dict) -> dict:
@@ -371,8 +489,8 @@ def from_reference_layout(tree: dict) -> dict:
     leaves become per-layer dicts of slices, one flat ``"layers"`` list in
     run order; every other entry as is."""
     out = {k: v for k, v in tree.items() if k not in STAGE_NAMES}
-    layers = [_slice(tree[name], i) for name, n in _stage_items(tree)
-              for i in range(n)]
+    layers = [_slice(tree[name] if sub is None else tree[name][sub], i)
+              for name, order in _stage_items(tree) for sub, i in order]
     if layers:
         out["layers"] = layers
     return out
@@ -426,7 +544,7 @@ def params_from_jax(tree, cfg, device=None) -> dict:
     every leaf as is except folded ``*_fw`` tensors, which become bf16.
     Carries the ``encoded_infer`` leaves ``*_fw/_fb/_as/_ws`` too."""
     want = [(name, n) for name, _, n in layer_stages(cfg)]
-    got = list(_stage_items(tree))
+    got = [(name, len(order)) for name, order in _stage_items(tree)]
     if got != want:
         raise ValueError(f"the tree's stages {got} are not {cfg.arch}'s "
                          f"{want}")
@@ -454,9 +572,10 @@ def unstack_layers(tree: dict) -> dict:
     one flat ``"layers"`` list in run order."""
     out = {k: v for k, v in tree.items() if k not in STAGE_NAMES}
     layers = []
-    for name, n in _stage_items(tree):
+    for name, order in _stage_items(tree):
         per_leaf = _unbind(tree[name])
-        layers += [_pick(per_leaf, i) for i in range(n)]
+        layers += [_pick(per_leaf if sub is None else per_leaf[sub], i)
+                   for sub, i in order]
     if layers:
         out["layers"] = layers
     return out

@@ -11,12 +11,11 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     """{name: (shape tuple, torch dtype)} for the given shape cell.
 
-    train   → tokens (B,S), labels (B,S) (+ img for vlm)
-    prefill → tokens (B,S) (+ img for vlm)
+    train   → tokens (B,S), labels (B,S) (+ enc_x for encdec, img for vlm)
+    prefill → tokens (B,S) (+ enc_x / img)
     decode  → tokens (B,1)  (the cache is built separately)
 
-    The encdec family's ``enc_x`` waits with that family (ROADMAP Queue
-    A)."""
+    ``enc_x``: (B, S // enc_len_ratio, d_model) encoder frames."""
     B, S = shape.global_batch, shape.seq_len
     i32 = torch.int32
     if shape.kind == "train":
@@ -25,8 +24,12 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
         out = {"tokens": ((B, S), i32)}
     else:
         out = {"tokens": ((B, 1), i32)}
-    if shape.kind != "decode" and cfg.family == "vlm" and cfg.n_patches:
-        out["img"] = ((B, cfg.n_patches, cfg.d_model), cfg.cdtype)
+    if shape.kind != "decode":
+        if cfg.family == "encdec":
+            out["enc_x"] = ((B, S // cfg.enc_len_ratio, cfg.d_model),
+                            cfg.cdtype)
+        if cfg.family == "vlm" and cfg.n_patches:
+            out["img"] = ((B, cfg.n_patches, cfg.d_model), cfg.cdtype)
     return out
 
 

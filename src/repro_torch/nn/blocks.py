@@ -1,19 +1,27 @@
-"""Decoder blocks of the dense, moe and hybrid families (port of the
-dense/MoE and hybrid parts of ``repro/nn/blocks.py``): GQA attention or
-MLA, then a dense MLP or a mixture of experts; or Hymba's attention and
-SSM heads in parallel, then a dense MLP.  Every block is (init, apply)
-with apply(params, x, cfg, *, window, cache, positions) → (x_out,
-new_cache, aux), ``aux`` the router's auxiliary loss (0 for a dense MLP
-and a hybrid block)."""
+"""Blocks of every family (port of ``repro/nn/blocks.py``): GQA attention
+or MLA, then a dense MLP or a mixture of experts; Hymba's attention and
+SSM heads in parallel, then a dense MLP; the xLSTM's mLSTM and sLSTM
+blocks; Whisper's encoder block and its decoder block with
+cross-attention.  Every decoder block is (init, apply) with
+apply(params, x, cfg, *, …, cache) → (x_out, new_cache, aux), ``aux``
+the router's auxiliary loss (0 but for a MoE layer)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
-from .attention import attn_apply, attn_init
-from .common import mlp_apply, mlp_init, norm_apply, norm_init
+from .attention import attn_apply, attn_init, kv_of_q_map
+from .attention_mha import mha
+from .common import linear, mlp_apply, mlp_init, norm_apply, norm_init
 from .mla import mla_apply, mla_init
 from .moe import moe_apply, moe_init
 from .ssm import ssm_apply, ssm_init
+from .xlstm import mlstm_apply, mlstm_init, slstm_apply, slstm_init
+
+
+def _zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def decoder_block_init(generator, cfg, ffn: str = "dense") -> dict:
@@ -53,7 +61,7 @@ def decoder_block_apply(p, x, cfg, *, ffn: str = "dense", window=None,
     else:
         f = mlp_apply(p["mlp"], h, cfg.mac, cfg.act, cfg.gated_mlp,
                       cfg.cdtype)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = _zero(x)
     if cfg.post_norm:
         f = norm_apply(p, f, cfg.norm, cfg.norm_eps, "ln2p")
     return x + f, new_cache, aux
@@ -88,5 +96,120 @@ def hybrid_block_apply(p, x, cfg, *, window=None, cache=None,
     h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln2")
     f = mlp_apply(p["mlp"], h, cfg.mac, cfg.act, cfg.gated_mlp, cfg.cdtype)
     new_cache = None if cache is None else {"attn": ac2, "ssm": sc2}
-    return x + f, new_cache, torch.zeros((), dtype=torch.float32,
-                                         device=x.device)
+    return x + f, new_cache, _zero(x)
+
+
+# --- xLSTM blocks ------------------------------------------------------------
+
+def mlstm_block_init(generator, cfg) -> dict:
+    p = {"mlstm": mlstm_init(generator, cfg)}
+    p.update(norm_init(cfg.d_model, cfg.norm, cfg.pdtype, "ln1"))
+    return p
+
+
+def mlstm_block_apply(p, x, cfg, *, cache=None):
+    """x + mLSTM(ln1(x)); ``cache``: None or the layer's ``{C, n, m,
+    conv}``, the new one in fresh tensors."""
+    h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln1")
+    o, new_cache = mlstm_apply(p["mlstm"], h, cfg, cache=cache)
+    return x + o, new_cache, _zero(x)
+
+
+def slstm_block_init(generator, cfg) -> dict:
+    p = {"slstm": slstm_init(generator, cfg)}
+    p.update(norm_init(cfg.d_model, cfg.norm, cfg.pdtype, "ln1"))
+    return p
+
+
+def slstm_block_apply(p, x, cfg, *, cache=None):
+    """x + sLSTM(ln1(x)) (its FFN inside); ``cache``: None or the layer's
+    ``{h, c, m, n}``, the new one in fresh tensors."""
+    h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln1")
+    o, new_cache = slstm_apply(p["slstm"], h, cfg, cache=cache)
+    return x + o, new_cache, _zero(x)
+
+
+# --- encoder block / cross-attention decoder block (whisper) ----------------
+
+def encoder_block_init(generator, cfg) -> dict:
+    p = {"attn": attn_init(generator, cfg)}
+    p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mac,
+                        cfg.gated_mlp, cfg.mlp_bias, cfg.pdtype)
+    p.update(norm_init(cfg.d_model, cfg.norm, cfg.pdtype, "ln1"))
+    p.update(norm_init(cfg.d_model, cfg.norm, cfg.pdtype, "ln2"))
+    return p
+
+
+def _kv_map(cfg):
+    return kv_of_q_map(cfg.n_heads, cfg.n_kv_heads, cfg.n_heads_p,
+                       cfg.n_kv_p)
+
+
+def encoder_block_apply(p, x, cfg):
+    """Bidirectional self-attention block over frames x (B, Se, d): no
+    mask, no cache, no rotary."""
+    h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln1")
+    B, S, _ = h.shape
+    hd = cfg.head_dim_r
+    cdt = cfg.cdtype
+    q = linear(p["attn"], "wq", h, cfg.mac, cdt).reshape(
+        B, S, cfg.n_heads_p, hd)
+    k = linear(p["attn"], "wk", h, cfg.mac, cdt).reshape(
+        B, S, cfg.n_kv_p, hd)
+    v = linear(p["attn"], "wv", h, cfg.mac, cdt).reshape(
+        B, S, cfg.n_kv_p, hd)
+    pos = torch.arange(S, device=x.device)
+    o = mha(q, k, v, _kv_map(cfg), scale=1.0 / math.sqrt(hd), q_pos=pos,
+            k_pos=pos, causal=False, chunk=cfg.attn_chunk)
+    o = linear(p["attn"], "wo", o.reshape(B, S, -1), cfg.mac, cdt)
+    x = x + o
+    h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln2")
+    return x + mlp_apply(p["mlp"], h, cfg.mac, cfg.act, cfg.gated_mlp, cdt)
+
+
+def xattn_decoder_block_init(generator, cfg) -> dict:
+    p = {"attn": attn_init(generator, cfg), "xattn": attn_init(generator,
+                                                                cfg)}
+    p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mac,
+                        cfg.gated_mlp, cfg.mlp_bias, cfg.pdtype)
+    for name in ("ln1", "lnx", "ln2"):
+        p.update(norm_init(cfg.d_model, cfg.norm, cfg.pdtype, name))
+    return p
+
+
+def xattn_decoder_block_apply(p, x, enc_kv, cfg, *, cache=None,
+                              positions=None):
+    """Causal self-attention, then cross-attention to the encoder's
+    precomputed ``enc_kv = (k, v)`` (B, Se, n_kv, hd), then the MLP.
+    ``cache``: None or a dense layer cache ``{k, v, pos}`` for the
+    self-attention (written in place, ``attn_apply``)."""
+    h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln1")
+    a, new_cache = attn_apply(p["attn"], h, cfg, cache=cache,
+                              positions=positions)
+    x = x + a
+    h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "lnx")
+    B, S, _ = h.shape
+    hd = cfg.head_dim_r
+    cdt = cfg.cdtype
+    q = linear(p["xattn"], "wq", h, cfg.mac, cdt).reshape(
+        B, S, cfg.n_heads_p, hd)
+    ek, ev = enc_kv
+    zeros = torch.zeros((), dtype=torch.long, device=x.device)
+    o = mha(q, ek, ev, _kv_map(cfg), scale=1.0 / math.sqrt(hd),
+            q_pos=zeros.expand(S), k_pos=zeros.expand(ek.shape[1]),
+            causal=False, chunk=cfg.attn_chunk)
+    x = x + linear(p["xattn"], "wo", o.reshape(B, S, -1), cfg.mac, cdt)
+    h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln2")
+    x = x + mlp_apply(p["mlp"], h, cfg.mac, cfg.act, cfg.gated_mlp, cdt)
+    return x, new_cache, _zero(x)
+
+
+def cross_kv(p_block, enc_out, cfg):
+    """A decoder layer's cross-attention K/V (B, Se, n_kv, hd) from the
+    encoder's output."""
+    B, Se, _ = enc_out.shape
+    hd = cfg.head_dim_r
+    k = linear(p_block["xattn"], "wk", enc_out, cfg.mac, cfg.cdtype)
+    v = linear(p_block["xattn"], "wv", enc_out, cfg.mac, cfg.cdtype)
+    return (k.reshape(B, Se, cfg.n_kv_p, hd),
+            v.reshape(B, Se, cfg.n_kv_p, hd))

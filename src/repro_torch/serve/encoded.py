@@ -71,6 +71,11 @@ MLA_FAMILIES = ("wq_a", "wq_b", "wkv_a", "wkr", "wk_b", "wv_b", "wo",
 # MLP's, and the SSM's in-, B/C/dt- and out-projections (its conv, wdt,
 # meta tokens and tied head stay fp)
 HYBRID_FAMILIES = FAMILIES + ("win", "wbcdt", "wout")
+# the projection families of an xlstm arch: the mLSTM's and sLSTM's in-
+# and out-projections, the sLSTM FFN's up-projection and the untied head
+# (the conv, the block-diagonal q/k/v, the gate projections and the
+# sLSTM's recurrence are plain products and stay fp)
+XLSTM_FAMILIES = ("wi", "wo", "wup", "w")
 # errors that mark a bundle as unreadable (it is then rebuilt)
 _BUNDLE_ERRORS = (OSError, ValueError, KeyError, json.JSONDecodeError,
                   zipfile.BadZipFile, EOFError)
@@ -80,7 +85,8 @@ def arch_families(cfg) -> tuple:
     """The projection families an arch's linears fall in."""
     if cfg.use_mla:
         return MLA_FAMILIES
-    return HYBRID_FAMILIES if cfg.family == "hybrid" else FAMILIES
+    return {"hybrid": HYBRID_FAMILIES,
+            "xlstm": XLSTM_FAMILIES}.get(cfg.family, FAMILIES)
 
 
 def exact_encodings(bits: int = 8, families=FAMILIES) -> dict:

@@ -30,9 +30,9 @@ import torch
 from repro_torch.analysis.ledger import sanitize_enabled
 from repro_torch.core.macexec import check_drafter, debug_nan_enabled
 from repro_torch.device import resolve_device
-from repro_torch.models import (apply_model, init_cache,
+from repro_torch.models import (apply_model, init_cache, reset_cache,
                                 supports_paged_cache, supports_ragged_mask)
-from repro_torch.models.lm import paged_cache_layout
+from repro_torch.models.lm import STATE_KEYS, paged_cache_layout
 from repro_torch.obs import CompileTracker, percentile, profiler_trace
 from repro_torch.tree import tree_leaves
 from .graphs import Step
@@ -782,8 +782,9 @@ class Engine:
 def make_prefill(cfg):
     """Prefill a (B, S) batch into a dense cache from position 0: the last
     position's logits (B, 1, vocab_p) and the cache, written in place and
-    carrying ``pos + S`` (a hybrid arch's new SSM state in new tensors).
-    ``extras``: the model's other prefill inputs (a vlm's ``img``)."""
+    carrying ``pos + S`` (the recurrent states in new tensors).
+    ``extras``: the model's other prefill inputs (a vlm's ``img``, an
+    encdec arch's ``enc_x``)."""
     def prefill(params, cache, tokens, **extras):
         logits, cache = apply_model(params, cfg, tokens, cache=cache,
                                     **extras)
@@ -829,29 +830,30 @@ def _pick(lg, greedy: bool, generator):
     return torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
 
 
-def _ssm_states(layers) -> list:
-    """The SSM state of each hybrid layer of a dense cache (``{conv,
-    h}``), in layer order; empty for other archs."""
-    return [layer["ssm"] for layer in layers if "ssm" in layer]
+def _states(layers) -> list:
+    """The recurrent states of a dense cache (a hybrid layer's SSM state,
+    an xLSTM layer's mLSTM or sLSTM state: ``STATE_KEYS``), in layer
+    order; empty for other archs."""
+    return [layer[k] for layer in layers for k in STATE_KEYS if k in layer]
 
 
 def _static_decode(decode, params, layers, vocab, tok, pos, pad=None):
     """The static decode step on a dense cache's layers: last-position
-    logits (B, vocab), the greedy token (B, 1), ``pos + 1`` and the
-    hybrid layers' new SSM states (new tensors: the step reads the state
-    and does not write it, so its warm-up before a capture changes
-    nothing)."""
+    logits (B, vocab), the greedy token (B, 1), ``pos + 1`` and the new
+    recurrent states (new tensors: the step reads the state and does not
+    write it, so its warm-up before a capture changes nothing)."""
     cache = {"layers": layers, "pos": pos}
     if pad is not None:
         cache["pad"] = pad
     logits, new = decode(params, cache, tok)
     lg = logits[:, -1, :vocab]
-    return lg, _pick(lg, True, None), new["pos"], _ssm_states(new["layers"])
+    return lg, _pick(lg, True, None), new["pos"], _states(new["layers"])
 
 
 def _commit_states(layers, states) -> None:
-    """Copy new SSM states into the cache's own tensors (in place)."""
-    for old, new in zip(_ssm_states(layers), states):
+    """Copy new recurrent states into the cache's own tensors (in
+    place)."""
+    for old, new in zip(_states(layers), states):
         for k in old:
             old[k].copy_(new[k])
 
@@ -864,18 +866,21 @@ class StaticBatch:
     The step reads its tokens, ``pos`` and ``pad`` from device buffers of
     its own and writes only the cache rows at ``pos``, so the warm-up run
     before its capture changes nothing; the loop copies the next token,
-    ``pos + 1`` and a hybrid arch's new SSM states back into those buffers
-    on the device, and waits for the host only to test ``eos_id``.  A
-    hybrid or meta-token arch's cache holds ``max_len + meta_tokens``
-    rows (``init_cache``)."""
+    ``pos + 1`` and the new recurrent states (hybrid, xlstm) back into
+    those buffers on the device, and waits for the host only to test
+    ``eos_id``.  A hybrid or meta-token arch's cache holds ``max_len +
+    meta_tokens`` rows (``init_cache``); an encdec arch's holds
+    ``enc_len`` cross frames (default ``max_len // enc_len_ratio``), which
+    a prefill given ``enc_x`` of that many frames fills in place."""
 
     def __init__(self, params, cfg, batch: int, max_len: int, *, device,
-                 graphs: bool):
+                 graphs: bool, enc_len: Optional[int] = None):
         self.params, self.cfg = params, cfg
         self.batch, self.max_len = batch, max_len
         self.device = torch.device(device)
         self.graphs = graphs
-        cache = init_cache(cfg, batch, max_len, device=self.device)
+        cache = init_cache(cfg, batch, max_len, device=self.device,
+                           enc_len=enc_len)
         self.layers, self.pos = cache["layers"], cache["pos"]
         i32 = dict(dtype=torch.int32, device=self.device)
         self.tok = torch.zeros((batch, 1), **i32)
@@ -929,16 +934,15 @@ class StaticBatch:
             pad=None, extras: Optional[dict] = None) -> torch.Tensor:
         """``generate`` on this cache: prompts (batch, S) → tokens (batch,
         n ≤ max_new) int32 on the device; ``pad`` (batch,) left-pad slots
-        or None; ``extras`` the prefill's other inputs (a vlm's ``img``),
-        moved to the device.  Each decode step is marked for
-        ``step_ms``."""
+        or None; ``extras`` the prefill's other inputs (a vlm's ``img``,
+        an encdec arch's ``enc_x``), moved to the device.  Each decode
+        step is marked for ``step_ms``."""
         B, S = prompts.shape
         if B != self.batch or S + max_new > self.max_len:
             raise ValueError(f"a ({B}, {S}) batch with {max_new} new tokens "
                              f"does not fit a ({self.batch}, {self.max_len})"
                              " cache")
-        for t in tree_leaves(self.layers):
-            t.zero_()
+        reset_cache(self.layers)
         self.pos.zero_()
         cache = {"layers": self.layers, "pos": self.pos}
         ragged = pad is not None
@@ -950,7 +954,7 @@ class StaticBatch:
         logits, cache = self._prefill(self.params, cache,
                                       prompts.to(self.device), **extras)
         self.pos.copy_(cache["pos"])
-        _commit_states(self.layers, _ssm_states(cache["layers"]))
+        _commit_states(self.layers, _states(cache["layers"]))
         tok = _pick(logits[:, -1, :self.cfg.vocab_size], greedy, generator)
         step = self._step(ragged)
         args = (self.tok, self.pos) + ((self.pad,) if ragged else ())
@@ -982,7 +986,8 @@ class StaticBatch:
 def generate(params, cfg, prompts, max_new: int = 16,
              max_len: Optional[int] = None, extras: Optional[dict] = None,
              greedy: bool = True, generator=None,
-             eos_id: Optional[int] = None, pad_lens=None) -> torch.Tensor:
+             eos_id: Optional[int] = None, pad_lens=None,
+             cuda_graphs: Optional[bool] = None) -> torch.Tensor:
     """Batched generation over a dense KV cache (the reference's
     ``generate``): prompts (B, S) → tokens (B, ≤ max_new) int32 on the
     params' device.
@@ -996,18 +1001,24 @@ def generate(params, cfg, prompts, max_new: int = 16,
     each row decodes as it would alone (``supports_ragged_mask``; refused
     for MLA, SSM and meta-token archs, whose state ingests the pads).
     ``extras``: the prefill's other inputs, such as a vlm's ``img`` (B,
-    n_patches, d); the decode steps take none.  The cache holds ``max_len``
-    (default ``S + max_new + meta_tokens``) plus ``meta_tokens`` rows, as
-    the reference's.  No decode step is wasted: one prefill and at most
-    ``max_new - 1`` decode steps.  On the card the decode step is a captured CUDA graph
-    (``ServeEngine(cuda_graphs=False)`` runs it eagerly)."""
+    n_patches, d) or an encdec arch's ``enc_x`` (B, S_enc, d), whose
+    frames the prefill encodes into the cross K/V the decode steps read
+    (without it they read zeros of ``max_len // enc_len_ratio`` frames,
+    as the reference's); the decode steps take none.  The cache holds
+    ``max_len`` (default ``S + max_new + meta_tokens``) plus
+    ``meta_tokens`` rows, as the reference's.  No decode step is wasted:
+    one prefill and at most ``max_new - 1`` decode steps.  On the card the
+    decode step is a captured CUDA graph (``cuda_graphs=False`` runs it
+    eagerly)."""
     dev = params["embed"]["table"].device
     prompts = torch.as_tensor(prompts).to(dev)
     B, S = prompts.shape
     pad = _ragged_pad(cfg, pad_lens)
+    enc_x = (extras or {}).get("enc_x")
     sb = StaticBatch(params, cfg, B,
                      max_len or (S + max_new + cfg.meta_tokens), device=dev,
-                     graphs=_graphs_on(dev, None))
+                     graphs=_graphs_on(dev, cuda_graphs),
+                     enc_len=None if enc_x is None else enc_x.shape[1])
     return sb.run(prompts, max_new, greedy=greedy, generator=generator,
                   eos_id=eos_id, pad=pad, extras=extras)
 
@@ -1025,7 +1036,9 @@ class ServeEngine:
     unmasked, as in the reference.  A chunk's cache holds ``S + max_new +
     8 + meta_tokens`` positions (plus ``meta_tokens``, ``init_cache``), as
     in the reference (whose ``max_len`` argument is kept and, as there,
-    not used).  No image reaches a vlm's prefill, as in the reference.
+    not used).  No image reaches a vlm's prefill and no ``enc_x`` an
+    encdec arch's, whose decoder then attends over a zero cross cache, as
+    in the reference.
 
     Each chunk builds its own cache and, on the card, captures its decode
     step into a CUDA graph; both are dropped when the chunk ends, as the

@@ -70,7 +70,7 @@ def make_train_step(cfg, *, total_steps: int = 10000, warmup: int = 100,
 
     batch: ``{"tokens" (B,S), "labels" (B,S)}`` int tensors or arrays
     (moved to the params' device), and a vlm's ``img`` (B, n_patches,
-    d) when present (the encdec family's ``enc_x`` waits with it).  ``microbatch``: split the batch into
+    d) or an encdec arch's ``enc_x`` (B, S_enc, d) when present.  ``microbatch``: split the batch into
     chunks whose f32 gradients are summed and divided by their count (one
     optimizer step per step; the metrics are the last chunk's, as the
     reference's scan reports them).  metrics: ``loss``, ``aux``, ``gnorm``
@@ -81,7 +81,7 @@ def make_train_step(cfg, *, total_steps: int = 10000, warmup: int = 100,
 
     def loss_fn(params, batch):
         p = unstack_layers(params)
-        extras = {k: batch[k] for k in ("img",) if k in batch}
+        extras = {k: batch[k] for k in ("img", "enc_x") if k in batch}
         logits, _, aux, h = apply_model(p, cfg, batch["tokens"],
                                         return_aux=True, return_hidden=True,
                                         **extras)

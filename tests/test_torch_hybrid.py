@@ -29,7 +29,7 @@ from repro_torch.models import init_cache, supports_paged_cache  # noqa: E402
 from repro_torch.models import init_model, supports_ragged_mask  # noqa: E402
 from repro_torch.nn import blocks as TB  # noqa: E402
 from repro_torch.nn import ssm as TS  # noqa: E402
-from repro_torch.serve.engine import (_commit_states, _ssm_states,  # noqa: E402
+from repro_torch.serve.engine import (_commit_states, _states,  # noqa: E402
                                       _static_decode, make_decode_step,
                                       make_prefill)
 
@@ -192,20 +192,20 @@ def test_static_decode_leaves_the_ssm_state_unwritten():
                    "ssm": {k: v.clone() for k, v in layer["ssm"].items()}}
                   for layer in cache["layers"]]
         before = [{k: v.clone() for k, v in s.items()}
-                  for s in _ssm_states(layers)]
+                  for s in _states(layers)]
         tok = torch.zeros((2, 1), dtype=torch.int32)
         pos = cache["pos"].clone()
         step = make_decode_step(cfg)
         a = _static_decode(step, params, layers, cfg.vocab_size, tok, pos)
         b = _static_decode(step, params, layers, cfg.vocab_size, tok, pos)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    for old, s in zip(before, _ssm_states(layers)):
+    for old, s in zip(before, _states(layers)):
         assert all(torch.equal(old[k], s[k]) for k in s)
     with torch.inference_mode():
         _commit_states(layers, a[3])
-    for new, s in zip(a[3], _ssm_states(layers)):
+    for new, s in zip(a[3], _states(layers)):
         assert all(torch.equal(new[k], s[k]) for k in s)
-    assert not torch.equal(before[0]["h"], _ssm_states(layers)[0]["h"])
+    assert not torch.equal(before[0]["h"], _states(layers)[0]["h"])
 
 
 def test_paging_needs_no_meta_tokens():

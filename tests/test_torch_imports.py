@@ -29,13 +29,18 @@ from repro_torch.obs import DriftMonitor  # noqa: F401
 from repro_torch.analysis.ledger import attach_ledger  # noqa: F401
 for arch in ("qwen1.5-4b", "starcoder2-3b", "gemma2-27b",
              "qwen3-moe-235b-a22b", "deepseek-v3-671b",
-             "phi-3-vision-4.2b", "hymba-1.5b"):
+             "phi-3-vision-4.2b", "hymba-1.5b", "xlstm-1.3b",
+             "whisper-large-v3"):
     get_config(arch)
 from repro_torch.models import input_specs, mtp_logits, runnable  # noqa
 from repro_torch.nn.moe import moe_apply  # noqa: F401
 from repro_torch.nn.mla import mla_apply  # noqa: F401
 from repro_torch.nn.ssm import ssm_apply  # noqa: F401
 from repro_torch.nn.blocks import hybrid_block_apply  # noqa: F401
+from repro_torch.nn.xlstm import mlstm_apply, slstm_apply  # noqa: F401
+from repro_torch.nn.blocks import (mlstm_block_apply,  # noqa: F401
+                                   xattn_decoder_block_apply)
+from repro_torch.models.encdec import apply_encdec, encode  # noqa: F401
 sys.path.insert(0, sys.argv[1])
 import chip_smoke  # noqa: F401  (module import only: main() is not run)
 bad = sorted(m for m in sys.modules
@@ -71,7 +76,9 @@ def test_no_jax_or_reference_imports():
                 "serve.telemetry", "launch.env", "nn.moe", "nn.mla",
                 "nn.blocks", "models.registry", "configs.qwen3_moe_235b",
                 "configs.deepseek_v3_671b", "nn.ssm",
-                "configs.phi3_vision_4p2b", "configs.hymba_1p5b"):
+                "configs.phi3_vision_4p2b", "configs.hymba_1p5b",
+                "nn.xlstm", "models.encdec", "configs.xlstm_1p3b",
+                "configs.whisper_large_v3"):
         assert f"repro_torch.{mod}" in out["modules"]
 
 
