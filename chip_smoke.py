@@ -91,8 +91,9 @@ Phases (any failure raises and exits non-zero before the result line):
     across a .5 boundary (``ORIGIN_TOL``), or be a near-tie; the same two
     engines with the fp weights: identical tokens or near-ties under
     ``FP_TIE_RTOL``;
- 6f. qwen1.5-4b (4 layers), starcoder2-3b (4) and gemma2-27b (2: one
-    local, one global) at full width, weights from seed 0, calibrated
+ 6f. qwen1.5-4b (2 layers), starcoder2-3b (2) and gemma2-27b (2: one
+    local, one global) at full width, weights drawn on the card from seed
+    0, calibrated
     and folded on the card with the exact encoding (no bundle write),
     serving the main trace through the continuous engine (kernel 2) and
     ``ServeEngine``, each graphed and eager (identical tokens), with
@@ -138,18 +139,20 @@ Phases (any failure raises and exits non-zero before the result line):
     at the searched U (phase 6b) at its three decode shapes; kernel 1 at
     the verify shape m = 20 and kernel 2 at Sq = 5 and 9 (phase 6d);
     kernel 1 at the static engine's prefill shapes (m = 884 and 360,
-    launches from the 6e serve); kernel 1 at each (k, n) of the other
-    dense archs at decode m = 4 and static prefill m = 884, and kernel 2
-    at their head layouts (D = 128, f32 pools, 127-page table), launches
-    from their phase 6f serves.  Kernel-1 rows of the static path's
-    shapes also carry ``launches_static``, the static serve's count.
+    launches from the 6e serve); kernel 2 at the other dense archs' head
+    layouts (D = 128, f32 pools, 127-page table), launches from their
+    phase 6f serves (kernel 1 at the other archs' shapes is gated in
+    phases 3 and not timed, to keep the script within its limit).
+    Kernel-1 rows of the static path's shapes also carry
+    ``launches_static``, the static serve's count.
 
  9. the trainer (run before 8): full-width qwen1.5-0.5b (weights from
     seed 0, synthetic LM data, AdamW, remat on) trained 10 steps at batch
     8 x 256 tokens in each MAC mode, ``fp``, ``int8`` (fake quant) and
-    ``encoded`` (QAT with ``EncodedMac.default()``, searched on the card
-    at first use): every loss and gnorm finite, the last loss below the
-    first, kernels 1-3 launched 0 times; step ms p50, tokens/s and peak
+    ``encoded`` (QAT with the exact encoding, and 4 steps with
+    ``EncodedMac.default()``, searched on the card at first use, whose
+    loss is recorded, not gated): every loss and gnorm finite, the last
+    loss below the first, kernels 1-3 launched 0 times; step ms p50, tokens/s and peak
     device memory per mode, and with remat off (fp); the QAT fold's share
     of an encoded step's device time (``torch.profiler``);
     ``microbatch=2`` against the full batch (rtol 5e-4 / atol 5e-5); an
@@ -207,9 +210,8 @@ graphed and eager (identical), a repeat serve identical; launches by
 and tok/s.  Phase 7 holds both reduced configs card vs CPU
 (``ServeEngine``; phi-3-vision through ``generate`` with an ``img`` from
 the seed; 5 fp train steps), and serves reduced qwen1.5-0.5b through the
-serve CLI with ``--mac int8`` on both engines.  Phase 8 adds kernel 1's
-rows at the new archs' shapes and qwen3-moe's verify m, and kernel 2's
-at Sq 5 and 9 with a group of 16.
+serve CLI with ``--mac int8`` on both engines.  Phase 8 adds kernel 2's
+rows at Sq 5 and 9 with a group of 16.
 
 The xlstm and encdec families (``XLSTM_ARCH``, ``WHISPER_ARCH``):
 phase 3 also gates kernel 1 at every (k, n) of xlstm-1.3b at decode m = 4
@@ -227,11 +229,38 @@ eager, a repeat identical) and once through ``ServeEngine`` without
 encoded MAC, as in the reference).  Phase 7 holds reduced xlstm (one
 mLSTM and one sLSTM block, exact encoding, ``ServeEngine``) and reduced
 whisper (``generate`` with ``enc_x``) card vs CPU, and 5 fp train steps
-of each.  Phase 8 adds kernel 1's rows at xlstm-1.3b's shapes.
+of each.
+
+Tensor-parallel serving (``TP`` = 2 ranks over gloo, sharing the one
+card): phase 3 also gates kernel 1 at every local (k, n) a TP serve
+launches (column n/2, row k/2; qwen1.5-0.5b and qwen3-moe) at each m
+those serves run, and phase 4 kernel 2 at the local heads (8/8 at D 64
+for every pool type, Sq 1 and 5; qwen3-moe's 32/2 at D 128), with
+head-sharded calls against the whole call's heads logged bit for bit.
+Phase 6k spawns the ranks (``parallel.mesh.run_ranks``): each loads
+phase 6's exact bundle (a cache hit under the mesh) and keeps its slices
+(folded bytes exactly half), then serves qwen1.5-0.5b at full width and
+depth through the continuous engine with f32, int8 and int4 pools, the
+prefix cache on 6c's trace and spec decoding k = 4 (``self``), each on
+every request of its trace to ``MAX_NEW`` new tokens, and
+``ServeEngine`` in chunks of 4, all eager (gloo's collectives cannot be
+captured); then qwen3-moe at 6h's depth, weights drawn and folded on
+the card in turns (one rank's whole params at a time), expert-parallel
+on both engines.  Gates: every rank's tokens, stats and allocator state
+equal; tokens equal to the same phase's single-rank eager serve (6, 6c,
+6d, 6e, 6h); kernel launches by local shape, gated; MoE drops equal to
+6h's.  Logged beside the card: eager tok/s at TP 2 against single-rank
+eager, collectives a decode step and their host ms, per-rank folded
+bytes and peak memory.  Phase 7 also runs the serve CLI on the card with
+``--mesh 2`` (reduced, exact encoding, kernel 2), whose 2 ranks must
+print the tokens of the same command without it and load its bundle (a
+cache hit), and ``--mesh 2x2``, which must exit 2.  Phase 8 adds kernel
+1's rows at the TP-2 local shapes and kernel 2's at 8/8 heads.
 
 Every phase that folds writes its bundle into a fresh directory under
 ``build/`` (git-ignored), logs the free disk first and removes it at its
-end.  The last line is ``{"ok": true, "device": {...}}``.
+end (phase 6's stays until phase 6k has loaded it).  The last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -243,6 +272,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -264,9 +294,11 @@ N_SLOTS, PAGE_SIZE, N_PAGES = 4, 16, 256
 # speculative decoding's main draft length (phase 6d also serves k = 8)
 SPEC_K = 4
 SERVE_P = 127          # the serve's page table: Engine's max_seq_pages
-# the other dense-family archs at full width, depth cut (phase 6f): gemma2
-# keeps one local (window 4096) and one global layer
-ARCH_DEPTHS = (("qwen1.5-4b", 4), ("starcoder2-3b", 4), ("gemma2-27b", 2))
+# the other dense-family archs at full width, depth cut (phase 6f; 2
+# layers each, where 4 held qwen1.5-4b and starcoder2-3b until the TP
+# phase took the time): gemma2 keeps one local (window 4096) and one
+# global layer
+ARCH_DEPTHS = (("qwen1.5-4b", 2), ("starcoder2-3b", 2), ("gemma2-27b", 2))
 # gemma2's long request (phase 6f): past layer 0's 4096-token window
 LONG_PROMPT = 4200
 # the moe family at full width, depth cut (phase 6h): (arch, layers, the
@@ -299,6 +331,12 @@ ORIGIN_TOL = 1e-3
 # kernel 1's (m, k, n) held against its plain version with the exact
 # encoding's U (phases 3); every full-width serve's launches must fall in it
 GATED_EM = set()
+# phase 6k: tensor-parallel ranks, all on the one card
+TP = 2
+# phase 6k's serves (qwen1.5-0.5b) and the m each runs kernel 1 at:
+# decode and draft steps, prefill chunks, verify at k = SPEC_K, the static
+# prefills
+TP_MS = (N_SLOTS, 32, N_SLOTS * (SPEC_K + 1))
 # phase 6g's drift monitor: a sample every 8 engine steps, of at most 2
 # resident prompts cut to 32 tokens (the monitor's defaults)
 DRIFT_EVERY, DRIFT_MAX_LEN = 8, 32
@@ -454,9 +492,11 @@ def _arch_cfg(arch: str, n_layers=None):
                       attention_backend="kernel")
 
 
-def _arch_em_shapes(cfg):
-    """(k, n) of an arch's encoded linears, each once."""
-    return sorted(_linear_shapes(cfg), key=lambda kn: (kn[0] * kn[1], kn))
+def _arch_em_shapes(cfg, tp=1):
+    """(k, n) of an arch's encoded linears, each once (``tp``: a rank's
+    local shapes)."""
+    return sorted(_linear_shapes(cfg, tp=tp),
+                  key=lambda kn: (kn[0] * kn[1], kn))
 
 
 def phase_kernel1_archs(dev):
@@ -575,14 +615,15 @@ def _new_cfg(arch, reduced=False):
 
 def _gate_em_archs(dev, tag, cases):
     """Kernel 1 against its plain version at every (k, n) of each (arch,
-    cfg, ms) of ``cases``, at each m of ``ms``; real-size Wt made on the
-    card.  Each gated (m, k, n) joins ``GATED_EM``."""
+    cfg, ms[, tp]) of ``cases`` (``tp``: a rank's local shapes), at each
+    m of ``ms``; real-size Wt made on the card.  Each gated (m, k, n)
+    joins ``GATED_EM``."""
     import torch
     from repro_torch.kernels import encoded_matmul as em
     prog = _program("exact")
     n_cases = 0
-    for arch, cfg, ms in cases:
-        for k, n in _arch_em_shapes(cfg):
+    for arch, cfg, ms, *tp in cases:
+        for k, n in _arch_em_shapes(cfg, *tp):
             xs, wt, bias, sh = _em_dev_case(dev, prog, ms, k, n,
                                             seed=k + n)
             for x in xs:
@@ -935,6 +976,89 @@ def _flash_plain_4d(q, k, v, **kw):
     return out[:, :S].reshape(B, Hq, S, D).permute(0, 2, 1, 3)
 
 
+def phase_kernel1_tp(dev):
+    """Kernel 1 at every local (k, n) of phase 6k's serves at ``TP`` ranks
+    (column n/TP, row k/TP): qwen1.5-0.5b's wq/wk/wv 1024x512, wi/wg
+    1024x1408, attention wo 512x1024 and MLP wo 1408x1024 (its tied head
+    is an fp product) at decode, prefill chunk, verify (``TP_MS``) and the
+    static prefills; qwen3-moe's wq 4096x4096, wk/wv 4096x256, wo
+    4096x4096 and head 4096x75968 at decode, prefill chunk and the static
+    prefills."""
+    from repro_torch.configs import get_config
+    qwen = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                               attention_backend="kernel")
+    pre = tuple(static_prefill_ms())
+    _gate_em_archs(dev, "kernel1-tp", [
+        ("qwen1.5-0.5b", qwen, TP_MS + pre, TP),
+        ("qwen3-moe-235b-a22b", _moe_cfg("qwen3-moe-235b-a22b"),
+         (N_SLOTS, 32) + pre, TP)])
+
+
+def phase_kernel2_tp(dev):
+    """Kernel 2 at the heads a rank of ``TP`` holds, over the serve's
+    127-page table: qwen1.5-0.5b's 8/8 at D 64 with f32, int8 and int4
+    pools at Sq 1 and 5 (decode, verify at k = 4), qwen3-moe's 32/2 at D
+    128 with f32 pools at Sq 1; each rank's slice of a whole call's heads
+    and pools against the plain version, and against the whole call's
+    output for those heads (bit for bit or not, logged: the cluster size
+    follows the heads, so a rank's call may sum its pages in another
+    order)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    cases = [(8, 8, 64, sq, mode) for mode in ("f32", "int8", "int4")
+             for sq in (1, SPEC_K + 1)] + [(32, 2, 128, 1, "f32")]
+    ps, P = PAGE_SIZE, SERVE_P
+    for Hq, Hkv, D, Sq, mode in cases:
+        ln = [0, 100, 1000, P * ps - Sq]
+        seed = Hq + Hkv + Sq
+        if mode == "f32":
+            (args,), kv_map = _pa_case(dev, N_SLOTS, Sq, Hq * TP, Hkv * TP,
+                                       D, ps, P, ln, torch.float32,
+                                       seed=seed)
+            sc = (None, None)
+        else:
+            ((args, sc),), kv_map = _pa_quant_case(
+                dev, mode, N_SLOTS, Sq, Hq * TP, Hkv * TP, D, ps, P, ln,
+                seed=seed)
+        q, pk, pv, pages, lens = args
+        kw = dict(scale=D ** -0.5)
+        whole = pa.paged_attn(q, pk, pv, pages, lens, kv_of_q=kv_map,
+                              scale_k=sc[0], scale_v=sc[1], **kw)
+        local_map = (np.arange(Hq) // (Hq // Hkv)).astype(np.int32)
+        for r in range(TP):
+            qs, ks = slice(r * Hq, (r + 1) * Hq), slice(r * Hkv,
+                                                        (r + 1) * Hkv)
+            a = (q[:, :, qs].contiguous(), pk[:, :, ks].contiguous(),
+                 pv[:, :, ks].contiguous(), pages, lens)
+            s_ = tuple(None if t is None else t[..., ks].contiguous()
+                       for t in sc)
+            out = pa.paged_attn(*a, kv_of_q=local_map, scale_k=s_[0],
+                                scale_v=s_[1], **kw)
+            ref = pa.paged_attn_plain(*a, pa._NO_WINDOW, G=Hq // Hkv,
+                                      scale_k=s_[0], scale_v=s_[1], **kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            ok = torch.allclose(out, ref, rtol=1e-4, atol=1e-5) and \
+                bool(torch.isfinite(out).all())
+            same = torch.equal(out, whole[:, :, qs])
+            log(f"[kernel2-tp] {mode} rank {r} of {TP}: B={N_SLOTS} Sq={Sq} "
+                f"Hq={Hq} Hkv={Hkv} D={D} P={P} lens={ln} max_abs_err="
+                f"{err:.3e} {'ok' if ok else 'FAIL'}; against the whole "
+                f"{Hq * TP}/{Hkv * TP}-head call's heads: "
+                f"{'bit-identical' if same else 'apart by %.3e' % (out - whole[:, :, qs]).abs().max().item()}"
+                f" (cluster {pa.cluster_size(N_SLOTS, Hkv, P, _n_sm(dev))} "
+                f"vs {pa.cluster_size(N_SLOTS, Hkv * TP, P, _n_sm(dev))})")
+            if not ok:
+                raise AssertionError(f"kernel2 disagrees with plain at the "
+                                     f"TP heads {(mode, Hq, Hkv, D, Sq)}")
+
+
+def _n_sm(dev) -> int:
+    import torch
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def phase_flash(dev):
     import torch
     from repro_torch.kernels import ops
@@ -1028,7 +1152,7 @@ def _forwards(st, chunk_len):
 
 
 def _check_counts(counts, st, cfg, chunk_len, where, gated=False,
-                  extra=None):
+                  extra=None, tp=1):
     """Every kernel of the path launched, paged attention once per layer
     per forward that attends through it (prefill chunks take the gather
     path), by query tokens per row; encoded matmul at every linear of
@@ -1045,7 +1169,7 @@ def _check_counts(counts, st, cfg, chunk_len, where, gated=False,
         f"paged_attn launched {counts['paged_attn_by_sq']} times by Sq " \
         f"{where}, not {cfg.n_layers} per layer x {dict(attn)}"
     assert counts["paged_attn"] == sum(want.values())
-    shapes = _path_shapes(cfg, by_m)
+    shapes = _path_shapes(cfg, by_m, tp=tp)
     assert counts["encoded_matmul_by_shape"] == shapes, \
         f"encoded_matmul shapes {counts['encoded_matmul_by_shape']} " \
         f"!= {shapes} {where}"
@@ -1054,7 +1178,18 @@ def _check_counts(counts, st, cfg, chunk_len, where, gated=False,
         _check_gated(counts, where)
 
 
-def _linear_shapes(cfg, decode: bool = False) -> dict:
+def _tp_splits(cfg, tp: int) -> tuple:
+    """The model axis's split of (attention heads, MLP hidden, shared
+    expert, vocab) at ``tp`` ranks: ``tp`` where it divides the dim
+    (attention: both head counts), else 1 (``parallel.sharding``)."""
+    def div(n):
+        return tp if n and n % tp == 0 else 1
+    ta = tp if div(cfg.n_kv_p) == tp and div(cfg.n_heads_p) == tp else 1
+    return (ta, div(cfg.d_ff),
+            div(cfg.n_shared_experts * cfg.d_ff_expert), div(cfg.vocab_p))
+
+
+def _linear_shapes(cfg, decode: bool = False, tp: int = 1) -> dict:
     """Encoded linears of one forward by (k, n): per layer the attention's
     (wq, wk, wv, wo; with MLA wq_a, wq_b, wkv_a, wkr, wo, and in a prefill
     wk_b, wv_b, which decode reads raw), a hybrid layer's SSM (win, wbcdt,
@@ -1064,9 +1199,12 @@ def _linear_shapes(cfg, decode: bool = False) -> dict:
     wi and wo, the sLSTM's wi, wup and wo; its conv, q/k/v blocks, gates
     and recurrence are plain products), and an untied LM head (a tied
     head reads the embedding table, an fp product).  ``decode``: a
-    one-token step over a cache."""
+    one-token step over a cache.  ``tp``: a rank's local (k, n) at that
+    many ranks (column n/tp, row k/tp where the dim divides; dense and
+    GQA moe archs)."""
     from repro_torch.models import layer_kinds
     d, hd, H = cfg.d_model, cfg.head_dim_r, cfg.n_heads_p
+    ta, tf, ts, tv = _tp_splits(cfg, tp)
     if cfg.use_mla:
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         attn = [(d, cfg.q_lora_rank), (cfg.q_lora_rank, H * (dn + dr)),
@@ -1074,8 +1212,8 @@ def _linear_shapes(cfg, decode: bool = False) -> dict:
         if not decode:
             attn += [(cfg.kv_lora_rank, H * dn), (cfg.kv_lora_rank, H * dv)]
     else:
-        attn = [(d, H * hd), (d, cfg.n_kv_p * hd), (d, cfg.n_kv_p * hd),
-                (H * hd, d)]
+        attn = [(d, H * hd // ta), (d, cfg.n_kv_p * hd // ta),
+                (d, cfg.n_kv_p * hd // ta), (H * hd // ta, d)]
     out = collections.Counter()
     for kind in layer_kinds(cfg):
         if kind in ("mlstm", "slstm"):     # wi, wo; wi, wup, wo
@@ -1084,8 +1222,8 @@ def _linear_shapes(cfg, decode: bool = False) -> dict:
                        [(d, 4 * d), (d, 2 * ff), (ff, d)]):
                 out[kn] += 1
             continue
-        ff = cfg.d_ff if kind != "moe" else \
-            cfg.n_shared_experts * cfg.d_ff_expert
+        ff = cfg.d_ff // tf if kind != "moe" else \
+            cfg.n_shared_experts * cfg.d_ff_expert // ts
         gated = cfg.gated_mlp or kind == "moe"
         mlp = [(d, ff), (ff, d)] + ([(d, ff)] if gated else []) if ff else []
         ssm = []
@@ -1096,16 +1234,16 @@ def _linear_shapes(cfg, decode: bool = False) -> dict:
         for kn in attn + mlp + ssm:
             out[kn] += 1
     if not cfg.tie_embeddings:
-        out[(d, cfg.vocab_p)] += 1
+        out[(d, cfg.vocab_p // tv)] += 1
     return dict(out)
 
 
-def _path_shapes(cfg, forwards, decode: bool = False):
+def _path_shapes(cfg, forwards, decode: bool = False, tp: int = 1):
     """Encoded-matmul launches by (m, k, n) of ``forwards`` ({m: model
-    forwards with m rows per linear})."""
+    forwards with m rows per linear}), at ``tp`` ranks' local shapes."""
     want = collections.Counter()
     for m, times in forwards.items():
-        for (k, n), c in _linear_shapes(cfg, decode).items():
+        for (k, n), c in _linear_shapes(cfg, decode, tp).items():
             want[(m, k, n)] += c * times
     return dict(want)
 
@@ -1122,19 +1260,20 @@ def _static_forwards(chunks, meta: int = 0):
     return pre, dec
 
 
-def _static_shapes(cfg, chunks):
+def _static_shapes(cfg, chunks, tp=1):
     pre, dec = _static_forwards(chunks, cfg.meta_tokens)
-    return dict(collections.Counter(_path_shapes(cfg, pre))
-                + collections.Counter(_path_shapes(cfg, dec, decode=True)))
+    return dict(collections.Counter(_path_shapes(cfg, pre, tp=tp))
+                + collections.Counter(_path_shapes(cfg, dec, decode=True,
+                                                   tp=tp)))
 
 
-def _check_static_counts(counts, chunks, cfg, where, gated=False):
+def _check_static_counts(counts, chunks, cfg, where, gated=False, tp=1):
     """Kernel 1 at every linear of every forward of the static serve's
     ``chunks``, by (m, k, n), each of them gated in phases 3 where
     ``gated``; kernels 2 and 3 never (its attention is ``mha`` over the
     dense row)."""
     assert counts["encoded_matmul"] > 0, f"encoded_matmul not launched {where}"
-    want = _static_shapes(cfg, chunks)
+    want = _static_shapes(cfg, chunks, tp)
     assert counts["encoded_matmul_by_shape"] == want, \
         f"encoded_matmul shapes {counts['encoded_matmul_by_shape']} != " \
         f"{want} {where}"
@@ -1183,8 +1322,7 @@ def phase_serve(dev):
         device=dev, cache_dir=cache, verbose=False)
     torch.cuda.synchronize()
     log(f"[serve] bundle {info['bundle_bytes'] / 1e9:.3f} GB written in "
-        f"{info['seconds']['write']:.1f}s")
-    shutil.rmtree(cache)
+        f"{info['seconds']['write']:.1f}s (kept for phase 6k's ranks)")
     fw = _fw_bytes(params_enc)
     log(f"[serve] calibrated ({info['calib_tokens']} tokens) and folded "
         f"{info['n_folded']} linears in {time.perf_counter() - t0:.1f}s; "
@@ -1264,7 +1402,7 @@ def phase_serve(dev):
             "warm_tok_s": warm_tok_s, "eager_tok_s": n_tok / dt_e,
             "split": split, "params": params, "cfg": cfg,
             "params_enc": params_enc, "cfg_enc": cfg_enc, "trace": trace,
-            "tokens": tokens, "stats": st}
+            "tokens": tokens, "stats": st, "bundle": cache}
 
 
 def phase_serve_quant(dev, dense):
@@ -1317,6 +1455,7 @@ def phase_serve_quant(dev, dense):
             raise AssertionError(f"graphed and eager greedy tokens differ "
                                  f"with {mode} pools")
         out[mode] = {"counts": counts, "steps": st["decode_steps"],
+                     "tokens": toks,
                      "tok_s": n_tok / dt, "eager_tok_s": n_tok / dt_e}
         del eager
     torch.cuda.empty_cache()
@@ -2233,7 +2372,7 @@ def phase_static(dev, info):
                               ("static fp", "continuous fp"), dev,
                               rtol=FP_TIE_RTOL)
     torch.cuda.empty_cache()
-    return {"counts": counts, "tok_s": n_tok / dt,
+    return {"counts": counts, "tok_s": n_tok / dt, "tokens": toks,
             "warm_tok_s": [w[0] for w in warm],
             "eager_tok_s": n_tok / dt_e, "step_p50": st["step_ms_p50"],
             "warm_step_p50": [w[1] for w in warm],
@@ -2348,7 +2487,8 @@ def _long_request(dev, params, cfg, vocab):
 
 def phase_archs(dev):
     """Phase 6f: each other dense arch at full width and cut depth, weights
-    from seed 0, calibrated and folded on the card with the exact encoding,
+    drawn on the card from seed 0 (gemma2-27b's took 21 s on the host),
+    calibrated and folded on the card with the exact encoding,
     serving the main trace through the continuous engine (fused kernel 2)
     and ``ServeEngine``, each graphed and eager."""
     import torch
@@ -2358,7 +2498,7 @@ def phase_archs(dev):
         cfg = _arch_cfg(arch, depth)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        params = init_model(cfg, seed=0, device=dev)
+        params = init_model(cfg, seed=0, device=dev, init_device=dev)
         t_init = time.perf_counter() - t0
         params_enc, cfg_enc, (t_cal, t_fold) = _fold_exact(params, cfg)
         fw = _fw_bytes(params_enc)
@@ -2521,6 +2661,8 @@ def _moe_serves(dev, cfg, weights, trace):
                         raise AssertionError(f"{where}: a repeat serve on "
                                              "the same engine differs")
                 res[("continuous", wname, kv, graphs)] = (toks, counts)
+                res[("tok_s", "continuous", wname, kv, graphs)] = \
+                    sum(map(len, toks)) / dt
                 log(f"[moe] {tag} continuous kv {kv}: "
                     f"{sum(map(len, toks)) / dt:.1f} tok/s, step p50 "
                     f"{st['step_ms_p50']:.2f} ms, {st['decode_steps']} decode"
@@ -2555,6 +2697,8 @@ def _moe_serves(dev, cfg, weights, trace):
             if not graphs:
                 res[("drops", "static", wname)] = _drops(tally)
             res[("static", wname, graphs)] = (toks, counts)
+            res[("tok_s", "static", wname, graphs)] = \
+                sum(map(len, toks)) / dt
             log(f"[moe] {tag} static: {sum(map(len, toks)) / dt:.1f} tok/s, "
                 f"step p50 {st['step_ms_p50']:.2f} ms (captures "
                 f"{st['jit_compiles']}, chunks {[(ch['batch'], ch['seq']) for ch in eng.chunks]}); "
@@ -2563,7 +2707,8 @@ def _moe_serves(dev, cfg, weights, trace):
                     f"; MoE drops {_drops(tally)}" if not graphs else "") + (
                     "; repeat serve identical" if rep else ""))
             del eng
-    for key in [k for k in res if k[0] != "drops" and k[-1] is True]:
+    for key in [k for k in res if k[0] not in ("drops", "tok_s")
+                and k[-1] is True]:
         same = res[key][0] == res[key[:-1] + (False,)][0]
         log(f"[moe] {cfg.arch} {key[:-1]}: greedy tokens graphed vs "
             f"eager {'identical' if same else 'DIFFERENT'}")
@@ -2753,6 +2898,17 @@ def phase_moe(dev):
                          if ("continuous", "exact", kv, True) in res},
                      "spec_counts": cache_spec[(f"spec k={SPEC_K}", True)][
                          "counts"] if cache_spec else None}
+        if arch == "qwen3-moe-235b-a22b":       # phase 6k's baselines
+            out[arch]["eager"] = {
+                "continuous": res[("continuous", "exact", "bf16", False)][0],
+                "static": res[("static", "exact", False)][0],
+                "drops_continuous": res[("drops", "continuous", "exact",
+                                         "bf16")],
+                "drops_static": res[("drops", "static", "exact")],
+                "eager_tok_s": {
+                    "continuous": res[("tok_s", "continuous", "exact",
+                                       "bf16", False)],
+                    "static": res[("tok_s", "static", "exact", False)]}}
         del params, params_enc, res
         gc.collect()
         torch.cuda.empty_cache()
@@ -3303,6 +3459,64 @@ def phase_cli_int8(dev):
                                  f"{text[-2000:]}")
 
 
+# the serve CLI's tensor-parallel run on the card (phase 7): reduced,
+# exact encoding, the continuous engine with kernel 2
+CLI_MESH_ARGV = ["--reduced", "--continuous", "--mac", "encoded",
+                 "--encoding", "exact", "--paged-attn", "kernel",
+                 "--requests", "4", "--max-new", "6"]
+
+
+def phase_cli_mesh(dev):
+    """``python -m repro_torch.launch.serve`` with ``CLI_MESH_ARGV`` on the
+    card, in this process (it folds and writes the reduced bundle), then
+    the same command with ``--mesh 2`` as a user runs it: the CLI spawns
+    2 ranks over gloo that share the card, each loads that bundle (a cache
+    hit) and keeps its slices, and rank 0 prints the same tokens; ``--mesh
+    2x2`` exits 2 naming the data axis's ROADMAP item."""
+    import io
+    from repro_torch.launch import serve as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(CLI_MESH_ARGV)
+    alone = buf.getvalue()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve"] + \
+        CLI_MESH_ARGV + ["--mesh", "2"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t = time.perf_counter()
+    res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=600, cwd=ROOT)
+    dt = time.perf_counter() - t
+    meshed = res.stdout
+
+    def toks(out):
+        return [ln for ln in out.splitlines() if ln.startswith("req")]
+    served = [ln.strip() for ln in meshed.splitlines()
+              if ln.startswith("served") or "mesh:" in ln]
+    log(f"[cli] {' '.join(CLI_MESH_ARGV)} --mesh 2: exit "
+        f"{res.returncode} in {dt:.1f}s (2 ranks spawned by the CLI); "
+        f"{served}; tokens {toks(meshed)}, without --mesh {toks(alone)}")
+    if res.returncode != 0:
+        raise AssertionError(f"the serve CLI with --mesh 2 failed: "
+                             f"{res.stderr[-3000:]}")
+    if not toks(alone) or toks(meshed) != toks(alone):
+        raise AssertionError("the serve CLI with --mesh 2 printed other "
+                             "tokens than without it")
+    if ("cache hit" not in meshed or meshed.count("served 4 requests") != 1
+            or "mesh: {'data': 1, 'model': 2}" not in meshed):
+        raise AssertionError(f"the serve CLI with --mesh 2: {meshed[-2000:]}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            cli.main(CLI_MESH_ARGV + ["--mesh", "2x2"])
+        except SystemExit as e:
+            code = e.code
+        else:
+            code = 0
+    if code != 2 or "data axis" not in err.getvalue():
+        raise AssertionError(f"--mesh 2x2: exit {code}, {err.getvalue()}")
+    log(f"[cli] --mesh 2x2: exit 2, {err.getvalue().strip().splitlines()[-1]}")
+
+
 def phase_cpu_parity_moe(dev):
     """Phase 7 for the moe archs, reduced: the exact encoding folded on
     the CPU serves the main trace on the card (kernels) and on the CPU
@@ -3838,6 +4052,9 @@ def _linears_teacher_forced(dev, pe_c, ce_c, pe_g, ce_g, prompt):
 # full-width qwen1.5-0.5b trained in each MAC mode: batch x seq tokens per
 # step (m = 2048 rows per linear), steps per mode, warm-up of the schedule
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 8, 256, 10, 2
+# steps of the run whose loss is recorded, not gated (the searched
+# encoding): its first steps of the same schedule
+TRAIN_UNGATED_STEPS = 4
 # predicted in PERF.md before the first card run (logged beside the
 # outcome, not gated): the last loss below the first by at least this
 TRAIN_MARGIN = 0.05
@@ -4030,9 +4247,9 @@ def _train_modes(dev, mac, exact, batches):
             ("encoded-exact", "encoded", exact, True))
     for tag, mode, enc, gate in runs:
         cfg = _train_cfg(mode, enc)
+        n = TRAIN_STEPS if gate else TRAIN_UNGATED_STEPS
         _reset_counts()
-        st, losses, gnorms, ms, peak = _train_run(cfg, dev, batches,
-                                                  TRAIN_STEPS)
+        st, losses, gnorms, ms, peak = _train_run(cfg, dev, batches, n)
         counts = _read_counts()
         busy = {k: v for k, v in counts.items() if v}
         if busy:
@@ -4044,15 +4261,15 @@ def _train_modes(dev, mac, exact, batches):
         drop = losses[0] - losses[-1]
         p50 = _p50(ms[1:])
         info[tag] = dict(p50=p50, peak=peak, drop=drop, losses=losses)
-        log(f"[train] {tag}: {TRAIN_STEPS} steps of {TRAIN_B}x{TRAIN_S}"
+        log(f"[train] {tag}: {n} steps of {TRAIN_B}x{TRAIN_S}"
             f"{'' if enc is None else f', U = {enc.program.n_a_planes}'}, "
             f"losses {[round(x, 4) for x in losses]}, gnorms "
             f"{[round(x, 3) for x in gnorms]}; first step {ms[0]:.1f} ms, "
-            f"step p50 {p50:.1f} ms (steps 1-{TRAIN_STEPS - 1}), "
+            f"step p50 {p50:.1f} ms (steps 1-{n - 1}), "
             f"{tok / p50 * 1e3:.0f} tokens/s, peak device memory "
             f"{peak / 1e9:.2f} GB, remat on; kernels 1-3 launches 0 "
             f"({SMI})")
-        log(f"[train] {tag}: loss fell by {drop:.4f} over {TRAIN_STEPS} "
+        log(f"[train] {tag}: loss fell by {drop:.4f} over {n} "
             f"steps (predicted: at least {TRAIN_MARGIN}; "
             f"{'gated: must fall' if gate else 'not gated'})")
         if gate and not losses[-1] < losses[0]:
@@ -4317,33 +4534,17 @@ def _time_once(fn, args) -> float:
     return s.elapsed_time(e)
 
 
-def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib,
-            on_card=False):
+def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib):
     """Kernel 1's row of the kernels line: ``prog``'s monomials at (m, k,
-    n), kernel and plain version timed over 4 input sets (``on_card``:
-    made on the card, as many as take 128 MB of Wt, 1 to 4), and the
-    library yardstick: the same function as one bf16 product of the 0/1
-    planes (m, U·k) by Wt (U·k, n), f32 out (the bias add left out).
-    A Wt past 1 GB is timed over 4 calls of the kernel and the library,
-    and one call of the plain version, which holds Wt in f32 twice
-    (29.6 GB each for deepseek-v3's head) and so runs on an emptied
-    cache after its first call."""
+    n), kernel and plain version timed over 4 input sets, and the library
+    yardstick: the same function as one bf16 product of the 0/1 planes
+    (m, U·k) by Wt (U·k, n), f32 out (the bias add left out)."""
     import torch
     from repro_torch.kernels import encoded_matmul as em
     from repro_torch.kernels.ref import planes_ref
     from repro_torch.launch.kernel_bench import time_graph
     U = prog.n_a_planes
-    if on_card:
-        copies = min(4, max(1, math.ceil(128e6 / (U * k * n * 2))))
-        sets = []
-        for i in range(copies):
-            (x,), wt, bias, sh = _em_dev_case(dev, prog, (m,), k, n,
-                                              seed=seed + i)
-            sets.append((x, wt, bias, sh))
-    else:
-        sets = _em_case(dev, prog, m, k, n, seed=seed, copies=4)
-    big = U * k * n * 2 > 1e9
-    iters = 4 if big else 40
+    sets = _em_case(dev, prog, m, k, n, seed=seed, copies=4)
     torch.cuda.empty_cache()
     out, ref = em.encoded_matmul(*sets[0]), em.encoded_matmul_plain(*sets[0])
     err = (out - ref).abs().max().item()
@@ -4352,16 +4553,12 @@ def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib,
         raise AssertionError(f"{name}: kernel 1 disagrees with plain "
                              f"(max abs err {err:.3e})")
     del out, ref
-    ms = time_graph(em.encoded_matmul, sets, iters=iters)
-    if big:
-        torch.cuda.empty_cache()
-        plain_ms = _time_once(em.encoded_matmul_plain, sets[0])
-    else:
-        plain_ms = time_loop(em.encoded_matmul_plain, sets)
+    ms = time_graph(em.encoded_matmul, sets, iters=40)
+    plain_ms = time_loop(em.encoded_matmul_plain, sets)
     lib_sets = [(planes_ref(x, sh).to(torch.bfloat16).permute(1, 0, 2)
                  .reshape(m, U * k).contiguous(), wt.reshape(U * k, n))
                 for x, wt, _, sh in sets]
-    lib_ms = time_graph(lib[0], lib_sets, iters=iters)
+    lib_ms = time_graph(lib[0], lib_sets, iters=40)
     nbytes = m * k + U * k * n * 2 + n * 4 + m * n * 4
     ops = 2.0 * m * k * n * U
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
@@ -4438,97 +4635,6 @@ def _pa_row(dev, mode, sq, Hq, Hkv, D, P, lens, window, cap, name, note,
                  f"{nbytes / 1e6:.3f} MB"}
 
 
-def _moe_em_rows(dev, moe, lib, m_pre):
-    """Kernel 1's rows at the moe archs' shapes (phase 6h), exact U, Wt
-    made on the card, at decode (m = n_slots) and at the largest static
-    prefill ``m_pre``; launches: qwen3-moe's continuous serve
-    (deepseek-v3: its static serve) at decode, the static serve at the
-    prefill; Wt past 1 GB timed over 4 calls instead of 40."""
-    import torch
-    rows = []
-    for arch, _, _ in MOE_ARCHS:
-        a = moe[arch]
-        s_shape = a["static_counts"]["encoded_matmul_by_shape"]
-        d_shape = (a["counts"] or a["static_counts"])[
-            "encoded_matmul_by_shape"]
-        cfg = a["cfg"]
-        shapes = sorted(set(_linear_shapes(cfg)) | set(
-            _linear_shapes(cfg, decode=True)), key=lambda kn: kn[0] * kn[1])
-        for k, n in shapes:
-            for m, tag, launches, seed in (
-                    (N_SLOTS, "decode", d_shape.get((N_SLOTS, k, n), 0), 4),
-                    (m_pre, "static prefill", s_shape.get((m_pre, k, n), 0),
-                     6)):
-                rows.append(_em_row(
-                    dev, _program("exact"), m, k, n, seed,
-                    f"encoded_matmul_{arch}_"
-                    f"{'static_' if m == m_pre else ''}m{m}_k{k}_n{n}",
-                    launches, f"{tag}, {arch}", lib, on_card=True))
-                if m == N_SLOTS:
-                    rows[-1]["launches_static"] = s_shape.get((m, k, n), 0)
-                torch.cuda.empty_cache()
-    return rows
-
-
-def _new_em_rows(dev, serve_info, lib):
-    """Kernel 1's rows at the vlm and hybrid archs' (k, n) (phase 6i), at
-    decode (m = n_slots) and at the largest static prefill (hymba's with
-    its meta tokens), launches from the exact static serve; and at
-    qwen3-moe's verify m = n_slots·(k+1) = 20, launches from its spec
-    serve (phase 6h).  Exact U, Wt made on the card."""
-    import torch
-    rows = []
-    for arch, _ in NEW_ARCHS:
-        a = serve_info["new"][arch]
-        cfg, s_shape = a["cfg"], a["static_counts"]["encoded_matmul_by_shape"]
-        m_pre = static_prefill_ms(cfg.meta_tokens)[0]
-        for k, n in _arch_em_shapes(cfg):
-            for m, tag, seed in ((N_SLOTS, "decode", 4),
-                                 (m_pre, "static prefill", 6)):
-                rows.append(_em_row(
-                    dev, _program("exact"), m, k, n, seed,
-                    f"encoded_matmul_{arch}_"
-                    f"{'static_' if m == m_pre else ''}m{m}_k{k}_n{n}",
-                    s_shape.get((m, k, n), 0), f"{tag}, {arch}; launches: "
-                    "its static serve", lib, on_card=True))
-                torch.cuda.empty_cache()
-    moe = serve_info["moe"]["qwen3-moe-235b-a22b"]
-    v_shape = (moe["spec_counts"] or {}).get("encoded_matmul_by_shape", {})
-    m = N_SLOTS * (SPEC_K + 1)
-    for k, n in _arch_em_shapes(moe["cfg"]):
-        rows.append(_em_row(
-            dev, _program("exact"), m, k, n, 3,
-            f"encoded_matmul_qwen3-moe_m{m}_k{k}_n{n}",
-            v_shape.get((m, k, n), 0),
-            f"speculative verify, k={SPEC_K}, qwen3-moe", lib,
-            on_card=True))
-        torch.cuda.empty_cache()
-    return rows
-
-
-def _xlstm_em_rows(dev, serve_info, lib):
-    """Kernel 1's rows at xlstm-1.3b's (k, n) (phase 6j: the sLSTM FFN's
-    ``wup`` at n = 5460 and ``wo`` at k = 2730 among them), at decode (m =
-    n_slots) and at the largest static prefill, launches from its exact
-    static serve.  Exact U, Wt made on the card."""
-    import torch
-    rows = []
-    a = serve_info["xw"][XLSTM_ARCH]
-    cfg, s_shape = a["cfg"], a["static_counts"]["encoded_matmul_by_shape"]
-    m_pre = static_prefill_ms()[0]
-    for k, n in _arch_em_shapes(cfg):
-        for m, tag, seed in ((N_SLOTS, "decode", 4),
-                             (m_pre, "static prefill", 6)):
-            rows.append(_em_row(
-                dev, _program("exact"), m, k, n, seed,
-                f"encoded_matmul_{XLSTM_ARCH}_"
-                f"{'static_' if m == m_pre else ''}m{m}_k{k}_n{n}",
-                s_shape.get((m, k, n), 0), f"{tag}, {XLSTM_ARCH}; "
-                "launches: its static serve", lib, on_card=True))
-            torch.cuda.empty_cache()
-    return rows
-
-
 def phase_measure(dev, serve_info):
     """Kernel, plain and library times at the main path's shapes."""
     import torch
@@ -4587,33 +4693,6 @@ def phase_measure(dev, serve_info):
             f"decode, searched {name}: monomials by bits "
             f"{dict(sorted(monos.items()))}; launches: every family at "
             f"this (m, k, n) in the searched serve", lib))
-    # kernel 1 at the other dense archs' decode shapes (m = n_slots) and
-    # at their largest static prefill, exact U, Wt made on the card;
-    # launches: the arch's continuous serve (6f) at decode, its static
-    # serve at the prefill
-    m_pre = static_prefill_ms()[0]
-    for arch, _ in ARCH_DEPTHS:
-        a = serve_info["archs"][arch]
-        a_shape = a["counts"]["encoded_matmul_by_shape"]
-        s_shape = a["static_counts"]["encoded_matmul_by_shape"]
-        for k, n in _arch_em_shapes(a["cfg"]):
-            rows.append(_em_row(
-                dev, _program("exact"), N_SLOTS, k, n, 4,
-                f"encoded_matmul_{arch}_m{N_SLOTS}_k{k}_n{n}",
-                a_shape.get((N_SLOTS, k, n), 0), f"decode, {arch}", lib,
-                on_card=True))
-            rows[-1]["launches_static"] = s_shape.get((N_SLOTS, k, n), 0)
-            torch.cuda.empty_cache()
-            rows.append(_em_row(
-                dev, _program("exact"), m_pre, k, n, 6,
-                f"encoded_matmul_{arch}_static_m{m_pre}_k{k}_n{n}",
-                s_shape.get((m_pre, k, n), 0),
-                f"static prefill, {arch}; launches: its static serve", lib,
-                on_card=True))
-            torch.cuda.empty_cache()
-    rows += _moe_em_rows(dev, serve_info["moe"], lib, m_pre)
-    rows += _new_em_rows(dev, serve_info, lib)
-    rows += _xlstm_em_rows(dev, serve_info, lib)
     # kernel 2: decode attention, 4 slots × 16 heads × D 64, with dense
     # f32, int8 and packed-int4 pools, at a 32-page table and at the
     # serve's 127-page table (the same lens, so the same bytes); then at
@@ -4681,6 +4760,28 @@ def phase_measure(dev, serve_info):
                 ("f32 pools" if mode == "bf16" else f"{mode} pools + f32 "
                  f"scales") + f" (speculative verify, k={sq - 1})",
                 spec_sq.get(sq, 0) if mode == "bf16" else 0, seed=11))
+    # kernel 1 and kernel 2 at a rank's local shapes of phase 6k's TP
+    # serves of qwen1.5-0.5b (column n/TP, row k/TP; 8/8 heads a rank);
+    # launches: rank 0's continuous serves with f32, int8 and int4 pools
+    tp = serve_info["tp"]["counts"]
+    tp_shape = tp["bf16"]["encoded_matmul_by_shape"]
+    prog = _program("exact")
+    for m in (N_SLOTS, 32):
+        for k, n in ((1024, 512), (1024, 1408), (512, 1024), (1408, 1024)):
+            rows.append(_em_row(
+                dev, prog, m, k, n, 13, f"encoded_matmul_tp{TP}_m{m}_k{k}_n{n}",
+                tp_shape.get((m, k, n), 0),
+                f"{'decode' if m == N_SLOTS else 'prefill'} at TP {TP}, a "
+                f"rank's {'column' if k == 1024 else 'row'} shard; "
+                "launches: rank 0's continuous serve", lib))
+    for mode in ("bf16", "int8", "int4"):
+        rows.append(_pa_row(
+            dev, mode, 1, 16 // TP, 16 // TP, 64, SERVE_P, lens, None, None,
+            f"paged_attn_tp{TP}{'' if mode == 'bf16' else '_' + mode}"
+            f"_p{SERVE_P}",
+            ("f32 pools" if mode == "bf16" else f"{mode} pools + f32 scales")
+            + f", a rank's heads at TP {TP}", tp[mode]["paged_attn"],
+            seed=12))
     # kernel 3 at the prefill shape of full-width qwen1.5-0.5b: B 4, S 1024,
     # 16 heads, D 64, causal; flattened (B·H, S, D) as flash_mha hands it
     # to the kernel.  Not on the serving path: launches 0 (the reference's
@@ -4746,6 +4847,522 @@ def phase_measure(dev, serve_info):
     return rows
 
 
+_TIMING = re.compile(r"_ms|_s$|_s_|latency|ttft|tpot")
+
+
+def _det_stats(st: dict) -> dict:
+    """An engine's stats without its clocks (what every rank must
+    share)."""
+    return {k: v for k, v in st.items() if not _TIMING.search(k)}
+
+
+def _splits_of(toks, base) -> dict:
+    """{request: the first new token where ``toks`` parts from ``base``}."""
+    return {i: j for i, j in _agreement(toks, base)[1]}
+
+
+def _enc_sites(params, cfg, mesh=None):
+    """id of every encoded linear's weight in ``params`` (the head, each
+    layer's attention and MLP) → (site, its activation scale, whether
+    the linear's input is a row shard under ``mesh``)."""
+    from repro_torch.parallel.mesh import set_mesh
+    from repro_torch.parallel.sharding import linear_role, splits
+    with set_mesh(mesh):
+        ways = splits(cfg)
+    nodes = [("head", params.get("lm_head", {}), 1)] + [
+        (f"layer {li} {sub}", layer[sub], ways.get(sub, 1))
+        for li, layer in enumerate(params["layers"])
+        for sub in ("attn", "mlp") if sub in layer]
+    return {id(node[k]): (f"{where}/{k}", node[k + "_as"],
+                          tp > 1 and linear_role(k) == "row")
+            for where, node, tp in nodes for k in node if k + "_fw" in node}
+
+
+def _recorded_serve(dev, params, cfg, trace, want, static, mesh=None,
+                    **kw):
+    """``trace`` served again eagerly (continuous; or ``static``: the
+    chunks of ``N_SLOTS`` holding a request of ``want``) while a hook
+    keeps request i's rows of every encoded linear's input, x / its
+    activation scale, on the device (no sync while it serves), for each
+    i of ``want`` ({request: new token where it split}): the prompt,
+    then each token fed back, up to that token.  Under ``mesh`` (params:
+    this rank's) a row shard's inputs are gathered after the serve.
+    Returns ({i: {site: (positions, k) host tensor}}, the sites in call
+    order)."""
+    import numpy as np
+    import torch
+    from repro_torch.nn.common import activation_recorder
+    from repro_torch.parallel.mesh import set_mesh
+    from repro_torch.parallel.sharding import shard_params
+    from repro_torch.serve import supports_ragged_mask
+    from repro_torch.serve.engine import StaticBatch, _ragged_pad
+    from repro_torch.serve.scheduler import DECODING
+    if mesh is not None:
+        params = shard_params(params, cfg, mesh)
+    sites = _enc_sites(params, cfg, mesh)
+    order = []
+    got = collections.defaultdict(lambda: collections.defaultdict(list))
+
+    def recording(rows_of):
+        def hook(name, w, x):
+            if id(w) not in sites:
+                return
+            site, sa, _ = sites[id(w)]
+            if site not in order:
+                order.append(site)
+            for i, pre, rows in rows_of(x):
+                got[i][site].append((pre, rows.float() / sa))
+        return activation_recorder(hook)
+
+    if not static:
+        eng, rids = _serve(params, cfg, trace, dev, mesh=mesh,
+                           cuda_graphs=False if mesh is None else None,
+                           **kw)
+        cur, chunk_of = {}, eng._prefill_chunk
+
+        def prefill_chunk(req):
+            cur["rid"] = req.rid
+            chunk_of(req)
+            cur.pop("rid")
+        eng._prefill_chunk = prefill_chunk
+        of_rid = {rids[i]: i for i in want}
+
+        def rows_of(x):
+            if x.shape[1] > 1:
+                i = of_rid.get(cur.get("rid"))
+                return [] if i is None else [(i, True, x[0])]
+            return [(i, False, x[eng.requests[rids[i]].slot]) for i in want
+                    if eng.requests[rids[i]].state == DECODING]
+        with torch.inference_mode(), recording(rows_of):
+            eng.run()
+        del eng._prefill_chunk, eng
+    for c0 in (sorted({i - i % N_SLOTS for i in want}) if static else ()):
+        chunk = trace[c0:c0 + N_SLOTS]
+        S = max(map(len, chunk))
+        batch = np.zeros((len(chunk), S), np.int32)
+        pad = np.zeros((len(chunk),), np.int32)
+        for r, q in enumerate(chunk):
+            batch[r, S - len(q):] = q
+            pad[r] = S - len(q)
+        rows = {i - c0: i for i in want if c0 <= i < c0 + N_SLOTS}
+
+        def rows_of(x, rows=rows, pad=pad):
+            if x.shape[1] > 1:
+                return [(i, True, x[r, int(pad[r]):]) for r, i in rows.items()]
+            return [(i, False, x[r]) for r, i in rows.items()]
+        with set_mesh(mesh), torch.inference_mode(), recording(rows_of):
+            sb = StaticBatch(params, cfg, len(chunk), S + MAX_NEW + 8,
+                             device=dev, graphs=False)
+            sb.run(torch.from_numpy(batch),
+                   max(want[i] for i in rows.values()) + 1,
+                   pad=_ragged_pad(cfg, pad) if supports_ragged_mask(cfg)
+                   else None)
+        del sb
+    gather = {site for site, _, g in sites.values() if g}
+    out = {}
+    for i, j in want.items():
+        plen, pieces = len(trace[i]), got[i]
+        out[i] = {}
+        for site in order:
+            t = torch.cat([torch.cat([r for pre, r in pieces[site] if pre])
+                           [:plen]] + [r for pre, r in pieces[site]
+                                       if not pre])[:plen + j]
+            if site in gather:
+                t = mesh.gather_columns(t.contiguous())
+            out[i][site] = t.cpu()
+    del got
+    return out, order
+
+
+def _tp_cont(mesh, dev, params, cfg, trace, base, tally=None, **kw):
+    """One continuous serve on this rank (eager: a mesh runs no graph):
+    tokens, seconds, stats, launch counts, collectives (in all, and per
+    decode step with their host ms), whether every rank has the same
+    tokens, stats and allocator state, and, where the tokens part from
+    the single rank's ``base``, the parting requests' encoded inputs
+    (``_recorded_serve``) for the parent to hold against that rank's.
+    ``tally``: a ``_drop_tally``'s list, read before that rerun."""
+    eng, rids = _serve(params, cfg, trace, dev, mesh=mesh,
+                       max_new=len(base[0]), **kw)
+    dec = eng.steps["decode"]
+    fn, per = dec.fn, []
+
+    def counted(*a):
+        c0, s0 = mesh.collectives, mesh.collective_s
+        out = fn(*a)
+        per.append((mesh.collectives - c0, (mesh.collective_s - s0) * 1e3))
+        return out
+    dec.fn = counted
+    c0, s0 = mesh.collectives, mesh.collective_s
+    outs, dt, counts, st = _timed_run(eng, rids)
+    toks = [outs[r].tolist() for r in rids]
+    kv = eng.kv
+    agree = mesh.agree((toks, _det_stats(st), kv.alloc.state(),
+                        kv.ptab.tolist(), kv.lens.tolist()))
+    res = {"tokens": toks, "dt": dt, "stats": st, "counts": counts,
+           "agree": agree, "chunk": eng.prefill_chunk,
+           "collectives": mesh.collectives - c0,
+           "collective_ms": (mesh.collective_s - s0) * 1e3,
+           "decode": per, "origins": None,
+           "drops": None if tally is None else _drops(tally)}
+    del eng, dec, fn
+    splits = _splits_of(toks, base)
+    if splits and agree and not kw.get("spec_decode"):
+        res["origins"] = _recorded_serve(dev, params, cfg, trace, splits,
+                                         False, mesh, max_new=len(base[0]),
+                                         **kw)
+    return res
+
+
+def _tp_static(mesh, dev, params, cfg, trace, base, tally=None):
+    """One ``ServeEngine`` serve on this rank (eager), as ``_tp_cont``."""
+    c0, s0 = mesh.collectives, mesh.collective_s
+    eng, toks, dt, counts = _static(params, cfg, trace, dev, mesh=mesh)
+    st = eng.stats()
+    res = {"tokens": toks, "dt": dt, "stats": st, "counts": counts,
+           "chunks": eng.chunks, "agree": mesh.agree((toks, _det_stats(st))),
+           "collectives": mesh.collectives - c0,
+           "collective_ms": (mesh.collective_s - s0) * 1e3, "origins": None,
+           "drops": None if tally is None else _drops(tally)}
+    del eng
+    splits = _splits_of(toks, base)
+    if splits and res["agree"]:
+        res["origins"] = _recorded_serve(dev, params, cfg, trace, splits,
+                                         True, mesh)
+    return res
+
+
+def _tp_qwen(mesh, dev, bundle, base):
+    """Phase 6k's qwen1.5-0.5b on one rank: phase 6's exact bundle loaded
+    (a cache hit), this rank's slices kept, then the serves, each the
+    whole trace to ``MAX_NEW`` new tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.parallel.sharding import shard_params
+    from repro_torch.serve import exact_encodings, prepare_encoded_serving
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              attention_backend="kernel")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device=dev)
+    t_init = time.perf_counter() - t0
+    params_enc, cfg_enc, info = prepare_encoded_serving(
+        params, cfg, macs_override=exact_encodings(cfg.mac.bits),
+        device=dev, cache_dir=bundle, verbose=False)
+    torch.cuda.synchronize()
+    out = {"init_s": t_init, "load_s": time.perf_counter() - t0 - t_init,
+           "loaded": info["loaded"], "fw_whole": _fw_bytes(params_enc),
+           "load_peak": torch.cuda.max_memory_allocated(dev)}
+    local = shard_params(params_enc, cfg_enc, mesh)
+    out["fw_local"] = _fw_bytes(local)
+    t = local["embed"]["table"]
+    out["embed_bytes"] = t.numel() * t.element_size()
+    del params, params_enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["local_bytes"] = torch.cuda.memory_allocated(dev)
+    trace = make_trace(cfg.vocab_size)
+    _tp_cont(mesh, dev, local, cfg_enc, trace[:1], [base["bf16"][0][:4]])
+    for key, kw, tr in (
+            ("bf16", {}, trace),
+            ("int8", {}, trace),
+            ("int4", {}, trace),
+            ("prefix", dict(prefix_cache=True),
+             _prefix_trace(cfg.vocab_size)),
+            ("spec", dict(spec_decode=SPEC_K), trace)):
+        c = dataclasses.replace(cfg_enc, kv_cache_dtype=key) \
+            if key in ("int8", "int4") else cfg_enc
+        want = base["bf16" if key == "spec" else key]
+        out[key] = _tp_cont(mesh, dev, local, c, tr, want, **kw)
+    out["static"] = _tp_static(mesh, dev, local, cfg_enc, trace,
+                               base["static"])
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def _tp_moe(mesh, dev, base):
+    """Phase 6k's qwen3-moe on one rank: weights drawn and folded on the
+    card as in 6h, one rank at a time, this rank's experts and slices
+    kept; a rank's whole params (~40 GB, and its slices beside them while
+    it cuts them) never meet another rank's slices on the card: a rank
+    parks its slices on the host until every rank has cut its own.  Then
+    the continuous engine (f32 pools) and ``ServeEngine``, each call's
+    MoE drops tallied from its (whole) routing plan."""
+    import torch
+    from repro_torch.models import init_model, to_device
+    from repro_torch.parallel.sharding import LocalParams, shard_params
+    cfg = _moe_cfg("qwen3-moe-235b-a22b")
+    out = {}
+    with mesh.in_turns():
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_model(cfg, seed=0, device=dev, init_device=dev)
+        params_enc, cfg_enc, _ = _fold_exact(params, cfg)
+        torch.cuda.synchronize()
+        out.update(build_s=time.perf_counter() - t0,
+                   fw_whole=_fw_bytes(params_enc),
+                   build_peak=torch.cuda.max_memory_allocated(dev))
+        local = shard_params(params_enc, cfg_enc, mesh)
+        out["fw_local"] = _fw_bytes(local)
+        del params, params_enc
+        local = to_device(local, "cpu")
+        gc.collect()
+    local = LocalParams(to_device(local, dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["local_bytes"] = torch.cuda.memory_allocated(dev)
+    trace = make_trace(cfg.vocab_size)
+    with _drop_tally(True) as tally:
+        out["cont"] = _tp_cont(mesh, dev, local, cfg_enc, trace,
+                               base["continuous"], tally=tally)
+    with _drop_tally(True) as tally:
+        out["static"] = _tp_static(mesh, dev, local, cfg_enc, trace,
+                                   base["static"], tally=tally)
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["cfg"] = cfg_enc
+    return out
+
+
+def _tp_rank(mesh, job):
+    """Phase 6k on one rank of ``TP``: qwen1.5-0.5b, then qwen3-moe."""
+    import torch
+    dev = torch.device("cuda", 0)
+    out = {"qwen": _tp_qwen(mesh, dev, job["bundle"], job["base"])}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe"] = _tp_moe(mesh, dev, job["base"]["moe"])
+    return out
+
+
+def _tp_origins(tag, dev, params, cfg, trace, base, r, static, **kw):
+    """Where the TP serve ``r`` parts from the single rank's ``base``,
+    gated as ``_split_report`` gates two engines: the single rank's serve
+    again eagerly with the same hook (``_recorded_serve``), and for each
+    parting request the first position, and the first site in forward
+    order there, whose int8 code differs; it must sit within
+    ``ORIGIN_TOL`` of a .5 boundary on both sides with every earlier
+    input within ``ORIGIN_TOL``, or, with no code moved, the split must
+    be a near-tie (``FP_TIE_RTOL`` of the largest |logit|)."""
+    import numpy as np
+    import torch
+    splits = _splits_of(r["tokens"], base)
+    if r["origins"] is None:
+        raise AssertionError(f"[tp] {tag}: tokens part from the single-rank "
+                             f"eager serve at {splits}, and no origin was "
+                             "recorded")
+    tp_rows, order = r["origins"]
+    one_rows, order1 = _recorded_serve(dev, params, cfg, trace, splits,
+                                       static, **kw)
+    assert order == order1, f"[tp] {tag}: the sites run in another order"
+
+    def code(t):
+        return torch.clamp(torch.round(t), -127, 127)
+    for i, j in splits.items():
+        xs, xt = one_rows[i], tp_rows[i]
+        diff = torch.stack([(code(xs[t]) != code(xt[t])).any(dim=1)
+                            for t in order])
+        hit = diff.any(dim=0).nonzero()
+        if len(hit) == 0:
+            toks = np.concatenate([trace[i], np.asarray(base[i][:j],
+                                                        np.int32)])
+            lg, _ = _routes(params, cfg, toks, dev)
+            top = max(v.abs().max().item() for v in lg.values())
+            rel = max(abs((v[base[i][j]] - v[r["tokens"][i][j]]).item())
+                      for v in lg.values()) / top
+            log(f"[tp-origin] {tag}: request {i} parts at new token {j} "
+                f"with no int8 code different; margin {rel:.2e} of "
+                f"max|logit|")
+            if rel > FP_TIE_RTOL:
+                raise AssertionError(f"[tp] {tag}: request {i} parts at {j} "
+                                     "without a moved code or a near-tie")
+            continue
+        p = int(hit[0])
+        t = order[int(diff[:, p].nonzero()[0])]
+        chans = (code(xs[t][p]) != code(xt[t][p])).nonzero()[:, 0].tolist()
+        edge = max(abs(v - math.floor(v) - 0.5) for c in chans
+                   for v in (xs[t][p, c].item(), xt[t][p, c].item()))
+        before = max([(xs[u][:p] - xt[u][:p]).abs().max().item()
+                      for u in order if p] + [
+            (xs[u][p] - xt[u][p]).abs().max().item()
+            for u in order[:order.index(t)]] + [0.0])
+        plen = len(trace[i])
+        where = (f"prompt position {p}" if p < plen
+                 else f"new token {p - plen} fed back")
+        log(f"[tp-origin] {tag}: request {i} (prompt {plen}) parts at new "
+            f"token {j}; the first int8 code apart is at {where}, {t} "
+            f"channel(s) {chans[:4]}: x / scale "
+            f"{xs[t][p, chans[0]].item():.7f} (1 rank) against "
+            f"{xt[t][p, chans[0]].item():.7f} (TP {TP}), {edge:.1e} from the "
+            f".5 boundary; every input to there within {before:.3e}")
+        if edge > ORIGIN_TOL or before > ORIGIN_TOL:
+            raise AssertionError(f"[tp] {tag}: request {i} parts without a "
+                                 f"rounding-boundary origin ({edge:.2e}, "
+                                 f"{before:.2e})")
+    log(f"[tp-origin] {tag}: every split starts at a code f32 order moved "
+        f"across a .5 boundary (within {ORIGIN_TOL}) or at a near-tie")
+
+
+def _tp_check(tag, r, base, cfg, eager_tok_s, static=False):
+    """Log one phase 6k serve and gate what needs no single-rank rerun:
+    every request finished, the ranks agree.  Returns whether its tokens
+    part from the single rank's ``base``."""
+    toks = r["tokens"]
+    n_tok = sum(map(len, toks))
+    if not r["agree"]:
+        raise AssertionError(f"[tp] {tag}: the ranks' tokens, stats or "
+                             "allocator state differ")
+    assert len(toks) == len(base) and all(
+        len(t) == len(b) and all(0 <= x < cfg.vocab_size for x in t)
+        for t, b in zip(toks, base)), f"[tp] {tag}: not every request " \
+        "finished"
+    n_same, parts = _agreement(toks, base)
+    dec = r.get("decode") or []
+    per = ""
+    if dec:
+        cs = sorted(c for c, _ in dec)
+        ms = sorted(t for _, t in dec)
+        per = (f"; a decode step: {cs[len(cs) // 2]} collectives (min "
+               f"{cs[0]}, max {cs[-1]}), {ms[len(ms) // 2]:.3f} ms of them "
+               f"on the host (p50; max {ms[-1]:.3f}) over {len(dec)} steps")
+    st = r["stats"]
+    log(f"[tp] {tag}: {len(toks)} requests, {n_tok} tokens in {r['dt']:.3f}s"
+        f" = {n_tok / r['dt']:.1f} tok/s eager at TP {TP} (single-rank eager "
+        f"{'not served' if eager_tok_s is None else round(eager_tok_s, 1)});"
+        f" step p50 {st['step_ms_p50']:.2f} ms; collectives "
+        f"{r['collectives']} in all, {r['collective_ms']:.1f} ms on the host"
+        f"{per}; ranks agree on tokens, stats"
+        f"{'' if static else ' and allocator state'}; tokens against the "
+        f"single-rank eager serve: {n_same} of {len(toks)} requests "
+        f"identical, parts (request, new token) {parts}; {SMI}")
+    return bool(parts)
+
+
+def phase_tp(dev, info):
+    """Phase 6k: ``TP`` ranks over gloo on the one card
+    (``parallel.mesh.run_ranks``; the kernels were built here, the ranks
+    load them), each serving as one rank of the mesh (``_tp_rank``);
+    gated here against the single-rank eager serves of phases 6, 6c, 6d,
+    6e and 6h (a split must start where ``_tp_origins`` finds f32 order
+    moving a code across .5, or at a near-tie)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.parallel.mesh import run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = info["tp_base"]
+    log(f"[tp] this process holds {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+        f" GB of the card ({torch.cuda.memory_reserved(dev) / 1e9:.2f} GB "
+        "reserved) as the ranks start")
+    t0 = time.perf_counter()
+    res = run_ranks(_tp_rank, TP, {"bundle": info["bundle"], "base": base},
+                    device=str(dev))
+    log(f"[tp] {TP} ranks spawned, served and joined in "
+        f"{time.perf_counter() - t0:.1f}s")
+    q = res["qwen"]
+    log(f"[tp] qwen1.5-0.5b: a rank's init {q['init_s']:.1f}s, phase 6's "
+        f"bundle {'loaded (cache hit)' if q['loaded'] else 'NOT a cache hit'}"
+        f" in {q['load_s']:.1f}s (both ranks at once; peak "
+        f"{q['load_peak'] / 1e9:.2f} GB a rank); folded bf16 Wt a rank "
+        f"{q['fw_local'] / 1e9:.4f} GB of {q['fw_whole'] / 1e9:.4f}; a "
+        f"rank's params on the card {q['local_bytes'] / 1e9:.2f} GB (the "
+        f"replicated embedding {q['embed_bytes'] / 1e9:.4f} GB of them), "
+        f"serving peak {q['peak'] / 1e9:.2f} GB; {SMI}")
+    if not q["loaded"]:
+        raise AssertionError("phase 6's bundle was not a cache hit under "
+                             "the mesh")
+    if q["fw_local"] * TP != q["fw_whole"]:
+        raise AssertionError("a rank's folded bytes are not 1/TP of the "
+                             "whole")
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              attention_backend="kernel")
+    trace = make_trace(cfg.vocab_size)
+    eager = base["eager_tok_s"]
+    parted = []
+    counts = {}
+    for tag, key in (("continuous f32 pools", "bf16"),
+                     ("continuous int8 pools", "int8"),
+                     ("continuous int4 pools", "int4"),
+                     ("prefix cache (6c's trace)", "prefix"),
+                     (f"spec self k={SPEC_K}", "spec")):
+        r = q[key]
+        ck = dataclasses.replace(cfg, kv_cache_dtype=key) \
+            if key in ("int8", "int4") else cfg
+        _check_counts(r["counts"], r["stats"], ck, r["chunk"],
+                      f"(tp {tag}, rank 0)", gated=True, tp=TP)
+        want = base["bf16" if key == "spec" else key]
+        if _tp_check(tag, r, want, cfg, eager.get(key)):
+            parted.append((tag, key, want, r))
+        if key == "prefix" and r["stats"]["prefix_hit_tokens"] <= 0:
+            raise AssertionError("[tp] the shared-prefix trace had no hit")
+        counts[key] = r["counts"]
+    r = q["static"]
+    _check_static_counts(r["counts"], r["chunks"], cfg, "(tp static, rank 0)",
+                         gated=True, tp=TP)
+    if _tp_check("static", r, base["static"], cfg, eager["static"],
+                 static=True):
+        parted.append(("static", "static", base["static"], r))
+    counts["static"] = r["counts"]
+    if parted:                    # the single rank's serves again, hooked
+        # phase 6's params, folded here again (the bundle holds this fold)
+        params = init_model(cfg, seed=0, device=dev)
+        pe, ce, _ = _fold_exact(params, cfg)
+        for tag, key, want, r in parted:
+            c = dataclasses.replace(ce, kv_cache_dtype=key) \
+                if key in ("int8", "int4") else ce
+            tr = (_prefix_trace(cfg.vocab_size) if key == "prefix"
+                  else trace[:len(want)])
+            kw = {} if key == "static" else dict(max_new=len(want[0]))
+            if key == "prefix":
+                kw["prefix_cache"] = True
+            _tp_origins(tag, dev, pe, c, tr, want, r, key == "static", **kw)
+        del params, pe
+        gc.collect()
+        torch.cuda.empty_cache()
+    m = res["moe"]
+    mb = base["moe"]
+    cfg_m = m["cfg"]
+    log(f"[tp] qwen3-moe ({cfg_m.n_layers} layers, EP: {cfg_m.n_experts // TP}"
+        f" experts a rank): built and folded in turns, {m['build_s']:.1f}s a "
+        f"rank (peak {m['build_peak'] / 1e9:.2f} GB); folded bf16 Wt a rank "
+        f"{m['fw_local'] / 1e9:.4f} GB of {m['fw_whole'] / 1e9:.4f}; a "
+        f"rank's params {m['local_bytes'] / 1e9:.2f} GB, serving peak "
+        f"{m['peak'] / 1e9:.2f} GB; {SMI}")
+    parted = []
+    for tag, key, want, drops, eager in (
+            ("qwen3-moe continuous f32 pools", "cont", mb["continuous"],
+             mb["drops_continuous"], mb["eager_tok_s"]["continuous"]),
+            ("qwen3-moe static", "static", mb["static"], mb["drops_static"],
+             mb["eager_tok_s"]["static"])):
+        r = m[key]
+        if key == "cont":
+            _check_counts(r["counts"], r["stats"], cfg_m, r["chunk"],
+                          f"(tp {tag}, rank 0)", gated=True, tp=TP)
+        else:
+            _check_static_counts(r["counts"], r["chunks"], cfg_m,
+                                 f"(tp {tag}, rank 0)", gated=True, tp=TP)
+        split = _tp_check(tag, r, want, cfg_m, eager, static=key == "static")
+        log(f"[tp] {tag}: MoE drops (pairs dropped, pairs) {r['drops']}, "
+            f"single-rank eager (6h) {drops}")
+        if split:
+            parted.append((tag, key, want, r))
+        elif r["drops"] != drops:
+            raise AssertionError(f"[tp] {tag}: MoE drops differ from 6h's")
+        counts["moe_" + key] = r["counts"]
+    if parted:
+        cfg0 = _moe_cfg("qwen3-moe-235b-a22b")
+        params = init_model(cfg0, seed=0, device=dev, init_device=dev)
+        pe, ce, _ = _fold_exact(params, cfg0)
+        for tag, key, want, r in parted:
+            _tp_origins(tag, dev, pe, ce, make_trace(cfg0.vocab_size), want,
+                        r, key == "static")
+        del params, pe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"counts": counts}
+
+
 def _phase(fn, *args):
     """Run one phase and log its seconds."""
     t0 = time.perf_counter()
@@ -4767,9 +5384,11 @@ def main() -> int:
     _phase(phase_kernel1_moe, dev)
     _phase(phase_kernel1_new, dev)
     _phase(phase_kernel1_xlstm, dev)
+    _phase(phase_kernel1_tp, dev)
     _phase(phase_kernel2, dev)
     _phase(phase_kernel2_quant, dev)
     _phase(phase_kernel2_d128, dev)
+    _phase(phase_kernel2_tp, dev)
     _phase(phase_flash, dev)
     serve_info = _phase(phase_serve, dev)
     serve_info.update(_phase(phase_serve_quant, dev, serve_info))
@@ -4777,6 +5396,18 @@ def main() -> int:
     serve_info["spec"] = _phase(phase_spec, dev, serve_info)
     serve_info["telemetry"] = _phase(phase_telemetry, dev, serve_info)
     serve_info["static"] = _phase(phase_static, dev, serve_info)
+    # phase 6k's single-rank eager baselines (each gated equal to its
+    # graphed serve, and spec decoding's to plain decode)
+    serve_info["tp_base"] = {
+        "bf16": serve_info["tokens"],
+        "int8": serve_info["int8"]["tokens"],
+        "int4": serve_info["int4"]["tokens"],
+        "prefix": serve_info["prefix"]["tokens"],
+        "static": serve_info["static"]["tokens"],
+        "eager_tok_s": {"bf16": serve_info["eager_tok_s"],
+                        "int8": serve_info["int8"]["eager_tok_s"],
+                        "int4": serve_info["int4"]["eager_tok_s"],
+                        "static": serve_info["static"]["eager_tok_s"]}}
     for key in ("params", "cfg", "params_enc", "cfg_enc", "trace", "tokens",
                 "stats"):
         del serve_info[key]
@@ -4786,12 +5417,17 @@ def main() -> int:
     serve_info["moe"] = _phase(phase_moe, dev)
     serve_info["new"] = _phase(phase_new_archs, dev)
     serve_info["xw"] = _phase(phase_xlstm_whisper, dev)
+    serve_info["tp_base"]["moe"] = serve_info["moe"][
+        "qwen3-moe-235b-a22b"].pop("eager")
+    serve_info["tp"] = _phase(phase_tp, dev, serve_info)
+    shutil.rmtree(serve_info.pop("bundle"))
     _phase(phase_cpu_parity, dev)
     _phase(phase_cpu_parity_archs, dev)
     _phase(phase_cpu_parity_moe, dev)
     _phase(phase_cpu_parity_new, dev)
     _phase(phase_cpu_parity_xw, dev)
     _phase(phase_cli_int8, dev)
+    _phase(phase_cli_mesh, dev)
     _phase(phase_cpu_parity_search, dev)
     _phase(phase_train, dev)
     rows = _phase(phase_measure, dev, serve_info)

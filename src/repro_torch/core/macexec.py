@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from repro_torch.parallel.mesh import get_mesh
+from repro_torch.parallel.sharding import linear_role
 from repro_torch.quant.uniform import (calibrate_scale, fake_quant,
                                        quantize_codes)
 
@@ -96,6 +98,24 @@ def check_drafter(params, mode: str) -> None:
             "prepare_encoded_serving")
 
 
+def row_sum(out: torch.Tensor, name: str, ways: int) -> torch.Tensor:
+    """``out`` of linear ``name``, summed over the model axis where it is
+    a row shard's partial product (its k dim cut into ``ways`` > 1)."""
+    if ways > 1 and linear_role(name) == "row":
+        return get_mesh().all_reduce_sum(out)
+    return out
+
+
+def weight_scale(w: torch.Tensor, bits: int, ways: int) -> torch.Tensor:
+    """``calibrate_scale`` over the whole weight: with its shards on
+    ``ways`` > 1 ranks, over the max of every shard's max-abs, as the
+    reference's reduction over a sharded weight computes."""
+    if ways == 1:
+        return calibrate_scale(w, bits)
+    amax = get_mesh().all_reduce_max(w.detach().abs().amax().float())
+    return calibrate_scale(amax, bits)
+
+
 def mm(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Matmul in the compute dtype (f32 accumulation; a plain product left
     to PyTorch as the reference leaves it to XLA)."""
@@ -123,7 +143,11 @@ class MacExecutor:
         return {}
 
     def apply(self, p: dict, name: str, x: torch.Tensor, mcfg,
-              compute_dtype) -> torch.Tensor:
+              compute_dtype, ways: int = 1) -> torch.Tensor:
+        """``x @ p[name]`` under the mode.  ``ways`` > 1: the weight is a
+        tensor-parallel shard, one of that many, cut by its role; a row
+        shard's partial products are summed over the model axis (before
+        the bias of a folded linear)."""
         raise NotImplementedError
 
 
@@ -132,8 +156,8 @@ class FpExecutor(MacExecutor):
     """Plain fp matmul."""
     mode = "fp"
 
-    def apply(self, p, name, x, mcfg, compute_dtype):
-        return mm(x, p[name], compute_dtype)
+    def apply(self, p, name, x, mcfg, compute_dtype, ways=1):
+        return row_sum(mm(x, p[name], compute_dtype), name, ways)
 
 
 @register
@@ -145,13 +169,14 @@ class Int8Executor(MacExecutor):
     def aux_init(self, name, mcfg):
         return {name + "_as": torch.ones((), dtype=torch.float32)}
 
-    def apply(self, p, name, x, mcfg, compute_dtype):
+    def apply(self, p, name, x, mcfg, compute_dtype, ways=1):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
         wf = p[name].to(torch.float32)
         sa = p[name + "_as"].detach()
-        sw = calibrate_scale(wf, mcfg.bits)
+        sw = weight_scale(wf, mcfg.bits, ways)
         out = fake_quant(x2, sa, mcfg.bits) @ fake_quant(wf, sw, mcfg.bits)
+        out = row_sum(out, name, ways)
         return out.reshape(*lead, -1).to(compute_dtype)
 
 
@@ -170,7 +195,11 @@ class EncodedQatExecutor(MacExecutor):
                                           dtype=torch.float32)
         return p
 
-    def apply(self, p, name, x, mcfg, compute_dtype):
+    def apply(self, p, name, x, mcfg, compute_dtype, ways=1):
+        if ways > 1:
+            raise NotImplementedError(
+                "encoded-MAC QAT under a mesh: the training half of "
+                "tensor parallelism is not ported (ROADMAP Queue A, item 3)")
         from repro_torch.core.mac import encoded_matmul_qat
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
@@ -204,9 +233,9 @@ class EncodedInferExecutor(MacExecutor):
             "repro_torch.serve.encoded.prepare_encoded_serving, not "
             "initialized")
 
-    def apply(self, p, name, x, mcfg, compute_dtype):
+    def apply(self, p, name, x, mcfg, compute_dtype, ways=1):
         if name + "_fw" not in p:
-            return mm(x, p[name], compute_dtype)
+            return row_sum(mm(x, p[name], compute_dtype), name, ways)
         from repro_torch.kernels.ops import encoded_matmul
         lead = x.shape[:-1]
         # reference order: f32 input → int8 codes → kernel → × (sa·sw) →
@@ -214,6 +243,7 @@ class EncodedInferExecutor(MacExecutor):
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
         sa, sw = p[name + "_as"], p[name + "_ws"]
         xc = quantize_codes(x2, sa, mcfg.bits)
+        role = linear_role(name) if ways > 1 else "replicated"
         out = encoded_matmul(xc, p[name + "_fw"], p[name + "_fb"],
-                             mcfg.mac_for(name).program.a_mono_tuples)
+                             mcfg.mac_for(name).program.a_mono_tuples, role)
         return (out * (sa * sw)).reshape(*lead, -1).to(compute_dtype)

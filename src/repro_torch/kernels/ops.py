@@ -1,7 +1,8 @@
 """Public entries for the kernels (port of ``repro/kernels/ops.py``): the
-encoded matmul (monomial normalisation and dispatch; the kernel masks
-ragged m/k/n itself, so nothing is padded there) and ``flash_mha``, the
-4-D GQA wrapper of the flash-attention kernel."""
+encoded matmul (monomial normalisation and its column / row
+tensor-parallel dispatch; the kernel masks ragged m/k/n itself, so
+nothing is padded there) and ``flash_mha``, the 4-D GQA wrapper of the
+flash-attention kernel."""
 from __future__ import annotations
 
 import functools
@@ -9,6 +10,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.parallel.mesh import get_mesh
 from . import encoded_matmul as _em
 from . import flash_attention as _fa
 
@@ -33,16 +35,28 @@ def _pad3(monos: tuple) -> np.ndarray:
                       ).reshape(-1, 3)
 
 
-def encoded_matmul(x_codes, wt, bias, mono_bits):
+def encoded_matmul(x_codes, wt, bias, mono_bits, role: str = "replicated"):
     """x_codes (m,k) int8 · wt (U,k,n) · bias (n,) → (m,n) f32.
 
     ``mono_bits``: (U, 3) padded array or sequence of 1–3-bit monomial
     tuples.  CPU tensors run the plain version, CUDA tensors the kernel
-    (``kernels.encoded_matmul.encoded_matmul``)."""
+    (``kernels.encoded_matmul.encoded_matmul``).
+
+    ``role``: the call's tensor-parallel dispatch on this rank (the
+    reference's ``_pallas_sharded``, ``ops.py:84-109``).  'column' and
+    'replicated' run the kernel on the local shapes as given (a column
+    shard's ``wt``/``bias`` hold its n-slice, and its output stays
+    n-sharded); 'row' (``x_codes`` and ``wt`` hold this rank's k-slice)
+    runs it with a zero bias, sums the partial products over the active
+    mesh's model axis, then adds the replicated ``bias`` once."""
     if isinstance(mono_bits, tuple):
         shifts = _shift_table(mono_bits)
     else:
         shifts = _pad3(_norm_monos(mono_bits))
+    if role == "row":
+        part = _em.encoded_matmul(x_codes, wt, torch.zeros_like(bias),
+                                  shifts)
+        return get_mesh().all_reduce_sum(part) + bias
     return _em.encoded_matmul(x_codes, wt, bias, shifts)
 
 

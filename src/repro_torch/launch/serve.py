@@ -62,6 +62,12 @@
       --encoding exact --paged-attn kernel --trace-out t.json \
       --metrics-out m.json --time-device --drift-every 8 \
       --profile-dir prof --sanitize
+  # tensor-parallel serving: the CLI spawns M ranks (gloo; on the card
+  # they share it), rank 0 prints; dense archs and qwen3-moe only
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --continuous --mac encoded --encoding exact --mesh 2
+  python -m repro_torch.launch.serve --continuous --mac encoded \
+      --encoding exact --paged-attn kernel --mesh 2
 
 ``--paged-attn gather`` / ``kernel`` are the reference CLI's ``xla`` /
 ``pallas``: the gathered-page-view path, or the fused page-walk op (the
@@ -84,7 +90,9 @@ weights are random, made from ``--seed``; the request trace comes from
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import re
 import time
 
 
@@ -188,6 +196,10 @@ def main(argv=None):
                     help="attach the allocator shadow ledger (validates "
                          "every page transition + per-step conservation; "
                          "REPRO_SANITIZE=1 does the same)")
+    ap.add_argument("--mesh", default=None,
+                    help="tensor-parallel serving over M ranks ('M' or "
+                         "'DxM' with D = 1): the CLI spawns them (gloo), "
+                         "rank 0 prints; dense archs and qwen3-moe")
     args = ap.parse_args(argv)
 
     if args.kv_dtype != "bf16" and not args.continuous:
@@ -198,98 +210,114 @@ def main(argv=None):
                  "rounds run against the paged KV cache)")
     if args.spec_decode < 0:
         ap.error("--spec-decode must be >= 0")
-    if args.debug_nan:
-        from repro_torch.launch.env import set_debug_nan
-        set_debug_nan(True)
+    try:
+        cfg = _config(args)
+    except ValueError as e:
+        ap.error(f"--layers: {e}")
+    if args.mesh:
+        from repro_torch.parallel.mesh import DATA_AXIS_TODO, run_ranks
+        m = re.fullmatch(r"(?:(\d+)x)?(\d+)", args.mesh)
+        if m is None:
+            ap.error(f"--mesh {args.mesh!r}: expected 'M' or 'DxM' "
+                     "(e.g. --mesh 8 or --mesh 2x4)")
+        n_data, n_model = int(m.group(1) or 1), int(m.group(2))
+        if n_data != 1:
+            ap.error(f"--mesh {args.mesh}: {DATA_AXIS_TODO}")
+        if n_model < 1:
+            ap.error("--mesh needs at least one rank")
+        if cfg.family not in ("dense", "moe") or cfg.use_mla:
+            ap.error(f"--mesh: {args.arch} is not ported to tensor "
+                     "parallelism, only the dense archs and qwen3-moe "
+                     "(ROADMAP Queue A, item 3: TP for the other families)")
+        if args.drift_every:
+            ap.error("--drift-every runs the whole model on one rank; it is "
+                     "not ported under --mesh")
+        from repro_torch.device import resolve_device
+        resolve_device(args.device)        # no card: fail before spawning
+        run_ranks(_serve, n_model, args, device=args.device)
+        return
+    _serve(None, args)
 
-    import numpy as np
-    import torch
+
+def _config(args):
     from repro_torch.configs import get_config
     from repro_torch.core.layers import MacConfig
-    from repro_torch.device import resolve_device
-    from repro_torch.models import init_model
-    from repro_torch.serve import (Engine, ServeEngine, arch_families,
-                                   exact_encodings, prepare_drafter,
-                                   prepare_encoded_serving)
-
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers:
-        try:
-            cfg = cfg.with_layers(args.layers)
-        except ValueError as e:
-            ap.error(f"--layers: {e}")
+        cfg = cfg.with_layers(args.layers)
     if args.param_dtype:
         cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
     if args.mac == "int8":
         cfg = dataclasses.replace(cfg, mac=MacConfig(mode="int8"))
-    cfg = dataclasses.replace(cfg, attention_backend=args.paged_attn,
-                              kv_cache_dtype=args.kv_dtype)
-    params = init_model(cfg, seed=args.seed, device=dev)
-    params_ref, cfg_ref = params, cfg   # dense reference for --drift-every
-    if args.mac == "encoded":
-        overrides = (exact_encodings(cfg.mac.bits, arch_families(cfg))
-                     if args.encoding == "exact" else None)
-        t0 = time.time()
-        params, cfg, info = prepare_encoded_serving(
-            params, cfg, m_bits=args.m_bits, n_samples=args.calib_samples,
-            refine=args.calib_refine, calib_batches=args.calib_batches,
-            macs_override=overrides, force=args.force_calib, device=dev)
-        print(f"[encoded-serving] ready in {time.time() - t0:.1f}s "
-              f"({'cache hit' if info['loaded'] else 'searched+folded'})")
+    return dataclasses.replace(cfg, attention_backend=args.paged_attn,
+                               kv_cache_dtype=args.kv_dtype)
 
-    draft_params = draft_cfg = None
-    if args.spec_decode and args.draft == "encoded":
-        verifier = (params, cfg) if args.mac == "encoded" else None
-        t0 = time.time()
-        draft_params, draft_cfg, dinfo = prepare_drafter(
-            params_ref, cfg_ref, m_bits=args.draft_m_bits,
-            verifier=verifier, n_samples=args.calib_samples,
-            refine=args.calib_refine, calib_batches=args.calib_batches,
-            force=args.force_calib, device=dev)
-        src = ("verifier artifacts" if dinfo.get("shared_with_verifier")
-               else "searched+folded" if not dinfo.get("loaded")
-               else "cache hit")
-        print(f"[spec-decode] encoded drafter m_bits={args.draft_m_bits} "
-              f"ready in {time.time() - t0:.1f}s ({src})")
 
-    rng = np.random.default_rng(0)
-    reqs = [rng.integers(0, cfg.vocab_size, rng.integers(4, 24))
-            for _ in range(args.requests)]
+def _serve(mesh, args):
+    """The serve, alone (``mesh`` None) or as one rank of ``mesh``: the
+    ranks make their params, bundles and engines in turns (a bundle one
+    writes is a cache hit for the next, and a rank's whole params are
+    freed once its engine holds its slices); rank 0 prints and writes."""
+    import numpy as np
+    import torch
+    from repro_torch.device import resolve_device
+    from repro_torch.obs import DriftMonitor
+    from repro_torch.serve import Engine, ServeEngine
+    from repro_torch.serve.telemetry import ServeTelemetry
+
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    if args.debug_nan:
+        from repro_torch.launch.env import set_debug_nan
+        set_debug_nan(True)
+    dev = resolve_device(args.device)
     if dev.type == "cuda":
         # build the kernels now (first use compiles them with nvcc), so the
         # timed run below measures serving only
         from repro_torch.kernels import build
         build.build()
+    tel = drift = None
+    with contextlib.nullcontext() if mesh is None else mesh.in_turns():
+        params, cfg, draft_params, draft_cfg, params_ref, cfg_ref = \
+            _prepare(args, dev, say, lead)
+        if not args.continuous:
+            engine = ServeEngine(params, cfg, batch_slots=args.slots,
+                                 max_len=128, device=dev, mesh=mesh)
+        else:
+            if args.drift_every > 0:
+                drift = DriftMonitor(params_ref, cfg_ref,
+                                     every=args.drift_every)
+            tel = ServeTelemetry(trace=bool(args.trace_out) and lead,
+                                 time_device=args.time_device, drift=drift,
+                                 profile_dir=args.profile_dir if lead
+                                 else None)
+            engine = Engine(params, cfg, n_slots=args.slots,
+                            page_size=args.page_size, n_pages=args.n_pages,
+                            reserve=args.reserve,
+                            prefill_chunk=args.prefill_chunk,
+                            prefix_cache=args.prefix_cache, telemetry=tel,
+                            spec_decode=args.spec_decode,
+                            draft_params=draft_params, draft_cfg=draft_cfg,
+                            sanitize=args.sanitize or None, device=dev,
+                            mesh=mesh)
+        del params, draft_params, params_ref
+
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(0, cfg.vocab_size, rng.integers(4, 24))
+            for _ in range(args.requests)]
     if not args.continuous:
-        engine = ServeEngine(params, cfg, batch_slots=args.slots,
-                             max_len=128, device=dev)
         t0 = time.time()
         outs = engine.run(reqs, max_new=args.max_new)
         dt = time.time() - t0
         total = sum(args.max_new for _ in reqs)
-        print(f"served {len(reqs)} requests, {total} tokens in {dt:.2f}s "
-              f"({total / dt:.1f} tok/s, mac={args.mac}, static)")
+        say(f"served {len(reqs)} requests, {total} tokens in {dt:.2f}s "
+            f"({total / dt:.1f} tok/s, mac={args.mac}, static)")
+        _say_mesh(say, mesh, engine.stats(), engine.params)
         for i, o in enumerate(outs[:3]):
-            print(f"req{i}: {list(map(int, o[:10]))} ...")
+            say(f"req{i}: {list(map(int, o[:10]))} ...")
         return
-    from repro_torch.obs import DriftMonitor
-    from repro_torch.serve.telemetry import ServeTelemetry
-    drift = None
-    if args.drift_every > 0:
-        drift = DriftMonitor(params_ref, cfg_ref, every=args.drift_every)
-    tel = ServeTelemetry(trace=bool(args.trace_out),
-                         time_device=args.time_device, drift=drift,
-                         profile_dir=args.profile_dir)
-    engine = Engine(params, cfg, n_slots=args.slots,
-                    page_size=args.page_size, n_pages=args.n_pages,
-                    reserve=args.reserve, prefill_chunk=args.prefill_chunk,
-                    prefix_cache=args.prefix_cache, telemetry=tel,
-                    spec_decode=args.spec_decode, draft_params=draft_params,
-                    draft_cfg=draft_cfg, sanitize=args.sanitize or None,
-                    device=dev)
     t0 = time.time()
     rids = [engine.submit(r, max_new=args.max_new) for r in reqs]
     outs = engine.run()
@@ -298,51 +326,102 @@ def main(argv=None):
     dt = time.time() - t0
     st = engine.stats()
     total = st["decode_tokens"]
-    print(f"served {len(reqs)} requests, {total} tokens in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s, mac={args.mac}, "
-          f"paged-attn={args.paged_attn}, device={dev})")
-    print(f"  occupancy={st['occupancy']:.2f} evictions={st['evictions']} "
-          f"jit_compiles={st['jit_compiles']} "
-          f"p50={st['latency_p50_s']:.3f}s p99={st['latency_p99_s']:.3f}s "
-          f"kv_pool={st['kv_pool_bytes'] / 1e6:.1f}MB")
-    print(f"  kv: dtype={st['kv_cache_dtype']} "
-          f"{st['kv_bytes_per_token']:.1f} B/token, "
-          f"capacity={st['kv_capacity_tokens']} tokens")
+    say(f"served {len(reqs)} requests, {total} tokens in {dt:.2f}s "
+        f"({total / dt:.1f} tok/s, mac={args.mac}, "
+        f"paged-attn={args.paged_attn}, device={dev})")
+    say(f"  occupancy={st['occupancy']:.2f} evictions={st['evictions']} "
+        f"jit_compiles={st['jit_compiles']} "
+        f"p50={st['latency_p50_s']:.3f}s p99={st['latency_p99_s']:.3f}s "
+        f"kv_pool={st['kv_pool_bytes'] / 1e6:.1f}MB")
+    say(f"  kv: dtype={st['kv_cache_dtype']} "
+        f"{st['kv_bytes_per_token']:.1f} B/token, "
+        f"capacity={st['kv_capacity_tokens']} tokens")
     if args.prefix_cache:
-        print(f"  prefix: hit_rate={st['prefix_hit_rate']:.2f} "
-              f"({st['prefix_hit_tokens']}/{st['prefix_lookup_tokens']} "
-              f"tokens, {st['prefix_pages_indexed']} pages indexed, "
-              f"{st['cow_copies']} copy-on-write, {st['prefill_chunks']} "
-              f"prefill chunks of {st['prefill_chunk']})")
+        say(f"  prefix: hit_rate={st['prefix_hit_rate']:.2f} "
+            f"({st['prefix_hit_tokens']}/{st['prefix_lookup_tokens']} "
+            f"tokens, {st['prefix_pages_indexed']} pages indexed, "
+            f"{st['cow_copies']} copy-on-write, {st['prefill_chunks']} "
+            f"prefill chunks of {st['prefill_chunk']})")
     if args.spec_decode:
-        print(f"  spec: k={st['spec_decode_k']} "
-              f"acceptance={st['spec_acceptance_rate']:.3f} "
-              f"tokens/round={st['spec_tokens_per_round']:.2f} "
-              f"({st['spec_accepted_tokens']}/{st['spec_draft_tokens']} "
-              f"drafts accepted over {st['spec_rounds']} rounds, "
-              f"drafter={st['draft_mac_mode']})")
-    print(f"  ttft_p50={st['ttft_p50_s']:.3f}s "
-          f"tpot_p50={st['tpot_p50_s']:.4f}s "
-          f"step_p50={st['step_ms_p50']:.2f}ms")
+        say(f"  spec: k={st['spec_decode_k']} "
+            f"acceptance={st['spec_acceptance_rate']:.3f} "
+            f"tokens/round={st['spec_tokens_per_round']:.2f} "
+            f"({st['spec_accepted_tokens']}/{st['spec_draft_tokens']} "
+            f"drafts accepted over {st['spec_rounds']} rounds, "
+            f"drafter={st['draft_mac_mode']})")
+    say(f"  ttft_p50={st['ttft_p50_s']:.3f}s "
+        f"tpot_p50={st['tpot_p50_s']:.4f}s "
+        f"step_p50={st['step_ms_p50']:.2f}ms")
     if args.time_device:
-        print(f"  device: decode_p50={st['device_decode_ms_p50']:.2f}ms "
-              f"prefill_p50={st['device_prefill_ms_p50']:.2f}ms")
+        say(f"  device: decode_p50={st['device_decode_ms_p50']:.2f}ms "
+            f"prefill_p50={st['device_prefill_ms_p50']:.2f}ms")
     if drift is not None and drift.last is not None:
         # under spec decoding drift comes from verification, which does
         # not observe |Δlogit|
         delta = (float("nan") if drift.last_delta is None
                  else drift.last_delta)
-        print(f"  drift: top1_agreement={drift.last:.4f} "
-              f"abs_logit_delta={delta:.4f}")
-    jsonl = args.trace_out and args.trace_out.endswith(".jsonl")
-    tel.write(trace_out=None if jsonl else args.trace_out,
-              trace_jsonl=args.trace_out if jsonl else None,
-              metrics_out=args.metrics_out)
+        say(f"  drift: top1_agreement={drift.last:.4f} "
+            f"abs_logit_delta={delta:.4f}")
+    _say_mesh(say, mesh, st, engine.params)
+    if lead:
+        jsonl = args.trace_out and args.trace_out.endswith(".jsonl")
+        tel.write(trace_out=None if jsonl else args.trace_out,
+                  trace_jsonl=args.trace_out if jsonl else None,
+                  metrics_out=args.metrics_out)
     for p in (args.trace_out, args.metrics_out):
         if p:
-            print(f"  wrote {p}")
+            say(f"  wrote {p}")
     for i, rid in enumerate(rids[:3]):
-        print(f"req{i}: {list(map(int, outs[rid][:10]))} ...")
+        say(f"req{i}: {list(map(int, outs[rid][:10]))} ...")
+
+
+def _prepare(args, dev, say, lead):
+    """The params from ``--seed`` and, with ``--mac encoded`` or an
+    encoded drafter, their bundles: (params, cfg, draft_params,
+    draft_cfg, params_ref, cfg_ref), the last two the fp model (the
+    drift monitor's reference)."""
+    from repro_torch.models import init_model
+    from repro_torch.serve import (arch_families, exact_encodings,
+                                   prepare_drafter, prepare_encoded_serving)
+    cfg = _config(args)
+    params = init_model(cfg, seed=args.seed, device=dev)
+    params_ref, cfg_ref = params, cfg
+    if args.mac == "encoded":
+        overrides = (exact_encodings(cfg.mac.bits, arch_families(cfg))
+                     if args.encoding == "exact" else None)
+        t0 = time.time()
+        params, cfg, info = prepare_encoded_serving(
+            params, cfg, m_bits=args.m_bits, n_samples=args.calib_samples,
+            refine=args.calib_refine, calib_batches=args.calib_batches,
+            macs_override=overrides, force=args.force_calib, device=dev,
+            verbose=lead)
+        say(f"[encoded-serving] ready in {time.time() - t0:.1f}s "
+            f"({'cache hit' if info['loaded'] else 'searched+folded'})")
+    draft_params = draft_cfg = None
+    if args.spec_decode and args.draft == "encoded":
+        verifier = (params, cfg) if args.mac == "encoded" else None
+        t0 = time.time()
+        draft_params, draft_cfg, dinfo = prepare_drafter(
+            params_ref, cfg_ref, m_bits=args.draft_m_bits,
+            verifier=verifier, n_samples=args.calib_samples,
+            refine=args.calib_refine, calib_batches=args.calib_batches,
+            force=args.force_calib, device=dev, verbose=lead)
+        src = ("verifier artifacts" if dinfo.get("shared_with_verifier")
+               else "searched+folded" if not dinfo.get("loaded")
+               else "cache hit")
+        say(f"[spec-decode] encoded drafter m_bits={args.draft_m_bits} "
+            f"ready in {time.time() - t0:.1f}s ({src})")
+    return params, cfg, draft_params, draft_cfg, params_ref, cfg_ref
+
+
+def _say_mesh(say, mesh, st, params):
+    if mesh is not None:
+        t = params["embed"]["table"]
+        say(f"  mesh: {st['mesh']} replicated={st['mesh_replicated']} "
+            f"collectives={mesh.collectives} "
+            f"({mesh.collective_s * 1e3:.1f} ms on the host); the "
+            f"embedding, replicated: {t.numel() * t.element_size() / 1e6:.1f}"
+            " MB a rank")
 
 
 if __name__ == "__main__":

@@ -25,8 +25,8 @@ cached on first use).  An encdec arch (whisper-large-v3) stops at its
 first step with the reference's ``AssertionError``: the synthetic token
 stream has no encoder frames ``enc_x`` (``make_train_step`` takes batches
 that carry them).  The reference's mesh options (``--devices``,
-``--grad-compress``) wait for tensor parallelism (ROADMAP Queue A item 3)
-and are refused.
+``--grad-compress``) wait for the training half of several ranks (ROADMAP
+Queue A item 3) and are refused.
 """
 from __future__ import annotations
 
@@ -62,8 +62,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.devices or args.grad_compress:
         ap.error("--devices and --grad-compress are the reference's mesh "
-                 "options; the port trains on one device until tensor "
-                 "parallelism lands (ROADMAP Queue A item 3)")
+                 "options; the port trains on one device until the "
+                 "training half of several ranks lands (ROADMAP Queue A "
+                 "item 3)")
 
     import torch
     from repro_torch.ckpt import (async_save_checkpoint, latest_step,

@@ -55,6 +55,8 @@ from repro_torch.nn.common import (embed_apply, embed_init, linear,
 from repro_torch.nn.mla import init_mla_cache
 from repro_torch.nn.ssm import init_ssm_cache
 from repro_torch.nn.xlstm import M_INIT, init_mlstm_cache, init_slstm_cache
+from repro_torch.parallel.mesh import get_mesh
+from repro_torch.parallel.sharding import local_kv_heads, model_rank, splits
 from repro_torch.quant.kvcache import kv_pool_layout
 from repro_torch.tree import tree_leaves, tree_map
 from .encdec import apply_encdec, init_encdec, init_encdec_cache
@@ -320,11 +322,20 @@ def _block(p_l, x, cfg, kind, window, positions):
 
 def _head(params, cfg, h):
     # the tied head reads the embedding table and stays an fp product in
-    # every MAC mode; an untied lm_head is a normal 'w' linear
+    # every MAC mode; an untied lm_head is a normal 'w' linear.  Under a
+    # mesh the head is column-parallel (a tied one reads this rank's rows
+    # of the replicated table) and the logits are gathered on every rank
+    tp = splits(cfg)["head"]
     if cfg.tie_embeddings:
-        logits = mm(h, params["embed"]["table"].t(), cfg.cdtype)
+        table = params["embed"]["table"]
+        if tp > 1:
+            n = cfg.vocab_p // tp
+            table = table[model_rank() * n:(model_rank() + 1) * n]
+        logits = mm(h, table.t(), cfg.cdtype)
     else:
-        logits = linear(params["lm_head"], "w", h, cfg.mac, cfg.cdtype)
+        logits = linear(params["lm_head"], "w", h, cfg.mac, cfg.cdtype, tp)
+    if tp > 1:
+        logits = get_mesh().gather_columns(logits)
     logits = softcap(logits.to(torch.float32), cfg.final_softcap)
     return check_finite(logits, "the LM head (logits)").to(cfg.cdtype)
 
@@ -405,9 +416,10 @@ def supports_ragged_mask(cfg) -> bool:
 
 def paged_cache_layout(cfg, n_pages: int, page_size: int) -> list:
     """Per layer ``{name: (shape, dtype)}`` of the paged pools that
-    ``init_paged_cache`` allocates (a drafter must match its verifier's)."""
+    ``init_paged_cache`` allocates (a drafter must match its verifier's);
+    under a mesh, at this rank's kv heads (``local_kv_heads``)."""
     pdt, phd, quant = kv_pool_layout(cfg)
-    shape = (n_pages, page_size, cfg.n_kv_p, phd)
+    shape = (n_pages, page_size, local_kv_heads(cfg), phd)
     st = {"pool_k": (shape, pdt), "pool_v": (shape, pdt)}
     if quant:
         for name in ("scale_k", "scale_v"):

@@ -10,6 +10,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.paged_attention import gqa_group, paged_attn
+from repro_torch.parallel.sharding import (local_kv_heads, local_kv_map,
+                                           splits)
 from .attention_mha import mha
 from .common import apply_rope, linear, linear_init, norm_apply, norm_init
 from .paged import (gather_kv, gather_kv_dequant, paged_attn_decode,
@@ -62,13 +64,20 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
     ``[pos, pos+S)`` are written in place; ``pad`` (B,) counts each row's
     left-pad slots, and ``positions`` is then (B, S) logical positions
     (negative on the pads).  ``window``: this layer's sliding window (None
-    = global)."""
+    = global).
+
+    Under a mesh whose model axis divides the heads (``splits``) the
+    block runs on this rank's ``Hq/TP`` q and ``Hkv/TP`` kv heads (its
+    column shards of wq/wk/wv, its row shard of wo) and its caches hold
+    those kv heads; the output is summed over the ranks in ``wo``."""
     B, S, _ = x.shape
     hd = cfg.head_dim_r
     cdt = cfg.cdtype
-    q = linear(p, "wq", x, cfg.mac, cdt).reshape(B, S, cfg.n_heads_p, hd)
-    k = linear(p, "wk", x, cfg.mac, cdt).reshape(B, S, cfg.n_kv_p, hd)
-    v = linear(p, "wv", x, cfg.mac, cdt).reshape(B, S, cfg.n_kv_p, hd)
+    tp = splits(cfg)["attn"]
+    hq, hkv = cfg.n_heads_p // tp, cfg.n_kv_p // tp
+    q = linear(p, "wq", x, cfg.mac, cdt, tp).reshape(B, S, hq, hd)
+    k = linear(p, "wk", x, cfg.mac, cdt, tp).reshape(B, S, hkv, hd)
+    v = linear(p, "wv", x, cfg.mac, cdt, tp).reshape(B, S, hkv, hd)
     if cfg.qk_norm:
         q = norm_apply(p, q, "rms", cfg.norm_eps, "qnorm")
         k = norm_apply(p, k, "rms", cfg.norm_eps, "knorm")
@@ -79,8 +88,7 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     scale = cfg.attn_scale or (1.0 / math.sqrt(hd))
-    kv_map = kv_of_q_map(cfg.n_heads, cfg.n_kv_heads, cfg.n_heads_p,
-                         cfg.n_kv_p)
+    kv_map = local_kv_map(cfg, tp)
     pad = None if cache is None else cache.get("pad")
 
     def parallel_attn(q, k, v):
@@ -119,8 +127,7 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
             scatter_kv(pv, pages, positions, v)
         fused = (S <= max(1, cfg.paged_fused_max_sq)
                  and cfg.attention_backend == "kernel"
-                 and gqa_group(kv_map, cfg.n_heads_p, cfg.n_kv_p)
-                 is not None)
+                 and gqa_group(kv_map, hq, hkv) is not None)
         if fused:
             out = paged_attn(q, pk, pv, pages, lens, scale=scale,
                              window=window, cap=cfg.attn_softcap,
@@ -163,15 +170,16 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
                       k_pos=k_pos, window=window, cap=cfg.attn_softcap,
                       chunk=0, k_valid=k_valid)
         new_cache = {"k": ck, "v": cv, "pos": pos + S}
-    out = out.reshape(B, S, cfg.n_heads_p * hd)
-    return linear(p, "wo", out, cfg.mac, cdt), new_cache
+    out = out.reshape(B, S, hq * hd)
+    return linear(p, "wo", out, cfg.mac, cdt, tp), new_cache
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, n_layers: int, *,
                   device) -> list:
     """Per layer a dense ``{k, v}`` of zeros ``(batch, max_len, n_kv,
-    hd)`` in the compute dtype (the reference stacks them ``(L, …)``)."""
-    shape = (batch, max_len, cfg.n_kv_p, cfg.head_dim_r)
+    hd)`` in the compute dtype (the reference stacks them ``(L, …)``);
+    under a mesh, this rank's kv heads (``local_kv_heads``)."""
+    shape = (batch, max_len, local_kv_heads(cfg), cfg.head_dim_r)
     return [{"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
             for _ in range(n_layers)]

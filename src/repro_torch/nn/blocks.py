@@ -18,6 +18,7 @@ from .mla import mla_apply, mla_init
 from .moe import moe_apply, moe_init
 from .ssm import ssm_apply, ssm_init
 from .xlstm import mlstm_apply, mlstm_init, slstm_apply, slstm_init
+from repro_torch.parallel.sharding import splits
 
 
 def _zero(x):
@@ -60,7 +61,7 @@ def decoder_block_apply(p, x, cfg, *, ffn: str = "dense", window=None,
         f, aux = moe_apply(p["moe"], h, cfg)
     else:
         f = mlp_apply(p["mlp"], h, cfg.mac, cfg.act, cfg.gated_mlp,
-                      cfg.cdtype)
+                      cfg.cdtype, splits(cfg)["mlp"])
         aux = _zero(x)
     if cfg.post_norm:
         f = norm_apply(p, f, cfg.norm, cfg.norm_eps, "ln2p")

@@ -41,12 +41,15 @@ def linear_init(generator, d_in: int, d_out: int, name: str,
 
 
 def linear(p: dict, name: str, x: torch.Tensor, mcfg: MacConfig,
-           compute_dtype=torch.float32) -> torch.Tensor:
+           compute_dtype=torch.float32, ways: int = 1) -> torch.Tensor:
     """Apply a named linear: recorder hook + MAC-executor dispatch +
-    bias."""
+    bias.  ``ways`` > 1: ``p`` holds this rank's tensor-parallel shard of
+    the linear, one of that many, cut by its role (``linear_role``); a
+    row shard's partial products are summed over the model axis before
+    its bias."""
     if _ACT_RECORDER is not None:
         _ACT_RECORDER(name, p[name], x)
-    out = mcfg.executor.apply(p, name, x, mcfg, compute_dtype)
+    out = mcfg.executor.apply(p, name, x, mcfg, compute_dtype, ways=ways)
     if name + "_b" in p:
         out = out + p[name + "_b"].to(out.dtype)
     return check_finite(out, f"linear {name!r} ({mcfg.mode})")
@@ -145,14 +148,16 @@ def mlp_init(generator, d: int, d_ff: int, mcfg: MacConfig,
 
 
 def mlp_apply(p: dict, x: torch.Tensor, mcfg: MacConfig, act: str = "silu",
-              gated: bool = True, compute_dtype=torch.float32
-              ) -> torch.Tensor:
-    h = linear(p, "wi", x, mcfg, compute_dtype)
+              gated: bool = True, compute_dtype=torch.float32,
+              ways: int = 1) -> torch.Tensor:
+    """wi (and wg) → act → wo; ``ways`` > 1: column → act → row over a
+    hidden dim cut into that many shards."""
+    h = linear(p, "wi", x, mcfg, compute_dtype, ways)
     if gated:
-        h = act_fn(act)(linear(p, "wg", x, mcfg, compute_dtype)) * h
+        h = act_fn(act)(linear(p, "wg", x, mcfg, compute_dtype, ways)) * h
     else:
         h = act_fn(act)(h)
-    return linear(p, "wo", h, mcfg, compute_dtype)
+    return linear(p, "wo", h, mcfg, compute_dtype, ways)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

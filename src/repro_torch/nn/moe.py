@@ -1,6 +1,7 @@
 """Mixture-of-Experts with capacity-based sort dispatch (port of
-``repro/nn/moe.py``, its single-device branch; the expert-parallel
-``shard_map`` branch waits for tensor parallelism, ROADMAP Queue A).
+``repro/nn/moe.py``, and its expert-parallel branch :136-160: under a
+mesh a rank holds ``n_experts / TP`` experts, runs the dispatch for them
+only, and the pairs' contributions are summed over the model axis).
 
 Routing is softmax top-k with the switch-style load-balance loss, or
 DeepSeek-V3's sigmoid router, which selects on ``scores + bias`` but
@@ -24,6 +25,8 @@ import math
 import torch
 
 from .attention_mha import softmax_f32
+from repro_torch.parallel.mesh import get_mesh
+from repro_torch.parallel.sharding import model_rank, splits
 from .common import act_fn, mlp_apply, mlp_init
 
 _F32 = torch.float32
@@ -129,14 +132,28 @@ def _expert_ffn_local(wi, wg, wo, buf, act):
     return outs[0] if len(outs) == 1 else torch.cat(outs, 0)
 
 
-def dispatch_compute(x2, idx, w, wi, wg, wo, *, capacity: int, act: str):
+def dispatch_compute(x2, idx, w, wi, wg, wo, *, capacity: int, act: str,
+                     n_experts: int = None, lo: int = 0, reduce=None):
     """Capacity-based sort dispatch + expert FFN + combine: x2 (T,d)
     tokens, idx/w (T,k) routing, wi/wg/wo the (E, …) expert stacks →
-    (T, d) f32."""
+    (T, d) f32.
+
+    Expert parallelism: the stacks hold experts ``[lo, lo + E)`` of
+    ``n_experts``; the plan is the whole one (every rank keeps and drops
+    the pairs a single device would), a pair of another rank's expert
+    contributes zeros, and ``reduce`` sums the (T, k, d) contributions
+    over the ranks before the combine: each pair's lives on one rank, so
+    the sum is exact and every rank combines what a single device
+    would, in its order."""
     T, d = x2.shape
     k = idx.shape[1]
     E = wi.shape[0]
-    order, tid_s, keep, slot = dispatch_plan(idx, E, capacity)
+    order, tid_s, keep, slot = dispatch_plan(idx, n_experts or E, capacity)
+    if n_experts and n_experts != E:
+        first = lo * capacity
+        keep = keep & (slot >= first) & (slot < first + E * capacity)
+        slot = torch.where(keep, slot - first,
+                           torch.full_like(slot, E * capacity))
     buf = torch.zeros((E * capacity + 1, d), dtype=x2.dtype,
                       device=x2.device)
     buf[slot] = x2[tid_s]
@@ -152,6 +169,8 @@ def dispatch_compute(x2, idx, w, wi, wg, wo, *, capacity: int, act: str):
     pos[order] = torch.arange(T * k, device=x2.device)
     seq = torch.sort(pos.reshape(T, k), dim=1).values     # sorted slots
     c = contrib[seq]                                       # (T, k, d)
+    if reduce is not None:
+        c = reduce(c)
     out = torch.zeros((T, d), dtype=_F32, device=x2.device)
     for j in range(k):
         out = out + c[:, j]
@@ -163,11 +182,17 @@ def moe_apply(p: dict, x: torch.Tensor, cfg):
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
     idx, w, aux = route(p, x2, cfg)
+    # capacity from the tokens of one data shard (B·S at data = 1), as
+    # the reference's t_local
+    sp = splits(cfg)
+    ep = sp["experts"] > 1
     out = dispatch_compute(x2, idx, w, p["experts_wi"], p["experts_wg"],
                            p["experts_wo"], capacity=capacity(cfg, B * S),
-                           act=cfg.act)
+                           act=cfg.act, n_experts=cfg.n_experts,
+                           lo=model_rank() * p["experts_wi"].shape[0],
+                           reduce=get_mesh().all_reduce_sum if ep else None)
     out = out.to(cfg.cdtype)
     if cfg.n_shared_experts:
         out = out + mlp_apply(p["shared"], x2, cfg.mac, cfg.act, True,
-                              cfg.cdtype)
+                              cfg.cdtype, sp["shared"])
     return out.reshape(B, S, d), aux

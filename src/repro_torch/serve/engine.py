@@ -1,8 +1,16 @@
 """Continuous-batching greedy ``Engine`` over the paged KV cache (port of
 ``Engine`` from ``repro/serve/engine.py``, with its prefix cache,
-speculative decoding, telemetry and allocator sanitizer; the mesh
-waits), and the static-batch ``ServeEngine`` with ``generate`` over the
-dense KV cache, the reference's baseline and the serving CLI's default.
+speculative decoding, telemetry and allocator sanitizer), and the
+static-batch ``ServeEngine`` with ``generate`` over the dense KV cache,
+the reference's baseline and the serving CLI's default.
+
+Both engines take ``mesh=`` (``parallel.mesh.Mesh``) for tensor-parallel
+serving, one engine per rank process: each rank keeps its slices of the
+params (``parallel.sharding.shard_params``), its pools and dense caches
+hold its kv heads, and every step runs under the mesh.  Every rank gets
+the same gathered logits, so its host-side scheduler, allocator and
+prefix index make the same decisions.  Steps under a mesh run eagerly:
+gloo's collectives cannot be captured in a CUDA graph.
 
 A scheduler admits queued requests into a fixed number of slots under a
 page budget; each engine step runs one prefill chunk per prefilling slot
@@ -34,6 +42,8 @@ from repro_torch.models import (apply_model, init_cache, reset_cache,
                                 supports_paged_cache, supports_ragged_mask)
 from repro_torch.models.lm import STATE_KEYS, paged_cache_layout
 from repro_torch.obs import CompileTracker, percentile, profiler_trace
+from repro_torch.parallel.mesh import set_mesh
+from repro_torch.parallel.sharding import replicated_parts, shard_params
 from repro_torch.tree import tree_leaves
 from .graphs import Step
 from .paged_cache import PagedKVCache
@@ -42,13 +52,21 @@ from .spec import greedy_accept, make_spec_draft, make_spec_verify
 from .telemetry import TID_DEVICE, TID_ENGINE, ServeTelemetry, req_tid
 
 
-def _graphs_on(device: torch.device, cuda_graphs: Optional[bool]) -> bool:
+def _graphs_on(device: torch.device, cuda_graphs: Optional[bool],
+               mesh=None) -> bool:
     """An engine's ``cuda_graphs``: None = on the card only, and not
     while ``set_debug_nan`` is on (a graph replay cannot stop at the first
-    non-finite output); True on the CPU or under ``set_debug_nan``
+    non-finite output) or under a mesh (gloo's collectives cannot be
+    captured); True on the CPU, under ``set_debug_nan`` or under a mesh
     raises."""
+    if mesh is not None and cuda_graphs:
+        raise ValueError("cuda_graphs=True under a mesh: gloo's collectives "
+                         "cannot be captured in a CUDA graph (graph-captured "
+                         "tensor-parallel steps need NCCL on several cards, "
+                         "ROADMAP Queue A, item 3)")
     if cuda_graphs is None:
-        return device.type == "cuda" and not debug_nan_enabled()
+        return (device.type == "cuda" and not debug_nan_enabled()
+                and mesh is None)
     if cuda_graphs and device.type != "cuda":
         raise ValueError("cuda_graphs=True needs the card; the engine runs "
                          f"on {device}")
@@ -56,6 +74,27 @@ def _graphs_on(device: torch.device, cuda_graphs: Optional[bool]) -> bool:
         raise ValueError("cuda_graphs=True under set_debug_nan: a graph "
                          "replay cannot stop at the first non-finite output")
     return bool(cuda_graphs)
+
+
+def _meshed(mesh, fn):
+    """``fn`` run under ``mesh`` (the model code reads the active
+    mesh); ``fn`` itself without one."""
+    if mesh is None:
+        return fn
+
+    def run(*args, **kw):
+        with set_mesh(mesh):
+            return fn(*args, **kw)
+    return run
+
+
+def _mesh_stats(mesh, cfg) -> dict:
+    """``mesh``: the axes (None without a mesh), as the reference's;
+    ``mesh_replicated``: the parts of a block that run replicated."""
+    if mesh is None:
+        return {"mesh": None, "mesh_replicated": []}
+    return {"mesh": dict(mesh.shape),
+            "mesh_replicated": replicated_parts(cfg, mesh)}
 
 
 def make_paged_prefill(cfg):
@@ -133,7 +172,12 @@ class Engine:
     launches count as any other).
 
     ``device`` defaults to the card; pass ``device="cpu"`` for the plain
-    PyTorch versions.  ``params`` must already live on that device."""
+    PyTorch versions.  ``params`` must already live on that device.
+
+    ``mesh``: serve as one rank of it (``params`` and ``draft_params``
+    whole; the engine keeps this rank's slices).  ``stats()["mesh"]``
+    gives its axes, ``stats()["mesh_replicated"]`` the parts of a block
+    whose dims do not divide the model axis."""
 
     def __init__(self, params, cfg, *, n_slots: int = 4,
                  page_size: int = 16, n_pages: int = 128,
@@ -143,11 +187,22 @@ class Engine:
                  telemetry: Optional[ServeTelemetry] = None,
                  spec_decode: int = 0, draft_params=None, draft_cfg=None,
                  sanitize: Optional[bool] = None, device=None,
-                 cuda_graphs: Optional[bool] = None):
+                 cuda_graphs: Optional[bool] = None, mesh=None):
         if not supports_paged_cache(cfg):
             raise ValueError(f"{cfg.arch!r} cannot serve paged")
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        self.mesh = mesh
+        if mesh is not None:
+            if telemetry is not None and telemetry.drift is not None:
+                raise ValueError("the drift monitor runs the whole model "
+                                 "on one rank; it is not ported under a "
+                                 "mesh")
+            params = shard_params(params, cfg, mesh)
+            if draft_params is not None:
+                draft_params = shard_params(
+                    draft_params, draft_cfg if draft_cfg is not None
+                    else cfg, mesh)
         self.params, self.cfg = params, cfg
         self.prefill_chunk = prefill_chunk
         self.tel = telemetry if telemetry is not None else \
@@ -159,18 +214,20 @@ class Engine:
             # opt-in shadow page ledger: an env var, so a test suite can
             # sanitize every engine without touching call sites
             sanitize = sanitize_enabled()
-        self.kv = PagedKVCache(cfg, n_slots, n_pages, page_size,
-                               max_seq_pages, device=device,
-                               sanitize=sanitize)
+        with set_mesh(mesh):
+            self.kv = PagedKVCache(cfg, n_slots, n_pages, page_size,
+                                   max_seq_pages, device=device,
+                                   sanitize=sanitize)
         self.device = self.kv.device
-        self.cuda_graphs = _graphs_on(self.device, cuda_graphs)
+        self.cuda_graphs = _graphs_on(self.device, cuda_graphs, mesh)
         self.sched = Scheduler(self.kv, reserve=reserve,
                                prefix_cache=prefix_cache, telemetry=self.tel)
         self.spec_k = int(spec_decode)
         if self.spec_k < 0:
             raise ValueError("spec_decode must be >= 0")
-        step = functools.partial(Step, device=self.device,
-                                 graphs=self.cuda_graphs)
+        def step(name, fn):
+            return Step(name, _meshed(mesh, fn), device=self.device,
+                        graphs=self.cuda_graphs)
         # the step functions by name, each one graph per engine on the card
         self.steps = {
             "prefill": step("prefill", functools.partial(
@@ -184,8 +241,10 @@ class Engine:
             check_drafter(self.draft_params, self.draft_cfg.mac.mode)
             # the drafter writes into the verifier's pools, so its paged
             # cache geometry must match exactly
-            if (paged_cache_layout(self.draft_cfg, 2, page_size)
-                    != paged_cache_layout(cfg, 2, page_size)):
+            with set_mesh(mesh):
+                mismatch = (paged_cache_layout(self.draft_cfg, 2, page_size)
+                            != paged_cache_layout(cfg, 2, page_size))
+            if mismatch:
                 raise ValueError(
                     "spec_decode drafter cache geometry mismatch: "
                     "draft_cfg must produce the same paged KV layout "
@@ -682,13 +741,13 @@ class Engine:
 
     def stats(self) -> dict:
         """The registry's view plus request-derived percentiles, with the
-        reference's keys (``mesh`` is None: the port serves on one card)
-        and the port's own: ``admissions``, ``decode_steps``,
-        ``attention_backend``, ``device``, ``cuda_graphs`` and
-        ``jit_compiles_by_step``.  Latency and TPOT are over finished
-        requests, TTFT over every request with a first token, in-flight
-        ones included; step percentiles come from the ``step_ms``
-        histogram."""
+        reference's keys (``mesh``: the axes, None without a mesh) and the
+        port's own: ``admissions``, ``decode_steps``,
+        ``attention_backend``, ``device``, ``cuda_graphs``,
+        ``jit_compiles_by_step`` and ``mesh_replicated``.  Latency and
+        TPOT are over finished requests, TTFT over every request with a
+        first token, in-flight ones included; step percentiles come from
+        the ``step_ms`` histogram."""
         reqs = list(self.requests.values())
         fin = [r for r in reqs if r.state == FINISHED]
         lat = [r.t_finish - r.t_arrive for r in fin
@@ -744,8 +803,8 @@ class Engine:
             "cuda_graphs": self.cuda_graphs,
             "jit_compiles": jit_total,
             "jit_compiles_by_step": self.jit_tracker.counts(),
-            "mesh": None,
         })
+        m.update(_mesh_stats(self.mesh, self.cfg))
         if self.tel.time_device:
             m["device_decode_ms_p50"] = self._h_dev_decode.percentile(
                 50, mac=self._mac)
@@ -1045,15 +1104,20 @@ class ServeEngine:
     reference builds its cache per call.  ``stats()["jit_compiles"]``
     counts the captures.  ``cuda_graphs=False`` runs the same functions
     eagerly.  ``device`` defaults to the card; ``params`` must already
-    live there."""
+    live there.  ``mesh``: serve as one rank of it, as ``Engine``; the
+    dense caches hold this rank's kv heads (the reference splits them
+    over the sequence instead)."""
 
     def __init__(self, params, cfg, batch_slots: int = 8,
                  max_len: int = 512, *, device=None,
-                 cuda_graphs: Optional[bool] = None):
+                 cuda_graphs: Optional[bool] = None, mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            params = shard_params(params, cfg, mesh)
         self.params, self.cfg = params, cfg
         self.batch_slots, self.max_len = batch_slots, max_len
         self.device = resolve_device(device)
-        self.cuda_graphs = _graphs_on(self.device, cuda_graphs)
+        self.cuda_graphs = _graphs_on(self.device, cuda_graphs, mesh)
         self.chunks = []                 # per chunk: its shape and work
         self.step_ms = []
 
@@ -1061,6 +1125,10 @@ class ServeEngine:
             eos_id: Optional[int] = None) -> list:
         """Serve a list of prompt arrays; the generated ids per request
         (each chunk's rows as long as its longest)."""
+        with set_mesh(self.mesh):
+            return self._run(requests, max_new, eos_id)
+
+    def _run(self, requests, max_new, eos_id) -> list:
         results = []
         ragged_ok = supports_ragged_mask(self.cfg)
         for i in range(0, len(requests), self.batch_slots):
@@ -1113,4 +1181,5 @@ class ServeEngine:
             "mac_mode": self.cfg.mac.mode,
             "device": str(self.device),
             "cuda_graphs": self.cuda_graphs,
+            **_mesh_stats(self.mesh, self.cfg),
         }

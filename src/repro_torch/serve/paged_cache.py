@@ -51,6 +51,12 @@ class PageAllocator:
         self._cached: "OrderedDict[int, None]" = OrderedDict()
         self._cacheable = set()
 
+    def state(self) -> tuple:
+        """The whole allocator state: free list, refcounts, cached LRU
+        order and cacheable pages (equal on every rank of a mesh)."""
+        return (list(self._free), sorted(self._ref.items()),
+                list(self._cached), sorted(self._cacheable))
+
     @property
     def n_free(self) -> int:
         """Allocatable pages: truly free + evictable cached."""

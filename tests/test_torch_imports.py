@@ -41,6 +41,8 @@ from repro_torch.nn.xlstm import mlstm_apply, slstm_apply  # noqa: F401
 from repro_torch.nn.blocks import (mlstm_block_apply,  # noqa: F401
                                    xattn_decoder_block_apply)
 from repro_torch.models.encdec import apply_encdec, encode  # noqa: F401
+from repro_torch.parallel.mesh import Mesh, run_ranks, set_mesh  # noqa: F401
+from repro_torch.parallel.sharding import shard_params  # noqa: F401
 sys.path.insert(0, sys.argv[1])
 import chip_smoke  # noqa: F401  (module import only: main() is not run)
 bad = sorted(m for m in sys.modules
@@ -69,6 +71,7 @@ def test_no_jax_or_reference_imports():
     for mod in ("launch.serve", "kernels.flash_attention",
                 "kernels.paged_attention", "quant.kvcache", "nn.paged",
                 "core.search", "ckpt.checkpoint", "parallel.sharding",
+                "parallel.mesh",
                 "serve.spec", "serve.graphs", "configs.qwen15_4b",
                 "configs.starcoder2_3b", "configs.gemma2_27b",
                 "obs.stats", "obs.metrics", "obs.trace", "obs.jitcount",
