@@ -147,8 +147,9 @@ Phases (any failure raises and exits non-zero before the result line):
     ``launches_static``, the static serve's count.
 
  9. the trainer (run before 8): full-width qwen1.5-0.5b (weights from
-    seed 0, synthetic LM data, AdamW, remat on) trained 10 steps at batch
-    8 x 256 tokens in each MAC mode, ``fp``, ``int8`` (fake quant) and
+    seed 0, synthetic LM data, AdamW, remat on) trained at batch 8 x 256
+    tokens in each MAC mode (``fp`` 10 steps, the others 4), ``int8``
+    (fake quant) and
     ``encoded`` (QAT with the exact encoding, and 4 steps with
     ``EncodedMac.default()``, searched on the card at first use, whose
     loss is recorded, not gated): every loss and gnorm finite, the last
@@ -164,10 +165,12 @@ Phases (any failure raises and exits non-zero before the result line):
     within 1e-4; int8/encoded step 0's loss and first moments within
     1e-4, or a parting at step 0 that starts at an int8 code f32 order
     moved across a .5 boundary; later steps printed, and where they part
-    the first int8 code apart and the params furthest apart); and ``python
-    -m repro_torch.launch.train --steps 4 --batch 4 --seq 128 --mac-mode
-    encoded --ckpt-every 2`` at full width, run, step 4's checkpoint
-    removed, run again: it resumes from step 2.
+    the first int8 code apart and the params furthest apart).  int8 and
+    the exact encoding train 4 steps (``TRAIN_QUANT_STEPS``; the exact
+    run's step 0 equals int8's).  Phase 7 runs ``python -m
+    repro_torch.launch.train --steps 2 --batch 4 --seq 128 --mac-mode
+    encoded --ckpt-every 2`` at full width (its resume: phase 7's reduced
+    ``--devices 2`` run).
 
 The moe family (``MOE_ARCHS``): phase 3 also gates kernel 1 at every
 (k, n) of qwen3-moe-235b-a22b and deepseek-v3-671b at full width, at each
@@ -257,6 +260,31 @@ print the tokens of the same command without it and load its bundle (a
 cache hit), and ``--mesh 2x2``, which must exit 2.  Phase 8 adds kernel
 1's rows at the TP-2 local shapes and kernel 2's at 8/8 heads.
 
+Training on several ranks (``MESH_TRAIN_RUNS``), in phase 6k's spawn
+after its serves: full-width qwen1.5-0.5b, 4 of 24 layers, AdamW, 4 x
+256 tokens a step from seed 0's state: TP 2 (the 1 x 2 mesh) 3 fp steps
+and 2 exact-encoded QAT steps, DP 2 (a 2 x 1 mesh over the same ranks)
+3 fp steps and 3 with ``grad_compress``.  While the ranks start this
+process runs the same steps on one rank (the compressed ones through a
+1 x 1 mesh of its own, where the step quantizes as the reference's
+single-device chain); the ranks wait for it before they serve.
+Gates: losses within 1e-3, params within rtol = atol = 2e-3 and first
+moments within 1e-4 of each leaf's max of one rank after the last step
+(the steps move a param by less than 2e-3; an encoded run may part only
+where the first int8 code apart, ``_linear_inputs`` read before each
+step, sits within ``ORIGIN_TOL`` of .5), every rank's gathered state
+equal; the compressed run's first step's int8 codes the single rank's
+but where both values sit within ``ORIGIN_TOL`` of .5, its scales
+within 1e-5, its error buffers non-zero and equal on the ranks; the TP-2
+state after its fp steps, written by rank 0 as one logical checkpoint,
+restored on one rank here: its next step within the same tolerances of
+the one-rank state's.  Logged: step ms p50 a
+mesh, collectives, their host ms and bytes all-reduced a step, peak
+memory a rank.  Phase 7 runs the train CLI reduced with ``--devices
+2`` (2 ranks spawned by it, the reference's mesh choice printed, losses
+within 1e-3 of the same command on one rank), then resumes that run on
+one rank from the 2 ranks' step-2 checkpoint.
+
 Every phase that folds writes its bundle into a fresh directory under
 ``build/`` (git-ignored), logs the free disk first and removes it at its
 end (phase 6's stays until phase 6k has loaded it).  The last line is
@@ -265,6 +293,7 @@ end (phase 6's stays until phase 6k has loaded it).  The last line is
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -448,8 +477,13 @@ def _program(kind):
     return decompose(c)
 
 
-def _em_case(dev, prog, m, k, n, seed=0, copies=1):
+def _em_case(dev, prog, m, k, n, seed=0, copies=1, on_card=False):
+    """Kernel 1's inputs: x (m, k) int8 codes and ``copies`` sets of Wt
+    (U, k, n) bf16 and bias, drawn on the host (``on_card``:
+    ``_em_card_case``)."""
     import torch
+    if on_card:
+        return _em_card_case(dev, prog, m, k, n, seed, copies)
     g = torch.Generator().manual_seed(seed)
     U = prog.n_a_planes
     x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
@@ -461,6 +495,24 @@ def _em_case(dev, prog, m, k, n, seed=0, copies=1):
         bias = torch.randn((n,), generator=g) * 100
         sets.append((x.to(dev), wt.to(torch.bfloat16).to(dev), bias.to(dev),
                      prog.a_mono_bits))
+    return sets
+
+
+def _em_card_case(dev, prog, m, k, n, seed, copies):
+    """``_em_case``'s distribution drawn on the card (phase 8's timing
+    inputs: the host's draws took most of its time)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    U = prog.n_a_planes
+    x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                      dtype=torch.int16).to(torch.int8)
+    mag = (2.0 ** (torch.arange(U, device=dev) % 8)).reshape(U, 1, 1)
+    sets = []
+    for _ in range(copies):
+        wt = torch.randint(-127, 128, (U, k, n), generator=g, device=dev,
+                           dtype=torch.int16).float() * mag
+        bias = torch.randn((n,), generator=g, device=dev) * 100
+        sets.append((x, wt.to(torch.bfloat16), bias, prog.a_mono_bits))
     return sets
 
 
@@ -755,10 +807,15 @@ def phase_kernel1(dev):
                                      f"k={k} n={n})")
 
 
-def _pa_case(dev, B, Sq, Hq, Hkv, D, ps, P, lens, dtype, seed=0, copies=1):
+def _pa_case(dev, B, Sq, Hq, Hkv, D, ps, P, lens, dtype, seed=0, copies=1,
+             on_card=False):
+    """Kernel 2's inputs: ``copies`` sets of (q, pool_k, pool_v, pages,
+    lens) and the head map; q and the pools normal, drawn on the host or
+    with ``on_card`` on ``dev`` (phase 8's timing inputs)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed) if on_card else None
     n_pages = 1 + B * P
     g = max(1, Hq // Hkv)
     kv_map = np.minimum(np.arange(Hq) // g, Hkv - 1).astype(np.int32)
@@ -767,8 +824,10 @@ def _pa_case(dev, B, Sq, Hq, Hkv, D, ps, P, lens, dtype, seed=0, copies=1):
         pages[b] = 1 + b * P + rng.permutation(P)
     sets = []
     for _ in range(copies):
-        t = lambda shape: torch.from_numpy(          # noqa: E731
-            rng.normal(size=shape).astype(np.float32)).to(dtype).to(dev)
+        t = (lambda shape: torch.randn(  # noqa: E731
+            shape, generator=gen, device=dev).to(dtype)) if on_card else \
+            (lambda shape: torch.from_numpy(  # noqa: E731
+                rng.normal(size=shape).astype(np.float32)).to(dtype).to(dev))
         sets.append((t((B, Sq, Hq, D)), t((n_pages, ps, Hkv, D)),
                      t((n_pages, ps, Hkv, D)),
                      torch.from_numpy(pages).to(dev),
@@ -882,13 +941,14 @@ def phase_kernel2_d128(dev):
 
 
 def _pa_quant_case(dev, mode, B, Sq, Hq, Hkv, D, ps, P, lens, seed=0,
-                  copies=1):
+                  copies=1, on_card=False):
     """Like ``_pa_case`` with pools quantized on the card: (q, pool_k,
     pool_v, pages, lens) and the scale rows (scale_k, scale_v)."""
     import torch
     from repro_torch.quant.kvcache import quantize_kv
     sets, kv_map = _pa_case(dev, B, Sq, Hq, Hkv, D, ps, P, lens,
-                            torch.float32, seed=seed, copies=copies)
+                            torch.float32, seed=seed, copies=copies,
+                            on_card=on_card)
     out = []
     for q, pk, pv, pages, ln in sets:
         qk, sk = quantize_kv(pk, mode)
@@ -3466,38 +3526,84 @@ CLI_MESH_ARGV = ["--reduced", "--continuous", "--mac", "encoded",
                  "--requests", "4", "--max-new", "6"]
 
 
-def phase_cli_mesh(dev):
-    """``python -m repro_torch.launch.serve`` with ``CLI_MESH_ARGV`` on the
-    card, in this process (it folds and writes the reduced bundle), then
-    the same command with ``--mesh 2`` as a user runs it: the CLI spawns
-    2 ranks over gloo that share the card, each loads that bundle (a cache
-    hit) and keeps its slices, and rank 0 prints the same tokens; ``--mesh
-    2x2`` exits 2 naming the data axis's ROADMAP item."""
+def _start(cmd, tmp, tag):
+    """``cmd`` started with PYTHONPATH at this checkout's ``src``, its
+    output into files under ``tmp``: (process, out path, err path,
+    start time)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out, err = (os.path.join(tmp, f"{tag}.{k}") for k in ("out", "err"))
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(cmd, env=env, stdout=fo, stderr=fe, cwd=ROOT)
+    return proc, out, err, time.perf_counter()
+
+
+def _finish(started, timeout=600):
+    """(exit code, stdout, stderr, seconds since start) of a ``_start``ed
+    command, waited for."""
+    proc, out, err, t0 = started
+    try:
+        code = proc.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(out) as fo, open(err) as fe:
+        return code, fo.read(), fe.read(), time.perf_counter() - t0
+
+
+def phase_cli_start(dev):
+    """Phase 7's CLI runs in processes of their own, started here and
+    joined by ``phase_cli_mesh``, ``phase_cli_train_mesh`` and
+    ``phase_cli_train_full`` (the card phases between them run
+    meanwhile; their gates compare tokens and losses, not times): the
+    serve CLI with ``CLI_MESH_ARGV`` first in this process (it folds and
+    writes the reduced bundle), then the same with ``--mesh 2``; the
+    train CLI with ``CLI_TRAIN_ARGV --devices 2`` and, at full width,
+    with ``CLI_TRAIN_FULL_ARGV``."""
     import io
     from repro_torch.launch import serve as cli
+    tmp = bundle_dir("cli-ranks")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         cli.main(CLI_MESH_ARGV)
-    alone = buf.getvalue()
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve"] + \
-        CLI_MESH_ARGV + ["--mesh", "2"]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t = time.perf_counter()
-    res = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                         timeout=600, cwd=ROOT)
-    dt = time.perf_counter() - t
-    meshed = res.stdout
+    py = [sys.executable, "-m"]
+    two, full = os.path.join(tmp, "two"), os.path.join(tmp, "full")
+    return {"tmp": tmp, "alone": buf.getvalue(), "two": two, "full": full,
+            "serve": _start(py + ["repro_torch.launch.serve"] + CLI_MESH_ARGV
+                            + ["--mesh", "2"], tmp, "serve"),
+            "train": _start(py + ["repro_torch.launch.train"]
+                            + CLI_TRAIN_ARGV + ["--devices", "2",
+                                                "--ckpt-dir", two],
+                            tmp, "train"),
+            "train_full": _start(py + ["repro_torch.launch.train"]
+                                 + CLI_TRAIN_FULL_ARGV + ["--ckpt-dir", full],
+                                 tmp, "train-full")}
+
+
+def phase_cli_mesh(dev, started):
+    """``python -m repro_torch.launch.serve`` with ``CLI_MESH_ARGV`` on the
+    card, in this process (it folds and writes the reduced bundle), then
+    the same command with ``--mesh 2`` as a user runs it (started by
+    ``phase_cli_start``): the CLI spawns 2 ranks over gloo that share the
+    card, each loads that bundle (a cache hit) and keeps its slices, and
+    rank 0 prints the same tokens; ``--mesh 2x2`` exits 2 naming the
+    data axis's ROADMAP item."""
+    import io
+    from repro_torch.launch import serve as cli
+    alone = started["alone"]
+    code, meshed, errs, dt = _finish(started["serve"])
 
     def toks(out):
         return [ln for ln in out.splitlines() if ln.startswith("req")]
     served = [ln.strip() for ln in meshed.splitlines()
               if ln.startswith("served") or "mesh:" in ln]
     log(f"[cli] {' '.join(CLI_MESH_ARGV)} --mesh 2: exit "
-        f"{res.returncode} in {dt:.1f}s (2 ranks spawned by the CLI); "
+        f"{code} {dt:.1f}s after its start (2 ranks spawned by the CLI; "
+        f"phase 7's card phases ran meanwhile); "
         f"{served}; tokens {toks(meshed)}, without --mesh {toks(alone)}")
-    if res.returncode != 0:
+    if code != 0:
         raise AssertionError(f"the serve CLI with --mesh 2 failed: "
-                             f"{res.stderr[-3000:]}")
+                             f"{errs[-3000:]}")
     if not toks(alone) or toks(meshed) != toks(alone):
         raise AssertionError("the serve CLI with --mesh 2 printed other "
                              "tokens than without it")
@@ -3515,6 +3621,65 @@ def phase_cli_mesh(dev):
     if code != 2 or "data axis" not in err.getvalue():
         raise AssertionError(f"--mesh 2x2: exit {code}, {err.getvalue()}")
     log(f"[cli] --mesh 2x2: exit 2, {err.getvalue().strip().splitlines()[-1]}")
+
+
+# the train CLI on two ranks (phase 7): reduced, 4 steps, checkpoints at
+# steps 2 and 4
+CLI_TRAIN_ARGV = ["--reduced", "--steps", "4", "--batch", "4", "--seq",
+                  "32", "--ckpt-every", "2"]
+
+
+def _train_losses(out: str) -> dict:
+    return {int(ln.split()[1]): float(ln.split()[3])
+            for ln in out.splitlines() if ln.startswith("step ")}
+
+
+def phase_cli_train_mesh(dev, started):
+    """``python -m repro_torch.launch.train`` with ``CLI_TRAIN_ARGV`` on
+    the card, in this process, and with ``--devices 2`` as a user runs it
+    (started by ``phase_cli_start``; the CLI spawns 2 ranks over gloo that
+    share the card; the reference's mesh choice, 1 x 2 at d_ff 256,
+    printed): losses within 1e-3 of the one-rank run.  Then the 2 ranks'
+    step-4 checkpoint removed and the one-rank command run again on their
+    directory: it resumes from their step-2 checkpoint (the logical
+    state) and its step 3 loss is theirs within 1e-3."""
+    import io
+    from repro_torch.launch import train as cli
+    tmp, two = started["tmp"], started["two"]
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(CLI_TRAIN_ARGV + ["--ckpt-dir", os.path.join(tmp, "one")])
+        alone = buf.getvalue()
+        code, meshed, errs, dt = _finish(started["train"])
+        log(f"[cli] train {' '.join(CLI_TRAIN_ARGV)} --devices 2: exit "
+            f"{code} {dt:.1f}s after its start (2 ranks spawned by the CLI; "
+            "phase 7's card phases ran meanwhile): "
+            + " | ".join(meshed.splitlines()) + "; without --devices: "
+            + " | ".join(alone.splitlines()))
+        if code != 0:
+            raise AssertionError(f"the train CLI with --devices 2 failed: "
+                                 f"{errs[-3000:]}")
+        la, lm = _train_losses(alone), _train_losses(meshed)
+        if ("mesh: {'data': 1, 'model': 2}" not in meshed or not la
+                or sorted(la) != sorted(lm) or meshed.count("done") != 1
+                or any(abs(la[k] - lm[k]) > MESH_LOSS_TOL for k in la)):
+            raise AssertionError("the train CLI with --devices 2: its mesh "
+                                 "or losses differ from one rank's")
+        shutil.rmtree(os.path.join(two, "step_00000004"))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(CLI_TRAIN_ARGV + ["--ckpt-dir", two])
+        back = buf.getvalue()
+        lb = _train_losses(back)
+        log(f"[cli] the same on one rank over the 2 ranks' checkpoints: "
+            + " | ".join(back.splitlines()))
+        if ("resuming from step 2" not in back or 3 not in lb
+                or abs(lb[3] - lm[3]) > MESH_LOSS_TOL):
+            raise AssertionError("the one-rank CLI did not resume the 2 "
+                                 "ranks' run at their step-3 loss")
+    finally:
+        shutil.rmtree(two, ignore_errors=True)
 
 
 def phase_cpu_parity_moe(dev):
@@ -4055,6 +4220,10 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 8, 256, 10, 2
 # steps of the run whose loss is recorded, not gated (the searched
 # encoding): its first steps of the same schedule
 TRAIN_UNGATED_STEPS = 4
+# steps of the int8 and exact-encoded runs (the same forward: the exact
+# run's step 0 is gated equal to int8's); each loss must fall over them
+# (the card runs of PRs 19-24: step 3 below step 0 in both)
+TRAIN_QUANT_STEPS = 4
 # predicted in PERF.md before the first card run (logged beside the
 # outcome, not gated): the last loss below the first by at least this
 TRAIN_MARGIN = 0.05
@@ -4172,36 +4341,46 @@ def _leaf_rel(a, b, prefix=""):
                                 / x.abs().max().clamp_min(1e-30)).item())
 
 
-def _train_flip(dev, cfg, state, batch):
-    """Card against CPU on the same state: the first linear input (forward
-    order) whose int8 activation code differs, with the values before
-    rounding on both sides; None when no code differs."""
-    import numpy as np
+def _linear_inputs(dev, cfg, state, tokens, mesh=None):
+    """Every linear's input over its activation scale, in forward order,
+    from ``state``'s params on ``dev`` (under ``mesh``: this rank's, a row
+    linear's input gathered over the model axis), on the host as (site,
+    tensor): what ``_first_flip`` compares."""
     import torch
     from repro_torch.models import apply_model, to_device
     from repro_torch.nn.common import activation_recorder
+    from repro_torch.parallel.mesh import set_mesh
     from repro_torch.train import params_of
-    calls = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
-             ("mlp", "wi"), ("mlp", "wg"), ("mlp", "wo"))
-    got = {}
-    for name, d in (("cpu", "cpu"), ("cuda", dev)):
-        params = to_device(params_of(state), d)
-        xs = []
-        with torch.no_grad(), activation_recorder(
-                lambda n, w, x: xs.append(x.float().cpu().numpy())):
-            apply_model(params, cfg, torch.as_tensor(batch["tokens"]).to(d))
-        got[name] = xs
-    for c, (a, b) in enumerate(zip(got["cpu"], got["cuda"])):
-        li, (sub, nm) = c // len(calls), calls[c % len(calls)]
-        sa = np.float32(state["params"]["stack"][sub][nm + "_as"][li].item())
-        a, b = a / sa, b / sa
-        ca = np.clip(np.round(a), -127, 127)
-        cb = np.clip(np.round(b), -127, 127)
-        diff = np.flatnonzero(ca != cb)
-        if diff.size:
-            i = diff[0]
-            return (f"layer {li} {sub}/{nm}", float(a.flat[i]),
-                    float(b.flat[i]), int(diff.size))
+    calls = ("wq", "wk", "wv", "wo", "wi", "wg", "wo")
+    sub = ("attn",) * 4 + ("mlp",) * 3
+    xs = []
+
+    def hook(name, w, x):
+        if mesh is not None and name == "wo":
+            x = mesh.gather_columns(x.contiguous())
+        xs.append(x.float().cpu())
+    with torch.no_grad(), set_mesh(mesh), activation_recorder(hook):
+        apply_model(to_device(params_of(state), dev), cfg,
+                    torch.as_tensor(tokens).to(dev))
+    stack = state["params"]["stack"]
+    return [(f"layer {c // 7} {sub[c % 7]}/{calls[c % 7]}",
+             x / stack[sub[c % 7]][calls[c % 7] + "_as"][c // 7].item())
+            for c, x in enumerate(xs)]
+
+
+def _first_flip(a, b):
+    """The first linear input of two recorded forwards (``_linear_inputs``)
+    whose int8 codes differ: (site, its first such value in ``a``, in
+    ``b``, the codes apart at that site), or None."""
+    import torch
+    for (site, x), (_, y) in zip(a, b):
+        cx = torch.clamp(torch.round(x), -127, 127)
+        cy = torch.clamp(torch.round(y), -127, 127)
+        diff = (cx != cy).reshape(-1).nonzero()
+        if len(diff):
+            i = int(diff[0])
+            return (site, x.reshape(-1)[i].item(), y.reshape(-1)[i].item(),
+                    len(diff))
     return None
 
 
@@ -4226,7 +4405,6 @@ def phase_train(dev):
     _train_microbatch(dev, batches)
     _train_resume(dev, mac, batches)
     _train_card_cpu(dev, mac, exact)
-    _train_cli()
     log(f"[train] phase 9 in {time.perf_counter() - t_phase:.1f}s")
     return info
 
@@ -4242,12 +4420,12 @@ def _train_modes(dev, mac, exact, batches):
     # reference too (ROADMAP Queue C), so it is recorded, not gated; the
     # exact encoding computes int8 fake quant's forward bit for bit, so its
     # first loss must equal the int8 run's and it must fall
-    runs = (("fp", "fp", None, True), ("int8", "int8", None, True),
-            ("encoded", "encoded", mac, False),
-            ("encoded-exact", "encoded", exact, True))
-    for tag, mode, enc, gate in runs:
+    runs = (("fp", "fp", None, True, TRAIN_STEPS),
+            ("int8", "int8", None, True, TRAIN_QUANT_STEPS),
+            ("encoded", "encoded", mac, False, TRAIN_UNGATED_STEPS),
+            ("encoded-exact", "encoded", exact, True, TRAIN_QUANT_STEPS))
+    for tag, mode, enc, gate, n in runs:
         cfg = _train_cfg(mode, enc)
-        n = TRAIN_STEPS if gate else TRAIN_UNGATED_STEPS
         _reset_counts()
         st, losses, gnorms, ms, peak = _train_run(cfg, dev, batches, n)
         counts = _read_counts()
@@ -4460,7 +4638,9 @@ def _train_card_cpu(dev, mac, exact):
             # (a moved code need not part the loss at once, so it may
             # precede step i)
             flip = next(((j, f) for j in range(i + 1) for st in befores[j]
-                         for f in [_train_flip(dev, cfg, st, rb[j])]
+                         for f in [_first_flip(
+                             _linear_inputs("cpu", cfg, st, rb[j]["tokens"]),
+                             _linear_inputs(dev, cfg, st, rb[j]["tokens"]))]
                          if f is not None), None)
             moved = flip is not None and abs(flip[1][1] - flip[1][2]) <= \
                 TRAIN_ORIGIN_RTOL * max(abs(flip[1][1]), 1.0)
@@ -4485,41 +4665,29 @@ def _train_card_cpu(dev, mac, exact):
 
 
 
-def _train_cli():
-    # the CLI on the card: full width, encoded, checkpoints at 2 and 4;
-    # then step 4's checkpoint removed and the same command again resumes
-    # from step 2 and commits 4 anew (4 steps: an encoded step costs about
-    # the same at any m, so this cut keeps the path and halves its time)
-    ck = bundle_dir("train-cli")
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps",
-           "4", "--batch", "4", "--seq", "128", "--mac-mode", "encoded",
-           "--ckpt-every", "2", "--ckpt-dir", ck]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    env.pop("CUBLAS_WORKSPACE_CONFIG", None)
-    try:
-        outs = []
-        for run in range(2):
-            t = time.perf_counter()
-            res = subprocess.run(cmd, env=env, capture_output=True,
-                                 text=True, timeout=300, cwd=ROOT)
-            lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
-            log(f"[train] CLI run {run + 1} in "
-                f"{time.perf_counter() - t:.1f}s: " + " | ".join(lines))
-            if res.returncode != 0:
-                raise AssertionError(f"train CLI failed: {res.stderr[-2000:]}")
-            outs.append(lines)
-            committed = sorted(os.listdir(ck))
-            if committed != ["step_00000002", "step_00000004"]:
-                raise AssertionError(f"CLI checkpoints: {committed}")
-            if run == 0:
-                shutil.rmtree(os.path.join(ck, "step_00000004"))
-        if "resuming from step 2" not in outs[1]:
-            raise AssertionError("the CLI did not resume from step 2")
-        last = [ln for ln in outs[0] if ln.startswith("step 3 ")]
-        again = [ln for ln in outs[1] if ln.startswith("step 3 ")]
-        log(f"[train] CLI step 3: straight {last}, resumed {again}")
-    finally:
-        shutil.rmtree(ck, ignore_errors=True)
+# the train CLI at full width (phase 7): encoded, 2 steps and a
+# checkpoint at step 2 (its resume is held in-process at full width by
+# ``_train_resume`` and through the CLI at reduced size by
+# ``phase_cli_train_mesh``)
+CLI_TRAIN_FULL_ARGV = ["--steps", "2", "--batch", "4", "--seq", "128",
+                       "--mac-mode", "encoded", "--ckpt-every", "2"]
+
+
+def phase_cli_train_full(dev, started):
+    """``python -m repro_torch.launch.train`` with ``CLI_TRAIN_FULL_ARGV``
+    on the card (full-width qwen1.5-0.5b; started by ``phase_cli_start``):
+    exit 0, both steps printed, the step-2 checkpoint committed."""
+    code, out, errs, dt = _finish(started["train_full"])
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    log(f"[train] CLI (full width) {' '.join(CLI_TRAIN_FULL_ARGV)}: exit "
+        f"{code} {dt:.1f}s after its start (phase 7's card phases ran "
+        "meanwhile): " + " | ".join(lines))
+    if code != 0:
+        raise AssertionError(f"train CLI failed: {errs[-2000:]}")
+    committed = sorted(os.listdir(started["full"]))
+    if committed != ["step_00000002"] or not any(
+            ln.startswith("step 1 ") for ln in lines):
+        raise AssertionError(f"CLI checkpoints {committed}, {lines}")
 
 
 def _time_once(fn, args) -> float:
@@ -4544,7 +4712,7 @@ def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib):
     from repro_torch.kernels.ref import planes_ref
     from repro_torch.launch.kernel_bench import time_graph
     U = prog.n_a_planes
-    sets = _em_case(dev, prog, m, k, n, seed=seed, copies=4)
+    sets = _em_case(dev, prog, m, k, n, seed=seed, copies=4, on_card=True)
     torch.cuda.empty_cache()
     out, ref = em.encoded_matmul(*sets[0]), em.encoded_matmul_plain(*sets[0])
     err = (out - ref).abs().max().item()
@@ -4587,11 +4755,13 @@ def _pa_row(dev, mode, sq, Hq, Hkv, D, P, lens, window, cap, name, note,
     B, ps = N_SLOTS, PAGE_SIZE
     if mode == "bf16":
         sets, kv_map = _pa_case(dev, B, sq, Hq, Hkv, D, ps, P, lens,
-                                torch.float32, seed=seed, copies=8)
+                                torch.float32, seed=seed, copies=8,
+                                on_card=True)
         args = [a + (None, None) for a in sets]
     else:
         qsets, kv_map = _pa_quant_case(dev, mode, B, sq, Hq, Hkv, D, ps, P,
-                                       lens, seed=seed, copies=8)
+                                       lens, seed=seed, copies=8,
+                                       on_card=True)
         args = [a + sc for a, sc in qsets]
     G = Hq // Hkv
 
@@ -5032,10 +5202,10 @@ def _tp_static(mesh, dev, params, cfg, trace, base, tally=None):
     return res
 
 
-def _tp_qwen(mesh, dev, bundle, base):
+def _tp_qwen(mesh, dev, bundle, base, ready=None):
     """Phase 6k's qwen1.5-0.5b on one rank: phase 6's exact bundle loaded
-    (a cache hit), this rank's slices kept, then the serves, each the
-    whole trace to ``MAX_NEW`` new tokens."""
+    (a cache hit), this rank's slices kept, ``ready()`` waited for, then
+    the serves, each the whole trace to ``MAX_NEW`` new tokens."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
@@ -5063,6 +5233,8 @@ def _tp_qwen(mesh, dev, bundle, base):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     out["local_bytes"] = torch.cuda.memory_allocated(dev)
+    if ready is not None:
+        ready()
     trace = make_trace(cfg.vocab_size)
     _tp_cont(mesh, dev, local, cfg_enc, trace[:1], [base["bf16"][0][:4]])
     for key, kw, tr in (
@@ -5124,14 +5296,485 @@ def _tp_moe(mesh, dev, base):
     return out
 
 
+# --- phase 6k's training on two ranks ----------------------------------------
+
+# full-width qwen1.5-0.5b with the depth cut to 4 of 24 layers, AdamW,
+# batch x seq tokens a step, the same seed and batches on every run
+MESH_TRAIN_LAYERS, MESH_TRAIN_B, MESH_TRAIN_S = 4, 4, 256
+# (run, mesh (data, model), MAC mode, steps, grad_compress, the parent's
+# single-rank reference it is gated against)
+MESH_TRAIN_RUNS = (("tp2", (1, TP), "fp", 3, False, "fp"),
+                   ("tp2-encoded", (1, TP), "encoded-exact", 2, False,
+                    "encoded-exact"),
+                   ("dp2", (TP, 1), "fp", 3, False, "fp"),
+                   ("dp2-gc", (TP, 1), "fp", 3, True, "gc"))
+# the reference's mesh tolerances (tests/multidevice_script.py:30-37)
+MESH_LOSS_TOL, MESH_PARAM_TOL = 1e-3, 2e-3
+# the first moments: within this share of each leaf's max |value| (a few
+# steps move a param by less than MESH_PARAM_TOL, the first at lr 0 under
+# the warm-up; AdamW's m holds each step's clipped gradient).  The card's
+# sharded products sum in another order than one rank's: f32 order took
+# the exact-encoded TP-2 run's worst leaf to 1.05e-5 of its max with no
+# int8 code moved (first card run of this gate); a 1% error in one
+# leaf's gradient is ~1e-2 of it
+MESH_MOMENT_TOL = 1e-4
+# the compressed step's int8 scales, relative
+MESH_SCALE_RTOL = 1e-5
+
+
+def _mesh_train_cfg(mode):
+    from repro_torch.serve import exact_encodings
+    mac = exact_encodings()["wq"] if mode == "encoded-exact" else None
+    return _train_cfg("encoded" if mac else mode, mac).with_layers(
+        MESH_TRAIN_LAYERS)
+
+
+def _mesh_batches(cfg, n):
+    from repro_torch.data import SyntheticLMDataset
+    ds = SyntheticLMDataset(cfg.vocab_size, MESH_TRAIN_S, seed=0)
+    return [ds.batch(i, MESH_TRAIN_B) for i in range(n)]
+
+
+def _mesh_train_run(dev, cfg, steps, mesh=None, grad_compress=False,
+                    before=None, state=None, q0=None):
+    """``steps`` train steps of ``cfg`` from seed 0's state (``state``:
+    that logical state, made once for the runs that share it), under
+    ``mesh`` (this rank's shards) or on one rank: losses, gnorms,
+    host-clock ms a step (each ends in a sync), collectives / their host
+    ms / bytes all-reduced a step, peak device memory, the final state.
+    ``before(i, state)`` runs before step i; ``q0`` (a list, with
+    ``grad_compress`` under a mesh without a model axis) receives the
+    first step's values before int8 rounding (``_rounded_values``)."""
+    import torch
+    from repro_torch.optim.compression import init_error_buffers
+    from repro_torch.parallel.mesh import set_mesh
+    from repro_torch.parallel.statesharding import shard_state
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import trainer as T
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    if state is None:
+        state = init_train_state(cfg, seed=0, device=dev)
+    st = dict(state)
+    if grad_compress:
+        st["err"] = init_error_buffers(st["params"])
+    if mesh is not None:
+        st = shard_state(st, cfg, mesh)
+    step = make_train_step(cfg, warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+                           grad_compress=grad_compress)
+    out = {"losses": [], "gnorms": [], "ms": [], "coll": []}
+    orig = T.compressed_allreduce
+
+    def recorded(grads, err, mesh_):
+        if not q0:
+            q0.extend(_rounded_values(grads, err, mesh_))
+        return orig(grads, err, mesh_)
+    if q0 is not None:
+        T.compressed_allreduce = recorded
+    with set_mesh(mesh), contextlib.ExitStack() as undo:
+        undo.callback(setattr, T, "compressed_allreduce", orig)
+        for i, b in enumerate(_mesh_batches(cfg, steps)):
+            if before is not None:
+                before(i, st)
+            c0 = mesh.counters() if mesh is not None else (0, 0.0, 0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, m = step(st, b)
+            out["losses"].append(float(m["loss"]))
+            out["gnorms"].append(float(m["gnorm"]))
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t) * 1e3)
+            c1 = mesh.counters() if mesh is not None else (0, 0.0, 0)
+            out["coll"].append((c1[0] - c0[0], (c1[1] - c0[1]) * 1e3,
+                                c1[2] - c0[2]))
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["state"] = st
+    return out
+
+
+def _rounded_values(grads, err, mesh):
+    """Each leaf's error-corrected gradient over its int8 scale, as
+    ``optim.compression.ef_compress_tree`` rounds it (whole leaves: no
+    model axis), on the host, with the scale: [(values, scale)]."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    if mesh.n_model != 1:
+        raise ValueError("the compressed values are recorded on whole "
+                         "leaves only")
+    out = []
+    for g, e in zip(tree_leaves(grads), tree_leaves(err)):
+        x = g.to(torch.float32) + e
+        s = torch.clamp_min(x.abs().amax(), 1e-12) / 127.0
+        out.append(((x / s).cpu(), s.item()))
+    return out
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, leaf) of a tree of dicts in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _moment_excess(want, got, cfg=None, mesh=None) -> tuple:
+    """(max over leaves of max |got - want| - ``MESH_MOMENT_TOL`` · max
+    |want| (<= 0 passes), the worst leaf's max |got - want| / max |want|,
+    its path) for two trees of first moments on one device: ``want``
+    logical, ``got`` whole or, under ``mesh``, this rank's shards, each
+    leaf's figures then the max over every rank."""
+    import torch
+    from repro_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL
+    from repro_torch.parallel.statesharding import shard_state
+    from repro_torch.tree import tree_leaves
+    cut = want if mesh is None else \
+        shard_state({"params": want}, cfg, mesh)["params"]
+    names, excess, rel = [], [], []
+    for (name, w), c, g in zip(_named_leaves(want), tree_leaves(cut),
+                               tree_leaves(got)):
+        top = w.float().abs().max().item()
+        d = (g.float() - c.float()).abs().max().item()
+        names.append(name)
+        excess.append(d - MESH_MOMENT_TOL * top)
+        rel.append(d / max(top, 1e-30))
+    t = torch.tensor([excess, rel], dtype=torch.float64)
+    if mesh is not None:
+        t = mesh.all_reduce_max(mesh.all_reduce_max(t, AXIS_MODEL),
+                                AXIS_DATA)
+    worst = int(t[1].argmax())
+    return t[0].max().item(), t[1, worst].item(), names[worst]
+
+
+def _codes_apart(want, got, dev) -> tuple:
+    """Two first compressed steps' values before rounding
+    (``_rounded_values``): (int8 codes apart, of all, their max distance
+    from the .5 boundary on either side, the worst leaf's relative scale
+    difference)."""
+    import torch
+    n = total = 0
+    edge = scale = 0.0
+    for (a, sa), (b, sb) in zip(want, got):
+        a, b = a.to(dev), b.to(dev)
+        ca = torch.clamp(torch.round(a), -127, 127)
+        cb = torch.clamp(torch.round(b), -127, 127)
+        apart = ca != cb
+        k = int(apart.sum())
+        n, total = n + k, total + a.numel()
+        if k:
+            e = torch.maximum((a[apart] - a[apart].floor() - 0.5).abs(),
+                              (b[apart] - b[apart].floor() - 0.5).abs())
+            edge = max(edge, e.max().item())
+        scale = max(scale, abs(sb - sa) / sa)
+    return n, total, edge, scale
+
+
+def _param_excess(ref, got) -> tuple:
+    """(max over leaves of max(|got - ref| - tol - tol·|ref|), max |got -
+    ref|) for two param trees on one device, tol = ``MESH_PARAM_TOL``."""
+    from repro_torch.tree import tree_leaves
+    worst = diff = -math.inf
+    for a, b in zip(tree_leaves(ref), tree_leaves(got)):
+        d = (b.float() - a.float()).abs()
+        worst = max(worst, (d - MESH_PARAM_TOL
+                            - MESH_PARAM_TOL * a.float().abs()).max().item())
+        diff = max(diff, d.max().item())
+    return worst, diff
+
+
+def _digest(tree) -> list:
+    """sha1 of each leaf's bytes (host tensors)."""
+    import hashlib
+    import torch
+    from repro_torch.tree import tree_leaves
+    return [hashlib.sha1(t.contiguous().view(-1).view(torch.uint8).numpy()
+                         .tobytes()).hexdigest() for t in tree_leaves(tree)]
+
+
+def _wait_refs(job):
+    """Wait for the parent's single-rank training references (run while
+    the ranks start and load their weights), so no rank serves or trains
+    before they are done."""
+    deadline = time.monotonic() + 1200
+    while not os.path.exists(job["done"]):
+        if time.monotonic() > deadline:
+            raise TimeoutError("the parent's references never came")
+        time.sleep(0.5)
+    with open(job["done"]) as f:
+        if f.read() != "ok":
+            raise RuntimeError("the parent's references failed")
+
+
+def _tp_train(mesh, dev, job):
+    """Phase 6k's training on this rank, after the serves: each run of
+    ``MESH_TRAIN_RUNS`` on its mesh (``mesh``, 1 x TP, or a TP x 1 mesh
+    over the same ranks), its params gathered and held
+    against the parent's single-rank reference (``job["refs"]``), every
+    rank's digest of them compared, and its first moments against the
+    reference's shard by shard (``_moment_excess``); a compressed run's
+    first step's values before int8 rounding written by rank 0 and its
+    error buffers compared over the ranks; the tp2 state written whole by
+    rank 0 as a checkpoint (``job["ckpt"]``) for the parent's restore.
+    Where an encoded run parts from its reference, rank 0 writes each
+    step's linear inputs (from the params it kept before each step) for
+    the parent's search of a code f32 order moved."""
+    import torch
+    from repro_torch.ckpt import save_checkpoint
+    from repro_torch.models import to_device
+    from repro_torch.parallel.mesh import Mesh
+    from repro_torch.parallel.statesharding import gather_state
+    from repro_torch.train import init_train_state
+    from repro_torch.tree import tree_leaves
+    meshes = {(1, TP): mesh, (TP, 1): Mesh(TP, 1)}
+    # the fp runs share seed 0's logical state (the step leaves it intact)
+    fp0 = init_train_state(_mesh_train_cfg("fp"), seed=0, device=dev)
+    out = {}
+    for name, shape, mode, steps, gcomp, ref in MESH_TRAIN_RUNS:
+        m = meshes[shape]
+        cfg = _mesh_train_cfg(mode)
+        befores = []
+        q0 = [] if gcomp and m.rank == 0 else None
+        r = _mesh_train_run(
+            dev, cfg, steps, m, gcomp,
+            (lambda i, st: befores.append(
+                {"params": to_device(st["params"], "cpu")}))
+            if mode != "fp" else None, fp0 if mode == "fp" else None, q0)
+        st = r.pop("state")
+        params = gather_state({"params": st["params"]}, cfg, m)["params"]
+        want = torch.load(job["refs"][ref], map_location=dev)
+        r["excess"], r["maxdiff"] = _param_excess(want["params"], params)
+        r["agree"] = m.agree(_digest(to_device(params, "cpu")))
+        # a compressed run's moments hold its codes, gated at step 0
+        # instead (``_codes_apart``): f32 order moves some across .5
+        r["m_excess"], r["m_rel"], r["m_leaf"] = (-math.inf, 0.0, "") \
+            if gcomp else _moment_excess(want["m"], st["opt"]["m"], cfg, m)
+        r["recs"] = []
+        if gcomp:
+            err = to_device(st["err"], "cpu")
+            r["err_agree"] = m.agree(_digest(err))
+            r["err_max"] = max(e.abs().max().item() for e in
+                               tree_leaves(err))
+            r["q0"] = os.path.join(job["dir"], f"{name}-q0.pt")
+            if m.rank == 0:
+                torch.save(q0, r["q0"])
+            del err, q0
+        parted = r["excess"] > 0 or r["m_excess"] > 0 or max(
+            abs(a - b) for a, b in zip(r["losses"], want["losses"])) > \
+            MESH_LOSS_TOL
+        if parted and mode != "fp":
+            for i, b in enumerate(_mesh_batches(cfg, steps)):
+                x = _linear_inputs(dev, cfg, befores[i], b["tokens"], m)
+                if m.rank == 0:
+                    path = os.path.join(job["dir"], f"{name}-inputs-{i}.pt")
+                    torch.save(x, path)
+                    r["recs"].append(path)
+        if name == "tp2":
+            whole = gather_state(st, cfg, m, device="cpu")
+            if m.rank == 0:
+                save_checkpoint(job["ckpt"], steps, whole)
+            m.barrier()
+            del whole
+        out[name] = r
+        del st, params, want, befores
+        gc.collect()
+        torch.cuda.empty_cache()
+    del fp0
+    return out
+
+
+def _mesh_train_refs(dev, paths, done):
+    """The parent's single-rank references of ``MESH_TRAIN_RUNS``: fp,
+    exact-encoded and (through a 1 x 1 mesh of this process alone, where
+    the step quantizes at n = 1: the reference's single-device chain)
+    grad-compressed; each run's final params, first moments and losses
+    written to ``paths`` for the ranks, then ``done`` ("ok", or "failed"
+    if a run raised).  The fp state stays (on the host) for the elastic
+    restore, the encoded run's params before each step for a parting's
+    search, the compressed run's first step's values before rounding."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import to_device
+    from repro_torch.parallel.mesh import Mesh, _free_port
+    from repro_torch.train import init_train_state
+    refs = {}
+    try:
+        fp0 = init_train_state(_mesh_train_cfg("fp"), seed=0, device=dev)
+        for key, mode, steps, gcomp in (("fp", "fp", 3, False),
+                                        ("encoded-exact", "encoded-exact", 2,
+                                         False), ("gc", "fp", 3, True)):
+            cfg = _mesh_train_cfg(mode)
+            mesh, befores, q0 = None, [], [] if gcomp else None
+            if gcomp:
+                dist.init_process_group(
+                    "gloo", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                    rank=0, world_size=1)
+                mesh = Mesh(1, 1)
+            try:
+                r = _mesh_train_run(
+                    dev, cfg, steps, mesh, gcomp,
+                    (lambda i, st: befores.append(
+                        {"params": to_device(st["params"], "cpu")}))
+                    if mode != "fp" else None, fp0 if mode == "fp" else None,
+                    q0)
+            finally:
+                if gcomp:
+                    dist.destroy_process_group()
+            st = r.pop("state")
+            torch.save({"params": to_device(st["params"], "cpu"),
+                        "m": to_device(st["opt"]["m"], "cpu"),
+                        "losses": r["losses"]}, paths[key])
+            r["state"] = to_device(st, "cpu") if key == "fp" else None
+            r["befores"], r["q0"] = befores, q0
+            refs[key] = r
+            del st
+            gc.collect()
+            torch.cuda.empty_cache()
+        del fp0
+    except BaseException:
+        with open(done, "w") as f:
+            f.write("failed")
+        raise
+    with open(done, "w") as f:
+        f.write("ok")
+    return refs
+
+
+def _mesh_train_check(dev, res, refs, ckpt):
+    """Gate phase 6k's training runs against the single-rank references
+    and the elastic restore (see ``phase_tp``)."""
+    import torch
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.models import to_device
+    from repro_torch.train import init_train_state, make_train_step
+    for name, shape, mode, steps, gcomp, ref in MESH_TRAIN_RUNS:
+        r, one = res[name], refs[ref]
+        cs = [c for c, _, _ in r["coll"]]
+        hs = [h for _, h, _ in r["coll"]]
+        bs = [b for _, _, b in r["coll"]]
+        dl = max(abs(a - b) for a, b in zip(r["losses"], one["losses"]))
+        log(f"[tp-train] {name} (mesh {shape[0]}x{shape[1]}, {mode}"
+            f"{', grad_compress' if gcomp else ''}, {steps} steps of "
+            f"{MESH_TRAIN_B}x{MESH_TRAIN_S}, {MESH_TRAIN_LAYERS} of 24 "
+            f"layers): losses {[round(x, 5) for x in r['losses']]} against "
+            f"one rank's {[round(x, 5) for x in one['losses']]} (max |diff| "
+            f"{dl:.2e}); step ms p50 {_p50(r['ms'][1:] or r['ms']):.1f} "
+            f"(steps {[round(x, 1) for x in r['ms']]}), one rank "
+            f"{_p50(one['ms'][1:] or one['ms']):.1f} (run as the ranks load "
+            f"their weights); a step: "
+            f"{_p50(cs):.0f} collectives, {_p50(hs):.1f} ms of them on the "
+            f"host, {_p50(bs) / 1e6:.1f} MB all-reduced; peak device "
+            f"memory a rank {r['peak'] / 1e9:.2f} GB (one rank "
+            f"{one['peak'] / 1e9:.2f} GB); params max |diff| "
+            f"{r['maxdiff']:.2e}, excess over rtol=atol={MESH_PARAM_TOL} "
+            f"{r['excess']:.2e} (<= 0 passes); "
+            + ("" if gcomp else
+               f"first moments worst leaf {r['m_leaf']} max |diff| / max "
+               f"{r['m_rel']:.2e}, excess over {MESH_MOMENT_TOL} of the max "
+               f"{r['m_excess']:.2e} (<= 0 passes); ")
+            + f"ranks agree {r['agree']} ({SMI})")
+        if not r["agree"]:
+            raise AssertionError(f"[tp-train] {name}: the ranks' states "
+                                 "differ")
+        if not all(map(math.isfinite, r["losses"] + r["gnorms"])):
+            raise AssertionError(f"[tp-train] {name}: non-finite losses")
+        if gcomp:
+            # the first compressed step starts from one state on both
+            # sides: its int8 codes must be the single rank's but where
+            # f32 order moved a value across .5, its scales within
+            # MESH_MOMENT_TOL; the error buffers non-zero, equal on the ranks
+            n, total, edge, scale = _codes_apart(one["q0"],
+                                                 torch.load(r["q0"]), dev)
+            log(f"[tp-train] {name}: step 0's int8 codes against one "
+                f"rank's: {n} of {total} apart, at most {edge:.2e} from "
+                f".5 (<= {ORIGIN_TOL} passes); scales rel {scale:.2e}; the "
+                f"error buffers max |err| {r['err_max']:.3e}, equal on the "
+                f"ranks {r['err_agree']}")
+            if edge > ORIGIN_TOL or scale > MESH_SCALE_RTOL or total == 0:
+                raise AssertionError(f"[tp-train] {name}: the compressed "
+                                     "step's codes part from one rank's")
+            if not r["err_agree"] or not r["err_max"] > 0:
+                raise AssertionError(f"[tp-train] {name}: the error buffers "
+                                     "are zero or differ over the ranks")
+        if dl <= MESH_LOSS_TOL and r["excess"] <= 0 and r["m_excess"] <= 0:
+            continue
+        if mode == "fp":
+            raise AssertionError(f"[tp-train] {name}: parts from one rank "
+                                 f"(loss {dl:.2e}, params {r['excess']:.2e}"
+                                 f", first moments {r['m_excess']:.2e})")
+        # an encoded parting must start at a code f32 order moved across
+        # a .5 boundary: the first step whose two forwards differ in a code
+        cfg = _mesh_train_cfg(mode)
+        flip = None
+        if not r["recs"]:
+            raise AssertionError(f"[tp-train] {name}: parts from one rank "
+                                 "and recorded no inputs")
+        for i, path in enumerate(r["recs"]):
+            mine = torch.load(path)
+            theirs = _linear_inputs(dev, cfg, one["befores"][i],
+                                    _mesh_batches(cfg, i + 1)[i]["tokens"])
+            flip = _first_flip(theirs, mine)
+            if flip is not None:
+                flip = (i,) + flip
+                break
+        edge = None if flip is None else max(
+            abs(v - math.floor(v) - 0.5) for v in flip[2:4])
+        log(f"[tp-train] {name}: parts from one rank; the first int8 code "
+            f"apart (step, site, one rank, TP {TP}): {flip}, {edge} from "
+            f"the .5 boundary")
+        if flip is None or edge > ORIGIN_TOL:
+            raise AssertionError(f"[tp-train] {name}: a parting without a "
+                                 "rounding-boundary origin")
+    # elastic: the tp2 state, written by rank 0 as one logical checkpoint,
+    # restored here on one rank; its next step against the single-rank
+    # step from the single rank's own state after the same steps
+    cfg = _mesh_train_cfg("fp")
+    steps = MESH_TRAIN_RUNS[0][3]
+    b = _mesh_batches(cfg, steps + 1)[steps]
+    t = time.perf_counter()
+    back = restore_checkpoint(ckpt, steps,
+                              init_train_state(cfg, seed=1, device=dev))
+    read_s = time.perf_counter() - t
+    step = make_train_step(cfg, warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    s_tp, m_tp = step(back, b)
+    del back
+    s_one, m_one = step(to_device(refs["fp"]["state"], dev), b)
+    worst, diff = _param_excess(s_one["params"], s_tp["params"])
+    m_worst, m_rel, m_leaf = _moment_excess(s_one["opt"]["m"],
+                                            s_tp["opt"]["m"])
+    dl = abs(float(m_tp["loss"]) - float(m_one["loss"]))
+    size = sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(ckpt) for f in fs)
+    log(f"[tp-train] elastic: the tp2 state after {steps} steps (checkpoint "
+        f"{size / 1e9:.2f} GB, logical, by rank 0) restored on one rank in "
+        f"{read_s:.1f}s; its next step's loss {float(m_tp['loss']):.6f} "
+        f"against the single rank's {float(m_one['loss']):.6f} (|diff| "
+        f"{dl:.2e}); params max |diff| {diff:.2e}, excess {worst:.2e}; "
+        f"first moments worst leaf {m_leaf} rel {m_rel:.2e}, excess "
+        f"{m_worst:.2e} "
+        f"(<= 0 passes)")
+    if dl > MESH_LOSS_TOL or worst > 0 or m_worst > 0:
+        raise AssertionError("[tp-train] elastic: the restored state's step "
+                             "parts from the single rank's")
+    del s_tp, s_one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _tp_rank(mesh, job):
-    """Phase 6k on one rank of ``TP``: qwen1.5-0.5b, then qwen3-moe."""
+    """Phase 6k on one rank of ``TP``: qwen1.5-0.5b, then qwen3-moe, each
+    served once the parent's training references are done (they run as
+    the ranks start and load); then training (``_tp_train``), the serve
+    state freed."""
     import torch
     dev = torch.device("cuda", 0)
-    out = {"qwen": _tp_qwen(mesh, dev, job["bundle"], job["base"])}
+    out = {"qwen": _tp_qwen(mesh, dev, job["bundle"], job["base"],
+                            functools.partial(_wait_refs, job["train"]))}
     gc.collect()
     torch.cuda.empty_cache()
     out["moe"] = _tp_moe(mesh, dev, job["base"]["moe"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = _tp_train(mesh, dev, job["train"])
     return out
 
 
@@ -5255,11 +5898,31 @@ def phase_tp(dev, info):
     log(f"[tp] this process holds {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
         f" GB of the card ({torch.cuda.memory_reserved(dev) / 1e9:.2f} GB "
         "reserved) as the ranks start")
+    tmp = bundle_dir("tp-train")
+    job = {"bundle": info["bundle"], "base": base, "train": {
+        "refs": {k: os.path.join(tmp, f"ref-{k}.pt")
+                 for k in ("fp", "encoded-exact", "gc")},
+        "done": os.path.join(tmp, "refs-done"),
+        "ckpt": os.path.join(tmp, "ckpt"), "dir": tmp}}
+    # the single-rank training references run here while the ranks
+    # start and load their weights; the ranks wait for them before they
+    # serve (``_wait_refs``)
     t0 = time.perf_counter()
-    res = run_ranks(_tp_rank, TP, {"bundle": info["bundle"], "base": base},
-                    device=str(dev))
-    log(f"[tp] {TP} ranks spawned, served and joined in "
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        fut = ex.submit(run_ranks, _tp_rank, TP, job, device=str(dev))
+        refs = _mesh_train_refs(dev, job["train"]["refs"],
+                                job["train"]["done"])
+        log(f"[tp-train] the single-rank references in "
+            f"{time.perf_counter() - t0:.1f}s, as the ranks start")
+        res = fut.result()
+    log(f"[tp] {TP} ranks spawned, served, trained and joined in "
         f"{time.perf_counter() - t0:.1f}s")
+    ckpt = job["train"]["ckpt"]
+    try:
+        _mesh_train_check(dev, res["train"], refs, ckpt)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del refs
     q = res["qwen"]
     log(f"[tp] qwen1.5-0.5b: a rank's init {q['init_s']:.1f}s, phase 6's "
         f"bundle {'loaded (cache hit)' if q['loaded'] else 'NOT a cache hit'}"
@@ -5267,7 +5930,8 @@ def phase_tp(dev, info):
         f"{q['load_peak'] / 1e9:.2f} GB a rank); folded bf16 Wt a rank "
         f"{q['fw_local'] / 1e9:.4f} GB of {q['fw_whole'] / 1e9:.4f}; a "
         f"rank's params on the card {q['local_bytes'] / 1e9:.2f} GB (the "
-        f"replicated embedding {q['embed_bytes'] / 1e9:.4f} GB of them), "
+        f"rank's rows of the embedding {q['embed_bytes'] / 1e9:.4f} GB of "
+        f"them), "
         f"serving peak {q['peak'] / 1e9:.2f} GB; {SMI}")
     if not q["loaded"]:
         raise AssertionError("phase 6's bundle was not a cache hit under "
@@ -5421,13 +6085,23 @@ def main() -> int:
         "qwen3-moe-235b-a22b"].pop("eager")
     serve_info["tp"] = _phase(phase_tp, dev, serve_info)
     shutil.rmtree(serve_info.pop("bundle"))
-    _phase(phase_cpu_parity, dev)
-    _phase(phase_cpu_parity_archs, dev)
-    _phase(phase_cpu_parity_moe, dev)
-    _phase(phase_cpu_parity_new, dev)
-    _phase(phase_cpu_parity_xw, dev)
-    _phase(phase_cli_int8, dev)
-    _phase(phase_cli_mesh, dev)
+    started = _phase(phase_cli_start, dev)
+    try:
+        _phase(phase_cpu_parity, dev)
+        _phase(phase_cpu_parity_archs, dev)
+        _phase(phase_cpu_parity_moe, dev)
+        _phase(phase_cpu_parity_new, dev)
+        _phase(phase_cpu_parity_xw, dev)
+        _phase(phase_cli_int8, dev)
+        _phase(phase_cli_mesh, dev, started)
+        _phase(phase_cli_train_mesh, dev, started)
+        _phase(phase_cli_train_full, dev, started)
+    finally:
+        for key in ("serve", "train", "train_full"):
+            if started[key][0].poll() is None:
+                started[key][0].kill()
+                started[key][0].wait()
+        shutil.rmtree(started["tmp"], ignore_errors=True)
     _phase(phase_cpu_parity_search, dev)
     _phase(phase_train, dev)
     rows = _phase(phase_measure, dev, serve_info)

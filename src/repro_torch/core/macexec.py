@@ -13,7 +13,8 @@ import math
 
 import torch
 
-from repro_torch.parallel.mesh import get_mesh
+from repro_torch.parallel.mesh import (copy_to_model, get_mesh,
+                                      reduce_from_model)
 from repro_torch.parallel.sharding import linear_role
 from repro_torch.quant.uniform import (calibrate_scale, fake_quant,
                                        quantize_codes)
@@ -100,16 +101,19 @@ def check_drafter(params, mode: str) -> None:
 
 def row_sum(out: torch.Tensor, name: str, ways: int) -> torch.Tensor:
     """``out`` of linear ``name``, summed over the model axis where it is
-    a row shard's partial product (its k dim cut into ``ways`` > 1)."""
+    a row shard's partial product (its k dim cut into ``ways`` > 1); the
+    sum's gradient passes to every rank's partial as it is."""
     if ways > 1 and linear_role(name) == "row":
-        return get_mesh().all_reduce_sum(out)
+        return reduce_from_model(out)
     return out
 
 
 def weight_scale(w: torch.Tensor, bits: int, ways: int) -> torch.Tensor:
     """``calibrate_scale`` over the whole weight: with its shards on
     ``ways`` > 1 ranks, over the max of every shard's max-abs, as the
-    reference's reduction over a sharded weight computes."""
+    reference's reduction over a sharded weight computes.  No gradient
+    passes through it (``calibrate_scale`` detaches, as the reference's
+    ``stop_gradient``)."""
     if ways == 1:
         return calibrate_scale(w, bits)
     amax = get_mesh().all_reduce_max(w.detach().abs().amax().float())
@@ -196,22 +200,27 @@ class EncodedQatExecutor(MacExecutor):
         return p
 
     def apply(self, p, name, x, mcfg, compute_dtype, ways=1):
-        if ways > 1:
-            raise NotImplementedError(
-                "encoded-MAC QAT under a mesh: the training half of "
-                "tensor parallelism is not ported (ROADMAP Queue A, item 3)")
+        """Under a mesh (``ways`` > 1) the fold runs on this rank's shard
+        at the whole weight's scale (``weight_scale``); a row shard's
+        partial encoded products are summed over the model axis, and the
+        replicated position weights ``_s``, which reach this rank's
+        output only through its shard, get their gradient summed over
+        the model axis (``copy_to_model``)."""
         from repro_torch.core.mac import encoded_matmul_qat
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
         wf = p[name].to(torch.float32)
         sa = p[name + "_as"].detach()
-        sw = calibrate_scale(wf, mcfg.bits)
+        sw = weight_scale(wf, mcfg.bits, ways)
         s = p.get(name + "_s")
         if s is None:
             s = torch.as_tensor(mcfg.mac.s_init, dtype=torch.float32,
                                 device=x.device)
+        elif ways > 1:
+            s = copy_to_model(s)
         out = encoded_matmul_qat(x2, wf, sa, sw, s, mcfg.mac.program,
                                  mcfg.bits)
+        out = row_sum(out, name, ways)
         return out.reshape(*lead, -1).to(compute_dtype)
 
 

@@ -420,8 +420,7 @@ def _say_mesh(say, mesh, st, params):
         say(f"  mesh: {st['mesh']} replicated={st['mesh_replicated']} "
             f"collectives={mesh.collectives} "
             f"({mesh.collective_s * 1e3:.1f} ms on the host); the "
-            f"embedding, replicated: {t.numel() * t.element_size() / 1e6:.1f}"
-            " MB a rank")
+            f"embedding: {t.numel() * t.element_size() / 1e6:.1f} MB a rank")
 
 
 if __name__ == "__main__":

@@ -55,7 +55,8 @@ from repro_torch.nn.common import (embed_apply, embed_init, linear,
 from repro_torch.nn.mla import init_mla_cache
 from repro_torch.nn.ssm import init_ssm_cache
 from repro_torch.nn.xlstm import M_INIT, init_mlstm_cache, init_slstm_cache
-from repro_torch.parallel.mesh import get_mesh
+from repro_torch.parallel.mesh import (copy_to_model, gather_from_model,
+                                      get_mesh, reduce_from_model, set_mesh)
 from repro_torch.parallel.sharding import local_kv_heads, model_rank, splits
 from repro_torch.quant.kvcache import kv_pool_layout
 from repro_torch.tree import tree_leaves, tree_map
@@ -195,7 +196,7 @@ def to_device(tree, device):
 
 def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, enc_x=None,
                 cache=None, return_aux: bool = False,
-                return_hidden: bool = False):
+                return_hidden: bool = False, local_logits: bool = False):
     """tokens (B, S) → (logits (B, S', vocab_p), new_cache[, aux][, h]);
     S' = S, plus ``cfg.meta_tokens`` where they are prepended.
 
@@ -218,7 +219,14 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, enc_x=None,
     tensors; the returned cache shares the rest and carries ``lens + S``
     (paged) or ``pos + S`` (dense).  ``return_aux`` adds the MoE layers'
     summed auxiliary loss (0-d f32), ``return_hidden`` the final normed
-    hidden state (B, S, d) (the MTP head's input)."""
+    hidden state (B, S, d) (the MTP head's input).
+
+    Under a mesh whose model axis cuts the vocab, ``local_logits`` returns
+    this rank's columns of the logits, ungathered (the trainer's
+    vocab-parallel loss, ``train.losses.lm_loss_vocab_parallel``); a train
+    state's embedding holds this rank's rows of the table (the
+    reference's ``embed/table`` rule), which the lookup and the tied head
+    read as such."""
     if cfg.family == "encdec":
         h, new_cache = apply_encdec(params, cfg, tokens, enc_x=enc_x,
                                     cache=cache)
@@ -229,7 +237,7 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, enc_x=None,
             out += (h,)
         return out
     Bn, S = tokens.shape
-    x = embed_apply(params["embed"], tokens, cfg.cdtype)
+    x = _embed(params, cfg, tokens)
     if cfg.embed_scale:
         x = x * torch.full((), np.sqrt(cfg.d_model), dtype=cfg.cdtype,
                            device=x.device)
@@ -269,7 +277,7 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, enc_x=None,
     for i, p_l in enumerate(params["layers"]):
         if remat:
             x, a = checkpoint(_block, p_l, x, cfg, kinds[i], windows[i],
-                              positions, use_reentrant=False)
+                              positions, get_mesh(), use_reentrant=False)
         elif kinds[i] == "hybrid":
             c_l = None if cache is None else {
                 "attn": dict(layers[i]["attn"], **ctx),
@@ -291,7 +299,7 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, enc_x=None,
         if kinds[i] == "moe":
             aux = aux + a
     h = norm_apply(params, x, cfg.norm, cfg.norm_eps, "final_norm")
-    logits = _head(params, cfg, h)
+    logits = _head(params, cfg, h, local_logits)
     new_cache = None
     if paged:
         new_cache = {"layers": cache["layers"], "pages": cache["pages"],
@@ -308,7 +316,15 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, enc_x=None,
     return out
 
 
-def _block(p_l, x, cfg, kind, window, positions):
+def _block(p_l, x, cfg, kind, window, positions, mesh=None):
+    # under remat the backward recomputes this block on autograd's own
+    # thread (a CUDA device's), where the active mesh (per thread) is
+    # not set: enter the forward's mesh again
+    with set_mesh(mesh):
+        return _block_body(p_l, x, cfg, kind, window, positions)
+
+
+def _block_body(p_l, x, cfg, kind, window, positions):
     if kind in _XLSTM_APPLY:
         x, _, aux = _XLSTM_APPLY[kind](p_l, x, cfg)
     elif kind == "hybrid":
@@ -320,22 +336,38 @@ def _block(p_l, x, cfg, kind, window, positions):
     return x, aux
 
 
-def _head(params, cfg, h):
+def _embed(params, cfg, tokens):
+    """The embedding lookup; where the head splits over the model axis
+    the table holds this rank's rows of the vocab
+    (``parallel.sharding``): the tokens are looked up in its rows, zeros
+    elsewhere, and the model axis sums the rows (exact: one rank holds
+    each token's row)."""
+    if splits(cfg)["head"] == 1:
+        return embed_apply(params["embed"], tokens, cfg.cdtype)
+    table = params["embed"]["table"]
+    n = table.shape[0]
+    local = tokens.long() - model_rank() * n
+    inside = (local >= 0) & (local < n)
+    x = embed_apply({"table": table}, torch.where(inside, local, 0),
+                    cfg.cdtype)
+    return reduce_from_model(x * inside[..., None].to(x.dtype))
+
+
+def _head(params, cfg, h, local_logits=False):
     # the tied head reads the embedding table and stays an fp product in
     # every MAC mode; an untied lm_head is a normal 'w' linear.  Under a
-    # mesh the head is column-parallel (a tied one reads this rank's rows
-    # of the replicated table) and the logits are gathered on every rank
+    # mesh the head is column-parallel (a tied one reads the rank's rows
+    # of the table) and the logits are gathered on every rank unless
+    # ``local_logits``
     tp = splits(cfg)["head"]
+    if tp > 1:
+        h = copy_to_model(h)
     if cfg.tie_embeddings:
-        table = params["embed"]["table"]
-        if tp > 1:
-            n = cfg.vocab_p // tp
-            table = table[model_rank() * n:(model_rank() + 1) * n]
-        logits = mm(h, table.t(), cfg.cdtype)
+        logits = mm(h, params["embed"]["table"].t(), cfg.cdtype)
     else:
         logits = linear(params["lm_head"], "w", h, cfg.mac, cfg.cdtype, tp)
-    if tp > 1:
-        logits = get_mesh().gather_columns(logits)
+    if tp > 1 and not local_logits:
+        logits = gather_from_model(logits)
     logits = softcap(logits.to(torch.float32), cfg.final_softcap)
     return check_finite(logits, "the LM head (logits)").to(cfg.cdtype)
 

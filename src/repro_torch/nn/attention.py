@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.paged_attention import gqa_group, paged_attn
+from repro_torch.parallel.mesh import copy_to_model
 from repro_torch.parallel.sharding import (local_kv_heads, local_kv_map,
                                            splits)
 from .attention_mha import mha
@@ -75,6 +76,13 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, window=None, cache=None,
     cdt = cfg.cdtype
     tp = splits(cfg)["attn"]
     hq, hkv = cfg.n_heads_p // tp, cfg.n_kv_p // tp
+    if tp > 1:
+        # training: the input's gradient, and the q/k norms' (applied to
+        # this rank's heads only), summed over the model axis
+        x = copy_to_model(x)
+        if cfg.qk_norm:
+            p = dict(p, **{k: copy_to_model(p[k])
+                           for k in ("qnorm_g", "knorm_g")})
     q = linear(p, "wq", x, cfg.mac, cdt, tp).reshape(B, S, hq, hd)
     k = linear(p, "wk", x, cfg.mac, cdt, tp).reshape(B, S, hkv, hd)
     v = linear(p, "wv", x, cfg.mac, cdt, tp).reshape(B, S, hkv, hd)

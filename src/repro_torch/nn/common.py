@@ -10,6 +10,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.layers import MacConfig
 from repro_torch.core.macexec import check_finite
+from repro_torch.parallel.mesh import copy_to_model
 
 # Calibration hook: when set, ``linear`` reports every call as
 # (name, weight, input) before computing.  Installed only by the
@@ -151,7 +152,10 @@ def mlp_apply(p: dict, x: torch.Tensor, mcfg: MacConfig, act: str = "silu",
               gated: bool = True, compute_dtype=torch.float32,
               ways: int = 1) -> torch.Tensor:
     """wi (and wg) → act → wo; ``ways`` > 1: column → act → row over a
-    hidden dim cut into that many shards."""
+    hidden dim cut into that many shards (the input's gradient summed
+    over the model axis, ``copy_to_model``)."""
+    if ways > 1:
+        x = copy_to_model(x)
     h = linear(p, "wi", x, mcfg, compute_dtype, ways)
     if gated:
         h = act_fn(act)(linear(p, "wg", x, mcfg, compute_dtype, ways)) * h

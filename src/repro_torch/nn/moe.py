@@ -1,7 +1,9 @@
 """Mixture-of-Experts with capacity-based sort dispatch (port of
 ``repro/nn/moe.py``, and its expert-parallel branch :136-160: under a
 mesh a rank holds ``n_experts / TP`` experts, runs the dispatch for them
-only, and the pairs' contributions are summed over the model axis).
+only, and the pairs' contributions are summed over the model axis; a
+data rank dispatches its own tokens at the capacity of its share,
+``t_local``, and the load-balance loss is the global batch's).
 
 Routing is softmax top-k with the switch-style load-balance loss, or
 DeepSeek-V3's sigmoid router, which selects on ``scores + bias`` but
@@ -25,7 +27,8 @@ import math
 import torch
 
 from .attention_mha import softmax_f32
-from repro_torch.parallel.mesh import get_mesh
+from repro_torch.parallel.mesh import (copy_to_model, get_mesh,
+                                      reduce_from_model)
 from repro_torch.parallel.sharding import model_rank, splits
 from .common import act_fn, mlp_apply, mlp_init
 
@@ -82,8 +85,26 @@ def route(p: dict, x2: torch.Tensor, cfg):
         E = cfg.n_experts
         first = torch.zeros((x2.shape[0], E), dtype=_F32, device=x2.device)
         first.scatter_(1, idx[:, :1], 1.0)
-        aux = E * torch.sum(first.mean(0) * probs.mean(0))
+        f, pbar = first.mean(0), probs.mean(0)
+        mesh = get_mesh()
+        if mesh is not None and mesh.n_data > 1:
+            f, pbar = _global_means(mesh, first, probs, pbar)
+        aux = E * torch.sum(f * pbar)
     return idx.to(torch.int32), w.to(_F32), aux
+
+
+def _global_means(mesh, first, probs, pbar):
+    """f_e and P̄_e over the global batch, the reference's logical means,
+    from this data rank's tokens: the counts and probability sums summed
+    over the data axis (equal token counts a rank).  P̄_e keeps this
+    rank's mean's gradient (the value is the global mean's): the
+    trainer's average of the data ranks' gradients is then the global
+    mean's gradient, once."""
+    n = first.shape[0] * mesh.n_data
+    sums = mesh.all_reduce_sum(torch.stack([first.sum(0),
+                                            probs.detach().sum(0)]),
+                               "data") / n
+    return sums[0], pbar + (sums[1] - pbar).detach()
 
 
 def capacity(cfg, n_tokens: int) -> int:
@@ -182,15 +203,28 @@ def moe_apply(p: dict, x: torch.Tensor, cfg):
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
     idx, w, aux = route(p, x2, cfg)
-    # capacity from the tokens of one data shard (B·S at data = 1), as
+    # capacity from the tokens of one data shard (a data rank's B·S), as
     # the reference's t_local
     sp = splits(cfg)
     ep = sp["experts"] > 1
-    out = dispatch_compute(x2, idx, w, p["experts_wi"], p["experts_wg"],
+    mesh = get_mesh()
+    if mesh is not None and mesh.n_data > 1 and mesh.n_model > 1 and not ep:
+        raise NotImplementedError(
+            f"{cfg.n_experts} experts do not divide the model axis "
+            f"({mesh.n_model}): the reference then runs one global dispatch "
+            "over every data rank's tokens, which is not ported (ROADMAP "
+            "Queue A, item 3: MoE under a data axis without EP)")
+    if ep:
+        # training: the tokens and their routing weights enter this rank's
+        # experts only, so their gradients sum over the model axis
+        x2e, w = copy_to_model(x2), copy_to_model(w)
+    else:
+        x2e = x2
+    out = dispatch_compute(x2e, idx, w, p["experts_wi"], p["experts_wg"],
                            p["experts_wo"], capacity=capacity(cfg, B * S),
                            act=cfg.act, n_experts=cfg.n_experts,
                            lo=model_rank() * p["experts_wi"].shape[0],
-                           reduce=get_mesh().all_reduce_sum if ep else None)
+                           reduce=reduce_from_model if ep else None)
     out = out.to(cfg.cdtype)
     if cfg.n_shared_experts:
         out = out + mlp_apply(p["shared"], x2, cfg.mac, cfg.act, True,

@@ -4,8 +4,9 @@ symmetric per-tensor scale, the quantization residual kept in an
 error-feedback buffer and added to the next step's gradient
 (Karimireddy et al., 2019).
 
-The int8 error-feedback all-reduce over data-parallel ranks that uses
-these primitives waits for tensor parallelism (ROADMAP Queue A item 3).
+The int8 error-feedback all-reduce over the data axis that uses these
+primitives is ``train.trainer.compressed_allreduce`` (the train step's
+``grad_compress``).
 """
 from __future__ import annotations
 
@@ -14,10 +15,14 @@ import torch
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
-def compress_int8(x: torch.Tensor):
-    """x (float) → (codes int8, scale f32 0-d).  Symmetric, per-tensor."""
+def compress_int8(x: torch.Tensor, amax=None):
+    """x (float) → (codes int8, scale f32 0-d).  Symmetric, per-tensor;
+    ``amax``: the max-abs of the whole tensor where ``x`` is a shard of
+    it (default: ``x``'s own)."""
     xf = x.to(torch.float32)
-    scale = torch.clamp_min(xf.abs().amax(), 1e-12) / 127.0
+    if amax is None:
+        amax = xf.abs().amax()
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
     codes = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return codes, scale
 
@@ -27,21 +32,28 @@ def decompress_int8(codes: torch.Tensor, scale: torch.Tensor
     return codes.to(torch.float32) * scale
 
 
-def ef_compress_tree(grads, errors):
-    """Apply error feedback, then compress each leaf.
+def ef_compress_tree(grads, errors, reduce_amax=None):
+    """Apply error feedback, then compress each leaf.  ``reduce_amax``
+    (leaves that are shards of tensor-parallel leaves): maps the stacked
+    max-abs of every leaf of this rank to the whole leaves' (a max over
+    the model axis), so each shard is quantized at its whole leaf's
+    scale.
 
     Returns (codes_tree, scales_tree, new_errors_tree)."""
     g_leaves, spec = tree_flatten(grads)
     e_leaves, e_spec = tree_flatten(errors)
     if e_spec != spec:
         raise ValueError("ef_compress_tree: grads and errors differ")
+    corrected = [g.to(torch.float32) + e for g, e in zip(g_leaves, e_leaves)]
+    amax = [None] * len(corrected)
+    if reduce_amax is not None:
+        amax = reduce_amax(torch.stack([c.abs().amax() for c in corrected]))
     codes, scales, errs = [], [], []
-    for g, e in zip(g_leaves, e_leaves):
-        corrected = g.to(torch.float32) + e
-        c, s = compress_int8(corrected)
+    for x, a in zip(corrected, amax):
+        c, s = compress_int8(x, a)
         codes.append(c)
         scales.append(s)
-        errs.append(corrected - decompress_int8(c, s))
+        errs.append(x - decompress_int8(c, s))
     return (tree_unflatten(spec, codes), tree_unflatten(spec, scales),
             tree_unflatten(spec, errs))
 

@@ -7,6 +7,13 @@ state trees (``{"m", "v", "t"}``; ``{"f": (per-leaf {"vr", "vc"} or
 {"v"}, in ``tree_flatten`` order), "t"}``; ``{"m"}``), so a state
 carries across packages and checkpoints leaf for leaf.  Everything is f32
 on the params' device; nothing is updated in place.
+
+Under a mesh, ``update(..., dims=)`` takes the model axis's dim of each
+param leaf (``parallel.statesharding.param_dims``; the leaves are this
+rank's shards).  AdamW and SGD are elementwise and ignore it; Adafactor's
+row and column means over a cut dim, its ``vr`` mean and its update's
+RMS over a cut leaf are reduced over the model axis, so every rank
+updates its shard as the whole leaf's update would.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.parallel.mesh import get_mesh
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 _F32 = torch.float32
@@ -52,7 +60,7 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
                 "t": torch.zeros((), dtype=torch.int32,
                                  device=_device_of(params))}
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, dims=None):
         t = state["t"] + 1
         b1t = 1 - b1 ** t.to(_F32)
         b2t = 1 - b2 ** t.to(_F32)
@@ -95,31 +103,43 @@ def adafactor(eps=1e-30, clip_thresh=1.0, decay=0.8) -> Optimizer:
                 "t": torch.zeros((), dtype=torch.int32,
                                  device=_device_of(params))}
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, dims=None):
         t = state["t"] + 1
         beta = 1.0 - (t.to(_F32) + 1.0) ** (-decay)
         g_leaves, spec = tree_flatten(grads)
         p_leaves, p_spec = tree_flatten(params)
         if p_spec != spec:
             raise ValueError("adafactor: grads and params differ")
+        if dims is None:
+            dims = [-1] * len(p_leaves)
+        mesh = get_mesh()
         new_p, fs = [], []
-        for g, s, p in zip(g_leaves, state["f"], p_leaves):
+        for g, s, p, d in zip(g_leaves, state["f"], p_leaves, dims):
             g = g.to(_F32)
             g2 = g * g + eps
+            nd = p.dim()
             if _factored(p):
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(-2)
+                vr = beta * s["vr"] + (1 - beta) * _mean(g2, -1, d == nd - 1,
+                                                         mesh)
+                vc = beta * s["vc"] + (1 - beta) * _mean(g2, -2, d == nd - 2,
+                                                         mesh)
                 denom = (vr[..., None] * vc[..., None, :]
-                         / torch.clamp_min(
-                             vr.mean(-1, keepdim=True)[..., None], eps))
+                         / torch.clamp_min(_mean(vr, -1, d == nd - 2, mesh,
+                                                 keepdim=True)[..., None],
+                                           eps))
                 step = g * torch.rsqrt(denom + eps)
                 fs.append({"vr": vr, "vc": vc})
             else:
                 v = beta * s["v"] + (1 - beta) * g2
                 step = g * torch.rsqrt(v + eps)
                 fs.append({"v": v})
-            # update clipping (RMS ≤ clip_thresh)
-            rms = torch.sqrt(torch.mean(step * step) + eps)
+            # update clipping (RMS ≤ clip_thresh), over the whole leaf
+            if d >= 0:
+                sq = mesh.all_reduce_sum((step * step).sum())
+                ms = sq / (step.numel() * mesh.n_model)
+            else:
+                ms = torch.mean(step * step)
+            rms = torch.sqrt(ms + eps)
             step = step / torch.clamp_min(rms / clip_thresh, 1.0)
             new_p.append((p.to(_F32) - lr * step).to(p.dtype))
         return tree_unflatten(spec, new_p), {"f": tuple(fs), "t": t}
@@ -131,7 +151,7 @@ def sgd(momentum=0.9) -> Optimizer:
     def init(params):
         return {"m": tree_map(_zeros_f32, params)}
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, dims=None):
         def upd(g, m, p):
             m2 = momentum * m + g.to(_F32)
             return (p.to(_F32) - lr * m2).to(p.dtype), m2
@@ -140,6 +160,16 @@ def sgd(momentum=0.9) -> Optimizer:
         return new_p, {"m": m}
 
     return Optimizer(init, update)
+
+
+def _mean(x: torch.Tensor, dim: int, cut: bool, mesh, keepdim=False):
+    """``x.mean(dim)``; where the model axis cuts ``dim`` into equal
+    shards, the mean over the whole dim (this rank's sum reduced over the
+    axis)."""
+    if not cut:
+        return x.mean(dim, keepdim=keepdim)
+    tot = mesh.all_reduce_sum(x.sum(dim, keepdim=keepdim))
+    return tot / (x.shape[dim] * mesh.n_model)
 
 
 def _device_of(tree) -> torch.device:

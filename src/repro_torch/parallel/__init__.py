@@ -1,1 +1,4 @@
-"""Tensor-parallel metadata (port of part of ``repro/parallel``)."""
+"""Several ranks (port of ``repro/parallel``): the ``(data, model)`` mesh
+over gloo and its collectives' autograd rules (``mesh``), the serving
+slices (``sharding``), a train state's shards (``statesharding``) and the
+GPipe schedule (``pipeline``)."""

@@ -1,16 +1,30 @@
-"""The tensor-parallel mesh over ``torch.distributed`` (port of
+"""The ``(data, model)`` mesh over ``torch.distributed`` (port of
 ``repro/launch/mesh.py`` and the mesh context of
-``repro/parallel/sharding.py:52-72``).
+``repro/parallel/sharding.py:52-72``), the autograd rules of its
+collectives, and ``run_ranks``.
 
 The reference runs one process over a GSPMD mesh; the port runs one
-process per rank.  A ``Mesh`` is the process group with the axes
-``(data, model)``: this slice takes ``data = 1`` only (the data axis is a
-ROADMAP item), so the model axis is the whole group.  The backend is gloo
+process per rank.  A ``Mesh(n_data, n_model)`` lays the ranks out
+data-major, as the reference's device order: rank ``d · n_model + m``
+sits at data coordinate ``d`` and model coordinate ``m``.  Each axis
+longer than 1 gets a process group per row (the model axis) or column
+(the data axis), created by every rank in the same order, and every
+collective names its axis.  Several meshes of different shapes may live
+over one world (2x1 and 1x2 over two ranks).  The backend is gloo
 everywhere, on the CPU and on the card: NCCL refuses two ranks on one
 device.  gloo reduces CUDA tensors by staging them through the host
-itself, so ``all_reduce_sum``/``all_reduce_max`` take CUDA tensors as
-they are; the column gather is an ``all_reduce_sum`` of a zero-filled full
-buffer, exact since ``x + 0 = x`` in f32.
+itself, so the reductions take CUDA tensors as they are; its
+point-to-point calls take host tensors only (``parallel.pipeline``
+stages through the host).
+
+Training differentiates through the model axis's collectives, Megatron's
+rules (``copy_to_model``, ``reduce_from_model``, ``gather_from_model``):
+the gradient of a replicated value that enters a rank's shard of a
+product is summed over the model axis where it enters, so every
+replicated leaf's gradient is whole on every rank and every sharded
+leaf's covers its own shard.  Serving (no gradient) calls the bare
+collectives.  A data axis serves nothing yet: serving refuses it
+(``DATA_AXIS_TODO``).
 
 ``set_mesh``/``get_mesh`` hold the active mesh per thread, as the
 reference's; model code reads it to pick its local shapes.  ``run_ranks``
@@ -31,17 +45,20 @@ import torch
 import torch.distributed as dist
 
 AXIS_DATA, AXIS_MODEL = "data", "model"
-DATA_AXIS_TODO = ("a data axis (--mesh DxM with D > 1) is not ported yet: "
-                  "ROADMAP Queue A, item 3 (the data axis)")
+DATA_AXIS_TODO = ("serving over a data axis (--mesh DxM with D > 1) is not "
+                  "ported yet: ROADMAP Queue A, item 3 (serving's data axis)")
 
 
 class Mesh:
     """The ``(data, model)`` axes over the default process group, this
     rank's coordinates, and the collectives the model code uses.
 
-    Every collective is counted (``collectives``) and timed on the host
-    clock (``collective_s``): gloo on a CUDA tensor waits for the card,
-    copies through the host and back, so the time includes that wait."""
+    Every collective over an axis longer than 1 is counted
+    (``collectives``), timed on the host clock (``collective_s``: gloo on
+    a CUDA tensor waits for the card, copies through the host and back,
+    so the time includes that wait) and its payload's bytes summed
+    (``collective_bytes``); over an axis of 1 it is the identity and
+    costs nothing."""
 
     axis_names = (AXIS_DATA, AXIS_MODEL)
 
@@ -49,46 +66,87 @@ class Mesh:
         world = dist.get_world_size()
         if n_model is None:
             n_model = world // n_data
-        if n_data != 1:
-            raise NotImplementedError(DATA_AXIS_TODO)
-        if n_data * n_model != world:
+        if n_data < 1 or n_model < 1 or n_data * n_model != world:
             raise ValueError(f"a {n_data}x{n_model} mesh needs "
                              f"{n_data * n_model} ranks, the group has "
                              f"{world}")
         self.shape = {AXIS_DATA: n_data, AXIS_MODEL: n_model}
         self.rank = dist.get_rank()
-        self.model_rank = self.rank % n_model
+        self.data_rank, self.model_rank = divmod(self.rank, n_model)
+        self._groups, self._ranks = {}, {}
+        rows = {AXIS_MODEL: [[d * n_model + m for m in range(n_model)]
+                             for d in range(n_data)],
+                AXIS_DATA: [[d * n_model + m for d in range(n_data)]
+                            for m in range(n_model)]}
+        for axis, groups in rows.items():
+            if self.shape[axis] == 1:
+                continue
+            for ranks in groups:
+                # every rank creates every group, in the same order; an
+                # axis over the whole world is the default group
+                g = None if len(ranks) == world else dist.new_group(ranks)
+                if self.rank in ranks:
+                    self._groups[axis], self._ranks[axis] = g, ranks
         self.collectives = 0
         self.collective_s = 0.0
+        self.collective_bytes = 0
 
     @property
     def n_model(self) -> int:
         return self.shape[AXIS_MODEL]
 
-    def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+    @property
+    def n_data(self) -> int:
+        return self.shape[AXIS_DATA]
+
+    def axis_rank(self, axis: str) -> int:
+        return self.model_rank if axis == AXIS_MODEL else self.data_rank
+
+    def group(self, axis: str):
+        """(process group, its global ranks in axis order) of this rank's
+        row or column along ``axis`` (longer than 1)."""
+        return self._groups[axis], self._ranks[axis]
+
+    def counters(self) -> tuple:
+        """(collectives, host seconds, bytes) so far."""
+        return self.collectives, self.collective_s, self.collective_bytes
+
+    def _reduce(self, t: torch.Tensor, op, axis: str) -> torch.Tensor:
+        if self.shape[axis] == 1:
+            return t
         t = t.contiguous()
         t0 = time.perf_counter()
-        dist.all_reduce(t, op=op)
+        dist.all_reduce(t, op=op, group=self._groups[axis])
         self.collective_s += time.perf_counter() - t0
         self.collectives += 1
+        self.collective_bytes += t.numel() * t.element_size()
         return t
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the model axis (``t`` is reduced in place
+    def all_reduce_sum(self, t: torch.Tensor, axis: str = AXIS_MODEL
+                       ) -> torch.Tensor:
+        """The sum of ``t`` over ``axis`` (``t`` is reduced in place
         where it is contiguous); every rank gets the same bits."""
-        return self._reduce(t, dist.ReduceOp.SUM)
+        return self._reduce(t, dist.ReduceOp.SUM, axis)
 
-    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
-        """The elementwise max of ``t`` over the model axis."""
-        return self._reduce(t, dist.ReduceOp.MAX)
+    def all_reduce_max(self, t: torch.Tensor, axis: str = AXIS_MODEL
+                       ) -> torch.Tensor:
+        """The elementwise max of ``t`` over ``axis``."""
+        return self._reduce(t, dist.ReduceOp.MAX, axis)
 
-    def gather_columns(self, t: torch.Tensor) -> torch.Tensor:
-        """The model axis's column shards of ``t`` (..., n) side by side,
-        in rank order: (..., n · n_model) on every rank, bit for bit."""
-        n = t.shape[-1]
-        full = t.new_zeros(*t.shape[:-1], n * self.n_model)
-        full[..., self.model_rank * n:(self.model_rank + 1) * n] = t
-        return self.all_reduce_sum(full)
+    def gather_columns(self, t: torch.Tensor, dim: int = -1
+                       ) -> torch.Tensor:
+        """The model axis's shards of ``t`` along ``dim`` (n long) side by
+        side, in rank order: n · size long on every rank, bit for bit (a
+        sum of a zero-filled whole: ``x + 0 = x``)."""
+        size = self.n_model
+        if size == 1:
+            return t
+        n, r = t.shape[dim], self.model_rank
+        shape = list(t.shape)
+        shape[dim] = n * size
+        full = t.new_zeros(shape)
+        full.narrow(dim, r * n, n).copy_(t)
+        return self.all_reduce_sum(full, AXIS_MODEL)
 
     def agree(self, obj) -> bool:
         """Whether every rank holds an equal ``obj`` (compared by its
@@ -97,6 +155,13 @@ class Mesh:
         got = [None] * dist.get_world_size()
         dist.all_gather_object(got, mine)
         return all(g == mine for g in got)
+
+    def any(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on some rank (uncounted: a host
+        tensor)."""
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
 
     def barrier(self) -> None:
         dist.barrier()
@@ -113,6 +178,79 @@ class Mesh:
                 if torch.cuda.is_available():
                     torch.cuda.empty_cache()
             dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# the model axis's collectives under autograd (Megatron's f, g and the
+# logits gather)
+# ---------------------------------------------------------------------------
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce_sum(g.clone()), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce_sum(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.n = mesh, x.shape[-1]
+        return mesh.gather_columns(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.mesh.model_rank, ctx.n
+        return g[..., r * n:(r + 1) * n].contiguous(), None
+
+
+def _grad_mesh(x: torch.Tensor):
+    mesh = get_mesh()
+    if mesh is None or mesh.n_model == 1:
+        return None, mesh
+    return (mesh if torch.is_grad_enabled() and x.requires_grad
+            else None), mesh
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """A replicated value entering this rank's shard of a product: the
+    identity forward; backward, its gradient summed over the model axis
+    (each rank's covers only its shard's share)."""
+    g, _ = _grad_mesh(x)
+    return x if g is None else _CopyToModel.apply(x, g)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the model axis's partials ``x`` (a row shard's
+    product); backward, the identity (the sum's gradient is whole on every
+    rank).  Without a gradient, the bare in-place all-reduce."""
+    g, mesh = _grad_mesh(x)
+    if g is None:
+        return x if mesh is None else mesh.all_reduce_sum(x)
+    return _ReduceFromModel.apply(x, g)
+
+
+def gather_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The model axis's column shards side by side; backward, this rank's
+    columns of the gradient."""
+    g, mesh = _grad_mesh(x)
+    if g is None:
+        return x if mesh is None else mesh.gather_columns(x)
+    return _GatherFromModel.apply(x, g)
 
 
 _ctx = threading.local()
@@ -137,7 +275,8 @@ def get_mesh():
 
 def make_test_mesh(n_data: int = 1, n_model: int = 2) -> Mesh:
     """A ``(n_data, n_model)`` mesh over the process group this rank
-    joined (``run_ranks`` joins it)."""
+    joined (``run_ranks`` joins it); every rank must make it, in the same
+    order as its other meshes."""
     return Mesh(n_data, n_model)
 
 
@@ -179,8 +318,6 @@ def run_ranks(fn, n_model: int, *args, n_data: int = 1, device="cpu",
     ranks are stopped.  On the card every rank uses ``device``; the
     kernels are built here first, so the ranks load the cached build."""
     import multiprocessing as mp
-    if n_data != 1:
-        raise NotImplementedError(DATA_AXIS_TODO)
     if torch.device(device).type == "cuda":
         from repro_torch.kernels import build
         build.build()

@@ -18,20 +18,23 @@ Megatron-style, the math of the reference's GSPMD result:
     over the sequence instead, ``_CACHE_RULES["k"]``);
   * MoE experts split over the model axis (EP), the router is
     replicated, a shared expert follows the dense MLP;
-  * the head is column-sharded (a tied head reads its rows of the
-    replicated embedding) and its logits are gathered on every rank.
+  * the head is column-sharded and its logits are gathered on every
+    rank; with it the embedding table is cut on its vocab rows (the
+    reference's ``embed/table`` rule): the lookup sums the rows over the
+    model axis (exact: one rank holds each token's row) and a tied head
+    reads the rank's rows.
 
 A block whose heads, or whose sharded dim, does not divide the model axis
 runs replicated (``split``), the reference's per-dim ``ok()``.  A rank's
 params come from ``shard_params``; the scales ``*_as``/``*_ws``/``*_s``,
-norms, the router and the embedding stay replicated.
+norms and the router stay replicated.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .mesh import get_mesh, set_mesh
+from .mesh import DATA_AXIS_TODO, get_mesh, set_mesh
 
 LINEAR_ROLES: dict = {
     "wq": "column", "wk": "column", "wv": "column", "wkv": "column",
@@ -124,26 +127,32 @@ def _slice(t: torch.Tensor, dim: int, tp: int, r: int) -> torch.Tensor:
     return t.narrow(dim, r * n, n).clone()
 
 
+def linear_dim(key: str, ndim: int):
+    """The dim a tensor-parallel shard cuts of linear leaf ``key`` (of
+    ``ndim`` dims): a column linear's weight, ``_fw`` (U, k, n), ``_fb``
+    and ``_b`` on their last dim; a row linear's weight and ``_fw`` on
+    their k dim; None for a row linear's biases, every scale and every
+    other leaf."""
+    for suffix in ("", "_fw", "_fb", "_b"):
+        if suffix and not key.endswith(suffix):
+            continue
+        role = linear_role(key[:len(key) - len(suffix)] if suffix else key)
+        if role == "column":
+            return ndim - 1
+        if role == "row" and suffix in ("", "_fw"):
+            return ndim - 2
+    return None
+
+
 def _shard_linears(node: dict, tp: int, r: int) -> dict:
     """A block's dict with every roled linear's leaves cut to rank ``r``
-    of ``tp``: column leaves (weight, ``_fw``, ``_fb``, ``_b``) on their
-    last dim, row leaves (weight, ``_fw``) on their k dim."""
+    of ``tp`` (``linear_dim``)."""
     out = dict(node)
     for key, t in node.items():
-        if not isinstance(t, torch.Tensor):
-            continue
-        for suffix in ("", "_fw", "_fb", "_b"):
-            name = key[:len(key) - len(suffix)] if suffix else key
-            if suffix and not key.endswith(suffix):
-                continue
-            role = linear_role(name)
-            if role == "column":
-                out[key] = _slice(t, -1, tp, r)
-            elif role == "row" and suffix in ("", "_fw"):
-                out[key] = _slice(t, -2, tp, r)
-            else:
-                continue
-            break
+        if isinstance(t, torch.Tensor):
+            d = linear_dim(key, t.dim())
+            if d is not None:
+                out[key] = _slice(t, d, tp, r)
     return out
 
 
@@ -154,11 +163,15 @@ class LocalParams(dict):
 
 
 def shard_params(params: dict, cfg, mesh) -> dict:
-    """This rank's params (a ``LocalParams``): every sharded leaf cut to
-    its slice (a copy), every replicated one shared with ``params``.
-    Dense and moe families (GQA attention) only."""
+    """This rank's serving params (a ``LocalParams``): every sharded leaf
+    cut to its slice (a copy), every replicated one shared with
+    ``params``.  Dense and moe families (GQA attention) only, under a
+    mesh without a data axis (a train state's shards:
+    ``statesharding.shard_state``)."""
     if isinstance(params, LocalParams):
         return params
+    if mesh.n_data > 1:
+        raise NotImplementedError(DATA_AXIS_TODO)
     if cfg.family not in ("dense", "moe") or cfg.use_mla:
         raise ValueError(f"tensor-parallel serving covers the dense and "
                          f"GQA moe families, not {cfg.arch!r} (ROADMAP "
@@ -167,8 +180,13 @@ def shard_params(params: dict, cfg, mesh) -> dict:
         sp = splits(cfg)
     r = mesh.model_rank
     out = dict(params)
-    if not cfg.tie_embeddings and sp["head"] > 1:
-        out["lm_head"] = _shard_linears(params["lm_head"], sp["head"], r)
+    if sp["head"] > 1:
+        out["embed"] = dict(params["embed"],
+                            table=_slice(params["embed"]["table"], 0,
+                                         sp["head"], r))
+        if not cfg.tie_embeddings:
+            out["lm_head"] = _shard_linears(params["lm_head"], sp["head"],
+                                            r)
     layers = []
     for layer in params["layers"]:
         layer = dict(layer)

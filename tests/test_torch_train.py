@@ -403,10 +403,13 @@ def test_loss_decreases():
 
 
 def test_mtp_and_grad_compress_raise():
-    """The int8 error-feedback all-reduce (``grad_compress``) still
-    raises; multi-token prediction is ported with the moe family
-    (``tests/test_torch_moe_train.py``) and now builds a step, which adds
-    its loss on a dense arch too."""
+    """Multi-token prediction is ported with the moe family
+    (``tests/test_torch_moe_train.py``) and builds a step, which adds its
+    loss on a dense arch too; under a mesh it is refused (TP of the
+    other families, ROADMAP Queue A item 3).  ``grad_compress`` without a
+    mesh carries zero error buffers and does not quantize, as the
+    reference's step (several ranks: ``tests/test_torch_grad_compress.py``)."""
+    from repro_torch.parallel.statesharding import check_trainable
     cfg = _tiny_train_cfg()
     mtp = dataclasses.replace(cfg, mtp=True)
     st = init_train_state(mtp, seed=0, device="cpu")
@@ -414,10 +417,14 @@ def test_mtp_and_grad_compress_raise():
     b = SyntheticLMDataset(cfg.vocab_size, seq_len=16, seed=1).batch(0, 2)
     _, m = make_train_step(mtp)(st, b)
     assert np.isfinite(float(m["loss"]))
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        make_train_step(cfg, grad_compress=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        init_train_state(cfg, device="cpu", grad_compress=True)
+    with pytest.raises(NotImplementedError, match="Queue A, item 3"):
+        check_trainable(mtp)
+    gst = init_train_state(cfg, device="cpu", grad_compress=True)
+    plain, _ = make_train_step(cfg)(init_train_state(cfg, device="cpu"), b)
+    comp, _ = make_train_step(cfg, grad_compress=True)(gst, b)
+    assert all(float(e.abs().max()) == 0 for e in tree_leaves(comp["err"]))
+    for a, c in zip(tree_leaves(plain["params"]), tree_leaves(comp["params"])):
+        assert torch.equal(a, c)
 
 
 def test_init_model_makes_aux_leaves(exact_macs):

@@ -272,9 +272,14 @@ def test_cli_sigterm_emergency_checkpoint(tmp_path):
     assert os.path.exists(os.path.join(d, f"step_{step:08d}", "DONE"))
 
 
-@pytest.mark.parametrize("flag", [["--devices", "8"], ["--grad-compress"]])
+@pytest.mark.parametrize("flag", [["--devices", "8", "--arch", "xlstm-1.3b"],
+                                  ["--devices", "2", "--grad-compress",
+                                   "--arch", "deepseek-v3-671b"]])
 def test_cli_rejects_mesh_options(flag, tmp_path):
+    """``--devices`` trains the dense archs and qwen3-moe on several ranks
+    (``tests/test_torch_pipeline.py`` runs it); the other families are
+    refused before any rank starts, naming the ROADMAP item."""
     p = _cli(["--steps", "1", "--ckpt-dir", str(tmp_path)] + flag)
     out, err = p.communicate(timeout=120)
     assert p.returncode == 2
-    assert "Queue A item 3" in err
+    assert "Queue A, item 3" in err
