@@ -10,7 +10,8 @@ Phases (any failure raises and exits non-zero before the result line):
  2. build: every kernel from ``src/repro_torch/csrc``, one ``nvcc`` per
     source, all started together;
  3. kernel 1 (encoded bitplane matmul) against its plain PyTorch version
-    on the card, at the main path's shapes, a sampled M = 48 program with
+    on the card (the inputs of phases 3-5 drawn on the card from a seed),
+    at the main path's shapes, a sampled M = 48 program with
     3-bit monomials and ragged shapes (m past one 32-row pass, k and n
     off the tiles); and its rows at m = 4 bit for bit the same rows at
     m = 20 (speculative verification's m), and at the static engine's
@@ -171,6 +172,23 @@ Phases (any failure raises and exits non-zero before the result line):
     repro_torch.launch.train --steps 2 --batch 4 --seq 128 --mac-mode
     encoded --ckpt-every 2`` at full width (its resume: phase 7's reduced
     ``--devices 2`` run).
+ 10. the paper's side (run after 9, before 8; ``apps/image_cls.py``,
+    ``apps/paper.py``): (a) the reduced Table 2 pipeline (600 images, 1
+    epoch, 5 fine-tune steps; weights drawn with numpy from seed 0) on
+    the card and on the CPU: fp training losses within ``CARD_CPU_RTOL``
+    and params within 2e-3; from the CPU's trained net on both, fp
+    logits within 1e-4 of max|logit|, and int8 and the exact encoding
+    (calibrated, position weights fine-tuned) with identical predictions,
+    or each split's first int8 code apart within ``ORIGIN_TOL`` of .5
+    (or, with no code apart, a near-tie); (b) Table 2 in full on the card
+    (``EncodedMac.default()``, cached by phase 9) plus the exact encoding
+    on the same trained net: fp accuracy at least 0.9, int8 within 0.01
+    of fp, exact within 0.002 of int8 (the default encoding's rows are
+    printed, not gated); (c) Table 1 within 0.05 of the paper, the
+    latency simulator equal to both closed forms; (d) Fig 7 whole, Fig 5
+    and Fig 6 at width 48 only, printed; kernels 1-3 launched 0 times
+    (the encoded conv net folds in f32 outside kernel 1, as the
+    reference's); one ``{"paper": {...}}`` line with each part's seconds.
 
 The moe family (``MOE_ARCHS``): phase 3 also gates kernel 1 at every
 (k, n) of qwen3-moe-235b-a22b and deepseek-v3-671b at full width, at each
@@ -477,30 +495,10 @@ def _program(kind):
     return decompose(c)
 
 
-def _em_case(dev, prog, m, k, n, seed=0, copies=1, on_card=False):
-    """Kernel 1's inputs: x (m, k) int8 codes and ``copies`` sets of Wt
-    (U, k, n) bf16 and bias, drawn on the host (``on_card``:
-    ``_em_card_case``)."""
-    import torch
-    if on_card:
-        return _em_card_case(dev, prog, m, k, n, seed, copies)
-    g = torch.Generator().manual_seed(seed)
-    U = prog.n_a_planes
-    x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
-    sets = []
-    for _ in range(copies):
-        # exact-fold magnitudes: 2^i · code, |value| ≤ 128·127
-        wt = torch.randint(-127, 128, (U, k, n), generator=g).float()
-        wt *= (2.0 ** (torch.arange(U) % 8).float()).reshape(U, 1, 1)
-        bias = torch.randn((n,), generator=g) * 100
-        sets.append((x.to(dev), wt.to(torch.bfloat16).to(dev), bias.to(dev),
-                     prog.a_mono_bits))
-    return sets
-
-
-def _em_card_case(dev, prog, m, k, n, seed, copies):
-    """``_em_case``'s distribution drawn on the card (phase 8's timing
-    inputs: the host's draws took most of its time)."""
+def _em_case(dev, prog, m, k, n, seed=0, copies=1):
+    """Kernel 1's inputs, drawn on the card: x (m, k) int8 codes and
+    ``copies`` sets of Wt (U, k, n) bf16 (exact-fold magnitudes: 2^i ·
+    code, |value| ≤ 128·127) and bias."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     U = prog.n_a_planes
@@ -807,27 +805,24 @@ def phase_kernel1(dev):
                                      f"k={k} n={n})")
 
 
-def _pa_case(dev, B, Sq, Hq, Hkv, D, ps, P, lens, dtype, seed=0, copies=1,
-             on_card=False):
+def _pa_case(dev, B, Sq, Hq, Hkv, D, ps, P, lens, dtype, seed=0, copies=1):
     """Kernel 2's inputs: ``copies`` sets of (q, pool_k, pool_v, pages,
-    lens) and the head map; q and the pools normal, drawn on the host or
-    with ``on_card`` on ``dev`` (phase 8's timing inputs)."""
+    lens) and the head map; q and the pools normal, drawn on the card."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
-    gen = torch.Generator(device=dev).manual_seed(seed) if on_card else None
+    gen = torch.Generator(device=dev).manual_seed(seed)
     n_pages = 1 + B * P
     g = max(1, Hq // Hkv)
     kv_map = np.minimum(np.arange(Hq) // g, Hkv - 1).astype(np.int32)
     pages = np.zeros((B, P), np.int32)
     for b in range(B):
         pages[b] = 1 + b * P + rng.permutation(P)
+
+    def t(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
     sets = []
     for _ in range(copies):
-        t = (lambda shape: torch.randn(  # noqa: E731
-            shape, generator=gen, device=dev).to(dtype)) if on_card else \
-            (lambda shape: torch.from_numpy(  # noqa: E731
-                rng.normal(size=shape).astype(np.float32)).to(dtype).to(dev))
         sets.append((t((B, Sq, Hq, D)), t((n_pages, ps, Hkv, D)),
                      t((n_pages, ps, Hkv, D)),
                      torch.from_numpy(pages).to(dev),
@@ -941,14 +936,13 @@ def phase_kernel2_d128(dev):
 
 
 def _pa_quant_case(dev, mode, B, Sq, Hq, Hkv, D, ps, P, lens, seed=0,
-                  copies=1, on_card=False):
+                  copies=1):
     """Like ``_pa_case`` with pools quantized on the card: (q, pool_k,
     pool_v, pages, lens) and the scale rows (scale_k, scale_v)."""
     import torch
     from repro_torch.quant.kvcache import quantize_kv
     sets, kv_map = _pa_case(dev, B, Sq, Hq, Hkv, D, ps, P, lens,
-                            torch.float32, seed=seed, copies=copies,
-                            on_card=on_card)
+                            torch.float32, seed=seed, copies=copies)
     out = []
     for q, pk, pv, pages, ln in sets:
         qk, sk = quantize_kv(pk, mode)
@@ -1014,11 +1008,11 @@ def phase_kernel2_quant(dev):
 
 
 def _flash_case(dev, B, S, Hq, Hkv, D, dtype, seed=0):
-    import numpy as np
+    """Kernel 3's q, k, v (B, S, heads, D), normal, drawn on the card."""
     import torch
-    rng = np.random.default_rng(seed)
-    return tuple(torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(
-        np.float32)).to(dtype).to(dev) for h in (Hq, Hkv, Hkv))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn((B, S, h, D), generator=gen, device=dev)
+                 .to(dtype) for h in (Hq, Hkv, Hkv))
 
 
 def _flash_plain_4d(q, k, v, **kw):
@@ -4712,7 +4706,7 @@ def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib):
     from repro_torch.kernels.ref import planes_ref
     from repro_torch.launch.kernel_bench import time_graph
     U = prog.n_a_planes
-    sets = _em_case(dev, prog, m, k, n, seed=seed, copies=4, on_card=True)
+    sets = _em_case(dev, prog, m, k, n, seed=seed, copies=4)
     torch.cuda.empty_cache()
     out, ref = em.encoded_matmul(*sets[0]), em.encoded_matmul_plain(*sets[0])
     err = (out - ref).abs().max().item()
@@ -4755,13 +4749,11 @@ def _pa_row(dev, mode, sq, Hq, Hkv, D, P, lens, window, cap, name, note,
     B, ps = N_SLOTS, PAGE_SIZE
     if mode == "bf16":
         sets, kv_map = _pa_case(dev, B, sq, Hq, Hkv, D, ps, P, lens,
-                                torch.float32, seed=seed, copies=8,
-                                on_card=True)
+                                torch.float32, seed=seed, copies=8)
         args = [a + (None, None) for a in sets]
     else:
         qsets, kv_map = _pa_quant_case(dev, mode, B, sq, Hq, Hkv, D, ps, P,
-                                       lens, seed=seed, copies=8,
-                                       on_card=True)
+                                       lens, seed=seed, copies=8)
         args = [a + sc for a, sc in qsets]
     G = Hq // Hkv
 
@@ -6027,6 +6019,220 @@ def phase_tp(dev, info):
     return {"counts": counts}
 
 
+# phase 10 (the paper's conv net): card against the CPU at a reduced
+# size (images, train split, epochs, fine-tune steps)
+PAPER_REDUCED = (600, 500, 1, 5)
+# Table 2 on the card: fp accuracy at least this (the reference's CPU
+# run: 0.998), int8 within PAPER_INT8_TOL of fp, the exact encoding
+# within PAPER_EXACT_TOL of int8 (it computes int8's products exactly)
+PAPER_FP_MIN, PAPER_INT8_TOL, PAPER_EXACT_TOL = 0.9, 0.01, 0.002
+# card against CPU: fp logits within this share of max|logit|; trained
+# params within this of each other (the CPU tests' train tolerance)
+PAPER_LOGIT_RTOL, PAPER_PARAM_ATOL = 1e-4, 2e-3
+PAPER_LAYERS = ("c1", "c2", "c3", "d1", "d2")
+
+
+def _cnn_numpy_init(seed: int = 0) -> dict:
+    """The CNN's initial weights drawn with numpy at ``cnn_init``'s shapes
+    and scales (one tree carried to both devices)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shapes = {"c1": (27, 16), "c2": (144, 16), "c3": (144, 32),
+              "d1": (512, 64), "d2": (64, 10)}
+    return {k: {"w": (rng.normal(size=s) / np.sqrt(s[0])).astype(
+        np.float32)} for k, s in shapes.items()}
+
+
+def _cnn_codes(params, x, mcfg):
+    """Each layer's input over its activation scale, in forward order,
+    for images ``x`` (numpy), on the params' device; returned on the
+    host."""
+    import torch
+    from repro_torch.apps.image_cls import cnn_apply
+    from repro_torch.nn.common import activation_recorder
+    got = []
+    dev = params["c1"]["w"].device
+    with torch.no_grad(), activation_recorder(
+            lambda name, w, a: got.append(a.reshape(-1).cpu())):
+        cnn_apply(params, torch.from_numpy(x).to(dev), mcfg)
+    return [g / params[k]["a_scale"].cpu()
+            for k, g in zip(PAPER_LAYERS, got)]
+
+
+def _paper_split_origin(pc, pg, mcfg, x, logits_cpu):
+    """Why card and CPU predict one image differently: the first layer
+    whose int8 input codes differ, both values within ``ORIGIN_TOL`` of a
+    .5 boundary; with no code apart, a near-tie of the CPU's two top
+    logits (``FP_TIE_RTOL``).  Raises otherwise."""
+    import torch
+    for k, a, b in zip(PAPER_LAYERS, _cnn_codes(pc, x, mcfg),
+                       _cnn_codes(pg, x, mcfg)):
+        apart = torch.nonzero(torch.round(a) != torch.round(b)).reshape(-1)
+        if apart.numel():
+            i = int(apart[0])
+            va, vb = float(a[i]), float(b[i])
+            off = max(abs(abs(v) % 1.0 - 0.5) for v in (va, vb))
+            log(f"[paper] split origin: layer {k} input {i}: CPU {va:.6f}, "
+                f"card {vb:.6f} ({off:.2e} from .5; {apart.numel()} codes "
+                f"apart in that layer)")
+            if off > ORIGIN_TOL:
+                raise AssertionError(f"paper: card and CPU codes part at "
+                                     f"{k} away from .5 ({va}, {vb})")
+            return
+    top = torch.sort(logits_cpu).values[-2:]
+    gap = float(top[1] - top[0]) / float(logits_cpu.abs().max())
+    log(f"[paper] split without a code apart: top-2 logit gap {gap:.2e} "
+        f"of max|logit|")
+    if gap > FP_TIE_RTOL:
+        raise AssertionError(f"paper: card and CPU part without a code "
+                             f"apart or a near-tie ({gap})")
+
+
+def _paper_card_cpu(dev, exact):
+    """Phase 10 (a): the reduced Table 2 pipeline on the card and on the
+    CPU from one numpy-drawn init: fp training (losses within
+    ``CARD_CPU_RTOL``, params within ``PAPER_PARAM_ATOL``), then from the
+    CPU's trained net on both devices fp logits (``PAPER_LOGIT_RTOL``),
+    and int8 and the exact encoding (calibrated, the encoding's position
+    weights fine-tuned) with identical predictions or splits located at
+    a .5 code."""
+    import numpy as np
+    import torch
+    from repro_torch.apps import image_cls as ic
+    from repro_torch.apps.paper import cnn_data, prepare
+    from repro_torch.core.layers import MacConfig
+    from repro_torch.models import to_device
+    n, n_train, epochs, ft = PAPER_REDUCED
+    data = cnn_data(n, n_train)
+    p0 = _cnn_numpy_init()
+    fp = MacConfig(mode="fp")
+    losses, trained = {}, {}
+    for where, d in (("cpu", "cpu"), ("cuda", dev)):
+        losses[where] = []
+        trained[where] = ic.train_cnn(ic.params_from_jax(p0, d), data[0],
+                                      data[1], fp, epochs=epochs,
+                                      losses=losses[where])
+    lc = [float(x) for x in losses["cpu"]]
+    lg = [float(x) for x in losses["cuda"]]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    perr = max((trained["cpu"][k]["w"] - trained["cuda"][k]["w"].cpu())
+               .abs().max().item() for k in PAPER_LAYERS)
+    log(f"[paper] reduced fp training ({n_train} images, {len(lc)} steps) "
+        f"CPU/card losses {[f'{a:.6f}/{b:.6f}' for a, b in zip(lc, lg)]}: "
+        f"worst rel {rel:.2e} (gate {CARD_CPU_RTOL}), params apart by "
+        f"{perr:.2e} (gate {PAPER_PARAM_ATOL})")
+    if rel > CARD_CPU_RTOL or perr > PAPER_PARAM_ATOL:
+        raise AssertionError("paper: card and CPU training part")
+    pc = trained["cpu"]
+    pg = to_device(pc, dev)
+    vi = data[2]
+    with torch.no_grad():
+        lcpu = ic.cnn_apply(pc, torch.from_numpy(vi), fp)
+        lgpu = ic.cnn_apply(pg, torch.from_numpy(vi).to(dev), fp).cpu()
+    lerr = ((lcpu - lgpu).abs().max() / lcpu.abs().max()).item()
+    log(f"[paper] fp logits card vs CPU: {lerr:.2e} of max|logit| (gate "
+        f"{PAPER_LOGIT_RTOL})")
+    if lerr > PAPER_LOGIT_RTOL:
+        raise AssertionError(f"paper: fp logits part card vs CPU ({lerr})")
+    out = {"train_loss_rel": rel, "param_apart": perr, "logit_rel": lerr}
+    for tag, mode, mac, steps in (("int8", "int8", None, 0),
+                                  ("exact", "encoded", exact, ft)):
+        prep = {}
+        for where, p in (("cpu", pc), ("cuda", pg)):
+            prep[where], mcfg = prepare(p, mode, mac, data,
+                                        finetune_steps=steps)
+        preds = {w: ic.predict(q, vi, mcfg) for w, q in prep.items()}
+        scale_rel = max(abs(float(prep["cpu"][k]["a_scale"])
+                            - float(prep["cuda"][k]["a_scale"]))
+                        / float(prep["cpu"][k]["a_scale"])
+                        for k in PAPER_LAYERS)
+        apart = np.flatnonzero(preds["cpu"] != preds["cuda"])
+        log(f"[paper] {tag}: scales card vs CPU within {scale_rel:.2e}; "
+            f"predictions on {len(vi)} images: {len(apart)} apart; "
+            f"accuracy CPU {np.mean(preds['cpu'] == data[3]):.4f} card "
+            f"{np.mean(preds['cuda'] == data[3]):.4f}")
+        for i in apart:
+            with torch.no_grad():
+                lg_i = ic.cnn_apply(prep["cpu"], torch.from_numpy(
+                    vi[i:i + 1]), mcfg)[0]
+            _paper_split_origin(prep["cpu"], prep["cuda"], mcfg,
+                                vi[i:i + 1], lg_i)
+        out[tag] = {"apart": int(len(apart)), "scale_rel": scale_rel}
+    return out
+
+
+def phase_paper(dev):
+    """Phase 10: the paper's side (see the module docstring)."""
+    import torch
+    from repro_torch.apps import paper
+    from repro_torch.core.mac import EncodedMac
+    from repro_torch.hw import table1
+    from repro_torch.serve import exact_encodings
+    t_start = time.perf_counter()
+    exact = exact_encodings(8, ("w",))["w"]
+    _reset_counts()
+    res = {"card_cpu": _paper_card_cpu(dev, exact)}
+    # (b) Table 2 in full on the card, and the exact encoding on its net
+    t0 = time.perf_counter()
+    mac = EncodedMac.default(device=dev)
+    data = paper.cnn_data()
+    params = paper.train_fp(data, dev)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    t2 = paper.table2_rows(params, mac, data)
+    acc_exact = paper.eval_mode(params, "encoded", exact, data)
+    t_table2 = time.perf_counter() - t0
+    for line in paper.table2.csv_lines(t2):
+        log(f"[paper] {line}")
+    fp_acc, int8_acc = t2["fp32"], t2["uniform8"]["orig"]
+    log(f"[paper] table2 on the card ({t_table2:.1f}s, training "
+        f"{t_train:.1f}s): {json.dumps(t2)}; exact encoding {acc_exact:.4f}"
+        f" (gates: fp >= {PAPER_FP_MIN}, int8 within {PAPER_INT8_TOL} of "
+        f"fp, exact within {PAPER_EXACT_TOL} of int8; default-encoding rows "
+        f"logged, not gated) ({SMI})")
+    if fp_acc < PAPER_FP_MIN or abs(int8_acc - fp_acc) > PAPER_INT8_TOL \
+            or abs(acc_exact - int8_acc) > PAPER_EXACT_TOL:
+        raise AssertionError(f"paper: Table 2 gates fail: fp {fp_acc}, "
+                             f"int8 {int8_acc}, exact {acc_exact}")
+    res["table2"] = dict(t2, exact=acc_exact, seconds=t_table2)
+    # (c) Table 1 within 0.05 of the paper; the simulator equals both
+    # closed forms (``paper.latency.run`` raises where it does not)
+    for r in table1():
+        if abs(r["area_red"] - r["paper_area_red"]) >= 0.05 or \
+                abs(r["power_red"] - r["paper_power_red"]) >= 0.05:
+            raise AssertionError(f"paper: Table 1 row N={r['N']} is 0.05 "
+                                 "or more from the paper")
+    for drv, kw in ((paper.table1, {}), (paper.latency, {}),
+                    (paper.fig7, {}), (paper.fig5, {"widths": (48,)}),
+                    (paper.fig6, {"widths": (48,)})):
+        t0 = time.perf_counter()
+        out = drv.run(device=dev, **kw)
+        secs = time.perf_counter() - t0
+        for line in drv.csv_lines(out):
+            log(f"[paper] {line}")
+        log(f"[paper] {drv.name}{' at width 48' if kw else ''}: {secs:.1f}s")
+        res[drv.name] = {"seconds": secs}
+        if drv is paper.fig7:
+            res[drv.name].update(width=out["task_specific_width"],
+                                 rmse=out["found_rmse"])
+        elif drv is paper.fig5:
+            res[drv.name].update(out["per_width"]["48"])
+        elif drv is paper.fig6:
+            res[drv.name].update(
+                random_10k=out["rmse_random_10k"],
+                anneal_3k=out["rmse_anneal_3k"],
+                width_48=out["rmse_vs_width"]["48"],
+                found_width=out["binary_search"]["found_width"])
+    busy = {k: v for k, v in _read_counts().items() if v}
+    if busy:
+        raise AssertionError(f"paper: the conv-net path launched kernels: "
+                             f"{busy}")
+    res["seconds"] = time.perf_counter() - t_start
+    print(json.dumps({"paper": res}, default=float), flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def _phase(fn, *args):
     """Run one phase and log its seconds."""
     t0 = time.perf_counter()
@@ -6104,6 +6310,7 @@ def main() -> int:
         shutil.rmtree(started["tmp"], ignore_errors=True)
     _phase(phase_cpu_parity_search, dev)
     _phase(phase_train, dev)
+    _phase(phase_paper, dev)
     rows = _phase(phase_measure, dev, serve_info)
     for r in rows:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

@@ -9,6 +9,7 @@ scales), init and apply.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -44,6 +45,30 @@ def check_finite(out: torch.Tensor, what: str) -> torch.Tensor:
     if _DEBUG_NAN and not bool(torch.isfinite(out).all()):
         raise FloatingPointError(f"non-finite value in the output of {what}")
     return out
+
+
+# Calibration hook: when set, every linear (``nn.common.linear``) and
+# dense layer (``core.layers.dense_apply``) reports its call as (name,
+# weight, input) before computing.  Installed by the calibration forward
+# (repro_torch.serve.encoded) and by checks that read a layer's inputs.
+_ACT_RECORDER = None
+
+
+@contextlib.contextmanager
+def activation_recorder(fn):
+    """Install ``fn`` as the calibration recorder for the ``with`` body."""
+    global _ACT_RECORDER
+    prev, _ACT_RECORDER = _ACT_RECORDER, fn
+    try:
+        yield
+    finally:
+        _ACT_RECORDER = prev
+
+
+def record_activation(name: str, w: torch.Tensor, x: torch.Tensor) -> None:
+    """Report one linear's call to the installed recorder, if any."""
+    if _ACT_RECORDER is not None:
+        _ACT_RECORDER(name, w, x)
 
 
 def register(cls):

@@ -1,1 +1,1 @@
-from .synthetic import SyntheticLMDataset
+from .synthetic import SyntheticLMDataset, synthetic_images

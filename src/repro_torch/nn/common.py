@@ -2,31 +2,17 @@
 under the MAC executor, norms, embeddings, rotary, MLPs, softcap."""
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.layers import MacConfig
-from repro_torch.core.macexec import check_finite
+# activation_recorder is re-exported: the calibration forward and the
+# checks install it from here
+from repro_torch.core.macexec import (activation_recorder,  # noqa: F401
+                                      check_finite, record_activation)
 from repro_torch.parallel.mesh import copy_to_model
-
-# Calibration hook: when set, ``linear`` reports every call as
-# (name, weight, input) before computing.  Installed only by the
-# calibration forward (repro_torch.serve.encoded).
-_ACT_RECORDER = None
-
-
-@contextlib.contextmanager
-def activation_recorder(fn):
-    """Install ``fn`` as the calibration recorder for the ``with`` body."""
-    global _ACT_RECORDER
-    prev, _ACT_RECORDER = _ACT_RECORDER, fn
-    try:
-        yield
-    finally:
-        _ACT_RECORDER = prev
 
 
 def linear_init(generator, d_in: int, d_out: int, name: str,
@@ -48,8 +34,7 @@ def linear(p: dict, name: str, x: torch.Tensor, mcfg: MacConfig,
     the linear, one of that many, cut by its role (``linear_role``); a
     row shard's partial products are summed over the model axis before
     its bias."""
-    if _ACT_RECORDER is not None:
-        _ACT_RECORDER(name, p[name], x)
+    record_activation(name, p[name], x)
     out = mcfg.executor.apply(p, name, x, mcfg, compute_dtype, ways=ways)
     if name + "_b" in p:
         out = out + p[name + "_b"].to(out.dtype)

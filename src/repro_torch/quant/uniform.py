@@ -78,3 +78,9 @@ def code_histogram(values, scale, bits: int = 8) -> np.ndarray:
     hist = torch.bincount(raw.reshape(-1), minlength=1 << bits)
     hist = hist.to(torch.float64).cpu().numpy()
     return hist / max(hist.sum(), 1.0)
+
+
+def uniform_levels(bits: int = 8) -> torch.Tensor:
+    """The representable level codes, ascending (…, -1, 0, 1, …), f32."""
+    m = qmax(bits)
+    return torch.arange(-m, m + 1, dtype=torch.float32)

@@ -51,7 +51,8 @@ from repro_torch.optim.compression import (decompress_int8,
 from repro_torch.parallel.mesh import AXIS_DATA, get_mesh
 from repro_torch.parallel.sharding import splits
 from repro_torch.parallel.statesharding import param_dims, shard_state
-from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_unflatten,
+                              value_and_grad)
 from .losses import lm_loss, lm_loss_vocab_parallel
 
 TrainState = dict      # {"params", "opt", "step"[, "err"]}
@@ -171,15 +172,10 @@ def make_train_step(cfg, *, total_steps: int = 10000, warmup: int = 100,
         return loss + cfg.aux_loss_weight * aux, (loss, aux)
 
     def grad_of(params, batch):
-        leaves, spec = tree_flatten(params)
-        xs = [leaf.detach().requires_grad_(True) for leaf in leaves]
-        with torch.enable_grad():
-            total, (loss, aux) = loss_fn(tree_unflatten(spec, xs), batch)
-            gs = torch.autograd.grad(total, xs, allow_unused=True)
         # a leaf the loss does not reach (a stop-gradient scale) gets 0
-        gs = [torch.zeros_like(x) if g is None else g
-              for g, x in zip(gs, xs)]
-        return tree_unflatten(spec, gs), (loss.detach(), aux.detach())
+        (_, (loss, aux)), g = value_and_grad(lambda p: loss_fn(p, batch),
+                                             params, has_aux=True)
+        return g, (loss.detach(), aux.detach())
 
     def grads_of(params, batch, mb_size):
         B = batch["tokens"].shape[0]

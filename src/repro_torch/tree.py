@@ -5,6 +5,8 @@ state trees and the step checkpoints rely on this order: leaf ``i`` of a
 checkpoint is leaf ``i`` of the reference's state."""
 from __future__ import annotations
 
+import torch
+
 
 def tree_flatten(tree):
     """→ (leaves, spec); ``tree_unflatten(spec, leaves)`` rebuilds it."""
@@ -41,6 +43,21 @@ def tree_unflatten(spec, leaves):
     if next(it, None) is not None:
         raise ValueError("more leaves than the spec holds")
     return out
+
+
+def value_and_grad(fn, tree, has_aux: bool = False):
+    """(``fn(tree)``, its gradient at ``tree``, a tree of the same
+    structure), as ``jax.value_and_grad``: with ``has_aux`` ``fn`` returns
+    (scalar, aux) and the scalar is differentiated; a leaf the scalar
+    does not reach gets a zero gradient."""
+    leaves, spec = tree_flatten(tree)
+    xs = [leaf.detach().requires_grad_(True) for leaf in leaves]
+    with torch.enable_grad():
+        out = fn(tree_unflatten(spec, xs))
+        gs = torch.autograd.grad(out[0] if has_aux else out, xs,
+                                 allow_unused=True)
+    gs = [torch.zeros_like(x) if g is None else g for g, x in zip(gs, xs)]
+    return out, tree_unflatten(spec, gs)
 
 
 def tree_leaves(tree) -> list:

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -46,14 +47,6 @@ from repro_torch.tree import (tree_flatten, tree_leaves,  # noqa: E402
 ARCH = "whisper-large-v3"
 PARAM_TOL = dict(rtol=5e-4, atol=5e-5)
 STEP_RTOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _to_np(t):

@@ -43,6 +43,9 @@ from repro_torch.nn.blocks import (mlstm_block_apply,  # noqa: F401
 from repro_torch.models.encdec import apply_encdec, encode  # noqa: F401
 from repro_torch.parallel.mesh import Mesh, run_ranks, set_mesh  # noqa: F401
 from repro_torch.parallel.sharding import shard_params  # noqa: F401
+from repro_torch.apps.paper import EXPERIMENTS  # noqa: F401
+from repro_torch.apps.image_cls import params_from_jax  # noqa: F401
+from repro_torch.hw import mac_array_cost, simulate_latency  # noqa: F401
 sys.path.insert(0, sys.argv[1])
 import chip_smoke  # noqa: F401  (module import only: main() is not run)
 bad = sorted(m for m in sys.modules
@@ -66,7 +69,7 @@ def test_no_jax_or_reference_imports():
     # every subpackage of the port was imported
     for sub in ("configs", "core", "kernels", "models", "nn", "quant",
                 "serve", "data", "launch", "ckpt", "parallel", "obs",
-                "analysis", "optim", "train"):
+                "analysis", "optim", "train", "apps", "hw"):
         assert f"repro_torch.{sub}" in out["modules"]
     for mod in ("launch.serve", "kernels.flash_attention",
                 "kernels.paged_attention", "quant.kvcache", "nn.paged",
@@ -81,7 +84,9 @@ def test_no_jax_or_reference_imports():
                 "configs.deepseek_v3_671b", "nn.ssm",
                 "configs.phi3_vision_4p2b", "configs.hymba_1p5b",
                 "nn.xlstm", "models.encdec", "configs.xlstm_1p3b",
-                "configs.whisper_large_v3"):
+                "configs.whisper_large_v3", "quant.nonuniform",
+                "apps.image_cls", "apps.paper", "hw.costmodel",
+                "hw.systolic"):
         assert f"repro_torch.{mod}" in out["modules"]
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.core import circuits  # noqa: E402
 from repro_torch.core.decompose import decompose  # noqa: E402

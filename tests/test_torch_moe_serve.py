@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -54,16 +55,6 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 QWEN, DSV3 = "qwen3-moe-235b-a22b", "deepseek-v3-671b"
 ARCHS = (QWEN, DSV3)
 MODES = ("fp", "encoded")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module's torch ops (the suite runs in
-    several worker processes on a few cores); restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _to_np(t):

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -64,16 +65,6 @@ PREFIX_KEYS = ("prefix_hit_tokens", "prefix_lookup_tokens",
                "prefix_pages_indexed", "cow_copies", "evictions",
                "prefill_tokens", "prefill_chunks", "decode_tokens",
                "pages_cached", "pages_held", "pages_free")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module's torch ops (the suite runs in
-    several worker processes on a few cores); restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _to_np(t):

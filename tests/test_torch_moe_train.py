@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -71,16 +72,6 @@ ORIGIN_TOL = 1e-3
 # a routing parting: the two experts' selection scores (softmax
 # probabilities, or sigmoid scores + bias) within this of each other
 ROUTE_TIE = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module's torch ops (the suite runs in
-    several worker processes on a few cores); restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 S_STAGES, M, MB, D = 4, 8, 2, 16
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -82,18 +83,6 @@ ORIGIN_TOL = 1e-3
 # per layer, the order in which the forward calls the linears
 CALLS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
          ("mlp", "wi"), ("mlp", "wg"), ("mlp", "wo"))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module's torch ops: the suite runs in
-    several worker processes on a few cores, and there a small op spread
-    over every core waits on the other workers (measured: a 3 s test took
-    229 s at -n 6); the previous count is restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _macs(kind):

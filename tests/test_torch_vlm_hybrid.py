@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -65,16 +66,6 @@ STEP_RTOL = 1e-5
 VLM, HYBRID = "phi-3-vision-4.2b", "hymba-1.5b"
 ARCHS = (VLM, HYBRID)
 MODES = ("fp", "encoded")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module's torch ops (the suite runs in
-    several worker processes on a few cores); restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _to_np(t):

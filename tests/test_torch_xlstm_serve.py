@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -43,14 +44,6 @@ CALIB = dict(calib_batches=1, calib_batch_size=2, calib_seq=32)
 # where logits part, the first int8 code apart must sit this close to a
 # .5 rounding boundary (x / scale units): f32 order moved it there
 ORIGIN_TOL = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _to_np(t):
