@@ -258,19 +258,23 @@ launches (column n/2, row k/2; qwen1.5-0.5b and qwen3-moe) at each m
 those serves run, and phase 4 kernel 2 at the local heads (8/8 at D 64
 for every pool type, Sq 1 and 5; qwen3-moe's 32/2 at D 128), with
 head-sharded calls against the whole call's heads logged bit for bit.
-Phase 6k spawns the ranks (``parallel.mesh.run_ranks``): each loads
-phase 6's exact bundle (a cache hit under the mesh) and keeps its slices
-(folded bytes exactly half), then serves qwen1.5-0.5b at full width and
-depth through the continuous engine with f32, int8 and int4 pools, the
-prefix cache on 6c's trace and spec decoding k = 4 (``self``), each on
-every request of its trace to ``MAX_NEW`` new tokens, and
-``ServeEngine`` in chunks of 4, all eager (gloo's collectives cannot be
-captured); then qwen3-moe at 6h's depth, weights drawn and folded on
-the card in turns (one rank's whole params at a time), expert-parallel
-on both engines.  Gates: every rank's tokens, stats and allocator state
-equal; tokens equal to the same phase's single-rank eager serve (6, 6c,
-6d, 6e, 6h); kernel launches by local shape, gated; MoE drops equal to
-6h's.  Logged beside the card: eager tok/s at TP 2 against single-rank
+Phase 6k first serves qwen1.5-0.5b at full width and
+``TP_SERVE_LAYERS`` (4) of its 24 layers on one rank, eagerly, with the
+exact encoding folded on the card (``_tp_baselines``), then spawns the
+ranks (``parallel.mesh.run_ranks``): each folds the same model the same
+way and keeps its slices (folded bytes exactly half), then serves it
+through the continuous engine with f32, int8 and int4 pools, the prefix
+cache on 6c's trace and spec decoding k = 4 (``self``), each on every
+request of its trace to ``MAX_NEW`` new tokens, and ``ServeEngine`` in
+chunks of 4, all eager (gloo's collectives cannot be captured); then
+qwen3-moe at 6h's depth, weights drawn and folded on the card in turns
+(one rank's whole params at a time), expert-parallel on both engines.
+Gates: every rank's tokens, stats and allocator state equal; tokens
+equal to the single-rank eager serves (the baselines; 6h for qwen3-moe;
+spec decoding's to plain decode's), or parting where ``_tp_origins``
+finds the first int8 code apart at a .5 boundary (a spec serve's rows
+kept by position); kernel launches by local shape, gated; MoE drops
+equal to 6h's.  Logged beside the card: eager tok/s at TP 2 against single-rank
 eager, collectives a decode step and their host ms, per-rank folded
 bytes and peak memory.  Phase 7 also runs the serve CLI on the card with
 ``--mesh 2`` (reduced, exact encoding, kernel 2), whose 2 ranks must
@@ -303,9 +307,24 @@ memory a rank.  Phase 7 runs the train CLI reduced with ``--devices
 within 1e-3 of the same command on one rank), then resumes that run on
 one rank from the 2 ranks' step-2 checkpoint.
 
+The port's analysis (phase 11): right after the build a process that
+sees no card runs ``python -m repro_torch.analysis --lint --kernels
+--sharding --self-test --sms <this card's SM count>`` beside the card
+phases; right after phase 6 the phase audits phase 6's engine on the
+card (its captures, prefill and decode once each; its pools kept in
+place across one more request), runs the two smoke traces of
+``analysis/compiled.py`` (chunked prefill, decode, spec rounds at k = 2,
+an eviction) through new engines on phase 6's params with every op's
+output recorded (captures as pinned, no weight-sized tensor; the memory
+each engine reserves logged), gates their kernel-1 shapes (m = 2, 6, 8,
+added to phase 3), then joins the analysis process: any finding or
+self-test escape fails the run.  Phase 6k logs each decode step's
+collectives by op (``Mesh.by_op``) and fails where one gathers other than
+the logits.  Phase 8's bounds come from ``launch/roofline.py``.
+
 Every phase that folds writes its bundle into a fresh directory under
 ``build/`` (git-ignored), logs the free disk first and removes it at its
-end (phase 6's stays until phase 6k has loaded it).  The last line is
+end (phase 6's stays until phase 6e's static serve).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -328,13 +347,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
-
-# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
-# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
-PEAK_BYTES = 3.35e12
-PEAK_BF16 = 989e12
-PEAK_TF32 = 495e12
-PEAK_F32 = 67e12
 
 N_REQUESTS, MAX_NEW = 8, 32
 N_SLOTS, PAGE_SIZE, N_PAGES = 4, 16, 256
@@ -380,6 +392,11 @@ ORIGIN_TOL = 1e-3
 GATED_EM = set()
 # phase 6k: tensor-parallel ranks, all on the one card
 TP = 2
+# phase 6k's qwen1.5-0.5b serves: full width, this many of its 24 layers
+# (a decode step's 50 host-synced collectives at full depth made them
+# the script's longest part), held to single-rank eager serves of the
+# same cut model
+TP_SERVE_LAYERS = 4
 # phase 6k's serves (qwen1.5-0.5b) and the m each runs kernel 1 at:
 # decode and draft steps, prefill chunks, verify at k = SPEC_K, the static
 # prefills
@@ -760,6 +777,10 @@ def phase_kernel1(dev):
     # the drift monitor's encoded forwards (phase 6g: m = 19, 25; 32 is
     # the prefill chunk's)
     cases += [("exact", exact, m, k, n) for m in drift_ms() if m != 32
+              for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
+    # phase 11's smoke traces (2 slots, 8-token prefill chunks, spec k =
+    # 2): decode and draft m = 2, verify 6, prefill chunk 8
+    cases += [("exact", exact, m, k, n) for m in (2, 6, 8)
               for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
     cases += [("sampled48", sampled, 4, 1024, 2816),
               ("sampled48", sampled, 32, 2816, 1024),
@@ -1456,7 +1477,7 @@ def phase_serve(dev):
             "warm_tok_s": warm_tok_s, "eager_tok_s": n_tok / dt_e,
             "split": split, "params": params, "cfg": cfg,
             "params_enc": params_enc, "cfg_enc": cfg_enc, "trace": trace,
-            "tokens": tokens, "stats": st, "bundle": cache}
+            "tokens": tokens, "stats": st, "bundle": cache, "engine": eng}
 
 
 def phase_serve_quant(dev, dense):
@@ -3520,11 +3541,12 @@ CLI_MESH_ARGV = ["--reduced", "--continuous", "--mac", "encoded",
                  "--requests", "4", "--max-new", "6"]
 
 
-def _start(cmd, tmp, tag):
-    """``cmd`` started with PYTHONPATH at this checkout's ``src``, its
-    output into files under ``tmp``: (process, out path, err path,
-    start time)."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+def _start(cmd, tmp, tag, **env_extra):
+    """``cmd`` started with PYTHONPATH at this checkout's ``src`` (and
+    ``env_extra``), its output into files under ``tmp``: (process, out
+    path, err path, start time)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               **env_extra)
     out, err = (os.path.join(tmp, f"{tag}.{k}") for k in ("out", "err"))
     with open(out, "w") as fo, open(err, "w") as fe:
         proc = subprocess.Popen(cmd, env=env, stdout=fo, stderr=fe, cwd=ROOT)
@@ -4704,6 +4726,7 @@ def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib):
     import torch
     from repro_torch.kernels import encoded_matmul as em
     from repro_torch.kernels.ref import planes_ref
+    from repro_torch.launch import roofline
     from repro_torch.launch.kernel_bench import time_graph
     U = prog.n_a_planes
     sets = _em_case(dev, prog, m, k, n, seed=seed, copies=4)
@@ -4721,18 +4744,15 @@ def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib):
                  .reshape(m, U * k).contiguous(), wt.reshape(U * k, n))
                 for x, wt, _, sh in sets]
     lib_ms = time_graph(lib[0], lib_sets, iters=40)
-    nbytes = m * k + U * k * n * 2 + n * 4 + m * n * 4
-    ops = 2.0 * m * k * n * U
-    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+    bound = roofline.encoded_matmul(m, k, n, U)
     log(f"[measure] {name}: {U * k * n * 2 / (ms * 1e-3) / 1e12:.3f} TB/s "
         f"of Wt")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/encoded_matmul.cu",
             "replaces": "src/repro/kernels/encoded_matmul.py:50",
             "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            "library_ms": lib_ms,
+            "plain_ms": plain_ms, "bound_ms": bound.bound_ms,
+            "bound_by": bound.bound_by, "library_ms": lib_ms,
             "shape": f"m={m} k={k} n={n} U={U} ({shape}); library: "
                      f"{lib[1]} over K = U·k"}
 
@@ -4745,6 +4765,7 @@ def _pa_row(dev, mode, sq, Hq, Hkv, D, P, lens, window, cap, name, note,
     the same grid and cluster, replayed the same way)."""
     import torch
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import roofline
     from repro_torch.launch.kernel_bench import time_graph
     B, ps = N_SLOTS, PAGE_SIZE
     if mode == "bf16":
@@ -4772,21 +4793,14 @@ def _pa_row(dev, mode, sq, Hq, Hkv, D, P, lens, window, cap, name, note,
     plain_ms = time_loop(plain, args)
     floor_ms = time_graph(lambda: pa.paged_attn_floor(B, Hkv, P, dev),
                           [()] * 8)
-    read = sum((l_ + sq - 1) // ps + 1 for l_ in lens)  # pages per kv head
-    row_bytes = D * 4 if mode == "bf16" else (
-        D // 2 + 4 if mode == "int4" else D + 4)
-    nbytes = (2 * B * sq * Hq * D * 4 + 2 * read * ps * Hkv * row_bytes
-              + read * 4 + B * 4)
-    ops = 4.0 * sq * D * read * ps * Hq
-    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    bound = roofline.paged_attn(B, sq, Hq, Hkv, D, ps, lens, mode)
     return {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:131",
         "launches": launches,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_b, t_o),
-        "bound_by": "bytes" if t_b >= t_o else "operations",
+        "bound_ms": bound.bound_ms, "bound_by": bound.bound_by,
         # no PyTorch call reads K/V through a page table
         "library_ms": None,
         "floor_ms": floor_ms,
@@ -4794,12 +4808,13 @@ def _pa_row(dev, mode, sq, Hq, Hkv, D, P, lens, window, cap, name, note,
             dev).multi_processor_count),
         "shape": f"B={B} Sq={sq} Hq={Hq} Hkv={Hkv} D={D} ps={ps} P={P} "
                  f"lens={lens} window={window} cap={cap} {note}, "
-                 f"{nbytes / 1e6:.3f} MB"}
+                 f"{bound.bytes / 1e6:.3f} MB"}
 
 
 def phase_measure(dev, serve_info):
     """Kernel, plain and library times at the main path's shapes."""
     import torch
+    from repro_torch.launch import roofline
     from repro_torch.launch.kernel_bench import bf16_mm, time_graph
     rows = []
     lib = bf16_mm()
@@ -4951,8 +4966,7 @@ def phase_measure(dev, serve_info):
     from repro_torch.kernels import flash_attention as fa
     Bf, S, Hf, Df = 4, 1024, 16, 64
     # f32 runs 3xTF32: three tf32 products per product on the tensor cores
-    for dt, tag, peak, n_mma in ((torch.float32, "f32", PEAK_TF32, 3),
-                                 (torch.bfloat16, "bf16", PEAK_BF16, 1)):
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         fsets = []
         for i in range(3):
             q, k, v = _flash_case(dev, Bf, S, Hf, Hf, Df, dt, seed=20 + i)
@@ -4972,22 +4986,24 @@ def phase_measure(dev, serve_info):
             torch.nn.functional.scaled_dot_product_attention, is_causal=True,
             scale=Df ** -0.5)
         lib_ms = time_graph(sdpa, lib_sets, iters=20)
-        nbytes = 4 * Bf * Hf * S * Df * (4 if dt == torch.float32 else 2)
-        ops_f = 4.0 * Df * Bf * Hf * S * (S + 1) / 2   # visible pairs only
-        t_b, t_o = nbytes / PEAK_BYTES * 1e3, n_mma * ops_f / peak * 1e3
+        bound = roofline.flash_attention(
+            Bf, S, Hf, Df, 4 if dt == torch.float32 else 2)
+        # the same operations on the f32 pipes, for comparison
+        f32_pipe = roofline.Roofline(
+            0, roofline.flash_attention(Bf, S, Hf, Df, 2).ops,
+            roofline.PEAK_F32)
         rows.append({
             "name": f"flash_attention_{tag}", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:24",
             "launches": serve_info["counts"]["flash_attention"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bound_ms": bound.bound_ms, "bound_by": bound.bound_by,
             "library_ms": lib_ms,
             "shape": f"B={Bf} S={S} H={Hf} D={Df} causal {tag}, "
                      f"{fa.flash_route(dt, Df)} kernel (prefill; not on the "
                      "serving path)" + (
-                         f"; f32-pipe bound {ops_f / PEAK_F32 * 1e3:.4f} ms"
+                         f"; f32-pipe bound {f32_pipe.ops_ms:.4f} ms"
                          if dt == torch.float32 else "")})
     for r in rows:
         floor = (f", floor {r['floor_ms']:.4f} ms (cluster {r['cluster']})"
@@ -5047,10 +5063,15 @@ def _recorded_serve(dev, params, cfg, trace, want, static, mesh=None,
     keeps request i's rows of every encoded linear's input, x / its
     activation scale, on the device (no sync while it serves), for each
     i of ``want`` ({request: new token where it split}): the prompt,
-    then each token fed back, up to that token.  Under ``mesh`` (params:
-    this rank's) a row shard's inputs are gathered after the serve.
-    Returns ({i: {site: (positions, k) host tensor}}, the sites in call
-    order)."""
+    then each token fed back, up to that token.  A continuous serve keeps
+    each row by its absolute position (a prefill chunk's from the chunk's
+    start, ``lens[0]``; a decode's from its slot's len; the d-th draft
+    step's d past it), the last forward to write a position winning (a
+    verify forward rewrites the positions the draft steps wrote, a
+    prefill after an eviction those it wrote before), so the rows are the
+    ones the served tokens' K/V came from.  Under ``mesh`` (params: this
+    rank's) a row shard's inputs are gathered after the serve.  Returns ({i: {site: (positions, k)
+    host tensor}}, the sites in call order)."""
     import numpy as np
     import torch
     from repro_torch.nn.common import activation_recorder
@@ -5076,26 +5097,50 @@ def _recorded_serve(dev, params, cfg, trace, want, static, mesh=None,
                 got[i][site].append((pre, rows.float() / sa))
         return activation_recorder(hook)
 
+    by_pos = collections.defaultdict(dict)          # (i, site) → {pos: row}
     if not static:
         eng, rids = _serve(params, cfg, trace, dev, mesh=mesh,
                            cuda_graphs=False if mesh is None else None,
                            **kw)
-        cur, chunk_of = {}, eng._prefill_chunk
+        of_rid = {rids[i]: i for i in want}
+        cur, calls, chunk_of = {}, collections.Counter(), eng._prefill_chunk
 
         def prefill_chunk(req):
             cur["rid"] = req.rid
             chunk_of(req)
             cur.pop("rid")
         eng._prefill_chunk = prefill_chunk
-        of_rid = {rids[i]: i for i in want}
 
-        def rows_of(x):
-            if x.shape[1] > 1:
+        def positioned(name, fn):
+            def run(*a):                    # every step's last input: lens
+                cur["step"], cur["lens"] = name, a[-1].tolist()
+                calls.clear()
+                return fn(*a)
+            return run
+        for name, st in eng.steps.items():
+            st.fn = positioned(name, st.fn)
+
+        def hook(name, w, x):
+            if id(w) not in sites:
+                return
+            site, sa, _ = sites[id(w)]
+            if site not in order:
+                order.append(site)
+            step, lens = cur["step"], cur["lens"]
+            d = calls[site]                 # the draft's d-th unrolled step
+            calls[site] += 1
+            if step == "prefill":
                 i = of_rid.get(cur.get("rid"))
-                return [] if i is None else [(i, True, x[0])]
-            return [(i, False, x[eng.requests[rids[i]].slot]) for i in want
-                    if eng.requests[rids[i]].state == DECODING]
-        with torch.inference_mode(), recording(rows_of):
+                rows = [] if i is None else [(i, 0, lens[0])]
+            else:
+                rows = [(i, eng.requests[rids[i]].slot,
+                         lens[eng.requests[rids[i]].slot]
+                         + (d if step == "draft" else 0)) for i in want
+                        if eng.requests[rids[i]].state == DECODING]
+            for i, b, p0 in rows:
+                for t in range(x.shape[1]):
+                    by_pos[i, site][p0 + t] = x[b, t].float() / sa
+        with torch.inference_mode(), activation_recorder(hook):
             eng.run()
         del eng._prefill_chunk, eng
     for c0 in (sorted({i - i % N_SLOTS for i in want}) if static else ()):
@@ -5126,9 +5171,13 @@ def _recorded_serve(dev, params, cfg, trace, want, static, mesh=None,
         plen, pieces = len(trace[i]), got[i]
         out[i] = {}
         for site in order:
-            t = torch.cat([torch.cat([r for pre, r in pieces[site] if pre])
-                           [:plen]] + [r for pre, r in pieces[site]
-                                       if not pre])[:plen + j]
+            if not static:
+                t = torch.stack([by_pos[i, site][p] for p in range(plen + j)])
+            else:
+                t = torch.cat([torch.cat([r for pre, r in pieces[site]
+                                          if pre])[:plen]]
+                              + [r for pre, r in pieces[site]
+                                 if not pre])[:plen + j]
             if site in gather:
                 t = mesh.gather_columns(t.contiguous())
             out[i][site] = t.cpu()
@@ -5147,16 +5196,23 @@ def _tp_cont(mesh, dev, params, cfg, trace, base, tally=None, **kw):
     eng, rids = _serve(params, cfg, trace, dev, mesh=mesh,
                        max_new=len(base[0]), **kw)
     dec = eng.steps["decode"]
-    fn, per = dec.fn, []
+    fn, per, per_op = dec.fn, [], []
 
     def counted(*a):
         c0, s0 = mesh.collectives, mesh.collective_s
+        o0 = collections.Counter(mesh.by_op)
         out = fn(*a)
         per.append((mesh.collectives - c0, (mesh.collective_s - s0) * 1e3))
+        ops = collections.Counter(mesh.by_op)
+        ops.subtract(o0)
+        per_op.append(dict(+ops))
         return out
     dec.fn = counted
     c0, s0 = mesh.collectives, mesh.collective_s
+    o0 = collections.Counter(mesh.by_op)
     outs, dt, counts, st = _timed_run(eng, rids)
+    by_op = collections.Counter(mesh.by_op)
+    by_op.subtract(o0)
     toks = [outs[r].tolist() for r in rids]
     kv = eng.kv
     agree = mesh.agree((toks, _det_stats(st), kv.alloc.state(),
@@ -5165,11 +5221,12 @@ def _tp_cont(mesh, dev, params, cfg, trace, base, tally=None, **kw):
            "agree": agree, "chunk": eng.prefill_chunk,
            "collectives": mesh.collectives - c0,
            "collective_ms": (mesh.collective_s - s0) * 1e3,
-           "decode": per, "origins": None,
+           "by_op": dict(+by_op), "decode": per, "decode_ops": per_op,
+           "origins": None,
            "drops": None if tally is None else _drops(tally)}
     del eng, dec, fn
     splits = _splits_of(toks, base)
-    if splits and agree and not kw.get("spec_decode"):
+    if splits and agree:
         res["origins"] = _recorded_serve(dev, params, cfg, trace, splits,
                                          False, mesh, max_new=len(base[0]),
                                          **kw)
@@ -5179,12 +5236,16 @@ def _tp_cont(mesh, dev, params, cfg, trace, base, tally=None, **kw):
 def _tp_static(mesh, dev, params, cfg, trace, base, tally=None):
     """One ``ServeEngine`` serve on this rank (eager), as ``_tp_cont``."""
     c0, s0 = mesh.collectives, mesh.collective_s
+    o0 = collections.Counter(mesh.by_op)
     eng, toks, dt, counts = _static(params, cfg, trace, dev, mesh=mesh)
     st = eng.stats()
+    by_op = collections.Counter(mesh.by_op)
+    by_op.subtract(o0)
     res = {"tokens": toks, "dt": dt, "stats": st, "counts": counts,
            "chunks": eng.chunks, "agree": mesh.agree((toks, _det_stats(st))),
            "collectives": mesh.collectives - c0,
-           "collective_ms": (mesh.collective_s - s0) * 1e3, "origins": None,
+           "collective_ms": (mesh.collective_s - s0) * 1e3,
+           "by_op": dict(+by_op), "origins": None,
            "drops": None if tally is None else _drops(tally)}
     del eng
     splits = _splits_of(toks, base)
@@ -5194,27 +5255,31 @@ def _tp_static(mesh, dev, params, cfg, trace, base, tally=None):
     return res
 
 
-def _tp_qwen(mesh, dev, bundle, base, ready=None):
-    """Phase 6k's qwen1.5-0.5b on one rank: phase 6's exact bundle loaded
-    (a cache hit), this rank's slices kept, ``ready()`` waited for, then
-    the serves, each the whole trace to ``MAX_NEW`` new tokens."""
-    import torch
+def _tp_cfg():
+    """Phase 6k's qwen1.5-0.5b: full width, ``TP_SERVE_LAYERS`` layers."""
     from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("qwen1.5-0.5b").with_layers(TP_SERVE_LAYERS),
+        attention_backend="kernel")
+
+
+def _tp_qwen(mesh, dev, base, ready=None):
+    """Phase 6k's qwen1.5-0.5b on one rank (``_tp_cfg``): the exact
+    encoding folded here as the parent folded its baselines, this rank's
+    slices kept, ``ready()`` waited for, then the serves, each the whole
+    trace to ``MAX_NEW`` new tokens."""
+    import torch
     from repro_torch.models import init_model
     from repro_torch.parallel.sharding import shard_params
-    from repro_torch.serve import exact_encodings, prepare_encoded_serving
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
-                              attention_backend="kernel")
+    cfg = _tp_cfg()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device=dev)
     t_init = time.perf_counter() - t0
-    params_enc, cfg_enc, info = prepare_encoded_serving(
-        params, cfg, macs_override=exact_encodings(cfg.mac.bits),
-        device=dev, cache_dir=bundle, verbose=False)
+    params_enc, cfg_enc, _ = _fold_exact(params, cfg)
     torch.cuda.synchronize()
     out = {"init_s": t_init, "load_s": time.perf_counter() - t0 - t_init,
-           "loaded": info["loaded"], "fw_whole": _fw_bytes(params_enc),
+           "fw_whole": _fw_bytes(params_enc),
            "load_peak": torch.cuda.max_memory_allocated(dev)}
     local = shard_params(params_enc, cfg_enc, mesh)
     out["fw_local"] = _fw_bytes(local)
@@ -5759,7 +5824,7 @@ def _tp_rank(mesh, job):
     state freed."""
     import torch
     dev = torch.device("cuda", 0)
-    out = {"qwen": _tp_qwen(mesh, dev, job["bundle"], job["base"],
+    out = {"qwen": _tp_qwen(mesh, dev, job["base"],
                             functools.partial(_wait_refs, job["train"]))}
     gc.collect()
     torch.cuda.empty_cache()
@@ -5857,15 +5922,23 @@ def _tp_check(tag, r, base, cfg, eager_tok_s, static=False):
     if dec:
         cs = sorted(c for c, _ in dec)
         ms = sorted(t for _, t in dec)
+        ops = collections.Counter(json.dumps(o, sort_keys=True)
+                                  for o in r["decode_ops"])
         per = (f"; a decode step: {cs[len(cs) // 2]} collectives (min "
-               f"{cs[0]}, max {cs[-1]}), {ms[len(ms) // 2]:.3f} ms of them "
-               f"on the host (p50; max {ms[-1]:.3f}) over {len(dec)} steps")
+               f"{cs[0]}, max {cs[-1]}; by op {dict(ops)}), "
+               f"{ms[len(ms) // 2]:.3f} ms of them on the host (p50; max "
+               f"{ms[-1]:.3f}) over {len(dec)} steps")
+        # the logits' vocab shards are the one thing a decode step gathers
+        if any(o.get("all-gather", 0) != 1 for o in r["decode_ops"]):
+            raise AssertionError(f"[tp] {tag}: a decode step gathers other "
+                                 f"than the logits: {dict(ops)}")
     st = r["stats"]
     log(f"[tp] {tag}: {len(toks)} requests, {n_tok} tokens in {r['dt']:.3f}s"
         f" = {n_tok / r['dt']:.1f} tok/s eager at TP {TP} (single-rank eager "
         f"{'not served' if eager_tok_s is None else round(eager_tok_s, 1)});"
         f" step p50 {st['step_ms_p50']:.2f} ms; collectives "
-        f"{r['collectives']} in all, {r['collective_ms']:.1f} ms on the host"
+        f"{r['collectives']} in all ({r['by_op']}), "
+        f"{r['collective_ms']:.1f} ms on the host"
         f"{per}; ranks agree on tokens, stats"
         f"{'' if static else ' and allocator state'}; tokens against the "
         f"single-rank eager serve: {n_same} of {len(toks)} requests "
@@ -5873,25 +5946,55 @@ def _tp_check(tag, r, base, cfg, eager_tok_s, static=False):
     return bool(parts)
 
 
+def _tp_baselines(dev, pe, ce):
+    """Phase 6k's single-rank eager serves of ``_tp_cfg`` (params ``pe``
+    folded as ``ce``), which the ranks' tokens must equal: continuous with
+    f32, int8 and int4 pools, the prefix cache on 6c's trace, and static;
+    tokens and eager tok/s by key (spec decoding must give f32's)."""
+    trace = make_trace(ce.vocab_size)
+    base, eager = {}, {}
+    for key in ("bf16", "int8", "int4", "prefix"):
+        c = dataclasses.replace(ce, kv_cache_dtype=key) \
+            if key in ("int8", "int4") else ce
+        kw = dict(prefix_cache=True) if key == "prefix" else {}
+        tr = _prefix_trace(ce.vocab_size) if key == "prefix" else trace
+        eng, rids = _serve(pe, c, tr, dev, cuda_graphs=False, **kw)
+        outs, dt, _, _ = _timed_run(eng, rids)
+        base[key] = [outs[r].tolist() for r in rids]
+        eager[key] = sum(map(len, base[key])) / dt
+        del eng
+    _, base["static"], dt, _ = _static(pe, ce, trace, dev, cuda_graphs=False)
+    eager["static"] = sum(map(len, base["static"])) / dt
+    base["eager_tok_s"] = eager
+    log(f"[tp] single-rank eager baselines at {ce.n_layers} layers: tok/s "
+        f"{ {k: round(v, 1) for k, v in eager.items()} }")
+    return base
+
+
 def phase_tp(dev, info):
     """Phase 6k: ``TP`` ranks over gloo on the one card
     (``parallel.mesh.run_ranks``; the kernels were built here, the ranks
     load them), each serving as one rank of the mesh (``_tp_rank``);
-    gated here against the single-rank eager serves of phases 6, 6c, 6d,
-    6e and 6h (a split must start where ``_tp_origins`` finds f32 order
-    moving a code across .5, or at a near-tie)."""
+    gated here against single-rank eager serves: ``_tp_baselines`` for
+    qwen1.5-0.5b at ``TP_SERVE_LAYERS`` layers, run here first, and 6h's
+    for qwen3-moe (a split must start where ``_tp_origins`` finds f32
+    order moving a code across .5, or at a near-tie)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import init_model
     from repro_torch.parallel.mesh import run_ranks
     gc.collect()
     torch.cuda.empty_cache()
-    base = info["tp_base"]
+    cfg = _tp_cfg()
+    params = init_model(cfg, seed=0, device=dev)
+    pe, ce, _ = _fold_exact(params, cfg)
+    del params
+    base = _tp_baselines(dev, pe, ce)
+    base["moe"] = info["tp_base"]["moe"]
     log(f"[tp] this process holds {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
         f" GB of the card ({torch.cuda.memory_reserved(dev) / 1e9:.2f} GB "
         "reserved) as the ranks start")
     tmp = bundle_dir("tp-train")
-    job = {"bundle": info["bundle"], "base": base, "train": {
+    job = {"base": base, "train": {
         "refs": {k: os.path.join(tmp, f"ref-{k}.pt")
                  for k in ("fp", "encoded-exact", "gc")},
         "done": os.path.join(tmp, "refs-done"),
@@ -5916,23 +6019,18 @@ def phase_tp(dev, info):
         shutil.rmtree(tmp, ignore_errors=True)
     del refs
     q = res["qwen"]
-    log(f"[tp] qwen1.5-0.5b: a rank's init {q['init_s']:.1f}s, phase 6's "
-        f"bundle {'loaded (cache hit)' if q['loaded'] else 'NOT a cache hit'}"
-        f" in {q['load_s']:.1f}s (both ranks at once; peak "
+    log(f"[tp] qwen1.5-0.5b ({cfg.n_layers} of 24 layers): a rank's init "
+        f"{q['init_s']:.1f}s, calibrated and folded in {q['load_s']:.1f}s "
+        f"(both ranks at once; peak "
         f"{q['load_peak'] / 1e9:.2f} GB a rank); folded bf16 Wt a rank "
         f"{q['fw_local'] / 1e9:.4f} GB of {q['fw_whole'] / 1e9:.4f}; a "
         f"rank's params on the card {q['local_bytes'] / 1e9:.2f} GB (the "
         f"rank's rows of the embedding {q['embed_bytes'] / 1e9:.4f} GB of "
         f"them), "
         f"serving peak {q['peak'] / 1e9:.2f} GB; {SMI}")
-    if not q["loaded"]:
-        raise AssertionError("phase 6's bundle was not a cache hit under "
-                             "the mesh")
     if q["fw_local"] * TP != q["fw_whole"]:
         raise AssertionError("a rank's folded bytes are not 1/TP of the "
                              "whole")
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
-                              attention_backend="kernel")
     trace = make_trace(cfg.vocab_size)
     eager = base["eager_tok_s"]
     parted = []
@@ -5961,9 +6059,6 @@ def phase_tp(dev, info):
         parted.append(("static", "static", base["static"], r))
     counts["static"] = r["counts"]
     if parted:                    # the single rank's serves again, hooked
-        # phase 6's params, folded here again (the bundle holds this fold)
-        params = init_model(cfg, seed=0, device=dev)
-        pe, ce, _ = _fold_exact(params, cfg)
         for tag, key, want, r in parted:
             c = dataclasses.replace(ce, kv_cache_dtype=key) \
                 if key in ("int8", "int4") else ce
@@ -5973,9 +6068,9 @@ def phase_tp(dev, info):
             if key == "prefix":
                 kw["prefix_cache"] = True
             _tp_origins(tag, dev, pe, c, tr, want, r, key == "static", **kw)
-        del params, pe
-        gc.collect()
-        torch.cuda.empty_cache()
+    del pe
+    gc.collect()
+    torch.cuda.empty_cache()
     m = res["moe"]
     mb = base["moe"]
     cfg_m = m["cfg"]
@@ -6233,6 +6328,97 @@ def phase_paper(dev):
     return res
 
 
+def phase_analysis_start(dev):
+    """Phase 11's CPU half, started beside the card phases: the port's
+    static analysis (``python -m repro_torch.analysis``: lint, kernel
+    plans at this card's SM count, sharding, the seeded-mutation
+    self-test) in a process of its own that sees no card; joined by
+    ``phase_analysis``."""
+    import torch
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-analysis-")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    report = os.path.join(tmp, "analysis.json")
+    cmd = [sys.executable, "-m", "repro_torch.analysis", "--lint",
+           "--kernels", "--sharding", "--self-test", "--sms", str(sms),
+           "--json", report]
+    return {"tmp": tmp, "report": report, "sms": sms,
+            "proc": _start(cmd, tmp, "analysis", CUDA_VISIBLE_DEVICES="")}
+
+
+def phase_analysis(dev, info, started):
+    """Phase 11: the captured-step audit on the card, on phase 6's engine
+    and its params (no new model): its capture counts (prefill and decode
+    once each), its pools kept in place across one more request, and the
+    smoke traces (``analysis.compiled``: chunked prefill, decode, spec
+    rounds at k = 2, an eviction) through new engines on the same params,
+    whose captures must match the pinned table and make no weight-sized
+    tensor, and whose graphs' memory pools must stay within
+    ``compiled.GRAPH_POOL_MARGIN`` a graph; then
+    the CPU half's report (``phase_analysis_start``).  Any finding or
+    self-test escape fails the run."""
+    import torch
+    from repro_torch.analysis import compiled
+    eng = info.pop("engine")
+    findings = compiled.check_capture_counts(
+        compiled.step_counts(eng), None, "plain")
+
+    def one_more():
+        eng.submit(info["trace"][0], max_new=4)
+        eng.run()
+    findings += compiled.check_donation(eng, one_more)
+    log(f"[analysis] phase 6's engine: captures {compiled.step_counts(eng)}"
+        f", {len(compiled.pool_ptrs(eng.kv.layers))} pools kept in place "
+        "across one more request")
+    params, cfg = eng.params, eng.cfg
+    del eng
+    _reset_counts()
+    f, rep = compiled.audit_engine_trace(params, cfg, device=dev)
+    findings += f
+    _check_gated(_read_counts(), "in phase 11's smoke traces")
+    for mode, r in rep.items():
+        log(f"[analysis] {mode} smoke trace at full width: captures "
+            f"{r['captures']}, evictions {r['evictions']}, spec rounds "
+            f"{r['spec_rounds']}, {r['ops_recorded']} ops recorded; its "
+            f"{r['graphs']} graphs' memory pools {r['graph_pool_bytes']} "
+            f"bytes (gated at {compiled.GRAPH_POOL_MARGIN} a graph; the "
+            f"smallest large leaf {r['least_leaf_bytes']} bytes); its "
+            f"engine reserves {r['reserved_growth_bytes']} bytes in all, "
+            f"its KV pools {r['kv_pool_bytes']} (memory_stats)")
+    torch.cuda.empty_cache()
+    code, out, err, secs = _finish(started["proc"], timeout=600)
+    if not os.path.exists(started["report"]):
+        raise AssertionError(f"[analysis] the CPU half wrote no report "
+                             f"(exit {code}):\n{out[-2000:]}\n"
+                             f"{err[-2000:]}")
+    with open(started["report"]) as f:
+        cpu = json.load(f)
+    shutil.rmtree(started["tmp"], ignore_errors=True)
+    kern = cpu["coverage"]["kernels"]
+    escapes = [r["case"] for r in cpu["selftest"] if not r["caught"]]
+    log(f"[analysis] CPU half (exit {code}, {secs:.1f}s from its start, "
+        f"beside the card phases): lint "
+        f"{cpu['coverage']['lint']['findings']} findings; "
+        f"{kern['kernel1']['plans']} kernel-1 plans and "
+        f"{kern['kernel2']['geometries']} kernel-2 geometries at "
+        f"{started['sms']} SMs; constants "
+        f"{sum(r['ok'] for r in kern['constants'])}/"
+        f"{len(kern['constants'])} and launchers "
+        f"{sum(r['ok'] for r in kern['launchers'])}/"
+        f"{len(kern['launchers'])} checked; sharding served "
+        f"{cpu['coverage']['sharding']['served']}; self-test "
+        f"{len(cpu['selftest']) - len(escapes)}/{len(cpu['selftest'])} "
+        f"caught")
+    for x in findings:
+        log(f"[analysis] FINDING {x}")
+    for x in cpu["findings"]:
+        log(f"[analysis] FINDING {x['file']}:{x['line']}: [{x['rule']}] "
+            f"{x['message']}")
+    if findings or cpu["findings"] or escapes or code != 0:
+        raise AssertionError(
+            f"[analysis] {len(findings) + len(cpu['findings'])} finding(s),"
+            f" self-test escapes {escapes}, CPU half exit {code}")
+
+
 def _phase(fn, *args):
     """Run one phase and log its seconds."""
     t0 = time.perf_counter()
@@ -6244,11 +6430,23 @@ def _phase(fn, *args):
 def main() -> int:
     t_start = time.perf_counter()
     dev = card_check()
-    import torch
     # keep each engine graph's node list for ``graph_kernel_counts``
     from repro_torch.serve.graphs import Step
     Step.keep_graph = True
     _phase(phase_build)
+    analysis = _phase(phase_analysis_start, dev)
+    try:
+        return _main_phases(dev, analysis, t_start)
+    finally:
+        proc = analysis["proc"][0]
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(analysis["tmp"], ignore_errors=True)
+
+
+def _main_phases(dev, analysis, t_start) -> int:
+    import torch
     _phase(phase_kernel1, dev)
     _phase(phase_kernel1_archs, dev)
     _phase(phase_kernel1_moe, dev)
@@ -6261,23 +6459,13 @@ def main() -> int:
     _phase(phase_kernel2_tp, dev)
     _phase(phase_flash, dev)
     serve_info = _phase(phase_serve, dev)
+    _phase(phase_analysis, dev, serve_info, analysis)
     serve_info.update(_phase(phase_serve_quant, dev, serve_info))
     serve_info["prefix"] = _phase(phase_prefix, dev, serve_info)
     serve_info["spec"] = _phase(phase_spec, dev, serve_info)
     serve_info["telemetry"] = _phase(phase_telemetry, dev, serve_info)
     serve_info["static"] = _phase(phase_static, dev, serve_info)
-    # phase 6k's single-rank eager baselines (each gated equal to its
-    # graphed serve, and spec decoding's to plain decode)
-    serve_info["tp_base"] = {
-        "bf16": serve_info["tokens"],
-        "int8": serve_info["int8"]["tokens"],
-        "int4": serve_info["int4"]["tokens"],
-        "prefix": serve_info["prefix"]["tokens"],
-        "static": serve_info["static"]["tokens"],
-        "eager_tok_s": {"bf16": serve_info["eager_tok_s"],
-                        "int8": serve_info["int8"]["eager_tok_s"],
-                        "int4": serve_info["int4"]["eager_tok_s"],
-                        "static": serve_info["static"]["eager_tok_s"]}}
+    shutil.rmtree(serve_info.pop("bundle"))
     for key in ("params", "cfg", "params_enc", "cfg_enc", "trace", "tokens",
                 "stats"):
         del serve_info[key]
@@ -6287,10 +6475,9 @@ def main() -> int:
     serve_info["moe"] = _phase(phase_moe, dev)
     serve_info["new"] = _phase(phase_new_archs, dev)
     serve_info["xw"] = _phase(phase_xlstm_whisper, dev)
-    serve_info["tp_base"]["moe"] = serve_info["moe"][
-        "qwen3-moe-235b-a22b"].pop("eager")
+    serve_info["tp_base"] = {"moe": serve_info["moe"][
+        "qwen3-moe-235b-a22b"].pop("eager")}
     serve_info["tp"] = _phase(phase_tp, dev, serve_info)
-    shutil.rmtree(serve_info.pop("bundle"))
     started = _phase(phase_cli_start, dev)
     try:
         _phase(phase_cpu_parity, dev)

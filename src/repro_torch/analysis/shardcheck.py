@@ -1,0 +1,376 @@
+"""Sharding-coverage checker (port of ``repro/analysis/shardcheck.py``).
+
+``parallel/sharding.py`` cuts a rank's serving params by role
+(``LINEAR_ROLES`` → ``linear_dim``, ``splits``, ``shard_params``) and
+``parallel/statesharding.py`` a train state's leaves; both replicate what
+they do not cut.  Replication is right for small leaves (norms, scales)
+but a silent memory bug for large ones: a linear whose role is missing
+is copied whole onto every rank with no runtime error.  This checker
+builds every TP-servable and TP-trainable registry arch's parameter tree
+at full size on the ``meta`` device (shapes only, no storage) and lays it
+out on a stand-in model axis of ``TP`` ranks (``LayoutMesh``, no process
+group):
+
+  * **param coverage**: every leaf of at least ``LARGE_LEAF`` elements is
+    cut by ``shard_params`` or matches an entry of ``REPLICATE`` (a path
+    pattern with its reason);
+  * **pool coverage**: the paged pools (``pool_k``/``pool_v``) and their
+    scale side pools (``scale_k``/``scale_v``) of every kv dtype, and the
+    static engine's dense cache, hold ``Hkv / TP`` kv heads a rank where
+    attention splits, every other dim whole;
+  * **fold-role consistency**: with folded leaves planted beside every
+    roled linear (``_fw (U, k, n)``, ``_fb (n,)``, ``_as``, ``_ws``),
+    ``shard_params`` cuts n of a column linear's ``_fw`` and its
+    ``_fb``/``_b``, k of a row linear's ``_fw`` and keeps its biases and
+    every scale whole, as ``LINEAR_ROLES`` says; and a train state's dims
+    (``statesharding.param_dims`` on the stacked layout) are the serving
+    cut dims one place on (the layer axis), each dividing by ``TP``.
+
+Arches that ``shard_params`` (or ``check_trainable``) refuses are listed
+in the coverage as refused, with the reason, not reported as findings.
+The check cores take the tree, the replicate list and the roles table as
+arguments so that the self-test can plant a defect.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import re
+from typing import Dict, List, Optional, Tuple
+
+from repro_torch.analysis.lint import Finding, line_of
+
+RULE = "shard-coverage"
+LARGE_LEAF = 1_000_000           # elements; below this, replication is fine
+TP = 2
+FOLD_U = 8                       # planes of a planted folded leaf
+
+SHARDING_REL = "src/repro_torch/parallel/sharding.py"
+STATESHARDING_REL = "src/repro_torch/parallel/statesharding.py"
+LM_REL = "src/repro_torch/models/lm.py"
+ROLES_AT = r"^LINEAR_ROLES"           # where each file's findings point
+DIMS_AT = r"^def _leaf_dim"
+POOLS_AT = r"^def paged_cache_layout"
+
+# large leaves that stay whole on every rank on purpose: path pattern →
+# reason.  Empty today: every large leaf of a TP-servable arch is cut.
+REPLICATE: Dict[str, str] = {}
+
+
+@dataclasses.dataclass
+class LayoutMesh:
+    """A stand-in ``(1, n_model)`` mesh for laying out shapes: what
+    ``splits``, ``shard_params`` and ``paged_cache_layout`` read of a
+    ``Mesh``, without a process group."""
+    n_model: int
+    model_rank: int = 0
+    n_data: int = 1
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.n_data, "model": self.n_model}
+
+    @property
+    def rank(self) -> int:
+        return self.model_rank
+
+
+def meta_params(cfg) -> dict:
+    """``cfg``'s parameter tree at full size on the meta device."""
+    from repro_torch.models import init_model
+    return init_model(cfg, device="meta")
+
+
+@functools.lru_cache(maxsize=None)
+def _arch_params(arch: str) -> dict:
+    """A registry arch's full meta tree, built once (no storage)."""
+    from repro_torch.configs import get_config
+    return meta_params(get_config(arch))
+
+
+def leaf_paths(tree, prefix: str = ""):
+    """("a/b/0/c", leaf) of every tensor of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_paths(tree[k], f"{prefix}/{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, f"{prefix}/{i}" if prefix else str(i))
+    elif tree is not None:
+        yield prefix, tree
+
+
+def serving_refusal(cfg) -> Optional[str]:
+    """Why ``shard_params`` refuses ``cfg`` (None: it shards it)."""
+    from repro_torch.parallel.sharding import shard_params
+    try:
+        shard_params(_arch_params(cfg.arch), cfg, LayoutMesh(TP))
+    except (ValueError, NotImplementedError) as e:
+        return str(e)
+    return None
+
+
+def training_refusal(cfg) -> Optional[str]:
+    from repro_torch.parallel.statesharding import check_trainable
+    try:
+        check_trainable(cfg)
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def check_param_coverage(arch: str, params=None, replicate=None,
+                         tp: int = TP) -> List[Finding]:
+    """Every large leaf of ``arch``'s full tree is cut by
+    ``shard_params`` at ``tp`` ranks or matches ``replicate``."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.sharding import shard_params
+    cfg = get_config(arch)
+    params = _arch_params(arch) if params is None else params
+    table = REPLICATE if replicate is None else replicate
+    local = dict(leaf_paths(shard_params(params, cfg, LayoutMesh(tp))))
+    out: List[Finding] = []
+    for path, leaf in leaf_paths(params):
+        if leaf.numel() < LARGE_LEAF:
+            continue
+        mine = local.get(path)
+        if mine is not None and tuple(mine.shape) != tuple(leaf.shape):
+            continue                               # cut
+        if any(re.search(p, path) for p in table):
+            continue
+        out.append(Finding(
+            RULE, SHARDING_REL, line_of(SHARDING_REL, ROLES_AT),
+            f"{arch}: param '{path}' {tuple(leaf.shape)} "
+            f"({leaf.numel():,} elements) is not cut by shard_params and "
+            "is on no replicate list: every rank holds it whole; give "
+            "its linear a role (LINEAR_ROLES) or list it in REPLICATE "
+            "with the reason"))
+    return out
+
+
+def check_pool_coverage(arch: str, tp: int = TP) -> List[Finding]:
+    """Paged pools and scale pools of every kv dtype, and the dense cache,
+    hold ``Hkv / tp`` kv heads a rank where attention splits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, supports_paged_cache
+    from repro_torch.models.lm import paged_cache_layout
+    from repro_torch.parallel.mesh import set_mesh
+    from repro_torch.parallel.sharding import attn_split
+    cfg = get_config(arch)
+    mesh = LayoutMesh(tp)
+    with set_mesh(mesh):
+        ways = attn_split(cfg)
+    out: List[Finding] = []
+    if ways == 1:
+        return out
+    if supports_paged_cache(cfg):
+        for dt in ("bf16", "int8", "int4"):
+            if dt == "int4" and cfg.head_dim_r % 2:
+                continue
+            qcfg = dataclasses.replace(cfg, kv_cache_dtype=dt)
+            whole = paged_cache_layout(qcfg, 9, 8)[0]
+            with set_mesh(mesh):
+                mine = paged_cache_layout(qcfg, 9, 8)[0]
+            quant = dt != "bf16"
+            if quant != ({"scale_k", "scale_v"} <= set(whole)):
+                out.append(Finding(
+                    RULE, LM_REL, line_of(LM_REL, POOLS_AT),
+                    f"{arch} kv_dtype={dt}: scale side pools "
+                    f"{'missing' if quant else 'unexpected'}"))
+            for name, (shape, _) in whole.items():
+                if name not in ("pool_k", "pool_v", "scale_k", "scale_v"):
+                    out.append(Finding(
+                        RULE, STATESHARDING_REL,
+                line_of(STATESHARDING_REL, DIMS_AT),
+                        f"{arch} kv_dtype={dt}: paged leaf '{name}' has "
+                        "no pool rule"))
+                    continue
+                out += _heads_cut(f"{arch} kv_dtype={dt} '{name}'",
+                                  shape, mine[name][0], 2, tp)
+    cache = init_cache(cfg, 2, 64, device="meta")
+    with set_mesh(mesh):
+        rank = init_cache(cfg, 2, 64, device="meta")
+    mine = dict(leaf_paths(rank["layers"]))
+    for path, leaf in leaf_paths(cache["layers"]):
+        name = path.rsplit("/", 1)[-1]
+        if name in ("k", "v") and leaf.dim() == 4:
+            out += _heads_cut(f"{arch} dense cache '{path}'",
+                              tuple(leaf.shape), tuple(mine[path].shape),
+                              2, tp)
+    return out
+
+
+def _heads_cut(what, whole, mine, axis, tp) -> List[Finding]:
+    want = tuple(s // tp if i == axis else s for i, s in enumerate(whole))
+    if tuple(mine) == want:
+        return []
+    return [Finding(RULE, STATESHARDING_REL,
+                line_of(STATESHARDING_REL, DIMS_AT),
+                    f"{what}: a rank holds {tuple(mine)} of {tuple(whole)}"
+                    f"; the kv-head axis ({axis}) must split over the "
+                    f"model axis: expected {want}")]
+
+
+def plant_folds(params: dict, U: int = FOLD_U) -> dict:
+    """``params`` with a folded linear's leaves beside every roled 2-D
+    linear weight of a block or the head (``_fw (U, k, n)``, ``_fb (n,)``,
+    ``_as``, ``_ws``), on the meta device."""
+    import torch
+    from repro_torch.parallel.sharding import LINEAR_ROLES
+
+    def plant(node):
+        if isinstance(node, list):
+            return [plant(v) for v in node]
+        if not isinstance(node, dict):
+            return node
+        out = {k: plant(v) for k, v in node.items()}
+        for key, t in node.items():
+            if key in LINEAR_ROLES and isinstance(t, torch.Tensor) and \
+                    t.dim() == 2:
+                k, n = t.shape
+                meta = dict(device="meta")
+                out[key + "_fw"] = torch.empty((U, k, n),
+                                               dtype=torch.bfloat16, **meta)
+                out[key + "_fb"] = torch.empty((n,), **meta)
+                out[key + "_as"] = torch.empty((), **meta)
+                out[key + "_ws"] = torch.empty((), **meta)
+        return out
+    return plant(params)
+
+
+def _expected_dim(key: str, ndim: int, roles: dict):
+    """(linear, its role, the dim ``roles`` says a shard cuts of linear
+    leaf ``key``: None for none); (None, None, None) for no linear's."""
+    for suffix, col, row in (("", ndim - 1, ndim - 2), ("_fw", 2, 1),
+                             ("_fb", 0, None), ("_b", 0, None),
+                             ("_as", None, None), ("_ws", None, None)):
+        if suffix and not key.endswith(suffix):
+            continue
+        name = key[:len(key) - len(suffix)] if suffix else key
+        if name not in roles:
+            continue
+        role = roles[name]
+        return name, role, (col if role == "column" else
+                            row if role == "row" else None)
+    return None, None, None
+
+
+def check_fold_roles(arch: str, roles=None, tp: int = TP
+                     ) -> List[Finding]:
+    """``shard_params`` cuts every folded and fp linear leaf of ``arch``
+    on the dim ``roles`` (default ``LINEAR_ROLES``) gives it, where its
+    part splits."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.mesh import set_mesh
+    from repro_torch.parallel.sharding import (LINEAR_ROLES, shard_params,
+                                               splits)
+    cfg = get_config(arch)
+    roles = LINEAR_ROLES if roles is None else roles
+    params = plant_folds(_arch_params(arch))
+    mesh = LayoutMesh(tp)
+    with set_mesh(mesh):
+        sp = splits(cfg)
+    local = dict(leaf_paths(shard_params(params, cfg, mesh)))
+    out: List[Finding] = []
+    for path, leaf in leaf_paths(params):
+        parts = path.split("/")
+        key = parts[-1]
+        part = parts[2] if parts[0] == "layers" and len(parts) > 3 else (
+            "head" if parts[0] == "lm_head" else None)
+        if part == "moe" and len(parts) > 4 and parts[3] == "shared":
+            part = "shared"
+        if part is None or sp.get(part, 1) == 1:
+            continue
+        name, role, want = _expected_dim(key, leaf.dim(), roles)
+        if name is None:
+            continue
+        mine = tuple(local[path].shape)
+        got = [i for i, (a, b) in enumerate(zip(leaf.shape, mine)) if a != b]
+        want_l = [] if want is None else [want]
+        if got != want_l:
+            out.append(Finding(
+                RULE, SHARDING_REL, line_of(SHARDING_REL, ROLES_AT),
+                f"{arch}: '{path}' {tuple(leaf.shape)} is cut on dims "
+                f"{got} ({mine} a rank), but its linear is {role}-"
+                f"parallel: expected dims {want_l} (a column linear cuts n"
+                " of (U, k, n) and its biases; a row linear cuts k and "
+                "keeps its biases whole)"))
+    return out
+
+
+def check_train_dims(arch: str, tp: int = TP) -> List[Finding]:
+    """A train state's dims (``param_dims`` on the stacked layout) are the
+    serving cut dims one place on, and each divides by ``tp``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import stack_layers
+    from repro_torch.parallel.sharding import shard_params
+    from repro_torch.parallel.statesharding import (REPLICATED, _paths,
+                                                    param_dims)
+    cfg = get_config(arch)
+    params = _arch_params(arch)
+    mesh = LayoutMesh(tp)
+    serve = {}
+    local = dict(leaf_paths(shard_params(params, cfg, mesh)))
+    for path, leaf in leaf_paths(params):
+        got = [i for i, (a, b) in enumerate(zip(leaf.shape,
+                                                local[path].shape)) if a != b]
+        parts = path.split("/")
+        key = (parts[0],) + tuple(parts[2:]) if parts[0] == "layers" \
+            else tuple(parts)
+        serve.setdefault(key, (got[0] if got else None,
+                               parts[0] == "layers"))
+    stacked = stack_layers(params, cfg)
+    dims = param_dims(stacked, cfg, mesh)
+    out: List[Finding] = []
+    for (path, leaf), d in zip(_paths(stacked), dims):
+        if d != REPLICATED and leaf.shape[d] % tp:
+            out.append(Finding(
+                RULE, STATESHARDING_REL,
+                line_of(STATESHARDING_REL, DIMS_AT),
+                f"{arch}: train leaf '{'/'.join(map(str, path))}' "
+                f"{tuple(leaf.shape)} is cut on dim {d}, which {tp} does "
+                "not divide"))
+        key = ("layers",) + tuple(map(str, path[1:])) \
+            if path[0] in _STAGE_NAMES else tuple(map(str, path))
+        want = serve.get(key)
+        if want is None:
+            continue
+        s_dim, stacked_leaf = want
+        want_d = REPLICATED if s_dim is None else s_dim + int(stacked_leaf)
+        if d != want_d:
+            out.append(Finding(
+                RULE, STATESHARDING_REL,
+                line_of(STATESHARDING_REL, DIMS_AT),
+                f"{arch}: train leaf '{'/'.join(map(str, path))}' is cut "
+                f"on dim {d}, serving cuts {s_dim} of its per-layer leaf "
+                f"(expected {want_d})"))
+    return out
+
+
+_STAGE_NAMES = ("stack", "dense_prefix", "moe_stack")
+
+
+def run_shardcheck() -> Tuple[List[Finding], Dict]:
+    from repro_torch.configs import get_config, list_archs
+    findings: List[Finding] = []
+    served, trained, refused = [], [], {}
+    for arch in list_archs():
+        cfg = get_config(arch)
+        why = serving_refusal(cfg)
+        if why is not None:
+            refused[arch] = why
+            continue
+        served.append(arch)
+        findings += check_param_coverage(arch)
+        findings += check_pool_coverage(arch)
+        findings += check_fold_roles(arch)
+        if training_refusal(cfg) is None:
+            trained.append(arch)
+            findings += check_train_dims(arch)
+        else:
+            refused[f"{arch} (training)"] = training_refusal(cfg)
+    coverage = {"tp": TP, "served": served, "trained": trained,
+                "refused": refused, "large_leaf_threshold": LARGE_LEAF,
+                "replicate": dict(REPLICATE),
+                "kv_dtypes": ["bf16", "int8", "int4"]}
+    return findings, coverage

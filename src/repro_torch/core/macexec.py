@@ -42,6 +42,7 @@ def check_finite(out: torch.Tensor, what: str) -> torch.Tensor:
     """With ``set_debug_nan`` on, raise ``FloatingPointError`` naming
     ``what`` when ``out`` holds a NaN or an infinity (one host sync per
     call); off, return ``out`` untouched at no cost."""
+    # analysis: allow(host-sync): opt-in set_debug_nan check
     if _DEBUG_NAN and not bool(torch.isfinite(out).all()):
         raise FloatingPointError(f"non-finite value in the output of {what}")
     return out

@@ -11,7 +11,8 @@ floor of kernel 2 where the timed version has ``paged_attn_floor``).
 Prints one JSON line per measurement, tagged ``--tag``: kernel ms (a CUDA
 graph of 40 calls rotating over inputs past the 50 MB L2), max error
 against the plain version, the bound, and the library call's ms for the
-same function where there is one.  Kernel 1 at its six shapes; kernel 2
+same function where there is one; every bound comes from
+``launch/roofline.py``.  Kernel 1 at its nine shapes; kernel 2
 (paged attention, 4 slots x 16 heads x D 64, lens 100-400) with dense
 f32, int8 and int4 pools at page tables of 32 and 127 pages, and with
 ``paged_sq`` (not by default) against Sq = 1..16 query tokens per row;
@@ -21,12 +22,31 @@ from __future__ import annotations
 
 import argparse
 import functools
+import importlib.util
 import json
 import os
 import sys
 
-SHAPES = [(m, k, n) for m in (4, 32)
+# kernel 1 at decode (m = 4 slots), a prefill chunk (32) and the static
+# engine's longest prefill of the main trace (884, where the operations
+# bound it)
+SHAPES = [(m, k, n) for m in (4, 32, 884)
           for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
+
+
+@functools.lru_cache(maxsize=None)
+def roofline():
+    """``launch/roofline.py`` beside this file, loaded by its path: the
+    bounds are this checkout's whichever ``--src`` the kernels come from
+    (an older checkout may have no such module)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "roofline.py")
+    spec = importlib.util.spec_from_file_location("kernel_bench_roofline",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod        # dataclasses look the module up
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def time_graph(fn, arg_sets, iters: int = 40) -> float:
@@ -129,10 +149,11 @@ def bench_em(tag):
                      .reshape(m, U * k).contiguous(), wt.reshape(U * k, n))
                     for x, wt, _, sh in sets]
         lib_ms = time_graph(lib, lib_sets)
-        nbytes = m * k + U * k * n * 2 + n * 4 + m * n * 4
+        bound = roofline().encoded_matmul(m, k, n, U)
         print(json.dumps({"tag": tag, "kernel": "encoded_matmul", "m": m,
                           "k": k, "n": n, "U": U, "ms": ms,
-                          "bound_ms": nbytes / 3.35e12 * 1e3,
+                          "bound_ms": bound.bound_ms,
+                          "bound_by": bound.bound_by,
                           "rel_err": err, "library_ms": lib_ms,
                           "library": lib_name}), flush=True)
 
@@ -144,7 +165,6 @@ def bench_paged(tag):
     from repro_torch.quant.kvcache import quantize_kv
     B, H, D, ps = 4, 16, 64, 16
     lens = [100, 200, 300, 400]
-    pages_read = sum(n // ps + 1 for n in lens)
     for mode in ("bf16", "int8", "int4"):
         for P in (32, 127):
             rng = np.random.default_rng(5)
@@ -177,15 +197,13 @@ def bench_paged(tag):
             if hasattr(pa, "paged_attn_floor"):
                 floor_ms = time_graph(
                     lambda: pa.paged_attn_floor(B, H, P, "cuda"), [()] * 8)
-            row = D * 4 if mode == "bf16" else (D // 2 if mode == "int4"
-                                                else D) + 4
-            nbytes = (2 * B * H * D * 4 + 2 * pages_read * ps * H * row
-                      + pages_read * 4 + B * 4)
+            bound = roofline().paged_attn(B, 1, H, H, D, ps, lens, mode)
             print(json.dumps({"tag": tag, "kernel": "paged_attn",
                               "pools": "f32" if mode == "bf16" else mode,
                               "B": B, "H": H, "D": D, "ps": ps, "P": P,
                               "lens": lens, "ms": ms, "floor_ms": floor_ms,
-                              "bound_ms": nbytes / 3.35e12 * 1e3,
+                              "bound_ms": bound.bound_ms,
+                              "bound_by": bound.bound_by,
                               "max_abs_err": err, "library_ms": None}),
                   flush=True)
 
@@ -221,14 +239,13 @@ def bench_paged_sq(tag):
         err = (out - ref).abs().max().item()
         ms = time_graph(kern, sets)
         rp = min(8, 1 << (sq - 1).bit_length())
-        read = sum((n + sq - 1) // ps + 1 for n in lens)
-        nbytes = (2 * B * sq * H * D * 4 + 2 * read * ps * H * D * 4
-                  + read * 4 + B * 4)
+        bound = roofline().paged_attn(B, sq, H, H, D, ps, lens)
         print(json.dumps({"tag": tag, "kernel": "paged_attn_sq",
                           "pools": "f32", "B": B, "H": H, "D": D, "ps": ps,
                           "P": P, "lens": lens, "Sq": sq,
                           "rows_per_pass": rp, "passes": -(-sq // rp),
-                          "ms": ms, "bound_ms": nbytes / 3.35e12 * 1e3,
+                          "ms": ms, "bound_ms": bound.bound_ms,
+                          "bound_by": bound.bound_by,
                           "max_abs_err": err}), flush=True)
 
 
@@ -252,13 +269,13 @@ def bench_flash(tag):
         lib_ms = time_graph(sdpa, [[t.reshape(B, H, S, D) for t in s]
                                    for s in sets], iters=20)
         # visible pairs x 4·D; f32 on the tensor cores as 3xTF32
-        ops = 4.0 * D * B * H * S * (S + 1) / 2
-        bound = (3 * ops / 495e12 if dt == torch.float32
-                 else max(ops / 989e12, 4 * B * H * S * D * 2 / 3.35e12))
+        bound = roofline().flash_attention(
+            B, S, H, D, 4 if dt == torch.float32 else 2)
         print(json.dumps({"tag": tag, "kernel": "flash_attention",
                           "dtype": str(dt).split(".")[-1], "B": B, "S": S,
                           "H": H, "D": D, "ms": ms, "max_abs_err": err,
-                          "bound_ms": bound * 1e3,
+                          "bound_ms": bound.bound_ms,
+                          "bound_by": bound.bound_by,
                           "route": fa.flash_route(dt, D) if hasattr(
                               fa, "flash_route") else None,
                           "library_ms": lib_ms,

@@ -228,7 +228,7 @@ def main(argv=None):
         if cfg.family not in ("dense", "moe") or cfg.use_mla:
             ap.error(f"--mesh: {args.arch} is not ported to tensor "
                      "parallelism, only the dense archs and qwen3-moe "
-                     "(ROADMAP Queue A, item 3: TP for the other families)")
+                     "(ROADMAP Queue A, item 2: TP for the other families)")
         if args.drift_every:
             ap.error("--drift-every runs the whole model on one rank; it is "
                      "not ported under --mesh")

@@ -139,15 +139,20 @@ def init_model(cfg, *, seed: int = 0, device=None, init_device="cpu"
     ``device`` (default: the card).  The CPU draws by default, so every
     device gets the same numbers; a full-width model is drawn on the card
     in seconds (``init_device="cuda"``: other numbers from the same
-    seed)."""
+    seed).  ``device="meta"`` gives the tree's shapes and dtypes without
+    storage (``init_device`` is then ignored)."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        init_device = "meta"
     kinds = layer_kinds(cfg)
     if cfg.mac.executor.requires_prepared_params:
         raise ValueError(
             f"init_model cannot initialize mac mode {cfg.mac.mode!r}; init "
             "in 'fp' mode and transform via "
             "serve.encoded.prepare_encoded_serving")
-    gen = torch.Generator(device=init_device).manual_seed(seed)
+    # a meta tree draws nothing: any generator will do
+    gen = torch.Generator(device="cpu" if init_device == "meta"
+                          else init_device).manual_seed(seed)
 
     def place(layer):
         # a layer at a time to the device: a full-width model never sits

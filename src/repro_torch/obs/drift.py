@@ -34,6 +34,7 @@ def logit_agreement(params_a, cfg_a, params_b, cfg_b, prompts,
     from repro_torch.models import apply_model
     agree, n, dsum = 0, 0, 0.0
     for p in prompts:
+        # analysis: allow(host-sync): the prompts are host token arrays
         p = np.asarray(p)[:max_len] if max_len else np.asarray(p)
         if p.size == 0:
             continue
@@ -44,6 +45,7 @@ def logit_agreement(params_a, cfg_a, params_b, cfg_b, prompts,
             t = torch.as_tensor(p.astype(np.int32), device=dev)[None]
             with torch.inference_mode():
                 lg, _ = apply_model(params, cfg, t)
+            # analysis: allow(host-sync): opt-in drift sample between steps
             rows.append(lg[0, :, :v].to(torch.float32).cpu().numpy())
         la, lb = rows
         agree += int((la.argmax(-1) == lb.argmax(-1)).sum())
@@ -93,6 +95,7 @@ class DriftMonitor:
     def sample(self, params, cfg, prompts: List[np.ndarray]):
         """Measure now (unconditionally) and publish; returns the
         agreement, or None when there was nothing to sample."""
+        # analysis: allow(host-sync): the prompts are host token arrays
         prompts = [p for p in prompts if np.asarray(p).size][:self.max_prompts]
         if not prompts:
             return None

@@ -50,6 +50,8 @@ def profiler_trace(profile_dir: Optional[str] = None):
         if prof is not None:
             try:
                 if torch.cuda.is_available():
+                    # analysis: allow(host-sync): opt-in profile_dir,
+                    # once at the trace's end
                     torch.cuda.synchronize()
                 prof.stop()
                 prof.export_chrome_trace(os.path.join(profile_dir,

@@ -32,6 +32,7 @@ spawns one process per rank and returns rank 0's result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import datetime
 import pickle
@@ -46,7 +47,7 @@ import torch.distributed as dist
 
 AXIS_DATA, AXIS_MODEL = "data", "model"
 DATA_AXIS_TODO = ("serving over a data axis (--mesh DxM with D > 1) is not "
-                  "ported yet: ROADMAP Queue A, item 3 (serving's data axis)")
+                  "ported yet: ROADMAP Queue A, item 1 (serving's data axis)")
 
 
 class Mesh:
@@ -58,7 +59,10 @@ class Mesh:
     a CUDA tensor waits for the card, copies through the host and back,
     so the time includes that wait) and its payload's bytes summed
     (``collective_bytes``); over an axis of 1 it is the identity and
-    costs nothing."""
+    costs nothing.  Each is counted by its op as well (``by_op``:
+    'all-reduce', or 'all-gather' for ``gather_columns``, which runs as an
+    all-reduce of a zero-filled whole) and by (op, payload shape)
+    (``op_shapes``), which the collective audit reads."""
 
     axis_names = (AXIS_DATA, AXIS_MODEL)
 
@@ -90,6 +94,8 @@ class Mesh:
         self.collectives = 0
         self.collective_s = 0.0
         self.collective_bytes = 0
+        self.by_op = collections.Counter()
+        self.op_shapes = collections.Counter()
 
     @property
     def n_model(self) -> int:
@@ -111,7 +117,8 @@ class Mesh:
         """(collectives, host seconds, bytes) so far."""
         return self.collectives, self.collective_s, self.collective_bytes
 
-    def _reduce(self, t: torch.Tensor, op, axis: str) -> torch.Tensor:
+    def _reduce(self, t: torch.Tensor, op, axis: str,
+                kind: str = "all-reduce") -> torch.Tensor:
         if self.shape[axis] == 1:
             return t
         t = t.contiguous()
@@ -120,6 +127,8 @@ class Mesh:
         self.collective_s += time.perf_counter() - t0
         self.collectives += 1
         self.collective_bytes += t.numel() * t.element_size()
+        self.by_op[kind] += 1
+        self.op_shapes[(kind, tuple(t.shape))] += 1
         return t
 
     def all_reduce_sum(self, t: torch.Tensor, axis: str = AXIS_MODEL
@@ -146,7 +155,8 @@ class Mesh:
         shape[dim] = n * size
         full = t.new_zeros(shape)
         full.narrow(dim, r * n, n).copy_(t)
-        return self.all_reduce_sum(full, AXIS_MODEL)
+        return self._reduce(full, dist.ReduceOp.SUM, AXIS_MODEL,
+                            kind="all-gather")
 
     def agree(self, obj) -> bool:
         """Whether every rank holds an equal ``obj`` (compared by its

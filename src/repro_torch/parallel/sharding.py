@@ -175,7 +175,7 @@ def shard_params(params: dict, cfg, mesh) -> dict:
     if cfg.family not in ("dense", "moe") or cfg.use_mla:
         raise ValueError(f"tensor-parallel serving covers the dense and "
                          f"GQA moe families, not {cfg.arch!r} (ROADMAP "
-                         "Queue A, item 3)")
+                         "Queue A, item 2)")
     with set_mesh(mesh):
         sp = splits(cfg)
     r = mesh.model_rank

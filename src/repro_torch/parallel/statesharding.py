@@ -36,7 +36,7 @@ from .sharding import linear_dim, splits
 REPLICATED = -1
 _STAGES = ("dense_prefix", "moe_stack", "stack")
 TRAIN_TODO = ("training under a mesh covers the dense and GQA moe "
-              "families; {arch!r} waits for ROADMAP Queue A, item 3 (TP "
+              "families; {arch!r} waits for ROADMAP Queue A, item 2 (TP "
               "for the other families)")
 
 

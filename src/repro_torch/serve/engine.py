@@ -63,7 +63,7 @@ def _graphs_on(device: torch.device, cuda_graphs: Optional[bool],
         raise ValueError("cuda_graphs=True under a mesh: gloo's collectives "
                          "cannot be captured in a CUDA graph (graph-captured "
                          "tensor-parallel steps need NCCL on several cards, "
-                         "ROADMAP Queue A, item 3)")
+                         "ROADMAP Queue A, item 6)")
     if cuda_graphs is None:
         return (device.type == "cuda" and not debug_nan_enabled()
                 and mesh is None)
@@ -359,6 +359,7 @@ class Engine:
         """``time_device``: wait for the card (a graph replay returns
         before its kernels finish); the CPU computes synchronously."""
         if self.device.type == "cuda":
+            # analysis: allow(host-sync): opt-in time_device wait
             torch.cuda.synchronize(self.device)
 
     # ---- API ---------------------------------------------------------------
@@ -413,6 +414,7 @@ class Engine:
         return self.results()
 
     def results(self) -> dict:
+        # analysis: allow(host-sync): r.out is a host list of ints
         return {rid: np.asarray(r.out, np.int32)
                 for rid, r in self.requests.items() if r.state == FINISHED}
 
@@ -499,7 +501,8 @@ class Engine:
             if tr.enabled:
                 tr.complete("device:decode", t_d0, t_d1, tid=TID_DEVICE,
                             cat="device", args={"n_active": len(active)})
-        toks = out.cpu().numpy()         # the step boundary: tokens to host
+        # analysis: allow(host-sync): the step boundary, tokens to host
+        toks = out.cpu().numpy()
         if tr.enabled:
             tr.complete("decode_step", t_d0, time.perf_counter(),
                         tid=TID_ENGINE, cat="engine",
@@ -604,6 +607,8 @@ class Engine:
                 tr.complete("device:verify", t_v0, t_v1, tid=TID_DEVICE,
                             cat="device", args={"k": k,
                                                 "n_active": len(active)})
+        # analysis: allow(host-sync): the round's end: acceptance reads
+        # the draft and the verifier's tokens on the host
         d_np, v_np = d_toks.cpu().numpy(), v_toks.cpu().numpy()
         if tr.enabled:
             tr.complete("verify_step", t_v0, time.perf_counter(),
@@ -679,6 +684,7 @@ class Engine:
         t_c0 = time.perf_counter()
         toks = self.steps["prefill"](
             padded, self.kv.ptab[req.slot:req.slot + 1],
+            # analysis: allow(host-sync): a host int, no device data
             np.array([start], np.int32))
         if self.tel.time_device:
             self._sync()
@@ -705,6 +711,8 @@ class Engine:
         if not req.out:
             # read before the next prefill replay overwrites the graph's
             # output
+            # analysis: allow(host-sync): first-token read, once per
+            # request
             req.out = [int(toks[0, req.plen - 1 - start])]
             if req.t_first is None:
                 req.t_first = now
@@ -864,6 +872,7 @@ def _ragged_pad(cfg, pad_lens):
     row is padded; refused where left-pad masking is not exact."""
     if pad_lens is None:
         return None
+    # analysis: allow(host-sync): pad_lens is host data
     pad = np.asarray(pad_lens, np.int32).ravel()
     if not (pad > 0).any():
         return None                       # uniform batch: the plain path
@@ -1029,6 +1038,7 @@ class StaticBatch:
             n = i + 1
             if i + 1 == max_new:         # the next logits would be unused
                 break
+            # analysis: allow(host-sync): the eos test (eos_id only)
             if eos_id is not None and bool(done.all()):
                 break
             self._mark()
@@ -1145,7 +1155,8 @@ class ServeEngine:
             toks = sb.run(torch.from_numpy(batch), max_new, eos_id=eos_id,
                           pad=_ragged_pad(self.cfg, pad) if ragged_ok
                           else None)
-            toks = toks.cpu().numpy()    # the chunk's end: tokens to host
+            # analysis: allow(host-sync): the chunk's end, tokens to host
+            toks = toks.cpu().numpy()
             self.step_ms.extend(sb.step_ms())
             self.chunks.append({"batch": len(chunk), "seq": S,
                                 "max_len": sb.max_len,

@@ -21,6 +21,9 @@ capture ran nothing) and adds it on every replay.
 
 A failed capture or replay raises; nothing falls back to eager execution.
 With ``graphs=False`` the same function runs eagerly on the same buffers.
+``captures`` counts a step's captures and ``binds`` its first bindings of
+its input buffers (the call that captures on the card), which the
+captured-step audit (``analysis/compiled.py``) pins on either path.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ class Step:
         self.out = None
         self.delta = None             # launch counters added per replay
         self.captures = 0
+        self.binds = 0                # input buffers set up (first call)
 
     def arg(self, i: int) -> torch.Tensor:
         """The device tensor the step reads as its input ``i``."""
@@ -75,6 +79,7 @@ class Step:
         (on a graph, the very tensors it was captured with)."""
         host = [x for x in inputs if isinstance(x, np.ndarray)]
         if self._args is None:
+            self.binds += 1
             self._block = torch.empty(sum(x.size for x in host),
                                       dtype=torch.int32, device=self.device)
             args, off = [], 0

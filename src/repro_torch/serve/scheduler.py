@@ -67,8 +67,9 @@ class Request:
         tokens an eviction preserved, minus the final one)."""
         if not self.out:
             return self.prompt
-        return np.concatenate(
-            [self.prompt, np.asarray(self.out[:-1], np.int32)])
+        # analysis: allow(host-sync): out is a host list of ints
+        kept = np.asarray(self.out[:-1], np.int32)
+        return np.concatenate([self.prompt, kept])
 
     @property
     def done(self) -> bool:

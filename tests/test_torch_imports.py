@@ -86,7 +86,12 @@ def test_no_jax_or_reference_imports():
                 "nn.xlstm", "models.encdec", "configs.xlstm_1p3b",
                 "configs.whisper_large_v3", "quant.nonuniform",
                 "apps.image_cls", "apps.paper", "hw.costmodel",
-                "hw.systolic"):
+                "hw.systolic", "analysis.lint", "analysis.rules",
+                "analysis.rules.hostsync", "analysis.rules.f32accum",
+                "analysis.rules.jitinloop", "analysis.rules.metricdocs",
+                "analysis.kernelcheck", "analysis.shardcheck",
+                "analysis.compiled", "analysis.selftest",
+                "analysis.__main__", "launch.roofline", "launch.dryrun"):
         assert f"repro_torch.{mod}" in out["modules"]
 
 
