@@ -279,8 +279,32 @@ eager, collectives a decode step and their host ms, per-rank folded
 bytes and peak memory.  Phase 7 also runs the serve CLI on the card with
 ``--mesh 2`` (reduced, exact encoding, kernel 2), whose 2 ranks must
 print the tokens of the same command without it and load its bundle (a
-cache hit), and ``--mesh 2x2``, which must exit 2.  Phase 8 adds kernel
-1's rows at the TP-2 local shapes and kernel 2's at 8/8 heads.
+cache hit), and with ``--mesh 2x2`` (4 ranks: a data axis of 2 over a
+model axis of 2), which must print them too.  Phase 8 adds kernel 1's
+rows at the TP-2 local shapes and kernel 2's at 8/8 heads.
+
+Serving over a data axis (``DP`` = 2, a 2 x 1 mesh over the same two
+ranks, one scheduler on each, every prefill chunk run on both): phase 3
+gates kernel 1 at a data row's m (decode and draft 2, verify 10, its
+rows of the static prefills) and its rows at m = 2 and 10 bit for bit
+those at m = 20, phase 4 kernel 2 at a data row's B = 2 (16/16 heads at
+D 64 for every pool type at Sq 1 and 5, qwen3-moe's 64/4 at D 128), each
+row's call logged against the whole B = 4 call.  Phase 6k's ranks serve
+qwen1.5-0.5b (``TP_SERVE_LAYERS``, the exact encoding folded on each)
+through the continuous engine with f32 and int8 pools, the prefix cache
+and spec decoding k = 4, each data row running its 2 slots' rows, and
+``ServeEngine`` with each chunk's 4 requests split 2 and 2; then
+qwen3-moe (full width, ``DP_MOE_LAYERS`` layer, f32, fp; a rank's bytes
+from ``launch/dryrun.py`` first), its prefill chunks' MoE dispatched as
+2 data shards at ``t_local``.  Gates: ranks agree; one data-axis
+all-gather a split decode step, spec round and static chunk, and
+nothing over a model axis (qwen3-moe: the load-balance means' one
+all-reduce a MoE layer a split forward too); qwen1.5-0.5b's tokens
+those of the single-rank eager serves or parting at a located .5 code
+(``_tp_origins``), launches by a data row's shapes, gated; qwen3-moe's
+tokens and MoE drops those of a one-rank serve of each data row's
+computation (``_dp_moe_one_rank``).  Phase 8 adds kernel 1's rows at m
+= 2 and 10 and kernel 2's at B = 2.
 
 Training on several ranks (``MESH_TRAIN_RUNS``), in phase 6k's spawn
 after its serves: full-width qwen1.5-0.5b, 4 of 24 layers, AdamW, 4 x
@@ -401,6 +425,17 @@ TP_SERVE_LAYERS = 4
 # decode and draft steps, prefill chunks, verify at k = SPEC_K, the static
 # prefills
 TP_MS = (N_SLOTS, 32, N_SLOTS * (SPEC_K + 1))
+# phase 6k's serves over a data axis: a DP x 1 mesh over the same ranks;
+# where DP divides N_SLOTS a data row runs its N_SLOTS / DP slots' rows of
+# a decode, draft and verify step (kernel 1 at DP_MS: decode and draft,
+# verify at k = SPEC_K; kernel 2 at B = N_SLOTS / DP) and its N_SLOTS / DP
+# requests of a static chunk; every prefill chunk runs on both rows
+DP = 2
+DP_MS = (N_SLOTS // DP, N_SLOTS // DP * (SPEC_K + 1))
+# phase 6k's qwen3-moe over the data axis: full width, this many of its 94
+# layers in f32, fp (no fold): the M = 1 data axis keeps every param whole
+# on both ranks (a rank's bytes from ``launch/dryrun.py``)
+DP_MOE_LAYERS = 1
 # phase 6g's drift monitor: a sample every 8 engine steps, of at most 2
 # resident prompts cut to 32 tokens (the monitor's defaults)
 DRIFT_EVERY, DRIFT_MAX_LEN = 8, 32
@@ -430,14 +465,14 @@ def make_trace(vocab: int, seed: int = 0):
     return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
 
 
-def static_prefill_ms(meta: int = 0):
+def static_prefill_ms(meta: int = 0, rows=None):
     """Kernel 1's m in the static engine's prefills of the main trace: one
-    per chunk of ``N_SLOTS`` requests, batch x (its longest prompt + the
-    arch's ``meta`` tokens) (largest first; the trace's lengths do not
-    depend on the vocab)."""
+    per chunk of ``N_SLOTS`` requests, batch (or a data row's ``rows`` of
+    it) x (its longest prompt + the arch's ``meta`` tokens) (largest
+    first; the trace's lengths do not depend on the vocab)."""
     lens = [len(p) for p in make_trace(2)]
-    return sorted({len(lens[c:c + N_SLOTS]) * (max(lens[c:c + N_SLOTS])
-                                               + meta)
+    return sorted({(rows or len(lens[c:c + N_SLOTS]))
+                   * (max(lens[c:c + N_SLOTS]) + meta)
                    for c in range(0, N_REQUESTS, N_SLOTS)}, reverse=True)
 
 
@@ -779,8 +814,12 @@ def phase_kernel1(dev):
     cases += [("exact", exact, m, k, n) for m in drift_ms() if m != 32
               for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
     # phase 11's smoke traces (2 slots, 8-token prefill chunks, spec k =
-    # 2): decode and draft m = 2, verify 6, prefill chunk 8
-    cases += [("exact", exact, m, k, n) for m in (2, 6, 8)
+    # 2): decode and draft m = 2, verify 6, prefill chunk 8; a data row of
+    # phase 6k's 2 x 1 serves: decode and draft m = 2 (``DP_MS``), verify
+    # 10, its rows of the static prefills
+    cases += [("exact", exact, m, k, n)
+              for m in sorted({2, 6, 8, *DP_MS,
+                               *static_prefill_ms(rows=N_SLOTS // DP)})
               for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
     cases += [("sampled48", sampled, 4, 1024, 2816),
               ("sampled48", sampled, 32, 2816, 1024),
@@ -811,19 +850,23 @@ def phase_kernel1(dev):
     # a row's sums do not depend on m: the decode step (m = 4 slots) and
     # speculative verification (m = 4·(k+1) = 20 at k = 4) give the same
     # row bit for bit, so spec decoding can keep plain decode's tokens
+    # (and a data row's: its decode rows at m = 2 are those rows at m = 4
+    # and at its verify's m = 10)
     for tag, prog in (("exact", exact), ("sampled48", sampled)):
         for k, n in ((1024, 1024), (1024, 2816), (2816, 1024)):
             (args,) = _em_case(dev, prog, 20, k, n, seed=k + n)
             x, wt, bias, sh = args
             full = em.encoded_matmul(x, wt, bias, sh)
-            head = em.encoded_matmul(x[:N_SLOTS].contiguous(), wt, bias, sh)
-            torch.cuda.synchronize()
-            same = torch.equal(full[:N_SLOTS], head)
-            log(f"[kernel1] {tag} k={k} n={n}: rows 0-3 at m=20 and at "
-                f"m=4 {'bit-identical' if same else 'DIFFER'}")
-            if not same:
-                raise AssertionError(f"kernel 1's rows depend on m ({tag} "
-                                     f"k={k} n={n})")
+            for rows in (N_SLOTS, DP_MS[1], DP_MS[0]):
+                head = em.encoded_matmul(x[:rows].contiguous(), wt, bias, sh)
+                torch.cuda.synchronize()
+                same = torch.equal(full[:rows], head)
+                log(f"[kernel1] {tag} k={k} n={n}: rows 0-{rows - 1} at "
+                    f"m=20 and at m={rows} "
+                    f"{'bit-identical' if same else 'DIFFER'}")
+                if not same:
+                    raise AssertionError(f"kernel 1's rows depend on m "
+                                         f"({tag} k={k} n={n} m={rows})")
 
 
 def _pa_case(dev, B, Sq, Hq, Hkv, D, ps, P, lens, dtype, seed=0, copies=1):
@@ -1129,6 +1172,56 @@ def phase_kernel2_tp(dev):
                                      f"TP heads {(mode, Hq, Hkv, D, Sq)}")
 
 
+def phase_kernel2_dp(dev):
+    """Kernel 2 at a data row's B = N_SLOTS / DP of phase 6k's 2 x 1
+    serves, over the serve's 127-page table: qwen1.5-0.5b's 16/16 heads at
+    D 64 with f32, int8 and int4 pools at Sq 1 and 5 (decode, verify at k
+    = 4), qwen3-moe's 64/4 at D 128 with f32 pools at Sq 1; each data
+    row's rows of a whole N_SLOTS call against the plain version, and
+    against the whole call's rows (bit for bit or not, logged: the
+    cluster size follows B, so a row's call may sum its pages in another
+    order)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    cases = [(16, 16, 64, sq, mode) for mode in ("f32", "int8", "int4")
+             for sq in (1, SPEC_K + 1)] + [(64, 4, 128, 1, "f32")]
+    ps, P, b = PAGE_SIZE, SERVE_P, N_SLOTS // DP
+    for Hq, Hkv, D, Sq, mode in cases:
+        ln = [0, 100, 1000, P * ps - Sq]
+        seed = Hq + Hkv + Sq + 1
+        if mode == "f32":
+            (args,), kv_map = _pa_case(dev, N_SLOTS, Sq, Hq, Hkv, D, ps, P,
+                                       ln, torch.float32, seed=seed)
+            sc = (None, None)
+        else:
+            ((args, sc),), kv_map = _pa_quant_case(
+                dev, mode, N_SLOTS, Sq, Hq, Hkv, D, ps, P, ln, seed=seed)
+        q, pk, pv, pages, lens = args
+        kw = dict(scale=D ** -0.5, scale_k=sc[0], scale_v=sc[1])
+        whole = pa.paged_attn(q, pk, pv, pages, lens, kv_of_q=kv_map, **kw)
+        for r in range(DP):
+            rows = slice(r * b, (r + 1) * b)
+            a = (q[rows].contiguous(), pk, pv, pages[rows].contiguous(),
+                 lens[rows].contiguous())
+            out = pa.paged_attn(*a, kv_of_q=kv_map, **kw)
+            ref = pa.paged_attn_plain(*a, pa._NO_WINDOW, G=Hq // Hkv, **kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            ok = torch.allclose(out, ref, rtol=1e-4, atol=1e-5) and \
+                bool(torch.isfinite(out).all())
+            same = torch.equal(out, whole[rows])
+            log(f"[kernel2-dp] {mode} data row {r} of {DP}: B={b} Sq={Sq} "
+                f"Hq={Hq} Hkv={Hkv} D={D} P={P} lens={ln[rows]} "
+                f"max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}; against "
+                f"the whole B={N_SLOTS} call's rows: "
+                f"{'bit-identical' if same else 'apart by %.3e' % (out - whole[rows]).abs().max().item()}"
+                f" (cluster {pa.cluster_size(b, Hkv, P, _n_sm(dev))} vs "
+                f"{pa.cluster_size(N_SLOTS, Hkv, P, _n_sm(dev))})")
+            if not ok:
+                raise AssertionError(f"kernel2 disagrees with plain at a "
+                                     f"data row's B {(mode, Hq, Hkv, D, Sq)}")
+
+
 def _n_sm(dev) -> int:
     import torch
     return torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1206,21 +1299,24 @@ PATH_KERNELS = ("encoded_matmul", "paged_attn")
 
 def _forwards(st, chunk_len):
     """Model forwards of a serve by the rows of their linears (m): decode
-    steps at m = n_slots, prefill chunks at m = chunk_len, and, with
-    speculative decoding, k draft steps at m = n_slots and one verify at
-    m = n_slots·(k+1) per round; plus the one eager warm-up run of each
-    step that the engine captured into a CUDA graph.  Also returns the
-    forwards whose attention runs kernel 2 (all but prefill), by Sq."""
+    steps at m = the slots a step runs (n_slots, or a data row's n_slots /
+    D where ``data_split``), prefill chunks at m = chunk_len, and, with
+    speculative decoding, k draft steps at that m and one verify at m·(k+1)
+    per round; plus the one eager warm-up run of each step that the engine
+    captured into a CUDA graph.  Also returns the forwards whose attention
+    runs kernel 2 (all but prefill), by Sq."""
     warm = st["jit_compiles_by_step"]
     k = st.get("spec_decode_k", 0)
     rounds = st.get("spec_rounds", 0)
+    slots = (st["n_slots"] // st["mesh"]["data"] if st.get("data_split")
+             else st["n_slots"])
     by_m = collections.Counter()
     by_m[chunk_len] += st["prefill_chunks"] + warm["prefill"]
-    by_m[N_SLOTS] += st["decode_steps"] + warm["decode"]
+    by_m[slots] += st["decode_steps"] + warm["decode"]
     attn = collections.Counter({1: st["decode_steps"] + warm["decode"]})
     if k:
-        by_m[N_SLOTS] += k * (rounds + warm["draft"])
-        by_m[N_SLOTS * (k + 1)] += rounds + warm["verify"]
+        by_m[slots] += k * (rounds + warm["draft"])
+        by_m[slots * (k + 1)] += rounds + warm["verify"]
         attn[1] += k * (rounds + warm["draft"])
         attn[k + 1] += rounds + warm["verify"]
     return +by_m, +attn
@@ -1329,9 +1425,9 @@ def _static_forwards(chunks, meta: int = 0):
     steps plus the eager warm-up of each graph it captured at batch
     rows."""
     pre, dec = collections.Counter(), collections.Counter()
-    for c in chunks:
-        pre[c["batch"] * (c["seq"] + meta)] += 1
-        dec[c["batch"]] += c["decode_steps"] + c["captures"]
+    for c in chunks:                      # a data row's rows of the chunk
+        pre[c["rows"] * (c["seq"] + meta)] += 1
+        dec[c["rows"]] += c["decode_steps"] + c["captures"]
     return pre, dec
 
 
@@ -2654,16 +2750,18 @@ def phase_archs(dev):
 
 @contextlib.contextmanager
 def _drop_tally(on: bool):
-    """While ``on``: each MoE call's dropped (token, choice) pairs,
+    """While ``on``: each MoE dispatch's dropped (token, choice) pairs,
     recomputed from its routing plan (``nn.moe.dispatch_plan``), as
-    (device count, pairs) in a list; eager serves only (a graph replay
-    runs no Python)."""
+    (device count, pairs, whether the call held the whole batch on every
+    data row) in a list; eager serves only (a graph replay runs no
+    Python)."""
     import repro_torch.nn.moe as M
+    from repro_torch.parallel.mesh import batch_replicated
     tally, orig = [], M.dispatch_plan
 
     def counted(idx, n_experts, cap):
         plan = orig(idx, n_experts, cap)
-        tally.append(((~plan[2]).sum(), plan[2].numel()))
+        tally.append(((~plan[2]).sum(), plan[2].numel(), batch_replicated()))
         return plan
     if on:
         M.dispatch_plan = counted
@@ -2677,7 +2775,8 @@ def _drops(tally):
     """(dropped pairs, pairs) of a ``_drop_tally``, or None if empty."""
     if not tally:
         return None
-    return (int(sum(int(d) for d, _ in tally)), sum(n for _, n in tally))
+    return (int(sum(int(d) for d, *_ in tally)),
+            sum(n for _, n, _ in tally))
 
 
 def _fw_bytes(tree) -> int:
@@ -3573,9 +3672,9 @@ def phase_cli_start(dev):
     ``phase_cli_train_full`` (the card phases between them run
     meanwhile; their gates compare tokens and losses, not times): the
     serve CLI with ``CLI_MESH_ARGV`` first in this process (it folds and
-    writes the reduced bundle), then the same with ``--mesh 2``; the
-    train CLI with ``CLI_TRAIN_ARGV --devices 2`` and, at full width,
-    with ``CLI_TRAIN_FULL_ARGV``."""
+    writes the reduced bundle), then the same with ``--mesh 2`` and with
+    ``--mesh 2x2``; the train CLI with ``CLI_TRAIN_ARGV --devices 2``
+    and, at full width, with ``CLI_TRAIN_FULL_ARGV``."""
     import io
     from repro_torch.launch import serve as cli
     tmp = bundle_dir("cli-ranks")
@@ -3587,6 +3686,9 @@ def phase_cli_start(dev):
     return {"tmp": tmp, "alone": buf.getvalue(), "two": two, "full": full,
             "serve": _start(py + ["repro_torch.launch.serve"] + CLI_MESH_ARGV
                             + ["--mesh", "2"], tmp, "serve"),
+            "serve_dp": _start(py + ["repro_torch.launch.serve"]
+                               + CLI_MESH_ARGV + ["--mesh", "2x2"], tmp,
+                               "serve-dp"),
             "train": _start(py + ["repro_torch.launch.train"]
                             + CLI_TRAIN_ARGV + ["--devices", "2",
                                                 "--ckpt-dir", two],
@@ -3602,10 +3704,8 @@ def phase_cli_mesh(dev, started):
     the same command with ``--mesh 2`` as a user runs it (started by
     ``phase_cli_start``): the CLI spawns 2 ranks over gloo that share the
     card, each loads that bundle (a cache hit) and keeps its slices, and
-    rank 0 prints the same tokens; ``--mesh 2x2`` exits 2 naming the
-    data axis's ROADMAP item."""
-    import io
-    from repro_torch.launch import serve as cli
+    rank 0 prints the same tokens; and with ``--mesh 2x2``: 4 ranks, a
+    data axis of 2 over a model axis of 2, the same tokens."""
     alone = started["alone"]
     code, meshed, errs, dt = _finish(started["serve"])
 
@@ -3626,17 +3726,23 @@ def phase_cli_mesh(dev, started):
     if ("cache hit" not in meshed or meshed.count("served 4 requests") != 1
             or "mesh: {'data': 1, 'model': 2}" not in meshed):
         raise AssertionError(f"the serve CLI with --mesh 2: {meshed[-2000:]}")
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        try:
-            cli.main(CLI_MESH_ARGV + ["--mesh", "2x2"])
-        except SystemExit as e:
-            code = e.code
-        else:
-            code = 0
-    if code != 2 or "data axis" not in err.getvalue():
-        raise AssertionError(f"--mesh 2x2: exit {code}, {err.getvalue()}")
-    log(f"[cli] --mesh 2x2: exit 2, {err.getvalue().strip().splitlines()[-1]}")
+    code, meshed, errs, dt = _finish(started["serve_dp"])
+    served = [ln.strip() for ln in meshed.splitlines()
+              if ln.startswith("served") or "mesh:" in ln]
+    log(f"[cli] {' '.join(CLI_MESH_ARGV)} --mesh 2x2: exit {code} {dt:.1f}s "
+        f"after its start (4 ranks spawned by the CLI); {served}; tokens "
+        f"{toks(meshed)}")
+    if code != 0:
+        raise AssertionError(f"the serve CLI with --mesh 2x2 failed: "
+                             f"{errs[-3000:]}")
+    if not toks(alone) or toks(meshed) != toks(alone):
+        raise AssertionError("the serve CLI with --mesh 2x2 printed other "
+                             "tokens than without --mesh")
+    if ("cache hit" not in meshed or meshed.count("served 4 requests") != 1
+            or "mesh: {'data': 2, 'model': 2} replicated=[] data_split=True"
+            not in meshed):
+        raise AssertionError(f"the serve CLI with --mesh 2x2: "
+                             f"{meshed[-2000:]}")
 
 
 # the train CLI on two ranks (phase 7): reduced, 4 steps, checkpoints at
@@ -4759,15 +4865,16 @@ def _em_row(dev, prog, m, k, n, seed, name, launches, shape, lib):
 
 def _pa_row(dev, mode, sq, Hq, Hkv, D, P, lens, window, cap, name, note,
             launches, seed):
-    """Kernel 2's row of the kernels line: 4 rows of ``lens`` at Sq
-    ``sq``, ``mode`` pools ('bf16' = dense f32), kernel and plain version
-    timed over 8 input sets, beside the launch floor (an empty kernel on
-    the same grid and cluster, replayed the same way)."""
+    """Kernel 2's row of the kernels line: a row per entry of ``lens``
+    (4, or a data row's 2) at Sq ``sq``, ``mode`` pools ('bf16' = dense
+    f32), kernel and plain version timed over 8 input sets, beside the
+    launch floor (an empty kernel on the same grid and cluster, replayed
+    the same way)."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch import roofline
     from repro_torch.launch.kernel_bench import time_graph
-    B, ps = N_SLOTS, PAGE_SIZE
+    B, ps = len(lens), PAGE_SIZE
     if mode == "bf16":
         sets, kv_map = _pa_case(dev, B, sq, Hq, Hkv, D, ps, P, lens,
                                 torch.float32, seed=seed, copies=8)
@@ -4959,6 +5066,37 @@ def phase_measure(dev, serve_info):
             ("f32 pools" if mode == "bf16" else f"{mode} pools + f32 scales")
             + f", a rank's heads at TP {TP}", tp[mode]["paged_attn"],
             seed=12))
+    # kernel 1 and kernel 2 at a data row's shapes of phase 6k's 2 x 1
+    # serves: kernel 1 at m = N_SLOTS / DP (decode and draft) and at
+    # verify's m = (k + 1)·N_SLOTS / DP, kernel 2 at B = N_SLOTS / DP
+    # (qwen1.5-0.5b's 16/16 heads at Sq 1 and 5, qwen3-moe's 64/4 at Sq
+    # 1); launches: rank 0's serves
+    dp = serve_info["tp"]["counts"]
+    prog = _program("exact")
+    for m, key, what in ((DP_MS[0], "dp_bf16", "decode"),
+                         (DP_MS[1], "dp_spec", f"verify k={SPEC_K}")):
+        by = dp[key]["encoded_matmul_by_shape"]
+        for k, n in shapes:
+            rows.append(_em_row(
+                dev, prog, m, k, n, 15,
+                f"encoded_matmul_dp{DP}_m{m}_k{k}_n{n}", by.get((m, k, n), 0),
+                f"{what} on a data row of a {DP} x 1 mesh; launches: rank "
+                "0's serve", lib))
+    b_lens = lens[:N_SLOTS // DP]
+    for mode, sq, key in (("bf16", 1, "dp_bf16"), ("int8", 1, "dp_int8"),
+                          ("bf16", SPEC_K + 1, "dp_spec")):
+        rows.append(_pa_row(
+            dev, mode, sq, 16, 16, 64, SERVE_P, b_lens, None, None,
+            f"paged_attn_dp{DP}{'' if mode == 'bf16' else '_' + mode}"
+            f"{'' if sq == 1 else f'_sq{sq}'}_p{SERVE_P}",
+            ("f32 pools" if mode == "bf16" else f"{mode} pools + f32 scales")
+            + f", a data row's slots on a {DP} x 1 mesh",
+            dp[key]["paged_attn_by_sq"].get(sq, 0), seed=14))
+    rows.append(_pa_row(
+        dev, "bf16", 1, qcfg.n_heads_p, qcfg.n_kv_p, qcfg.head_dim_r,
+        SERVE_P, b_lens, None, None, f"paged_attn_dp{DP}_qwen3-moe_p{SERVE_P}",
+        f"f32 pools, a data row's slots on a {DP} x 1 mesh",
+        dp["dp_moe"]["paged_attn"], seed=16))
     # kernel 3 at the prefill shape of full-width qwen1.5-0.5b: B 4, S 1024,
     # 16 heads, D 64, causal; flattened (B·H, S, D) as flash_mha hands it
     # to the kernel.  Not on the serving path: launches 0 (the reference's
@@ -5070,13 +5208,15 @@ def _recorded_serve(dev, params, cfg, trace, want, static, mesh=None,
     verify forward rewrites the positions the draft steps wrote, a
     prefill after an eviction those it wrote before), so the rows are the
     ones the served tokens' K/V came from.  Under ``mesh`` (params: this
-    rank's) a row shard's inputs are gathered after the serve.  Returns ({i: {site: (positions, k)
-    host tensor}}, the sites in call order)."""
+    rank's) a row shard's inputs are gathered after the serve, and where
+    a data axis splits a step (or a static chunk) each data row keeps its
+    own slots' (requests') rows, put together after the serve.  Returns
+    ({i: {site: (positions, k) host tensor}}, the sites in call order)."""
     import numpy as np
     import torch
     from repro_torch.nn.common import activation_recorder
-    from repro_torch.parallel.mesh import set_mesh
-    from repro_torch.parallel.sharding import shard_params
+    from repro_torch.parallel.mesh import replicated_batch, set_mesh
+    from repro_torch.parallel.sharding import batch_rows, shard_params
     from repro_torch.serve import supports_ragged_mask
     from repro_torch.serve.engine import StaticBatch, _ragged_pad
     from repro_torch.serve.scheduler import DECODING
@@ -5106,7 +5246,10 @@ def _recorded_serve(dev, params, cfg, trace, want, static, mesh=None,
         cur, calls, chunk_of = {}, collections.Counter(), eng._prefill_chunk
 
         def prefill_chunk(req):
-            cur["rid"] = req.rid
+            # the chunk's real tokens (its pad rows are written nowhere
+            # that is read)
+            cur["rid"], cur["n"] = req.rid, min(
+                eng.prefill_chunk, req.prefill_target - req.n_cached)
             chunk_of(req)
             cur.pop("rid")
         eng._prefill_chunk = prefill_chunk
@@ -5129,42 +5272,68 @@ def _recorded_serve(dev, params, cfg, trace, want, static, mesh=None,
             step, lens = cur["step"], cur["lens"]
             d = calls[site]                 # the draft's d-th unrolled step
             calls[site] += 1
+            n = x.shape[1]
             if step == "prefill":
                 i = of_rid.get(cur.get("rid"))
                 rows = [] if i is None else [(i, 0, lens[0])]
+                n = cur["n"]
             else:
-                rows = [(i, eng.requests[rids[i]].slot,
-                         lens[eng.requests[rids[i]].slot]
-                         + (d if step == "draft" else 0)) for i in want
-                        if eng.requests[rids[i]].state == DECODING]
+                # a step's rows: this data row's slots (all where unsplit)
+                lo, hi = eng.rows
+                slot = {i: eng.requests[rids[i]].slot for i in want
+                        if eng.requests[rids[i]].state == DECODING}
+                rows = [(i, b - lo, lens[b - lo]
+                         + (d if step == "draft" else 0))
+                        for i, b in slot.items() if lo <= b < hi]
             for i, b, p0 in rows:
-                for t in range(x.shape[1]):
+                for t in range(n):
                     by_pos[i, site][p0 + t] = x[b, t].float() / sa
         with torch.inference_mode(), activation_recorder(hook):
             eng.run()
         del eng._prefill_chunk, eng
+        if mesh is not None and mesh.n_data > 1:
+            # each data row's positions (the prefills' on every row)
+            for part in _gather_objects({k: {p: r.cpu() for p, r in v.items()}
+                                         for k, v in by_pos.items()}):
+                for key, rows in part.items():
+                    by_pos[key].update(rows)
     for c0 in (sorted({i - i % N_SLOTS for i in want}) if static else ()):
         chunk = trace[c0:c0 + N_SLOTS]
         S = max(map(len, chunk))
-        batch = np.zeros((len(chunk), S), np.int32)
-        pad = np.zeros((len(chunk),), np.int32)
-        for r, q in enumerate(chunk):
+        # this data row's requests of the chunk (all where unsplit)
+        lo, hi = batch_rows(len(chunk), mesh)
+        batch = np.zeros((hi - lo, S), np.int32)
+        pad = np.zeros((hi - lo,), np.int32)
+        for r, q in enumerate(chunk[lo:hi]):
             batch[r, S - len(q):] = q
             pad[r] = S - len(q)
-        rows = {i - c0: i for i in want if c0 <= i < c0 + N_SLOTS}
+        rows = {i - c0 - lo: i for i in want if c0 + lo <= i < c0 + hi}
+        if not rows:
+            continue
 
         def rows_of(x, rows=rows, pad=pad):
             if x.shape[1] > 1:
                 return [(i, True, x[r, int(pad[r]):]) for r, i in rows.items()]
             return [(i, False, x[r]) for r, i in rows.items()]
-        with set_mesh(mesh), torch.inference_mode(), recording(rows_of):
-            sb = StaticBatch(params, cfg, len(chunk), S + MAX_NEW + 8,
+        with set_mesh(mesh), replicated_batch((lo, hi) == (0, len(chunk))), \
+                torch.inference_mode(), recording(rows_of):
+            sb = StaticBatch(params, cfg, hi - lo, S + MAX_NEW + 8,
                              device=dev, graphs=False)
             sb.run(torch.from_numpy(batch),
                    max(want[i] for i in rows.values()) + 1,
                    pad=_ragged_pad(cfg, pad) if supports_ragged_mask(cfg)
                    else None)
         del sb
+    if static and mesh is not None and mesh.n_data > 1:
+        # each request's rows from the data row that served it
+        mine = {i: {site: [(pre, r.cpu()) for pre, r in v]
+                    for site, v in got[i].items()} for i in list(got)}
+        for part in _gather_objects((mine, order)):
+            for i, sites_ in part[0].items():
+                if i not in mine:
+                    got[i].update(sites_)
+            if len(part[1]) > len(order):
+                order[:] = part[1]
     gather = {site for site, _, g in sites.values() if g}
     out = {}
     for i, j in want.items():
@@ -5183,6 +5352,21 @@ def _recorded_serve(dev, params, cfg, trace, want, static, mesh=None,
             out[i][site] = t.cpu()
     del got
     return out, order
+
+
+def _axis_delta(mesh, before) -> dict:
+    """``mesh.by_axis`` since ``before``, as {"axis/op": count}."""
+    d = collections.Counter(mesh.by_axis)
+    d.subtract(before)
+    return {f"{a}/{o}": n for (a, o), n in sorted((+d).items())}
+
+
+def _gather_objects(obj) -> list:
+    """Every rank's ``obj`` in rank order (host objects, pickled)."""
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def _tp_cont(mesh, dev, params, cfg, trace, base, tally=None, **kw):
@@ -5210,6 +5394,7 @@ def _tp_cont(mesh, dev, params, cfg, trace, base, tally=None, **kw):
     dec.fn = counted
     c0, s0 = mesh.collectives, mesh.collective_s
     o0 = collections.Counter(mesh.by_op)
+    a0 = collections.Counter(mesh.by_axis)
     outs, dt, counts, st = _timed_run(eng, rids)
     by_op = collections.Counter(mesh.by_op)
     by_op.subtract(o0)
@@ -5221,8 +5406,8 @@ def _tp_cont(mesh, dev, params, cfg, trace, base, tally=None, **kw):
            "agree": agree, "chunk": eng.prefill_chunk,
            "collectives": mesh.collectives - c0,
            "collective_ms": (mesh.collective_s - s0) * 1e3,
-           "by_op": dict(+by_op), "decode": per, "decode_ops": per_op,
-           "origins": None,
+           "by_op": dict(+by_op), "by_axis": _axis_delta(mesh, a0),
+           "decode": per, "decode_ops": per_op, "origins": None,
            "drops": None if tally is None else _drops(tally)}
     del eng, dec, fn
     splits = _splits_of(toks, base)
@@ -5237,6 +5422,7 @@ def _tp_static(mesh, dev, params, cfg, trace, base, tally=None):
     """One ``ServeEngine`` serve on this rank (eager), as ``_tp_cont``."""
     c0, s0 = mesh.collectives, mesh.collective_s
     o0 = collections.Counter(mesh.by_op)
+    a0 = collections.Counter(mesh.by_axis)
     eng, toks, dt, counts = _static(params, cfg, trace, dev, mesh=mesh)
     st = eng.stats()
     by_op = collections.Counter(mesh.by_op)
@@ -5245,7 +5431,8 @@ def _tp_static(mesh, dev, params, cfg, trace, base, tally=None):
            "chunks": eng.chunks, "agree": mesh.agree((toks, _det_stats(st))),
            "collectives": mesh.collectives - c0,
            "collective_ms": (mesh.collective_s - s0) * 1e3,
-           "by_op": dict(+by_op), "origins": None,
+           "by_op": dict(+by_op), "by_axis": _axis_delta(mesh, a0),
+           "origins": None,
            "drops": None if tally is None else _drops(tally)}
     del eng
     splits = _splits_of(toks, base)
@@ -5269,7 +5456,7 @@ def _tp_qwen(mesh, dev, base, ready=None):
     slices kept, ``ready()`` waited for, then the serves, each the whole
     trace to ``MAX_NEW`` new tokens."""
     import torch
-    from repro_torch.models import init_model
+    from repro_torch.models import init_model, to_device
     from repro_torch.parallel.sharding import shard_params
     cfg = _tp_cfg()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5285,6 +5472,8 @@ def _tp_qwen(mesh, dev, base, ready=None):
     out["fw_local"] = _fw_bytes(local)
     t = local["embed"]["table"]
     out["embed_bytes"] = t.numel() * t.element_size()
+    # the whole folded params wait on the host for the 2 x 1 serves
+    whole = to_device(params_enc, "cpu")
     del params, params_enc
     gc.collect()
     torch.cuda.empty_cache()
@@ -5308,7 +5497,115 @@ def _tp_qwen(mesh, dev, base, ready=None):
     out["static"] = _tp_static(mesh, dev, local, cfg_enc, trace,
                                base["static"])
     out["peak"] = torch.cuda.max_memory_allocated(dev)
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dp"] = _dp_qwen(dev, to_device(whole, dev), cfg_enc, base)
     return out
+
+
+def _dp_qwen(dev, params, cfg, base):
+    """Phase 6k's qwen1.5-0.5b over a ``DP`` x 1 mesh of the same ranks
+    (made here by every rank; the data axis keeps ``params`` whole): the
+    continuous engine with f32 and int8 pools, the prefix cache on 6c's
+    trace and spec decoding at k = ``SPEC_K``, each data row running its
+    ``N_SLOTS / DP`` slots' rows, and ``ServeEngine`` with each chunk's
+    requests split over the rows; each the whole trace, as ``_tp_cont`` /
+    ``_tp_static`` report it."""
+    from repro_torch.parallel.mesh import Mesh
+    mesh = Mesh(DP, 1)
+    trace = make_trace(cfg.vocab_size)
+    out = {}
+    for key, kw, tr in (
+            ("bf16", {}, trace),
+            ("int8", {}, trace),
+            ("prefix", dict(prefix_cache=True),
+             _prefix_trace(cfg.vocab_size)),
+            ("spec", dict(spec_decode=SPEC_K), trace)):
+        c = dataclasses.replace(cfg, kv_cache_dtype=key) \
+            if key == "int8" else cfg
+        want = base["bf16" if key == "spec" else key]
+        out[key] = _tp_cont(mesh, dev, params, c, tr, want, **kw)
+    out["static"] = _tp_static(mesh, dev, params, cfg, trace,
+                               base["static"])
+    return out
+
+
+def _dp_moe_cfg():
+    """Phase 6k's qwen3-moe over the data axis: full width,
+    ``DP_MOE_LAYERS`` layers, f32 weights, fp."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("qwen3-moe-235b-a22b").with_layers(DP_MOE_LAYERS),
+        param_dtype="float32", attention_backend="kernel")
+
+
+def _dp_moe_one_rank(dev):
+    """The one-rank serve a 2 x 1 qwen3-moe serve must equal: the
+    continuous engine (eager) with every prefill chunk's MoE dispatched
+    as ``DP`` data shards at ``t_local`` (a stand-in mesh marks the call
+    replicated over ``DP`` data rows) and every decode step run as ``DP``
+    calls of ``N_SLOTS / DP`` rows, each its own shard: the computation of
+    each data row at its shapes.  Returns tokens, dropped pairs, seconds
+    and launch counts."""
+    import torch
+    from repro_torch.analysis.shardcheck import LayoutMesh
+    from repro_torch.models import init_model
+    from repro_torch.parallel.mesh import replicated_batch, set_mesh
+    cfg = _dp_moe_cfg()
+    params = init_model(cfg, seed=0, device=dev, init_device=dev)
+    trace = make_trace(cfg.vocab_size)
+    eng, rids = _serve(params, cfg, trace, dev, cuda_graphs=False)
+    pre, dec = eng.steps["prefill"], eng.steps["decode"]
+    pre_fn, dec_fn, b = pre.fn, dec.fn, N_SLOTS // DP
+
+    def prefill(*a):
+        with set_mesh(LayoutMesh(1, n_data=DP)), replicated_batch():
+            return pre_fn(*a)
+
+    def decode(tokens, pages, lens):
+        return torch.cat([dec_fn(tokens[r:r + b], pages[r:r + b],
+                                 lens[r:r + b])
+                          for r in range(0, N_SLOTS, b)])
+    pre.fn, dec.fn = prefill, decode
+    with _drop_tally(True) as tally:
+        outs, dt, counts, st = _timed_run(eng, rids)
+    out = {"tokens": [outs[r].tolist() for r in rids], "dt": dt,
+           "drops": _drops(tally), "counts": counts}
+    del eng, pre, dec, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_moe(dev, want):
+    """Phase 6k's qwen3-moe over a ``DP`` x 1 mesh on this rank: the
+    weights drawn here (whole: the data axis replicates them), the
+    continuous engine's serve (``_tp_cont``), and the MoE dispatches'
+    dropped pairs over the data axis: a prefill chunk's (replicated, so
+    counted once) and every data row's decode dispatches."""
+    import torch
+    from repro_torch.models import init_model
+    from repro_torch.parallel.mesh import Mesh
+    mesh = Mesh(DP, 1)
+    cfg = _dp_moe_cfg()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device=dev, init_device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    trace = make_trace(cfg.vocab_size)
+    with _drop_tally(True) as tally:
+        r = _tp_cont(mesh, dev, params, cfg, trace, want["tokens"])
+    mine = [(int(d), n) for d, n, rep in tally if not rep]
+    rows = sum(_gather_objects(mine), [])
+    once = [(int(d), n) for d, n, rep in tally if rep]
+    r.update(drops=(sum(d for d, _ in once + rows),
+                    sum(n for _, n in once + rows)),
+             build_s=build_s, peak=torch.cuda.max_memory_allocated(dev),
+             cfg=cfg)
+    del params
+    return r
 
 
 def _tp_moe(mesh, dev, base):
@@ -5831,11 +6128,15 @@ def _tp_rank(mesh, job):
     out["moe"] = _tp_moe(mesh, dev, job["base"]["moe"])
     gc.collect()
     torch.cuda.empty_cache()
+    out["dp_moe"] = _dp_moe(dev, job["base"]["dp_moe"])
+    gc.collect()
+    torch.cuda.empty_cache()
     out["train"] = _tp_train(mesh, dev, job["train"])
     return out
 
 
-def _tp_origins(tag, dev, params, cfg, trace, base, r, static, **kw):
+def _tp_origins(tag, dev, params, cfg, trace, base, r, static,
+                mesh_tag=f"TP {TP}", **kw):
     """Where the TP serve ``r`` parts from the single rank's ``base``,
     gated as ``_split_report`` gates two engines: the single rank's serve
     again eagerly with the same hook (``_recorded_serve``), and for each
@@ -5893,7 +6194,7 @@ def _tp_origins(tag, dev, params, cfg, trace, base, r, static, **kw):
             f"token {j}; the first int8 code apart is at {where}, {t} "
             f"channel(s) {chans[:4]}: x / scale "
             f"{xs[t][p, chans[0]].item():.7f} (1 rank) against "
-            f"{xt[t][p, chans[0]].item():.7f} (TP {TP}), {edge:.1e} from the "
+            f"{xt[t][p, chans[0]].item():.7f} ({mesh_tag}), {edge:.1e} from the "
             f".5 boundary; every input to there within {before:.3e}")
         if edge > ORIGIN_TOL or before > ORIGIN_TOL:
             raise AssertionError(f"[tp] {tag}: request {i} parts without a "
@@ -5946,6 +6247,54 @@ def _tp_check(tag, r, base, cfg, eager_tok_s, static=False):
     return bool(parts)
 
 
+def _dp_check(tag, r, base, cfg, eager_tok_s, static=False):
+    """Log one of phase 6k's ``DP`` x 1 serves and gate what needs no
+    single-rank rerun: every request finished, the ranks agree, a split
+    step (a decode step, a spec round, a static chunk whose requests DP
+    divides) was gathered once over the data axis and nothing crossed the
+    model axis; on moe, the load-balance means' one all-reduce a MoE
+    layer a split forward (the global batch's means).  Returns whether
+    its tokens part from ``base``."""
+    from repro_torch.models import layer_kinds
+    toks = r["tokens"]
+    if not r["agree"]:
+        raise AssertionError(f"[dp] {tag}: the ranks' tokens, stats or "
+                             "allocator state differ")
+    assert len(toks) == len(base) and all(
+        len(t) == len(b) and all(0 <= x < cfg.vocab_size for x in t)
+        for t, b in zip(toks, base)), f"[dp] {tag}: not every request " \
+        "finished"
+    st = r["stats"]
+    if static:
+        gathers = sum(c["rows"] < c["batch"] for c in r["chunks"])
+        forwards = 0
+    else:
+        if not st["data_split"]:
+            raise AssertionError(f"[dp] {tag}: the decode steps ran every "
+                                 f"slot on every data row")
+        k = st.get("spec_decode_k", 0)
+        gathers = st["spec_rounds"] if k else st["decode_steps"]
+        forwards = (k + 1) * gathers if k else gathers
+    want = {"data/all-gather": gathers}
+    moe_layers = sum(kind == "moe" for kind in layer_kinds(cfg))
+    if moe_layers and forwards:
+        want["data/all-reduce"] = moe_layers * forwards
+    if r["by_axis"] != want:
+        raise AssertionError(f"[dp] {tag}: collectives {r['by_axis']}, "
+                             f"expected {want}")
+    n_same, parts = _agreement(toks, base)
+    n_tok = sum(map(len, toks))
+    log(f"[dp] {tag}: {len(toks)} requests, {n_tok} tokens in {r['dt']:.3f}s"
+        f" = {n_tok / r['dt']:.1f} tok/s eager on a {DP} x 1 mesh "
+        f"(single-rank eager "
+        f"{'not served' if eager_tok_s is None else round(eager_tok_s, 1)});"
+        f" step p50 {st['step_ms_p50']:.2f} ms; collectives {r['by_axis']},"
+        f" {r['collective_ms']:.1f} ms on the host; ranks agree; tokens "
+        f"against the single-rank eager serve: {n_same} of {len(toks)} "
+        f"requests identical, parts (request, new token) {parts}; {SMI}")
+    return bool(parts)
+
+
 def _tp_baselines(dev, pe, ce):
     """Phase 6k's single-rank eager serves of ``_tp_cfg`` (params ``pe``
     folded as ``ce``), which the ranks' tokens must equal: continuous with
@@ -5990,6 +6339,22 @@ def phase_tp(dev, info):
     del params
     base = _tp_baselines(dev, pe, ce)
     base["moe"] = info["tp_base"]["moe"]
+    # the 2 x 1 qwen3-moe serve: a rank's bytes first (the data axis
+    # keeps every param whole on both ranks), then its one-rank serve
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun, roofline
+    cm = _dp_moe_cfg()
+    rec = dryrun.cell(cm, ShapeSpec("dp-serve", N_PAGES * PAGE_SIZE // N_SLOTS,
+                                    N_SLOTS, "decode"), 1, n_data=DP)
+    log(f"[dp] qwen3-moe ({cm.n_layers} of 94 layers, f32) on a {DP} x 1 "
+        f"mesh, launch/dryrun.py: params {rec['params_bytes'] / 1e9:.2f} GB "
+        f"a rank, paged pools {rec['pool_bytes'] / 1e9:.3f} GB a rank; "
+        f"{DP} ranks {DP * (rec['params_bytes'] + rec['pool_bytes']) / 1e9:.2f}"
+        f" GB of the card's {roofline.HBM_BYTES / 1e9:.0f}")
+    if DP * (rec["params_bytes"] + rec["pool_bytes"]) > 0.6 * roofline.HBM_BYTES:
+        raise AssertionError("[dp] the 2 x 1 qwen3-moe serve would not fit "
+                             "beside the parent")
+    base["dp_moe"] = _dp_moe_one_rank(dev)
     log(f"[tp] this process holds {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
         f" GB of the card ({torch.cuda.memory_reserved(dev) / 1e9:.2f} GB "
         "reserved) as the ranks start")
@@ -6111,7 +6476,79 @@ def phase_tp(dev, info):
         del params, pe
         gc.collect()
         torch.cuda.empty_cache()
+    counts.update(_dp_checks(dev, cfg, q["dp"], base, res["dp_moe"]))
     return {"counts": counts}
+
+
+def _dp_checks(dev, cfg, dp, base, moe):
+    """Phase 6k's 2 x 1 serves gated: qwen1.5-0.5b's against the
+    single-rank eager serves (a parting located by ``_tp_origins``), its
+    launches (kernel 1 at a data row's m, kernel 2 at its B); qwen3-moe's
+    tokens and dropped pairs against the one-rank serve of each data
+    row's computation (``_dp_moe_one_rank``).  Returns the launch counts
+    by serve (``dp_`` keys)."""
+    import torch
+    from repro_torch.models import init_model
+    eager = base["eager_tok_s"]
+    counts, parted = {}, []
+    for tag, key in (("continuous f32 pools", "bf16"),
+                     ("continuous int8 pools", "int8"),
+                     ("prefix cache (6c's trace)", "prefix"),
+                     (f"spec self k={SPEC_K}", "spec")):
+        r = dp[key]
+        ck = dataclasses.replace(cfg, kv_cache_dtype=key) \
+            if key == "int8" else cfg
+        _check_counts(r["counts"], r["stats"], ck, r["chunk"],
+                      f"(dp {tag}, rank 0)", gated=True)
+        want = base["bf16" if key == "spec" else key]
+        if _dp_check(tag, r, want, cfg, eager.get(key)):
+            parted.append((tag, key, want, r))
+        if key == "prefix":
+            log(f"[dp] prefix: {r['stats']['prefix_hit_tokens']} hit tokens"
+                f" of {r['stats']['prefix_lookup_tokens']}")
+            if r["stats"]["prefix_hit_tokens"] <= 0:
+                raise AssertionError("[dp] the shared-prefix trace had no "
+                                     "hit")
+        counts["dp_" + key] = r["counts"]
+    r = dp["static"]
+    _check_static_counts(r["counts"], r["chunks"], cfg,
+                         "(dp static, rank 0)", gated=True)
+    if _dp_check("static", r, base["static"], cfg, eager["static"],
+                 static=True):
+        parted.append(("static", "static", base["static"], r))
+    counts["dp_static"] = r["counts"]
+    if parted:                    # the single rank's serves again, hooked
+        params = init_model(cfg, seed=0, device=dev)
+        pe, ce, _ = _fold_exact(params, cfg)
+        trace = make_trace(cfg.vocab_size)
+        for tag, key, want, r in parted:
+            c = dataclasses.replace(ce, kv_cache_dtype=key) \
+                if key == "int8" else ce
+            tr = (_prefix_trace(cfg.vocab_size) if key == "prefix"
+                  else trace[:len(want)])
+            kw = {} if key == "static" else dict(max_new=len(want[0]))
+            if key == "prefix":
+                kw["prefix_cache"] = True
+            _tp_origins(f"dp {tag}", dev, pe, c, tr, want, r,
+                        key == "static", mesh_tag=f"{DP} x 1", **kw)
+        del params, pe
+        gc.collect()
+        torch.cuda.empty_cache()
+    one = base["dp_moe"]
+    cm = moe["cfg"]
+    _check_fp_counts(moe["counts"], moe["stats"], cm, moe["chunk"],
+                     "(dp qwen3-moe, rank 0)")
+    _dp_check("qwen3-moe continuous f32 pools", moe, one["tokens"], cm,
+              sum(map(len, one["tokens"])) / one["dt"])
+    log(f"[dp] qwen3-moe: weights drawn in {moe['build_s']:.3f}s a rank, "
+        f"peak {moe['peak'] / 1e9:.2f} GB a rank; MoE drops (pairs dropped,"
+        f" pairs) over the data axis {moe['drops']}, the one-rank serve of "
+        f"each row's computation {one['drops']}; {SMI}")
+    if moe["tokens"] != one["tokens"] or moe["drops"] != one["drops"]:
+        raise AssertionError("[dp] qwen3-moe: tokens or MoE drops differ "
+                             "from the one-rank serve at t_local")
+    counts["dp_moe"] = moe["counts"]
+    return counts
 
 
 # phase 10 (the paper's conv net): card against the CPU at a reduced
@@ -6457,6 +6894,7 @@ def _main_phases(dev, analysis, t_start) -> int:
     _phase(phase_kernel2_quant, dev)
     _phase(phase_kernel2_d128, dev)
     _phase(phase_kernel2_tp, dev)
+    _phase(phase_kernel2_dp, dev)
     _phase(phase_flash, dev)
     serve_info = _phase(phase_serve, dev)
     _phase(phase_analysis, dev, serve_info, analysis)
@@ -6490,7 +6928,7 @@ def _main_phases(dev, analysis, t_start) -> int:
         _phase(phase_cli_train_mesh, dev, started)
         _phase(phase_cli_train_full, dev, started)
     finally:
-        for key in ("serve", "train", "train_full"):
+        for key in ("serve", "serve_dp", "train", "train_full"):
             if started[key][0].poll() is None:
                 started[key][0].kill()
                 started[key][0].wait()

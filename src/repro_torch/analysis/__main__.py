@@ -85,8 +85,8 @@ def main(argv=None) -> int:
         f, cov = run_shardcheck()
         findings += f
         report["coverage"]["sharding"] = cov
-        print(f"sharding: served {cov['served']}, trained "
-              f"{cov['trained']}, refused {sorted(cov['refused'])}")
+        print(f"sharding: meshes {cov['meshes']}, served {cov['served']}, "
+              f"trained {cov['trained']}, refused {sorted(cov['refused'])}")
     if args.compiled:
         from repro_torch.analysis.compiled import run_compiled
         f, rep = run_compiled()

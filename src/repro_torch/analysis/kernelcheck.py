@@ -56,15 +56,29 @@ PA_REL = "src/repro_torch/kernels/paged_attention.py"
 FA_REL = "src/repro_torch/kernels/flash_attention.py"
 CSRC_REL = "src/repro_torch/csrc"
 
+# a data row of a D x M serve runs its n_slots / D slots alone: kernel 1
+# at m = n_slots / D (decode, draft) and (k + 1) · n_slots / D (verify),
+# kernel 2 at B = n_slots / D (the chip smoke's serves: 4 slots, D = 2,
+# k = 4)
+DATA_ROW = dict(n_slots=4, n_data=2, spec_k=4)
+
+
+def data_row_shapes(n_slots: int, n_data: int, spec_k: int) -> tuple:
+    """((decode m, verify m), B) of a data row's split steps."""
+    b = n_slots // n_data
+    return (b, (spec_k + 1) * b), b
+
+
 # m enters a plan only through tile_n (8, 16 or 32 rows) and the passes
-# over m: each tile's edges, spec verification's 20 and 36, and the
-# serves' larger ones (the static prefills 360, 884 and 4200)
-M_VALUES = (1, 4, 7, 8, 9, 15, 16, 17, 20, 31, 32, 33, 36, 64, 65, 360,
-            884, 4200)
+# over m: each tile's edges, spec verification's 20 and 36, a data row's
+# m, and the serves' larger ones (the static prefills 360, 884 and 4200)
+M_VALUES = tuple(sorted({1, 4, 7, 8, 9, 15, 16, 17, 20, 31, 32, 33, 36, 64,
+                         65, 360, 884, 4200}
+                        | set(data_row_shapes(**DATA_ROW)[0])))
 SMS = (132, 114, 78, 16)             # H100 SXM, H100 PCIe, and smaller
 PAGE_SIZES = (8, 16)
 SQ_VALUES = (1, 5, 9)                # decode, verify at k = 4 and 8
-BATCHES = (1, 2, 3, 4, 8)
+BATCHES = tuple(sorted({1, 2, 3, 4, 8, data_row_shapes(**DATA_ROW)[1]}))
 MAX_P = 128                          # the serve's 127-page table and past
 
 # Python constant → (its module, the .cu, the constexpr, a multiplier)
@@ -109,8 +123,9 @@ def _module(rel: str):
 
 def linear_shapes(tp_values=(1, 2)) -> Dict[Tuple[int, int], List[str]]:
     """(k, n) of every 2-D linear weight (a ``w…`` leaf) of every registry
-    arch at full width → the arches (and ``/tp2`` shards) it comes from;
-    a TP-servable arch's shards at each ``tp`` of ``tp_values``."""
+    arch at full width → the arches (and ``/tp2`` shards, ``/2x2`` a data
+    row's) it comes from; a TP-servable arch's shards at each ``tp`` of
+    ``tp_values``, and on a data row of ``DATA_ROW``'s data axis."""
     from repro_torch.analysis.shardcheck import (LayoutMesh, _arch_params,
                                                  leaf_paths,
                                                  serving_refusal)
@@ -122,9 +137,14 @@ def linear_shapes(tp_values=(1, 2)) -> Dict[Tuple[int, int], List[str]]:
         params = _arch_params(arch)
         trees = [(arch, params)]
         if serving_refusal(cfg) is None:
+            D = DATA_ROW["n_data"]
             trees += [(f"{arch}/tp{tp}",
                        shard_params(params, cfg, LayoutMesh(tp)))
                       for tp in tp_values if tp > 1]
+            trees += [(f"{arch}/{D}x{tp}",
+                       shard_params(params, cfg, LayoutMesh(
+                           tp, n_data=D, data_rank=D - 1)))
+                      for tp in tp_values]
         for tag, tree in trees:
             for path, leaf in leaf_paths(tree):
                 key = path.rsplit("/", 1)[-1]
@@ -135,8 +155,8 @@ def linear_shapes(tp_values=(1, 2)) -> Dict[Tuple[int, int], List[str]]:
 
 
 def paged_heads() -> Dict[int, List[str]]:
-    """kv heads a kernel-2 call sees → the paged arches (and TP 2 ranks)
-    it comes from."""
+    """kv heads a kernel-2 call sees → the paged arches (and TP 2 ranks,
+    and a 2 x 2 mesh's data row) it comes from."""
     from repro_torch.analysis.shardcheck import LayoutMesh, serving_refusal
     from repro_torch.configs import get_config, list_archs
     from repro_torch.models import supports_paged_cache
@@ -149,9 +169,13 @@ def paged_heads() -> Dict[int, List[str]]:
             continue
         out.setdefault(cfg.n_kv_p, []).append(arch)
         if serving_refusal(cfg) is None:
-            with set_mesh(LayoutMesh(2)):
-                out.setdefault(local_kv_heads(cfg), []).append(
-                    f"{arch}/tp2")
+            D = DATA_ROW["n_data"]
+            for tag, mesh in (("tp2", LayoutMesh(2)),
+                              (f"{D}x2", LayoutMesh(2, n_data=D,
+                                                    data_rank=D - 1))):
+                with set_mesh(mesh):
+                    out.setdefault(local_kv_heads(cfg), []).append(
+                        f"{arch}/{tag}")
     return out
 
 
@@ -546,9 +570,11 @@ def run_kernelcheck(sms=SMS) -> Tuple[List[Finding], Dict]:
     coverage = {
         "kernel1": {"linear_shapes": len(shapes),
                     "U": [1, 92], "m": [min(M_VALUES), max(M_VALUES)],
+                    "data_row_m": list(data_row_shapes(**DATA_ROW)[0]),
                     "sms": list(sms), "plans": n1},
         "kernel2": {"kv_heads": {str(h): v for h, v in sorted(heads.items())},
                     "batches": list(BATCHES), "P": [1, MAX_P],
+                    "data_row_B": data_row_shapes(**DATA_ROW)[1],
                     "page_sizes": list(PAGE_SIZES),
                     "sq": list(SQ_VALUES), "sms": list(sms),
                     "geometries": n2},

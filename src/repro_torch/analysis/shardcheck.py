@@ -8,8 +8,8 @@ but a silent memory bug for large ones: a linear whose role is missing
 is copied whole onto every rank with no runtime error.  This checker
 builds every TP-servable and TP-trainable registry arch's parameter tree
 at full size on the ``meta`` device (shapes only, no storage) and lays it
-out on a stand-in model axis of ``TP`` ranks (``LayoutMesh``, no process
-group):
+out on a stand-in model axis of ``TP`` ranks and on a ``DATA x TP`` mesh
+(``LayoutMesh``, no process group):
 
   * **param coverage**: every leaf of at least ``LARGE_LEAF`` elements is
     cut by ``shard_params`` or matches an entry of ``REPLICATE`` (a path
@@ -24,7 +24,12 @@ group):
     ``_fb``/``_b``, k of a row linear's ``_fw`` and keeps its biases and
     every scale whole, as ``LINEAR_ROLES`` says; and a train state's dims
     (``statesharding.param_dims`` on the stacked layout) are the serving
-    cut dims one place on (the layer axis), each dividing by ``TP``.
+    cut dims one place on (the layer axis), each dividing by ``TP``;
+  * **the data axis** (a ``DATA x TP`` mesh, a data row past the first):
+    a rank's params are its ``1 x TP`` slices (the data axis replicates
+    every param), the paged pools and scale rows hold the whole page
+    count and the dense cache the data row's batch rows, as the serving
+    rules of ``parallel/statesharding.py`` (``SERVING_CACHE``) say.
 
 Arches that ``shard_params`` (or ``check_trainable``) refuses are listed
 in the coverage as refused, with the reason, not reported as findings.
@@ -43,6 +48,7 @@ from repro_torch.analysis.lint import Finding, line_of
 RULE = "shard-coverage"
 LARGE_LEAF = 1_000_000           # elements; below this, replication is fine
 TP = 2
+DATA = 2                         # the data axis of the 2 x 2 coverage
 FOLD_U = 8                       # planes of a planted folded leaf
 
 SHARDING_REL = "src/repro_torch/parallel/sharding.py"
@@ -50,6 +56,7 @@ STATESHARDING_REL = "src/repro_torch/parallel/statesharding.py"
 LM_REL = "src/repro_torch/models/lm.py"
 ROLES_AT = r"^LINEAR_ROLES"           # where each file's findings point
 DIMS_AT = r"^def _leaf_dim"
+CACHE_AT = r"^SERVING_CACHE"
 POOLS_AT = r"^def paged_cache_layout"
 
 # large leaves that stay whole on every rank on purpose: path pattern →
@@ -59,12 +66,13 @@ REPLICATE: Dict[str, str] = {}
 
 @dataclasses.dataclass
 class LayoutMesh:
-    """A stand-in ``(1, n_model)`` mesh for laying out shapes: what
-    ``splits``, ``shard_params`` and ``paged_cache_layout`` read of a
-    ``Mesh``, without a process group."""
+    """A stand-in ``(n_data, n_model)`` mesh for laying out shapes: what
+    ``splits``, ``shard_params``, ``paged_cache_layout`` and the serving
+    cache rules read of a ``Mesh``, without a process group."""
     n_model: int
     model_rank: int = 0
     n_data: int = 1
+    data_rank: int = 0
 
     @property
     def shape(self) -> dict:
@@ -72,7 +80,7 @@ class LayoutMesh:
 
     @property
     def rank(self) -> int:
-        return self.model_rank
+        return self.data_rank * self.n_model + self.model_rank
 
 
 def meta_params(cfg) -> dict:
@@ -209,6 +217,63 @@ def _heads_cut(what, whole, mine, axis, tp) -> List[Finding]:
                     f"{what}: a rank holds {tuple(mine)} of {tuple(whole)}"
                     f"; the kv-head axis ({axis}) must split over the "
                     f"model axis: expected {want}")]
+
+
+def check_data_axis(arch: str, tp: int = TP, n_data: int = DATA
+                    ) -> List[Finding]:
+    """On the last data row of a ``n_data x tp`` mesh: the params are the
+    ``1 x tp`` slices, and the paged pools, their scale rows and the dense
+    cache are the shapes ``local_cache_shape`` gives (the whole page
+    count; the data row's batch rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, supports_paged_cache
+    from repro_torch.models.lm import paged_cache_layout
+    from repro_torch.parallel.mesh import set_mesh
+    from repro_torch.parallel.sharding import shard_params
+    from repro_torch.parallel.statesharding import (cache_rows,
+                                                    local_cache_shape)
+    cfg = get_config(arch)
+    mesh = LayoutMesh(tp, n_data=n_data, data_rank=n_data - 1)
+    at = (STATESHARDING_REL, line_of(STATESHARDING_REL, CACHE_AT))
+    out: List[Finding] = []
+    params = _arch_params(arch)
+    row = dict(leaf_paths(shard_params(params, cfg, mesh)))
+    for path, leaf in leaf_paths(shard_params(params, cfg, LayoutMesh(tp))):
+        if tuple(row[path].shape) != tuple(leaf.shape):
+            out.append(Finding(
+                RULE, SHARDING_REL, line_of(SHARDING_REL, ROLES_AT),
+                f"{arch} {n_data}x{tp}: param '{path}' is "
+                f"{tuple(row[path].shape)} on a data row, "
+                f"{tuple(leaf.shape)} at 1x{tp}: the data axis must "
+                "replicate every param"))
+
+    def compare(what, name, whole, mine):
+        want = local_cache_shape(name, whole, cfg, mesh)
+        if tuple(mine) != want:
+            out.append(Finding(
+                RULE, at[0], at[1],
+                f"{arch} {n_data}x{tp} {what} '{name}': a rank holds "
+                f"{tuple(mine)} of {tuple(whole)}; the serving rules say "
+                f"{want}"))
+    if supports_paged_cache(cfg):
+        n_pages = 9
+        lo, hi = cache_rows("pool_k", n_pages, mesh)
+        with set_mesh(mesh):
+            mine = paged_cache_layout(cfg, hi - lo, 8)[0]
+        for name, (shape, _) in paged_cache_layout(cfg, n_pages, 8)[0].items():
+            compare("paged pool", name, shape, mine[name][0])
+    B = 2 * n_data
+    lo, hi = cache_rows("k", B, mesh)
+    with set_mesh(mesh):
+        rank = dict(leaf_paths(init_cache(cfg, hi - lo, 64,
+                                          device="meta")["layers"]))
+    for path, leaf in leaf_paths(init_cache(cfg, B, 64,
+                                            device="meta")["layers"]):
+        name = path.rsplit("/", 1)[-1]
+        if name in ("k", "v") and leaf.dim() == 4:
+            compare(f"dense cache '{path}'", name, tuple(leaf.shape),
+                    tuple(rank[path].shape))
+    return out
 
 
 def plant_folds(params: dict, U: int = FOLD_U) -> dict:
@@ -364,12 +429,14 @@ def run_shardcheck() -> Tuple[List[Finding], Dict]:
         findings += check_param_coverage(arch)
         findings += check_pool_coverage(arch)
         findings += check_fold_roles(arch)
+        findings += check_data_axis(arch)
         if training_refusal(cfg) is None:
             trained.append(arch)
             findings += check_train_dims(arch)
         else:
             refused[f"{arch} (training)"] = training_refusal(cfg)
-    coverage = {"tp": TP, "served": served, "trained": trained,
+    coverage = {"tp": TP, "meshes": [f"1x{TP}", f"{DATA}x{TP}"],
+                "served": served, "trained": trained,
                 "refused": refused, "large_leaf_threshold": LARGE_LEAF,
                 "replicate": dict(REPLICATE),
                 "kv_dtypes": ["bf16", "int8", "int4"]}

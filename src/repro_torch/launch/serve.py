@@ -62,10 +62,14 @@
       --encoding exact --paged-attn kernel --trace-out t.json \
       --metrics-out m.json --time-device --drift-every 8 \
       --profile-dir prof --sanitize
-  # tensor-parallel serving: the CLI spawns M ranks (gloo; on the card
-  # they share it), rank 0 prints; dense archs and qwen3-moe only
+  # serving over a mesh: the CLI spawns D·M ranks (gloo; on the card
+  # they share it), rank 0 prints; dense archs and qwen3-moe only.
+  # --mesh M is tensor parallel; --mesh DxM adds a data axis (one
+  # scheduler on every rank, the decode slots split over data rows)
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --continuous --mac encoded --encoding exact --mesh 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --continuous --mesh 2x2
   python -m repro_torch.launch.serve --continuous --mac encoded \
       --encoding exact --paged-attn kernel --mesh 2
 
@@ -197,9 +201,9 @@ def main(argv=None):
                          "every page transition + per-step conservation; "
                          "REPRO_SANITIZE=1 does the same)")
     ap.add_argument("--mesh", default=None,
-                    help="tensor-parallel serving over M ranks ('M' or "
-                         "'DxM' with D = 1): the CLI spawns them (gloo), "
-                         "rank 0 prints; dense archs and qwen3-moe")
+                    help="serving over D·M ranks ('M': tensor parallel, "
+                         "or 'DxM': D data rows of M): the CLI spawns them "
+                         "(gloo), rank 0 prints; dense archs and qwen3-moe")
     args = ap.parse_args(argv)
 
     if args.kv_dtype != "bf16" and not args.continuous:
@@ -215,26 +219,24 @@ def main(argv=None):
     except ValueError as e:
         ap.error(f"--layers: {e}")
     if args.mesh:
-        from repro_torch.parallel.mesh import DATA_AXIS_TODO, run_ranks
+        from repro_torch.parallel.mesh import run_ranks
         m = re.fullmatch(r"(?:(\d+)x)?(\d+)", args.mesh)
         if m is None:
             ap.error(f"--mesh {args.mesh!r}: expected 'M' or 'DxM' "
                      "(e.g. --mesh 8 or --mesh 2x4)")
         n_data, n_model = int(m.group(1) or 1), int(m.group(2))
-        if n_data != 1:
-            ap.error(f"--mesh {args.mesh}: {DATA_AXIS_TODO}")
-        if n_model < 1:
-            ap.error("--mesh needs at least one rank")
+        if n_data < 1 or n_model < 1:
+            ap.error("--mesh needs at least one rank on each axis")
         if cfg.family not in ("dense", "moe") or cfg.use_mla:
             ap.error(f"--mesh: {args.arch} is not ported to tensor "
                      "parallelism, only the dense archs and qwen3-moe "
-                     "(ROADMAP Queue A, item 2: TP for the other families)")
+                     "(ROADMAP Queue A, item 1: TP for the other families)")
         if args.drift_every:
             ap.error("--drift-every runs the whole model on one rank; it is "
                      "not ported under --mesh")
         from repro_torch.device import resolve_device
         resolve_device(args.device)        # no card: fail before spawning
-        run_ranks(_serve, n_model, args, device=args.device)
+        run_ranks(_serve, n_model, args, n_data=n_data, device=args.device)
         return
     _serve(None, args)
 
@@ -417,8 +419,10 @@ def _prepare(args, dev, say, lead):
 def _say_mesh(say, mesh, st, params):
     if mesh is not None:
         t = params["embed"]["table"]
+        ops = {f"{ax}/{op}": n for (ax, op), n in sorted(mesh.by_axis.items())}
         say(f"  mesh: {st['mesh']} replicated={st['mesh_replicated']} "
-            f"collectives={mesh.collectives} "
+            f"data_split={st['data_split']} "
+            f"collectives={mesh.collectives} {ops} "
             f"({mesh.collective_s * 1e3:.1f} ms on the host); the "
             f"embedding: {t.numel() * t.element_size() / 1e6:.1f} MB a rank")
 

@@ -44,7 +44,7 @@ the same steps: the straggler skip is off, and a SIGTERM to any rank
 stops them all at the same step.  ``--grad-compress`` adds the error
 buffers to the state; the step quantizes under a mesh only, as the
 reference's.  Under a mesh the dense archs and qwen3-moe train; the
-other families are refused (ROADMAP Queue A, item 2).
+other families are refused (ROADMAP Queue A, item 1).
 """
 from __future__ import annotations
 

@@ -1,9 +1,19 @@
 """Mixture-of-Experts with capacity-based sort dispatch (port of
-``repro/nn/moe.py``, and its expert-parallel branch :136-160: under a
-mesh a rank holds ``n_experts / TP`` experts, runs the dispatch for them
-only, and the pairs' contributions are summed over the model axis; a
-data rank dispatches its own tokens at the capacity of its share,
-``t_local``, and the load-balance loss is the global batch's).
+``repro/nn/moe.py``, and its capacity rules under a mesh, :136-160).
+
+The reference's ``ep`` holds where the experts divide the model axis (at
+a model axis of 1 too).  Then the dispatch runs per data shard of the
+call's ``B·S`` token rows at the capacity of one shard, ``t_local =
+B·S / D``: a rank holds ``n_experts / M`` experts, dispatches for them
+only, and the pairs' contributions are summed over the model axis.  A
+call that holds a data row's rows (a training batch, a split serving
+step) dispatches them as its shard; a call that holds the whole batch on
+every row (``parallel.mesh.replicated_batch``: every prefill chunk)
+dispatches each of the D shards on its own.  Where the experts do not
+divide the model axis, one global dispatch runs at the capacity of the
+whole batch: a split call gathers the data rows' tokens first
+(``gather_from_data``) and keeps its own rows.  The load-balance loss is
+the global batch's in every case.
 
 Routing is softmax top-k with the switch-style load-balance loss, or
 DeepSeek-V3's sigmoid router, which selects on ``scores + bias`` but
@@ -27,8 +37,9 @@ import math
 import torch
 
 from .attention_mha import softmax_f32
-from repro_torch.parallel.mesh import (copy_to_model, get_mesh,
-                                      reduce_from_model)
+from repro_torch.parallel.mesh import (batch_replicated, copy_to_model,
+                                       gather_from_data, get_mesh,
+                                       reduce_from_model)
 from repro_torch.parallel.sharding import model_rank, splits
 from .common import act_fn, mlp_apply, mlp_init
 
@@ -87,7 +98,7 @@ def route(p: dict, x2: torch.Tensor, cfg):
         first.scatter_(1, idx[:, :1], 1.0)
         f, pbar = first.mean(0), probs.mean(0)
         mesh = get_mesh()
-        if mesh is not None and mesh.n_data > 1:
+        if mesh is not None and mesh.n_data > 1 and not batch_replicated():
             f, pbar = _global_means(mesh, first, probs, pbar)
         aux = E * torch.sum(f * pbar)
     return idx.to(torch.int32), w.to(_F32), aux
@@ -95,11 +106,12 @@ def route(p: dict, x2: torch.Tensor, cfg):
 
 def _global_means(mesh, first, probs, pbar):
     """f_e and P̄_e over the global batch, the reference's logical means,
-    from this data rank's tokens: the counts and probability sums summed
-    over the data axis (equal token counts a rank).  P̄_e keeps this
-    rank's mean's gradient (the value is the global mean's): the
-    trainer's average of the data ranks' gradients is then the global
-    mean's gradient, once."""
+    from this data rank's tokens where the call holds its data row's rows
+    (a call that holds the whole batch has them already): the counts and
+    probability sums summed over the data axis (equal token counts a
+    rank).  P̄_e keeps this rank's mean's gradient (the value is the
+    global mean's): the trainer's average of the data ranks' gradients is
+    then the global mean's gradient, once."""
     n = first.shape[0] * mesh.n_data
     sums = mesh.all_reduce_sum(torch.stack([first.sum(0),
                                             probs.detach().sum(0)]),
@@ -198,33 +210,63 @@ def dispatch_compute(x2, idx, w, wi, wg, wo, *, capacity: int, act: str,
     return out
 
 
+def _split_rows(T: int, D: int) -> int:
+    """Token rows of one data shard of a call over ``T`` rows that holds
+    the whole batch; raises where ``D`` does not divide them, as the
+    reference's ``shard_map`` over the data axis does."""
+    if T % D:
+        raise ValueError(
+            f"the MoE dispatch cuts a call's {T} token rows into {D} data "
+            f"shards ({D} does not divide them), as the reference's "
+            "shard_map does (src/repro/nn/moe.py:143-157)")
+    return T // D
+
+
 def moe_apply(p: dict, x: torch.Tensor, cfg):
     """MoE FFN over x (B, S, d) → (out, aux_loss)."""
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
     idx, w, aux = route(p, x2, cfg)
-    # capacity from the tokens of one data shard (a data rank's B·S), as
-    # the reference's t_local
     sp = splits(cfg)
-    ep = sp["experts"] > 1
     mesh = get_mesh()
-    if mesh is not None and mesh.n_data > 1 and mesh.n_model > 1 and not ep:
-        raise NotImplementedError(
-            f"{cfg.n_experts} experts do not divide the model axis "
-            f"({mesh.n_model}): the reference then runs one global dispatch "
-            "over every data rank's tokens, which is not ported (ROADMAP "
-            "Queue A, item 3: MoE under a data axis without EP)")
+    D = 1 if mesh is None else mesh.n_data
+    M = 1 if mesh is None else mesh.n_model
+    ep = sp["experts"] > 1              # this rank holds n_experts / M
     if ep:
         # training: the tokens and their routing weights enter this rank's
         # experts only, so their gradients sum over the model axis
         x2e, w = copy_to_model(x2), copy_to_model(w)
     else:
         x2e = x2
-    out = dispatch_compute(x2e, idx, w, p["experts_wi"], p["experts_wg"],
-                           p["experts_wo"], capacity=capacity(cfg, B * S),
-                           act=cfg.act, n_experts=cfg.n_experts,
-                           lo=model_rank() * p["experts_wi"].shape[0],
-                           reduce=reduce_from_model if ep else None)
+
+    def dispatch(xs, ids, ws, n_tokens):
+        return dispatch_compute(
+            xs, ids, ws, p["experts_wi"], p["experts_wg"], p["experts_wo"],
+            capacity=capacity(cfg, n_tokens), act=cfg.act,
+            n_experts=cfg.n_experts,
+            lo=model_rank() * p["experts_wi"].shape[0],
+            reduce=reduce_from_model if ep else None)
+
+    T = B * S
+    whole = D == 1 or batch_replicated()
+    if cfg.n_experts % M == 0:
+        # the reference's ep: capacity from one data shard's tokens,
+        # t_local; a call's shard is its rows, or each of D shards of a
+        # call that holds them all
+        t = _split_rows(T, D) if whole else T
+        outs = [dispatch(x2e[i:i + t], idx[i:i + t], w[i:i + t], t)
+                for i in range(0, T, t)]
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+    elif whole:
+        # one global dispatch over a batch this call holds whole
+        out = dispatch(x2e, idx, w, T)
+    else:
+        # one global dispatch over every data row's tokens; this row's
+        # output rows kept (a token's output depends on the others'
+        # only through the drops, which carry no gradient)
+        r = mesh.data_rank
+        out = dispatch(gather_from_data(x2e), gather_from_data(idx),
+                       gather_from_data(w), T * D)[r * T:(r + 1) * T]
     out = out.to(cfg.cdtype)
     if cfg.n_shared_experts:
         out = out + mlp_apply(p["shared"], x2, cfg.mac, cfg.act, True,

@@ -23,8 +23,11 @@ the gradient of a replicated value that enters a rank's shard of a
 product is summed over the model axis where it enters, so every
 replicated leaf's gradient is whole on every rank and every sharded
 leaf's covers its own shard.  Serving (no gradient) calls the bare
-collectives.  A data axis serves nothing yet: serving refuses it
-(``DATA_AXIS_TODO``).
+collectives.  Serving over a data axis runs one scheduler on every rank:
+a step whose batch the data axis divides runs each data row's rows and
+``all_gather`` puts its tokens together; a step it does not divide (every
+B = 1 prefill chunk) runs whole on every row, inside ``replicated_batch``
+(the reference's ``batch_spec`` replicates such a batch).
 
 ``set_mesh``/``get_mesh`` hold the active mesh per thread, as the
 reference's; model code reads it to pick its local shapes.  ``run_ranks``
@@ -46,8 +49,6 @@ import torch
 import torch.distributed as dist
 
 AXIS_DATA, AXIS_MODEL = "data", "model"
-DATA_AXIS_TODO = ("serving over a data axis (--mesh DxM with D > 1) is not "
-                  "ported yet: ROADMAP Queue A, item 1 (serving's data axis)")
 
 
 class Mesh:
@@ -60,8 +61,9 @@ class Mesh:
     so the time includes that wait) and its payload's bytes summed
     (``collective_bytes``); over an axis of 1 it is the identity and
     costs nothing.  Each is counted by its op as well (``by_op``:
-    'all-reduce', or 'all-gather' for ``gather_columns``, which runs as an
-    all-reduce of a zero-filled whole) and by (op, payload shape)
+    'all-reduce', or 'all-gather' for ``all_gather`` and for
+    ``gather_columns``, which runs as an all-reduce of a zero-filled
+    whole), by (axis, op) (``by_axis``) and by (op, payload shape)
     (``op_shapes``), which the collective audit reads."""
 
     axis_names = (AXIS_DATA, AXIS_MODEL)
@@ -95,6 +97,7 @@ class Mesh:
         self.collective_s = 0.0
         self.collective_bytes = 0
         self.by_op = collections.Counter()
+        self.by_axis = collections.Counter()
         self.op_shapes = collections.Counter()
 
     @property
@@ -117,6 +120,15 @@ class Mesh:
         """(collectives, host seconds, bytes) so far."""
         return self.collectives, self.collective_s, self.collective_bytes
 
+    def _count(self, t: torch.Tensor, axis: str, kind: str,
+               t0: float) -> None:
+        self.collective_s += time.perf_counter() - t0
+        self.collectives += 1
+        self.collective_bytes += t.numel() * t.element_size()
+        self.by_op[kind] += 1
+        self.by_axis[(axis, kind)] += 1
+        self.op_shapes[(kind, tuple(t.shape))] += 1
+
     def _reduce(self, t: torch.Tensor, op, axis: str,
                 kind: str = "all-reduce") -> torch.Tensor:
         if self.shape[axis] == 1:
@@ -124,12 +136,23 @@ class Mesh:
         t = t.contiguous()
         t0 = time.perf_counter()
         dist.all_reduce(t, op=op, group=self._groups[axis])
-        self.collective_s += time.perf_counter() - t0
-        self.collectives += 1
-        self.collective_bytes += t.numel() * t.element_size()
-        self.by_op[kind] += 1
-        self.op_shapes[(kind, tuple(t.shape))] += 1
+        self._count(t, axis, kind, t0)
         return t
+
+    def all_gather(self, t: torch.Tensor, axis: str = AXIS_DATA
+                   ) -> torch.Tensor:
+        """The shards ``t`` of every rank of ``axis`` stacked on dim 0 in
+        axis order: ``size · t.shape[0]`` rows on every rank (counted by
+        its payload, ``t``)."""
+        size = self.shape[axis]
+        if size == 1:
+            return t
+        t = t.contiguous()
+        t0 = time.perf_counter()
+        parts = [torch.empty_like(t) for _ in range(size)]
+        dist.all_gather(parts, t, group=self._groups[axis])
+        self._count(t, axis, "all-gather", t0)
+        return torch.cat(parts, 0)
 
     def all_reduce_sum(self, t: torch.Tensor, axis: str = AXIS_MODEL
                        ) -> torch.Tensor:
@@ -228,6 +251,31 @@ class _GatherFromModel(torch.autograd.Function):
         return g[..., r * n:(r + 1) * n].contiguous(), None
 
 
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.n = mesh, x.shape[0]
+        return mesh.all_gather(x, AXIS_DATA)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.mesh.data_rank, ctx.n
+        return g[r * n:(r + 1) * n].contiguous(), None
+
+
+def gather_from_data(x: torch.Tensor) -> torch.Tensor:
+    """Every data row's rows of ``x`` stacked in row order
+    (``Mesh.all_gather``); backward, this row's rows of the gradient (the
+    caller's output on this row depends on the other rows' inputs through
+    nothing differentiable).  ``x`` itself without a data axis."""
+    mesh = get_mesh()
+    if mesh is None or mesh.n_data == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherFromData.apply(x, mesh)
+    return mesh.all_gather(x, AXIS_DATA)
+
+
 def _grad_mesh(x: torch.Tensor):
     mesh = get_mesh()
     if mesh is None or mesh.n_model == 1:
@@ -281,6 +329,26 @@ def set_mesh(mesh):
 def get_mesh():
     """The active ``Mesh`` of this thread, or None."""
     return getattr(_ctx, "mesh", None)
+
+
+@contextlib.contextmanager
+def replicated_batch(on: bool = True):
+    """Mark the model calls in the ``with`` body as holding the whole
+    batch on every data row (a batch the data axis does not divide, which
+    the reference's ``batch_spec`` replicates); outside it a call's batch
+    is this data row's shard (a training batch, a split serving step)."""
+    prev = getattr(_ctx, "replicated", False)
+    _ctx.replicated = on
+    try:
+        yield
+    finally:
+        _ctx.replicated = prev
+
+
+def batch_replicated() -> bool:
+    """Whether the running model call holds the whole batch on every
+    data row (``replicated_batch``)."""
+    return getattr(_ctx, "replicated", False)
 
 
 def make_test_mesh(n_data: int = 1, n_model: int = 2) -> Mesh:

@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .mesh import DATA_AXIS_TODO, get_mesh, set_mesh
+from .mesh import get_mesh, set_mesh
 
 LINEAR_ROLES: dict = {
     "wq": "column", "wk": "column", "wv": "column", "wkv": "column",
@@ -165,17 +165,17 @@ class LocalParams(dict):
 def shard_params(params: dict, cfg, mesh) -> dict:
     """This rank's serving params (a ``LocalParams``): every sharded leaf
     cut to its slice (a copy), every replicated one shared with
-    ``params``.  Dense and moe families (GQA attention) only, under a
-    mesh without a data axis (a train state's shards:
-    ``statesharding.shard_state``)."""
+    ``params``.  Dense and moe families (GQA attention) only.  The slices
+    are the model axis's alone: a ``DxM`` mesh cuts them as ``1xM`` does
+    and its data axis replicates every param (no FSDP, as the
+    reference's serving).  A train state's shards:
+    ``statesharding.shard_state``."""
     if isinstance(params, LocalParams):
         return params
-    if mesh.n_data > 1:
-        raise NotImplementedError(DATA_AXIS_TODO)
     if cfg.family not in ("dense", "moe") or cfg.use_mla:
         raise ValueError(f"tensor-parallel serving covers the dense and "
                          f"GQA moe families, not {cfg.arch!r} (ROADMAP "
-                         "Queue A, item 2)")
+                         "Queue A, item 1)")
     with set_mesh(mesh):
         sp = splits(cfg)
     r = mesh.model_rank
@@ -209,8 +209,23 @@ def shard_params(params: dict, cfg, mesh) -> dict:
     return LocalParams(out)
 
 
+def batch_rows(n: int, mesh) -> tuple:
+    """This data row's rows ``[lo, hi)`` of a batch of ``n`` (the
+    reference's ``batch_spec``): contiguous, ``n / D`` long where the data
+    axis's ``D`` divides ``n``, else ``(0, n)``: the batch is replicated.
+    ``(0, n)`` without a mesh."""
+    D = 1 if mesh is None else mesh.n_data
+    if D == 1 or n % D:
+        return 0, n
+    k = n // D
+    return mesh.data_rank * k, (mesh.data_rank + 1) * k
+
+
 def replicated_parts(cfg, mesh) -> list:
     """The parts of a block (and the head) that run replicated under
-    ``mesh`` because their dim does not divide its model axis."""
+    ``mesh`` because their dim does not divide its model axis (none
+    without a model axis)."""
+    if mesh.n_model == 1:
+        return []
     with set_mesh(mesh):
         return sorted(k for k, v in splits(cfg).items() if v == 1)

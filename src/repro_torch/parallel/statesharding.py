@@ -25,19 +25,64 @@ leaf for leaf; Adafactor's ``vr``/``vc`` the matching dims of their
 leaf; ``t`` and ``step`` replicated; the error-feedback buffers ``err``
 like the params.  ``shard_state`` cuts a logical state, ``gather_state``
 puts the logical one back together (a checkpoint is mesh-agnostic).
+
+Serving's caches follow the reference's cache rules
+(``repro/parallel/statesharding.py:_CACHE_RULES`` :79-101), stated once
+in ``SERVING_CACHE`` and read by the engines and the shard checker
+through ``cache_rows`` and ``local_cache_shape``: the paged pools and
+their scale rows hold the whole page count on every data row, the static
+engine's dense cache the data row's batch rows; both hold the model
+axis's kv heads where attention splits.
 """
 from __future__ import annotations
 
 from repro_torch.tree import tree_flatten, tree_unflatten
 from .mesh import set_mesh
-from .sharding import linear_dim, splits
+from .sharding import attn_split, batch_rows, linear_dim, splits
 
 # a leaf's dim in a dims list: replicated over the model axis
 REPLICATED = -1
 _STAGES = ("dense_prefix", "moe_stack", "stack")
 TRAIN_TODO = ("training under a mesh covers the dense and GQA moe "
-              "families; {arch!r} waits for ROADMAP Queue A, item 2 (TP "
+              "families; {arch!r} waits for ROADMAP Queue A, item 1 (TP "
               "for the other families)")
+
+
+# a serving cache leaf's name → (its dim over the data axis, its kv-head
+# dim over the model axis); None: whole on every row
+SERVING_CACHE = {
+    # the static engine's dense cache (B, S, Hkv, D): the reference's
+    # ``"k"``/``"v"`` rows over data
+    "k": (0, 2), "v": (0, 2),
+    # paged pools (P, ps, Hkv, D) and scale rows (P, ps, Hkv): no data
+    # axis in the reference's ``pool_*``/``scale_*`` rules
+    "pool_k": (None, 2), "pool_v": (None, 2),
+    "scale_k": (None, 2), "scale_v": (None, 2),
+}
+
+
+def cache_rows(name: str, n: int, mesh) -> tuple:
+    """The rows ``[lo, hi)`` of serving cache leaf ``name``'s first dim
+    (``n`` long) that this rank holds under ``mesh``: the data row's batch
+    rows (``sharding.batch_rows``) where the leaf's rule puts that dim over
+    data, else all ``n``."""
+    if SERVING_CACHE[name][0] != 0:
+        return 0, n
+    return batch_rows(n, mesh)
+
+
+def local_cache_shape(name: str, shape: tuple, cfg, mesh) -> tuple:
+    """The shape a rank of ``mesh`` holds of serving cache leaf ``name``
+    of logical ``shape``, by ``SERVING_CACHE``: its data dim cut to the
+    data row's rows, its kv heads cut where attention splits (``cfg``)."""
+    d_dim, m_dim = SERVING_CACHE[name]
+    out = list(shape)
+    if d_dim is not None:
+        lo, hi = batch_rows(shape[d_dim], mesh)
+        out[d_dim] = hi - lo
+    with set_mesh(mesh):
+        out[m_dim] //= attn_split(cfg)
+    return tuple(out)
 
 
 def check_trainable(cfg) -> None:

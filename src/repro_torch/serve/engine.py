@@ -4,13 +4,20 @@ speculative decoding, telemetry and allocator sanitizer), and the
 static-batch ``ServeEngine`` with ``generate`` over the dense KV cache,
 the reference's baseline and the serving CLI's default.
 
-Both engines take ``mesh=`` (``parallel.mesh.Mesh``) for tensor-parallel
-serving, one engine per rank process: each rank keeps its slices of the
-params (``parallel.sharding.shard_params``), its pools and dense caches
-hold its kv heads, and every step runs under the mesh.  Every rank gets
-the same gathered logits, so its host-side scheduler, allocator and
-prefix index make the same decisions.  Steps under a mesh run eagerly:
-gloo's collectives cannot be captured in a CUDA graph.
+Both engines take ``mesh=`` (``parallel.mesh.Mesh``, ``D x M``) for
+serving over several ranks, one engine per rank process: each rank keeps
+its model-axis slices of the params (``parallel.sharding.shard_params``;
+the data axis replicates them), its pools and dense caches hold its kv
+heads, and every step runs under the mesh.  The data axis follows the
+reference's placement (``parallel.statesharding.SERVING_CACHE``): one
+scheduler, allocator and prefix index on every rank, the paged pools
+whole on every data row, a batch the data axis divides split into
+contiguous rows (a decode, draft or verify step's slots, a static
+chunk's requests) and any other batch, every B = 1 prefill chunk among
+them, run whole on every row.  A split step's tokens are put together by
+one all-gather over the data axis, so every rank's host-side scheduler
+makes the same decisions from the same tokens.  Steps under a mesh run
+eagerly: gloo's collectives cannot be captured in a CUDA graph.
 
 A scheduler admits queued requests into a fixed number of slots under a
 page budget; each engine step runs one prefill chunk per prefilling slot
@@ -42,8 +49,10 @@ from repro_torch.models import (apply_model, init_cache, reset_cache,
                                 supports_paged_cache, supports_ragged_mask)
 from repro_torch.models.lm import STATE_KEYS, paged_cache_layout
 from repro_torch.obs import CompileTracker, percentile, profiler_trace
-from repro_torch.parallel.mesh import set_mesh
+from repro_torch.parallel.mesh import (AXIS_DATA, batch_replicated,
+                                       get_mesh, replicated_batch, set_mesh)
 from repro_torch.parallel.sharding import replicated_parts, shard_params
+from repro_torch.parallel.statesharding import cache_rows
 from repro_torch.tree import tree_leaves
 from .graphs import Step
 from .paged_cache import PagedKVCache
@@ -63,7 +72,7 @@ def _graphs_on(device: torch.device, cuda_graphs: Optional[bool],
         raise ValueError("cuda_graphs=True under a mesh: gloo's collectives "
                          "cannot be captured in a CUDA graph (graph-captured "
                          "tensor-parallel steps need NCCL on several cards, "
-                         "ROADMAP Queue A, item 6)")
+                         "ROADMAP Queue A, item 4)")
     if cuda_graphs is None:
         return (device.type == "cuda" and not debug_nan_enabled()
                 and mesh is None)
@@ -76,25 +85,36 @@ def _graphs_on(device: torch.device, cuda_graphs: Optional[bool],
     return bool(cuda_graphs)
 
 
-def _meshed(mesh, fn):
-    """``fn`` run under ``mesh`` (the model code reads the active
-    mesh); ``fn`` itself without one."""
+def _meshed(mesh, fn, replicated: bool = False):
+    """``fn`` run under ``mesh`` (the model code reads the active mesh),
+    its batch marked whole on every data row where ``replicated``; ``fn``
+    itself without a mesh."""
     if mesh is None:
         return fn
 
     def run(*args, **kw):
-        with set_mesh(mesh):
+        with set_mesh(mesh), replicated_batch(replicated):
             return fn(*args, **kw)
     return run
 
 
-def _mesh_stats(mesh, cfg) -> dict:
+def _gather_rows(mesh, t: torch.Tensor, split: bool) -> torch.Tensor:
+    """A split step's rows ``t`` (host tensor) of every data row, stacked
+    in row order (one all-gather over the data axis); ``t`` as it is
+    where the step ran every row."""
+    return mesh.all_gather(t, AXIS_DATA) if split else t
+
+
+def _mesh_stats(mesh, cfg, split: bool = False) -> dict:
     """``mesh``: the axes (None without a mesh), as the reference's;
-    ``mesh_replicated``: the parts of a block that run replicated."""
+    ``mesh_replicated``: the parts of a block that run replicated;
+    ``data_split``: whether the batched steps ran each data row's rows
+    (False where the data axis does not divide the batch, or is 1)."""
     if mesh is None:
-        return {"mesh": None, "mesh_replicated": []}
+        return {"mesh": None, "mesh_replicated": [], "data_split": False}
     return {"mesh": dict(mesh.shape),
-            "mesh_replicated": replicated_parts(cfg, mesh)}
+            "mesh_replicated": replicated_parts(cfg, mesh),
+            "data_split": split}
 
 
 def make_paged_prefill(cfg):
@@ -175,9 +195,17 @@ class Engine:
     PyTorch versions.  ``params`` must already live on that device.
 
     ``mesh``: serve as one rank of it (``params`` and ``draft_params``
-    whole; the engine keeps this rank's slices).  ``stats()["mesh"]``
-    gives its axes, ``stats()["mesh_replicated"]`` the parts of a block
-    whose dims do not divide the model axis."""
+    whole; the engine keeps this rank's slices).  Every rank runs every
+    prefill chunk (B = 1, replicated over data), so every prompt page is
+    the same on every data row; where the data axis divides ``n_slots``,
+    slot ``s`` belongs to data row ``s // (n_slots / D)``, whose decode,
+    draft and verify steps run its slots' rows alone and write only their
+    K/V, and one all-gather a step (a round under spec decoding) gives
+    every rank the tokens.  Otherwise every row runs every slot and
+    nothing is gathered.  ``stats()["mesh"]`` gives the axes,
+    ``stats()["data_split"]`` which case ran,
+    ``stats()["mesh_replicated"]`` the parts of a block whose dims do not
+    divide the model axis."""
 
     def __init__(self, params, cfg, *, n_slots: int = 4,
                  page_size: int = 16, n_pages: int = 128,
@@ -214,10 +242,15 @@ class Engine:
             # opt-in shadow page ledger: an env var, so a test suite can
             # sanitize every engine without touching call sites
             sanitize = sanitize_enabled()
+        # the pools hold every page on every data row (and this rank's
+        # kv heads); a data row's slots are its rows of the page table
+        lo, hi = cache_rows("pool_k", n_pages, mesh)
         with set_mesh(mesh):
-            self.kv = PagedKVCache(cfg, n_slots, n_pages, page_size,
+            self.kv = PagedKVCache(cfg, n_slots, hi - lo, page_size,
                                    max_seq_pages, device=device,
                                    sanitize=sanitize)
+        self.rows = cache_rows("k", n_slots, mesh)
+        self.split = self.rows != (0, n_slots)
         self.device = self.kv.device
         self.cuda_graphs = _graphs_on(self.device, cuda_graphs, mesh)
         self.sched = Scheduler(self.kv, reserve=reserve,
@@ -225,13 +258,13 @@ class Engine:
         self.spec_k = int(spec_decode)
         if self.spec_k < 0:
             raise ValueError("spec_decode must be >= 0")
-        def step(name, fn):
-            return Step(name, _meshed(mesh, fn), device=self.device,
-                        graphs=self.cuda_graphs)
+        def step(name, fn, replicated=not self.split):
+            return Step(name, _meshed(mesh, fn, replicated),
+                        device=self.device, graphs=self.cuda_graphs)
         # the step functions by name, each one graph per engine on the card
         self.steps = {
             "prefill": step("prefill", functools.partial(
-                make_paged_prefill(cfg), params, self.kv.layers)),
+                make_paged_prefill(cfg), params, self.kv.layers), True),
             "decode": step("decode", functools.partial(
                 make_paged_decode_step(cfg), params, self.kv.layers))}
         if self.spec_k:
@@ -492,8 +525,9 @@ class Engine:
         for req in active:
             tokens[req.slot, 0] = req.out[-1]
         tr = self.tel.tracer
+        lo, hi = self.rows
         t_d0 = time.perf_counter()
-        out = self.steps["decode"](tokens, self.kv.ptab, self.kv.lens)
+        out = self.steps["decode"](tokens[lo:hi], *self.kv.rows_view(lo, hi))
         if self.tel.time_device:
             self._sync()
             t_d1 = time.perf_counter()
@@ -502,7 +536,9 @@ class Engine:
                 tr.complete("device:decode", t_d0, t_d1, tid=TID_DEVICE,
                             cat="device", args={"n_active": len(active)})
         # analysis: allow(host-sync): the step boundary, tokens to host
-        toks = out.cpu().numpy()
+        toks = _gather_rows(self.mesh, out.cpu(), self.split)
+        # analysis: allow(host-sync): the gathered tokens, a host tensor
+        toks = toks.numpy()
         if tr.enabled:
             tr.complete("decode_step", t_d0, time.perf_counter(),
                         tid=TID_ENGINE, cat="engine",
@@ -579,8 +615,9 @@ class Engine:
         for req in active:
             tokens[req.slot, 0] = req.out[-1]
         draft, verify = self.steps["draft"], self.steps["verify"]
+        lo, hi = self.rows
         t_d0 = time.perf_counter()
-        d_toks = draft(tokens, self.kv.ptab, self.kv.lens)
+        d_toks = draft(tokens[lo:hi], *self.kv.rows_view(lo, hi))
         if self.tel.time_device:
             self._sync()
             t_d1 = time.perf_counter()
@@ -614,11 +651,14 @@ class Engine:
             tr.complete("verify_step", t_v0, time.perf_counter(),
                         tid=TID_ENGINE, cat="engine",
                         args={"k": k, "rids": [r.rid for r in active]})
-        now = time.perf_counter()
-        r_acc = r_cons = 0
+        # acceptance, on the data row that owns the slot: per row of the
+        # step, [accepted, emitted, the emitted tokens]
+        acc = np.zeros((hi - lo, k + 3), np.int32)
         for req in active:
+            if not lo <= req.slot < hi:
+                continue
             cons = min(k, wins[req.rid] - 1)   # draft tokens we may trust
-            d, v = d_np[req.slot], v_np[req.slot]
+            d, v = d_np[req.slot - lo], v_np[req.slot - lo]
             n_acc = greedy_accept(d[:cons], v[:cons])
             emit = [int(x) for x in d[:n_acc]] + [int(v[n_acc])]
             emit = emit[:req.max_new - len(req.out)]
@@ -627,6 +667,17 @@ class Engine:
                     if t == req.eos_id:
                         emit = emit[:j + 1]
                         break
+            acc[req.slot - lo, :2] = n_acc, len(emit)
+            acc[req.slot - lo, 2:2 + len(emit)] = emit
+        # analysis: allow(host-sync): the rows' acceptance, a host tensor
+        acc = _gather_rows(self.mesh, torch.from_numpy(acc),
+                           self.split).numpy()
+        now = time.perf_counter()
+        r_acc = r_cons = 0
+        for req in active:
+            cons = min(k, wins[req.rid] - 1)
+            n_acc, n_emit = int(acc[req.slot, 0]), int(acc[req.slot, 1])
+            emit = [int(x) for x in acc[req.slot, 2:2 + n_emit]]
             req.out.extend(emit)
             req.n_cached += len(emit)
             self._c_decode.inc(len(emit), mac=self._mac)
@@ -812,7 +863,7 @@ class Engine:
             "jit_compiles": jit_total,
             "jit_compiles_by_step": self.jit_tracker.counts(),
         })
-        m.update(_mesh_stats(self.mesh, self.cfg))
+        m.update(_mesh_stats(self.mesh, self.cfg, self.split))
         if self.tel.time_device:
             m["device_decode_ms_p50"] = self._h_dev_decode.percentile(
                 50, mac=self._mac)
@@ -916,6 +967,18 @@ def _static_decode(decode, params, layers, vocab, tok, pos, pad=None):
     logits, new = decode(params, cache, tok)
     lg = logits[:, -1, :vocab]
     return lg, _pick(lg, True, None), new["pos"], _states(new["layers"])
+
+
+def _all_done(done: torch.Tensor) -> bool:
+    """Whether every row of the batch has emitted ``eos_id``: over every
+    data row where this call holds a data row's rows (``Mesh.any``), so
+    every row stops at the same step."""
+    # analysis: allow(host-sync): the eos test (eos_id only)
+    mine = bool(done.all())
+    mesh = get_mesh()
+    if mesh is None or mesh.n_data == 1 or batch_replicated():
+        return mine
+    return not mesh.any(not mine)
 
 
 def _commit_states(layers, states) -> None:
@@ -1038,8 +1101,7 @@ class StaticBatch:
             n = i + 1
             if i + 1 == max_new:         # the next logits would be unused
                 break
-            # analysis: allow(host-sync): the eos test (eos_id only)
-            if eos_id is not None and bool(done.all()):
+            if eos_id is not None and _all_done(done):
                 break
             self._mark()
             self.tok.copy_(tok)
@@ -1116,7 +1178,11 @@ class ServeEngine:
     eagerly.  ``device`` defaults to the card; ``params`` must already
     live there.  ``mesh``: serve as one rank of it, as ``Engine``; the
     dense caches hold this rank's kv heads (the reference splits them
-    over the sequence instead)."""
+    over the sequence instead).  A chunk whose requests the data axis
+    divides runs its data row's rows alone (each row's cache built for
+    them at the chunk's common left-pad length) and one all-gather at
+    the chunk's end puts its tokens together; any other chunk runs whole
+    on every row."""
 
     def __init__(self, params, cfg, batch_slots: int = 8,
                  max_len: int = 512, *, device=None,
@@ -1130,6 +1196,7 @@ class ServeEngine:
         self.cuda_graphs = _graphs_on(self.device, cuda_graphs, mesh)
         self.chunks = []                 # per chunk: its shape and work
         self.step_ms = []
+        self.split = False               # some chunk ran split over data
 
     def run(self, requests, max_new: int = 32,
             eos_id: Optional[int] = None) -> list:
@@ -1149,16 +1216,26 @@ class ServeEngine:
             for j, r in enumerate(chunk):
                 batch[j, S - len(r):] = r          # left-pad
                 pad[j] = S - len(r)
-            sb = StaticBatch(self.params, self.cfg, len(chunk),
+            # this data row's requests of the chunk (every one where the
+            # data axis does not divide them), padded to the chunk's S
+            lo, hi = cache_rows("k", len(chunk), self.mesh)
+            split = (lo, hi) != (0, len(chunk))
+            self.split = self.split or split
+            sb = StaticBatch(self.params, self.cfg, hi - lo,
                              S + max_new + 8 + self.cfg.meta_tokens,
                              device=self.device, graphs=self.cuda_graphs)
-            toks = sb.run(torch.from_numpy(batch), max_new, eos_id=eos_id,
-                          pad=_ragged_pad(self.cfg, pad) if ragged_ok
-                          else None)
+            with replicated_batch(not split):
+                toks = sb.run(torch.from_numpy(batch[lo:hi]), max_new,
+                              eos_id=eos_id,
+                              pad=_ragged_pad(self.cfg, pad[lo:hi])
+                              if ragged_ok else None)
             # analysis: allow(host-sync): the chunk's end, tokens to host
-            toks = toks.cpu().numpy()
+            toks = _gather_rows(self.mesh, toks.cpu(), split)
+            # analysis: allow(host-sync): the gathered tokens, a host tensor
+            toks = toks.numpy()
             self.step_ms.extend(sb.step_ms())
-            self.chunks.append({"batch": len(chunk), "seq": S,
+            self.chunks.append({"batch": len(chunk), "rows": hi - lo,
+                                "seq": S,
                                 "max_len": sb.max_len,
                                 "decode_steps": sb.decode_steps,
                                 "captures": sb.captures,
@@ -1192,5 +1269,5 @@ class ServeEngine:
             "mac_mode": self.cfg.mac.mode,
             "device": str(self.device),
             "cuda_graphs": self.cuda_graphs,
-            **_mesh_stats(self.mesh, self.cfg),
+            **_mesh_stats(self.mesh, self.cfg, self.split),
         }

@@ -12,7 +12,9 @@ wrapper.
     into a new request's page table and skip prefilling those tokens.
   * ``PagedKVCache`` — the device pools plus per-slot page tables and
     lengths (numpy, written by the scheduler and copied into static device
-    buffers before each step).
+    buffers before each step).  Under a data axis every rank keeps the
+    whole allocator, index and tables and a data row reads its slots'
+    rows (``rows_view``).
 """
 from __future__ import annotations
 
@@ -283,6 +285,12 @@ class PagedKVCache:
 
     def set_len(self, slot: int, n: int) -> None:
         self.lens[slot] = n
+
+    def rows_view(self, lo: int, hi: int) -> tuple:
+        """A data row's view of the page table and lens: the rows of its
+        slots ``[lo, hi)`` (numpy views; the scheduler writes the whole
+        arrays)."""
+        return self.ptab[lo:hi], self.lens[lo:hi]
 
     def reset_slot(self, slot: int) -> None:
         self.ptab[slot] = 0

@@ -13,6 +13,11 @@ Reservation policy: ``conservative`` reserves pages for ``len(prompt) +
 max_new`` at admission; ``optimistic`` reserves only the pages of the
 tokens that must be cached and grows page by page during decode, evicting
 the youngest other running request on exhaustion.
+
+Under a mesh every rank runs its own scheduler over the same trace and
+the same gathered tokens, so every rank makes the same admissions,
+evictions and copy-on-write copies; a data row owns slots, not requests
+(``Engine``: slot ``s`` of data row ``s // (n_slots / D)``).
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ single-device ``make_train_step`` over the same initial state and
 batches (2 steps: losses within 1e-3, params within rtol = atol = 2e-3,
 the reference's mesh tolerances).  Also: the batch rows each data rank
 takes, the mesh's coordinates and axis groups (a 2x1 and a 1x2 mesh over
-one world), and serving's refusal of a data axis.
+one world), and the one refusal serving keeps on a data axis (the
+reference's own: an MoE call whose rows the data axis does not divide).
 
 The ranks are spawned once for the module (``parallel.mesh.run_ranks``)
 and run every job; no rank process imports JAX.
@@ -32,10 +33,20 @@ def _rank(mesh, jobs):
     out["sums"] = (mesh.all_reduce_sum(x.clone(), "data").tolist(),
                    tp.all_reduce_sum(x.clone()).tolist(),
                    mesh.all_reduce_sum(x.clone(), "model").tolist())
+    from repro_torch.models import init_model
+    from repro_torch.nn.moe import moe_apply
+    from repro_torch.parallel.mesh import replicated_batch, set_mesh
+    cfg = H.port_cfg()
+    eng = Engine(init_model(cfg, seed=0, device="cpu"), cfg, device="cpu",
+                 mesh=mesh)
+    out["serve_mesh"] = eng.stats()["mesh"]
+    moe = H.port_cfg(H.MOE_ARCH)
+    p = init_model(moe, seed=0, device="cpu")["layers"][0]["moe"]
     try:
-        Engine({}, H.port_cfg(), device="cpu", mesh=mesh)
+        with torch.no_grad(), set_mesh(mesh), replicated_batch():
+            moe_apply(p, torch.zeros((1, 3, moe.d_model)), moe)
         out["serve"] = None
-    except NotImplementedError as e:
+    except ValueError as e:
         out["serve"] = str(e)
     return out
 
@@ -83,8 +94,13 @@ def test_mesh_axes(runs):
 
 
 def test_serving_refuses_a_data_axis(runs):
+    """Serving takes a data axis; what it refuses there is what the
+    reference's ``shard_map`` cannot run: an MoE call that holds the
+    whole batch on every data row, of rows the axis does not divide."""
+    assert runs[0]["serve_mesh"] == {"data": 2, "model": 1}
     msg = runs[0]["serve"]
-    assert msg is not None and "data axis" in msg and "ROADMAP" in msg
+    assert msg is not None and "data shards" in msg
+    assert "src/repro/nn/moe.py" in msg
 
 
 def test_data_rows_follow_the_reference_layout():

@@ -1,9 +1,9 @@
 """The serve CLI's ``--mesh`` on the CPU: ``--mesh 2`` spawns 2 ranks and
-prints (rank 0) the tokens of the same command without it; ``--mesh DxM``
-with D > 1 and the archs outside the dense family and qwen3-moe are
-refused with an error naming the ROADMAP item; a rank process imports
-neither JAX nor the JAX package; a rank that raises takes the whole run
-down."""
+``--mesh 2x2`` 4 (a data axis of 2) and each prints (rank 0) the tokens
+of the same command without it; the archs outside the dense family and
+qwen3-moe are refused with an error naming the ROADMAP item; a rank
+process imports neither JAX nor the JAX package; a rank that raises
+takes the whole run down."""
 import pytest
 
 pytest.importorskip("torch")
@@ -30,8 +30,23 @@ def test_mesh_prints_the_single_rank_tokens(capfd):
     assert meshed.count("served 4 requests") == 1       # rank 0 alone
 
 
+@pytest.mark.parametrize("continuous", [True, False],
+                         ids=["continuous", "static"])
+def test_data_axis_prints_the_single_rank_tokens(capfd, continuous):
+    argv = ["--reduced", "--device", "cpu", "--requests", "4",
+            "--max-new", "6"] + (["--continuous"] if continuous else [])
+    tcli.main(argv)
+    alone = capfd.readouterr().out
+    tcli.main(argv + ["--mesh", "2x2"])
+    meshed = capfd.readouterr().out
+    assert _tokens(alone) and _tokens(meshed) == _tokens(alone)
+    assert ("mesh: {'data': 2, 'model': 2} replicated=[] data_split=True"
+            in meshed)
+    assert meshed.count("served 4 requests") == 1       # rank 0 alone
+
+
 @pytest.mark.parametrize("extra, msg", [
-    (["--mesh", "2x2"], "data axis"),
+    (["--mesh", "2x2", "--arch", "hymba-1.5b"], "not ported to tensor"),
     (["--mesh", "x2"], "expected 'M' or 'DxM'"),
     (["--mesh", "2", "--arch", "xlstm-1.3b"], "not ported to tensor"),
     (["--mesh", "2", "--arch", "deepseek-v3-671b"], "not ported to tensor"),

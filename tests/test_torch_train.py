@@ -395,7 +395,7 @@ def test_mtp_and_grad_compress_raise():
     """Multi-token prediction is ported with the moe family
     (``tests/test_torch_moe_train.py``) and builds a step, which adds its
     loss on a dense arch too; under a mesh it is refused (TP of the
-    other families, ROADMAP Queue A item 2).  ``grad_compress`` without a
+    other families, ROADMAP Queue A item 1).  ``grad_compress`` without a
     mesh carries zero error buffers and does not quantize, as the
     reference's step (several ranks: ``tests/test_torch_grad_compress.py``)."""
     from repro_torch.parallel.statesharding import check_trainable
@@ -406,7 +406,7 @@ def test_mtp_and_grad_compress_raise():
     b = SyntheticLMDataset(cfg.vocab_size, seq_len=16, seed=1).batch(0, 2)
     _, m = make_train_step(mtp)(st, b)
     assert np.isfinite(float(m["loss"]))
-    with pytest.raises(NotImplementedError, match="Queue A, item 2"):
+    with pytest.raises(NotImplementedError, match="Queue A, item 1"):
         check_trainable(mtp)
     gst = init_train_state(cfg, device="cpu", grad_compress=True)
     plain, _ = make_train_step(cfg)(init_train_state(cfg, device="cpu"), b)

@@ -271,4 +271,4 @@ def test_cli_rejects_mesh_options(flag, tmp_path):
     p = _cli(["--steps", "1", "--ckpt-dir", str(tmp_path)] + flag)
     out, err = p.communicate(timeout=120)
     assert p.returncode == 2
-    assert "Queue A, item 2" in err
+    assert "Queue A, item 1" in err
