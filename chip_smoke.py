@@ -104,7 +104,8 @@ Phases (any failure raises and exits non-zero before the result line):
     kernel 2 against its plain version with the window (which must move
     the output); folded bytes and peak memory per arch;
  6b. the main path with the paper's searched encodings: full-width
-    qwen1.5-0.5b at the serving CLI's defaults (``--encoding search``, M
+    qwen1.5-0.5b at ``SEARCH_LAYERS`` (8) of its 24 layers, at the serving
+    CLI's defaults (``--encoding search``, M
     = 48, 128 samples + 64 anneal steps per projection family, 4
     calibration batches), searched and folded on the card into a bundle
     under ``build/`` (removed at the end), served over the same trace
@@ -259,7 +260,7 @@ those serves run, and phase 4 kernel 2 at the local heads (8/8 at D 64
 for every pool type, Sq 1 and 5; qwen3-moe's 32/2 at D 128), with
 head-sharded calls against the whole call's heads logged bit for bit.
 Phase 6k first serves qwen1.5-0.5b at full width and
-``TP_SERVE_LAYERS`` (4) of its 24 layers on one rank, eagerly, with the
+``TP_SERVE_LAYERS`` (2) of its 24 layers on one rank, eagerly, with the
 exact encoding folded on the card (``_tp_baselines``), then spawns the
 ranks (``parallel.mesh.run_ranks``): each folds the same model the same
 way and keeps its slices (folded bytes exactly half), then serves it
@@ -305,6 +306,28 @@ those of the single-rank eager serves or parting at a located .5 code
 tokens and MoE drops those of a one-rank serve of each data row's
 computation (``_dp_moe_one_rank``).  Phase 8 adds kernel 1's rows at m
 = 2 and 10 and kernel 2's at B = 2.
+
+The MLA, vlm and encdec families on the same ranks (``_tp_new``, after
+qwen3-moe's data axis): phi-3-vision (6i's depth, exact) through
+``generate(mesh=)`` of 4 prompts of ``PHI_IMG_S`` tokens led by an
+``img`` of its 256 patches at TP 2; whisper-large-v3 (6j's depth) fp and
+``--mac int8`` through ``generate`` with 1500 frames and through
+``ServeEngine`` over the trace's first chunk, at TP 2 and on the 2 x 1
+mesh; deepseek-v3 (6h's depth, bf16) static, exact at TP 2 (EP over its
+256 experts; built and folded in turns, its experts cut on the host)
+and fp on the 2 x 1 mesh (``launch/dryrun.py`` reckons both first: the
+exact fold on both ranks of a data axis would not fit the card).  Gates:
+ranks agree; at TP 2 the single-rank eager serve of 6h/6i/6j or a
+parting ``_tp_origins`` locates (MLA's, whisper's cross-attention's, the
+shared expert's and int8 linears' inputs recorded too; fp: a near-tie),
+no data-axis collective, kernel 1 at every linear of every forward at
+gated local shapes (phase 3 gates deepseek-v3's and phi-3-vision's at
+decode, a data row's m = 2, the static prefills and phi's 1200);
+on the 2 x 1 mesh each data row's one-rank computation token for token
+(``_rows_static``; whisper's ``generate`` row by row) and no model-axis
+collective; deepseek-v3's MoE drops equal to 6h's (TP 2) and to the
+rows' (2 x 1).  Logged: tok/s, collectives by axis and op with their
+host ms, peak memory a rank.
 
 Training on several ranks (``MESH_TRAIN_RUNS``), in phase 6k's spawn
 after its serves: full-width qwen1.5-0.5b, 4 of 24 layers, AdamW, 4 x
@@ -401,6 +424,15 @@ NEW_ARCHS = (("phi-3-vision-4.2b", 4), ("hymba-1.5b", 4))
 # layers, its encoder fed Whisper's 30-s window after the conv stem
 XLSTM_ARCH, XLSTM_DEPTH = "xlstm-1.3b", 8
 WHISPER_ARCH, WHISPER_DEPTH, WHISPER_FRAMES = "whisper-large-v3", 4, 1500
+# phase 6k's serves of the MLA, vlm and encdec families on two ranks, each
+# at the cut depth of its single-rank phase (6h, 6i, 6j) and held to that
+# phase's eager serve of the same weights: deepseek-v3's static trace
+# (exact at TP 2, fp on a DP x 1 mesh, where each rank holds the whole
+# params), phi-3-vision's generate of N_SLOTS prompts of PHI_IMG_S tokens
+# led by an img of its 256 patches (exact, TP 2), whisper's generate with
+# its frames and ServeEngine over the trace's first chunk (fp and int8,
+# TP 2 and DP x 1)
+DSV3_ARCH, PHI_ARCH, PHI_IMG_S = "deepseek-v3-671b", "phi-3-vision-4.2b", 300
 # with fp weights two engines may part only at a near-tie: the candidates'
 # logits within this share of the largest |logit| (f32 summation orders
 # part them by about 1e-6 of it at full width)
@@ -418,9 +450,10 @@ GATED_EM = set()
 TP = 2
 # phase 6k's qwen1.5-0.5b serves: full width, this many of its 24 layers
 # (a decode step's 50 host-synced collectives at full depth made them
-# the script's longest part), held to single-rank eager serves of the
-# same cut model
-TP_SERVE_LAYERS = 4
+# the script's longest part; 4 until the MLA, vlm and encdec serves
+# joined the phase), held to single-rank eager serves of the same cut
+# model
+TP_SERVE_LAYERS = 2
 # phase 6k's serves (qwen1.5-0.5b) and the m each runs kernel 1 at:
 # decode and draft steps, prefill chunks, verify at k = SPEC_K, the static
 # prefills
@@ -1101,7 +1134,12 @@ def phase_kernel1_tp(dev):
     is an fp product) at decode, prefill chunk, verify (``TP_MS``) and the
     static prefills; qwen3-moe's wq 4096x4096, wk/wv 4096x256, wo
     4096x4096 and head 4096x75968 at decode, prefill chunk and the static
-    prefills."""
+    prefills; deepseek-v3's (MLA: wq_b 1536x12288, wk_b/wv_b 512x8192, wo
+    8192x7168 and the whole down projections; dense and shared MLPs, head
+    7168x64640) at decode and the static prefills, and phi-3-vision's
+    (wq/wk/wv 3072x1536, wo 1536x3072, MLP 3072x4096 and 4096x3072, head
+    3072x16032) at decode and its generate's prefill with an img; each
+    new arch at a data row's m = N_SLOTS / DP too."""
     from repro_torch.configs import get_config
     qwen = dataclasses.replace(get_config("qwen1.5-0.5b"),
                                attention_backend="kernel")
@@ -1109,7 +1147,11 @@ def phase_kernel1_tp(dev):
     _gate_em_archs(dev, "kernel1-tp", [
         ("qwen1.5-0.5b", qwen, TP_MS + pre, TP),
         ("qwen3-moe-235b-a22b", _moe_cfg("qwen3-moe-235b-a22b"),
-         (N_SLOTS, 32) + pre, TP)])
+         (N_SLOTS, 32) + pre, TP),
+        (DSV3_ARCH, _moe_cfg(DSV3_ARCH), (N_SLOTS, N_SLOTS // DP) + pre,
+         TP),
+        (PHI_ARCH, _new_cfg(PHI_ARCH),
+         (N_SLOTS, N_SLOTS // DP, N_SLOTS * PHI_IMG_S), TP)])
 
 
 def phase_kernel2_tp(dev):
@@ -1371,17 +1413,20 @@ def _linear_shapes(cfg, decode: bool = False, tp: int = 1) -> dict:
     and recurrence are plain products), and an untied LM head (a tied
     head reads the embedding table, an fp product).  ``decode``: a
     one-token step over a cache.  ``tp``: a rank's local (k, n) at that
-    many ranks (column n/tp, row k/tp where the dim divides; dense and
-    GQA moe archs)."""
+    many ranks (column n/tp, row k/tp where the dim divides; MLA: the
+    heads' up projections and wo, the down projections whole)."""
     from repro_torch.models import layer_kinds
     d, hd, H = cfg.d_model, cfg.head_dim_r, cfg.n_heads_p
     ta, tf, ts, tv = _tp_splits(cfg, tp)
     if cfg.use_mla:
+        # a rank's H / tp heads of the up projections and wo; the low-rank
+        # down projections whole
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-        attn = [(d, cfg.q_lora_rank), (cfg.q_lora_rank, H * (dn + dr)),
-                (d, cfg.kv_lora_rank), (d, dr), (H * dv, d)]
+        h = H // (tp if H % tp == 0 else 1)
+        attn = [(d, cfg.q_lora_rank), (cfg.q_lora_rank, h * (dn + dr)),
+                (d, cfg.kv_lora_rank), (d, dr), (h * dv, d)]
         if not decode:
-            attn += [(cfg.kv_lora_rank, H * dn), (cfg.kv_lora_rank, H * dv)]
+            attn += [(cfg.kv_lora_rank, h * dn), (cfg.kv_lora_rank, h * dv)]
     else:
         attn = [(d, H * hd // ta), (d, cfg.n_kv_p * hd // ta),
                 (d, cfg.n_kv_p * hd // ta), (H * hd // ta, d)]
@@ -2231,6 +2276,25 @@ def _routes(params, cfg, toks, dev):
     return {t: lg[0, -1, :V].float() for t, lg in logits.items()}, flips
 
 
+def _dense_logits(params, cfg, toks, dev, extras):
+    """The last token's logits (vocab) as the static engine computes
+    them: ``toks[:-1]`` prefilled into a dense cache with ``extras`` (host
+    arrays of one row; without an encdec arch's ``enc_x`` its cross cache
+    stays zero, as ``ServeEngine``'s), then the last token decoded."""
+    import torch
+    from repro_torch.models import apply_model, init_cache
+    kw = {k: torch.as_tensor(v).to(dev) for k, v in extras.items()}
+    x = torch.from_numpy(toks).to(dev)[None]
+    n = x.shape[1]
+    enc = kw.get("enc_x")
+    with torch.inference_mode():
+        cache = init_cache(cfg, 1, n, device=dev,
+                           enc_len=None if enc is None else enc.shape[1])
+        _, cache = apply_model(params, cfg, x[:, :n - 1], cache=cache, **kw)
+        lg = apply_model(params, cfg, x[:, n - 1:], cache=cache)[0]
+    return lg[0, -1, :cfg.vocab_size].float()
+
+
 def _split_origins(dev, params, cfg, trace, splits, a, b):
     """Where the static (``a``) and continuous (``b``) engines' tokens
     first part, for each split ``(i, j, _)`` of ``_split_report``: both
@@ -3072,6 +3136,12 @@ def phase_moe(dev):
                          if ("continuous", "exact", kv, True) in res},
                      "spec_counts": cache_spec[(f"spec k={SPEC_K}", True)][
                          "counts"] if cache_spec else None}
+        if arch == DSV3_ARCH:                  # phase 6k's baselines
+            out[arch]["eager"] = {
+                "static": res[("static", "exact", False)][0],
+                "drops_static": res[("drops", "static", "exact")],
+                "eager_tok_s": res[("tok_s", "static", "exact", False)],
+                "rows_fp": _rows_static(dev, params, cfg, trace)}
         if arch == "qwen3-moe-235b-a22b":       # phase 6k's baselines
             out[arch]["eager"] = {
                 "continuous": res[("continuous", "exact", "bf16", False)][0],
@@ -3094,8 +3164,43 @@ def phase_new_archs(dev):
     width, 4 of 32 layers (hymba: layer 0 global, layers 1-3 windowed at
     2048), through ``_serve_static_arch``: exact encoding and fp, graphed,
     eager and a repeat serve."""
-    return {arch: _serve_static_arch(dev, arch, _new_cfg(arch), "new")
-            for arch, _ in NEW_ARCHS}
+    return {arch: _serve_static_arch(
+        dev, arch, _new_cfg(arch), "new",
+        extra=(lambda p, c, trace: {"tp_base": _phi_generate(dev, p, c)})
+        if arch == PHI_ARCH else None) for arch, _ in NEW_ARCHS}
+
+
+def _phi_inputs(cfg):
+    """phi-3-vision's ``generate`` inputs, from a seed on the host:
+    ``N_SLOTS`` prompts of ``PHI_IMG_S`` tokens and an ``img`` of its
+    patches, which replace the prompts' leading positions."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (N_SLOTS, PHI_IMG_S)).astype(
+        np.int32)
+    img = rng.normal(size=(N_SLOTS, cfg.n_patches, cfg.d_model)).astype(
+        np.float32)
+    return toks, {"img": img}
+
+
+def _phi_generate(dev, params, cfg):
+    """Phase 6k's baseline of phi-3-vision: ``generate`` of
+    ``_phi_inputs`` with the exact encoding, eager; tokens and tok/s."""
+    import torch
+    from repro_torch.serve import generate
+    toks, extras = _phi_inputs(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = generate(params, cfg, toks, MAX_NEW, extras=extras,
+                   cuda_graphs=False).cpu().tolist()
+    dt = time.perf_counter() - t0
+    assert len(got) == N_SLOTS and all(
+        len(t) == MAX_NEW and all(0 <= x < cfg.vocab_size for x in t)
+        for t in got), f"{PHI_ARCH} generate with img: not every row finished"
+    log(f"[new] {PHI_ARCH} exact generate ({N_SLOTS}, {PHI_IMG_S}) tokens "
+        f"led by an img of {cfg.n_patches} patches, eager: "
+        f"{N_SLOTS * MAX_NEW / dt:.1f} tok/s (phase 6k's baseline)")
+    return {"tokens": got, "tok_s": N_SLOTS * MAX_NEW / dt}
 
 
 def _serve_static_arch(dev, arch, cfg, tag, extra=None):
@@ -3309,9 +3414,29 @@ def _whisper_serves(dev):
             f"{peak / 1e9:.2f} GB; part {time.perf_counter() - t0:.1f}s")
         out[mode] = {"peak_gb": peak / 1e9, "serve_tok_s":
                      sum(map(len, stoks)) / dt,
-                     "step_ms_p50": st["step_ms_p50"]}
+                     "step_ms_p50": st["step_ms_p50"],
+                     "tp_base": _whisper_base(dev, params, c, toks, frames,
+                                              res["eager"])}
         del params, eng
     return out
+
+
+def _whisper_base(dev, params, cfg, toks, frames, gen):
+    """Phase 6k's baselines of whisper in ``cfg``'s mode, eager: its
+    ``generate`` (``gen``, 6j's) and ``ServeEngine`` over the trace's first
+    chunk for TP 2; for a ``DP`` x 1 mesh, each data row's computation:
+    ``generate`` of each row's prompts and frames, and ``_rows_static``."""
+    from repro_torch.serve import generate
+    trace = make_trace(cfg.vocab_size)[:N_SLOTS]
+    _, static, dt, _ = _static(params, cfg, trace, dev, cuda_graphs=False)
+    b = N_SLOTS // DP
+    rows = sum((generate(params, cfg, toks[r:r + b], MAX_NEW,
+                         extras={"enc_x": frames[r:r + b]},
+                         cuda_graphs=False).cpu().tolist()
+                for r in range(0, N_SLOTS, b)), [])
+    return {"gen": gen, "static": static, "gen_rows": rows,
+            "static_rows": _rows_static(dev, params, cfg, trace)["tokens"],
+            "static_tok_s": sum(map(len, static)) / dt}
 
 
 def phase_xlstm_whisper(dev):
@@ -3987,6 +4112,9 @@ def phase_cpu_parity_archs(dev):
 
 
 SEARCH_FAMILIES = ("wg", "wi", "wk", "wo", "wq", "wv")
+# phase 6b's depth: 8 of qwen1.5-0.5b's 24 layers (at 24 its 9.9 GB bundle
+# took 22.5 s to write and 34.8 s to load again on an H100)
+SEARCH_LAYERS = 8
 # phase 8's searched kernel-1 rows: (family, k, n), the three decode
 # shapes of full-width qwen1.5-0.5b
 DECODE_SEARCH_ROWS = (("wq", 1024, 1024), ("wi", 1024, 2816),
@@ -3995,14 +4123,16 @@ DECODE_SEARCH_ROWS = (("wq", 1024, 1024), ("wi", 1024, 2816),
 
 def phase_serve_search(dev):
     """The main path with the paper's searched encodings at the serving
-    CLI's defaults, searched and folded on the card."""
+    CLI's defaults, searched and folded on the card, at full width and
+    ``SEARCH_LAYERS`` of 24 layers."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import encoded_matmul as em
     from repro_torch.models import apply_model, init_model
     from repro_torch.serve import prepare_encoded_serving
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
-                              attention_backend="kernel")
+    cfg = dataclasses.replace(
+        get_config("qwen1.5-0.5b").with_layers(SEARCH_LAYERS),
+        attention_backend="kernel")
     params = init_model(cfg, seed=0, device=dev)
     cache = bundle_dir("search")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4341,7 +4471,7 @@ def _linears_teacher_forced(dev, pe_c, ce_c, pe_g, ce_g, prompt):
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 8, 256, 10, 2
 # steps of the run whose loss is recorded, not gated (the searched
 # encoding): its first steps of the same schedule
-TRAIN_UNGATED_STEPS = 4
+TRAIN_UNGATED_STEPS = 2
 # steps of the int8 and exact-encoded runs (the same forward: the exact
 # run's step 0 is gated equal to int8's); each loss must fall over them
 # (the card runs of PRs 19-24: step 3 below step 0 in both)
@@ -5178,24 +5308,35 @@ def _splits_of(toks, base) -> dict:
 
 
 def _enc_sites(params, cfg, mesh=None):
-    """id of every encoded linear's weight in ``params`` (the head, each
-    layer's attention and MLP) → (site, its activation scale, whether
-    the linear's input is a row shard under ``mesh``)."""
+    """id of every quantized linear's weight in ``params`` (encoded: the
+    folded ones; ``--mac int8``: each with an activation scale) of the
+    head and each layer's attention (GQA, MLA, whisper's cross-attention),
+    MLP and shared expert → (site, its activation scale, whether the
+    linear's input is a row shard under ``mesh``)."""
     from repro_torch.parallel.mesh import set_mesh
     from repro_torch.parallel.sharding import linear_role, splits
     with set_mesh(mesh):
         ways = splits(cfg)
-    nodes = [("head", params.get("lm_head", {}), 1)] + [
-        (f"layer {li} {sub}", layer[sub], ways.get(sub, 1))
-        for li, layer in enumerate(params["layers"])
-        for sub in ("attn", "mlp") if sub in layer]
+    nodes = [("head", params.get("lm_head", {}), 1)]
+    for li, layer in enumerate(params["layers"]):
+        nodes += [(f"layer {li} {sub}", layer[sub], ways.get(sub, 1))
+                  for sub in ("attn", "mla", "xattn", "mlp") if sub in layer]
+        if "shared" in layer.get("moe", {}):
+            nodes.append((f"layer {li} shared", layer["moe"]["shared"],
+                          ways.get("shared", 1)))
+    int8 = cfg.mac.mode == "int8"
     return {id(node[k]): (f"{where}/{k}", node[k + "_as"],
                           tp > 1 and linear_role(k) == "row")
-            for where, node, tp in nodes for k in node if k + "_fw" in node}
+            for where, node, tp in nodes for k in node
+            if k + "_fw" in node or (int8 and k + "_as" in node)}
+
+
+# the mark of a recorded site whose rows are an encoder's frames
+FRAMES = " [frames]"
 
 
 def _recorded_serve(dev, params, cfg, trace, want, static, mesh=None,
-                    **kw):
+                    extras=None, max_len=None, enc_len=None, **kw):
     """``trace`` served again eagerly (continuous; or ``static``: the
     chunks of ``N_SLOTS`` holding a request of ``want``) while a hook
     keeps request i's rows of every encoded linear's input, x / its
@@ -5210,7 +5351,12 @@ def _recorded_serve(dev, params, cfg, trace, want, static, mesh=None,
     ones the served tokens' K/V came from.  Under ``mesh`` (params: this
     rank's) a row shard's inputs are gathered after the serve, and where
     a data axis splits a step (or a static chunk) each data row keeps its
-    own slots' (requests') rows, put together after the serve.  Returns
+    own slots' (requests') rows, put together after the serve.  An
+    encoder's sites (whisper's) keep every frame, named with ``FRAMES``
+    after the site.  A static
+    serve may stand for ``generate``: ``extras`` (host arrays, a row per
+    request of ``trace``) go into each chunk's prefill, and ``max_len`` /
+    ``enc_len`` size its cache (default: ``ServeEngine``'s).  Returns
     ({i: {site: (positions, k) host tensor}}, the sites in call order)."""
     import numpy as np
     import torch
@@ -5311,18 +5457,27 @@ def _recorded_serve(dev, params, cfg, trace, want, static, mesh=None,
         if not rows:
             continue
 
-        def rows_of(x, rows=rows, pad=pad):
+        def rows_of(x, rows=rows, pad=pad, S=S):
+            if x.dim() == 2:          # a shared expert's (B·S, d) input
+                x = x.reshape(len(pad), -1, x.shape[-1])
+            if cfg.family == "encdec" and x.shape[1] != S:
+                # the encoder's frames (its layers, the cross K/V), all of
+                # them: the encoder runs whole before the decoder
+                return [(i, FRAMES, x[r]) for r, i in rows.items()]
             if x.shape[1] > 1:
                 return [(i, True, x[r, int(pad[r]):]) for r, i in rows.items()]
             return [(i, False, x[r]) for r, i in rows.items()]
+        ex = {k: torch.as_tensor(v[c0 + lo:c0 + hi])
+              for k, v in (extras or {}).items()}
         with set_mesh(mesh), replicated_batch((lo, hi) == (0, len(chunk))), \
                 torch.inference_mode(), recording(rows_of):
-            sb = StaticBatch(params, cfg, hi - lo, S + MAX_NEW + 8,
-                             device=dev, graphs=False)
+            sb = StaticBatch(params, cfg, hi - lo,
+                             max_len or S + MAX_NEW + 8 + cfg.meta_tokens,
+                             device=dev, graphs=False, enc_len=enc_len)
             sb.run(torch.from_numpy(batch),
                    max(want[i] for i in rows.values()) + 1,
                    pad=_ragged_pad(cfg, pad) if supports_ragged_mask(cfg)
-                   else None)
+                   else None, extras=ex)
         del sb
     if static and mesh is not None and mesh.n_data > 1:
         # each request's rows from the data row that served it
@@ -5336,22 +5491,27 @@ def _recorded_serve(dev, params, cfg, trace, want, static, mesh=None,
                 order[:] = part[1]
     gather = {site for site, _, g in sites.values() if g}
     out = {}
+    frames = [site for site in order if got and any(
+        pre == FRAMES for pre, _ in next(iter(got.values()))[site])]
     for i, j in want.items():
         plen, pieces = len(trace[i]), got[i]
         out[i] = {}
         for site in order:
             if not static:
                 t = torch.stack([by_pos[i, site][p] for p in range(plen + j)])
+            elif site in frames:
+                t = pieces[site][0][1]
             else:
                 t = torch.cat([torch.cat([r for pre, r in pieces[site]
-                                          if pre])[:plen]]
+                                          if pre is True])[:plen]]
                               + [r for pre, r in pieces[site]
-                                 if not pre])[:plen + j]
+                                 if pre is False])[:plen + j]
             if site in gather:
                 t = mesh.gather_columns(t.contiguous())
-            out[i][site] = t.cpu()
+            out[i][site + FRAMES if site in frames else site] = t.cpu()
     del got
-    return out, order
+    return out, [site + FRAMES if site in frames else site
+                 for site in order]
 
 
 def _axis_delta(mesh, before) -> dict:
@@ -5540,6 +5700,43 @@ def _dp_moe_cfg():
         param_dtype="float32", attention_backend="kernel")
 
 
+def _rows_static(dev, params, cfg, trace, max_new: int = MAX_NEW):
+    """The one-rank serve a ``DP`` x 1 ``ServeEngine`` serve of ``trace``
+    must equal: each chunk of ``N_SLOTS`` requests left-padded to its
+    longest prompt, as the engine pads it, and each data row's ``N_SLOTS
+    / DP`` requests of it run in turn through a ``StaticBatch`` of theirs
+    (eager; a MoE call's capacity from its own rows): each data row's
+    computation at its shapes.  Tokens, MoE drops (pairs dropped, pairs),
+    seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import supports_ragged_mask
+    from repro_torch.serve.engine import StaticBatch, _ragged_pad
+    toks, b = [], N_SLOTS // DP
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _drop_tally(True) as tally:
+        for c in range(0, len(trace), N_SLOTS):
+            chunk = trace[c:c + N_SLOTS]
+            S = max(map(len, chunk))
+            batch = np.zeros((len(chunk), S), np.int32)
+            pad = np.zeros((len(chunk),), np.int32)
+            for r, q in enumerate(chunk):
+                batch[r, S - len(q):] = q
+                pad[r] = S - len(q)
+            for lo in range(0, len(chunk), b):
+                sb = StaticBatch(params, cfg, b,
+                                 S + max_new + 8 + cfg.meta_tokens,
+                                 device=dev, graphs=False)
+                toks += sb.run(
+                    torch.from_numpy(batch[lo:lo + b]), max_new,
+                    pad=_ragged_pad(cfg, pad[lo:lo + b])
+                    if supports_ragged_mask(cfg) else None).cpu().tolist()
+                del sb
+    return {"tokens": toks, "drops": _drops(tally),
+            "dt": time.perf_counter() - t0}
+
+
 def _dp_moe_one_rank(dev):
     """The one-rank serve a 2 x 1 qwen3-moe serve must equal: the
     continuous engine (eager) with every prefill chunk's MoE dispatched
@@ -5648,6 +5845,351 @@ def _tp_moe(mesh, dev, base):
     out["peak"] = torch.cuda.max_memory_allocated(dev)
     out["cfg"] = cfg_enc
     return out
+
+
+# --- phase 6k's serves of the MLA, vlm and encdec families -------------------
+
+def _mesh_generate(mesh, dev, params, cfg, prompts, extras, base):
+    """One ``generate`` of ``prompts`` with ``extras`` (host arrays) on
+    this rank of ``mesh`` (eager), reported as ``_tp_static`` reports a
+    serve; where the tokens part from ``base``, the parting rows' inputs
+    to the quantized linears (``_recorded_serve`` standing for
+    ``generate``)."""
+    import torch
+    from repro_torch.serve import generate
+    c0, s0 = mesh.collectives, mesh.collective_s
+    o0 = collections.Counter(mesh.by_op)
+    a0 = collections.Counter(mesh.by_axis)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    toks = generate(params, cfg, prompts, MAX_NEW, extras=extras,
+                    mesh=mesh).cpu().tolist()
+    dt = time.perf_counter() - t0
+    counts = _read_counts()
+    by_op = collections.Counter(mesh.by_op)
+    by_op.subtract(o0)
+    res = {"tokens": toks, "dt": dt, "counts": counts,
+           "agree": mesh.agree(toks), "collectives": mesh.collectives - c0,
+           "collective_ms": (mesh.collective_s - s0) * 1e3,
+           "by_op": dict(+by_op), "by_axis": _axis_delta(mesh, a0),
+           "origins": None}
+    splits = _splits_of(toks, base)
+    if splits and res["agree"]:
+        res["origins"] = _recorded_serve(
+            dev, params, cfg, list(prompts), splits, True, mesh,
+            **_gen_kw(cfg, prompts, extras))
+    return res
+
+
+def _gen_kw(cfg, prompts, extras):
+    """``_recorded_serve``'s arguments for a static serve standing for
+    ``generate`` of ``prompts`` with ``extras``."""
+    enc = extras.get("enc_x")
+    return {"extras": extras,
+            "max_len": prompts.shape[1] + MAX_NEW + cfg.meta_tokens,
+            "enc_len": None if enc is None else enc.shape[1]}
+
+
+def _peak_reset(dev):
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _tp_new(mesh, dev, base):
+    """Phase 6k's serves of phi-3-vision, whisper and deepseek-v3 on this
+    rank, each held by the parent to its single-rank phase's eager serve
+    of the same weights (``base``): phi-3-vision exact at TP 2 through
+    ``generate`` with an img; whisper fp and int8 through ``generate``
+    with its frames and through ``ServeEngine``, at TP 2 and on a ``DP`` x
+    1 mesh of the same ranks; deepseek-v3 static, exact at TP 2 (its
+    256 experts over the model axis; built and folded in turns, as 6k's
+    qwen3-moe, a rank's slices parked on the host until every rank has
+    cut its own) and fp on the ``DP`` x 1 mesh (every rank holds the whole
+    params), each MoE call's dropped pairs tallied.  Peak device memory a
+    rank with each."""
+    import torch
+    from repro_torch.core.layers import MacConfig
+    from repro_torch.models import init_model, to_device
+    from repro_torch.parallel.mesh import Mesh
+    from repro_torch.parallel.sharding import LocalParams, shard_params
+    dp = Mesh(DP, 1)
+    out = {}
+    t0 = time.perf_counter()
+
+    def done(part):
+        if mesh.rank == 0:
+            log(f"[tp-new] rank 0: {part} in {time.perf_counter() - t0:.1f}s "
+                "from the start of these serves")
+    # phi-3-vision: exact, TP 2, generate with an img
+    _peak_reset(dev)
+    cfg = _new_cfg(PHI_ARCH)
+    params = init_model(cfg, seed=0, device=dev, init_device=dev)
+    pe, ce, _ = _fold_exact(params, cfg)
+    local = shard_params(pe, ce, mesh)
+    out["phi_fw"] = (_fw_bytes(local), _fw_bytes(pe))
+    del params, pe
+    toks, extras = _phi_inputs(ce)
+    out["phi"] = _mesh_generate(mesh, dev, local, ce, toks, extras,
+                                base["phi"]["tokens"])
+    out["phi"]["peak"] = torch.cuda.max_memory_allocated(dev)
+    del local
+    done(PHI_ARCH)
+    # whisper: fp and int8, TP 2 and DP x 1, generate and ServeEngine
+    for mode in ("fp", "int8"):
+        _peak_reset(dev)
+        c = dataclasses.replace(_whisper_cfg(), mac=MacConfig(mode=mode))
+        params = init_model(c, seed=0, device=dev, init_device=dev)
+        local = shard_params(params, c, mesh)
+        toks, frames = _whisper_prompts(c)
+        trace = make_trace(c.vocab_size)[:N_SLOTS]
+        wb = base["whisper"][mode]
+        r = {"gen_tp": _mesh_generate(mesh, dev, local, c, toks,
+                                      {"enc_x": frames}, wb["gen"]),
+             "static_tp": _tp_static(mesh, dev, local, c, trace,
+                                     wb["static"])}
+        r["peak_tp"] = torch.cuda.max_memory_allocated(dev)
+        del local
+        _peak_reset(dev)
+        r["gen_dp"] = _mesh_generate(dp, dev, params, c, toks,
+                                     {"enc_x": frames}, wb["gen_rows"])
+        r["static_dp"] = _tp_static(dp, dev, params, c, trace,
+                                    wb["static_rows"])
+        r["peak_dp"] = torch.cuda.max_memory_allocated(dev)
+        out[f"whisper_{mode}"] = r
+        del params
+        done(f"{WHISPER_ARCH} {mode}")
+    # deepseek-v3: exact at TP 2, built and folded in turns
+    cfg = _moe_cfg(DSV3_ARCH)
+    trace = make_trace(cfg.vocab_size)
+    _peak_reset(dev)
+    with mesh.in_turns():
+        _peak_reset(dev)
+        t1 = time.perf_counter()
+        params = init_model(cfg, seed=0, device=dev, init_device=dev)
+        pe, ce, _ = _fold_exact(params, cfg)
+        torch.cuda.synchronize()
+        r = {"build_s": time.perf_counter() - t1,
+             "build_peak": torch.cuda.max_memory_allocated(dev),
+             "fw_whole": _fw_bytes(pe)}
+        del params
+        local = _parked_slices(pe, ce, mesh)
+        r["fw_local"] = _fw_bytes(local)
+        del pe
+        gc.collect()
+    local = LocalParams(to_device(local, dev))
+    done(f"{DSV3_ARCH} built and cut in turns")
+    _peak_reset(dev)
+    r["local_bytes"] = torch.cuda.memory_allocated(dev)
+    with _drop_tally(True) as tally:
+        r.update(_tp_static(mesh, dev, local, ce, trace,
+                            base["dsv3"]["static"], tally=tally))
+    r["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["dsv3_tp"] = r
+    del local
+    done(f"{DSV3_ARCH} TP {TP}")
+    # deepseek-v3: fp on the DP x 1 mesh, the whole params on every rank,
+    # drawn in turns (a draw's f32 temporaries reserve 17 GB more, which
+    # the turn's end releases)
+    _peak_reset(dev)
+    with mesh.in_turns():
+        params = init_model(cfg, seed=0, device=dev, init_device=dev)
+    with _drop_tally(True) as tally:
+        r = _tp_static(dp, dev, params, cfg, trace,
+                       base["dsv3"]["rows_fp"]["tokens"])
+    rows = sum(_gather_objects([(int(d), n) for d, n, _ in tally]), [])
+    r["drops"] = (sum(d for d, _ in rows), sum(n for _, n in rows))
+    r["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["dsv3_dp"] = r
+    del params
+    done(f"{DSV3_ARCH} {DP} x 1")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parked_slices(pe, cfg, mesh):
+    """This rank's slices of the whole params ``pe`` (``shard_params``),
+    every leaf on the host: the expert stacks go to the host whole first
+    and are cut there, so the whole params (57 GB at deepseek-v3's cut)
+    and the slices (29 GB) never meet on the card."""
+    from repro_torch.models import to_device
+    from repro_torch.parallel.sharding import shard_params
+    for layer in pe["layers"]:
+        moe = layer.get("moe", {})
+        for k in ("experts_wi", "experts_wg", "experts_wo"):
+            if k in moe:
+                moe[k] = moe[k].cpu()
+    return to_device(shard_params(pe, cfg, mesh), "cpu")
+
+
+def _new_check(tag, r, base, cfg, eager_tok_s, mesh_tag, peak=None):
+    """Log one of phase 6k's new serves (tok/s, collectives by axis and op
+    and their host ms, peak memory a rank) and gate what needs no
+    single-rank rerun: every request finished, the ranks agree.  Returns
+    the requests' partings from ``base`` (request, new token)."""
+    toks = r["tokens"]
+    if not r["agree"]:
+        raise AssertionError(f"[tp-new] {tag}: the ranks' tokens differ")
+    assert len(toks) == len(base) and all(
+        len(t) == len(b) and all(0 <= x < cfg.vocab_size for x in t)
+        for t, b in zip(toks, base)), f"[tp-new] {tag}: not every " \
+        "request finished"
+    n_same, parts = _agreement(toks, base)
+    n_tok = sum(map(len, toks))
+    log(f"[tp-new] {tag} on a {mesh_tag} mesh: {len(toks)} requests, "
+        f"{n_tok} tokens in {r['dt']:.3f}s = {n_tok / r['dt']:.1f} tok/s "
+        f"eager (single-rank eager "
+        f"{'not served' if eager_tok_s is None else round(eager_tok_s, 1)});"
+        f" collectives by axis/op {r['by_axis']} ({r['collectives']} in "
+        f"all), {r['collective_ms']:.1f} ms on the host"
+        + ("" if peak is None else f"; peak {peak / 1e9:.2f} GB a rank")
+        + f"; tokens against the single-rank eager serve: {n_same} of "
+        f"{len(toks)} requests identical, parts (request, new token) "
+        f"{parts}; {SMI}")
+    return parts
+
+
+def _new_checks(dev, res, base):
+    """Phase 6k's serves of the MLA, vlm and encdec families gated on the
+    parent: at TP 2 the single-rank eager tokens, or a parting that
+    ``_tp_origins`` locates at a code f32 order moved across .5 (or a
+    near-tie), no data-axis collective, kernel 1 at every linear of every
+    forward at gated local shapes; on the ``DP`` x 1 mesh each data row's
+    one-rank computation token for token and no model-axis collective;
+    deepseek-v3's MoE drops equal on both sides.  Returns kernel 1's
+    launches by shape of the TP 2 serves."""
+    import torch
+    from repro_torch.core.layers import MacConfig
+    from repro_torch.models import init_model
+    redo = []                         # TP 2 partings, located below
+
+    def axes(tag, r, bad):
+        if any(k.startswith(bad) for k in r["by_axis"]):
+            raise AssertionError(f"[tp-new] {tag}: collectives over the "
+                                 f"{bad.rstrip('/')} axis: {r['by_axis']}")
+    # phi-3-vision
+    cfg = _new_cfg(PHI_ARCH)
+    r = res["phi"]
+    tag = f"{PHI_ARCH} exact generate with img"
+    local, whole = res["phi_fw"]
+    log(f"[tp-new] {PHI_ARCH}: folded bf16 Wt a rank {local / 1e9:.4f} GB "
+        f"of {whole / 1e9:.4f}")
+    if local * TP != whole:
+        raise AssertionError(f"[tp-new] {PHI_ARCH}: a rank's folded bytes "
+                             "are not 1/TP of the whole")
+    if _new_check(tag, r, base["phi"]["tokens"], cfg, base["phi"]["tok_s"],
+                  f"1 x {TP}", r["peak"]):
+        redo.append(("phi", tag, r))
+    axes(tag, r, "data/")
+    pre = collections.Counter({N_SLOTS * PHI_IMG_S: 1})
+    dec = collections.Counter({N_SLOTS: MAX_NEW - 1})
+    want = dict(collections.Counter(_path_shapes(cfg, pre, tp=TP))
+                + collections.Counter(_path_shapes(cfg, dec, decode=True,
+                                                   tp=TP)))
+    got = r["counts"]["encoded_matmul_by_shape"]
+    if got != want:
+        raise AssertionError(f"[tp-new] {tag}: kernel 1 by shape {got}, "
+                             f"expected {want}")
+    _check_gated(r["counts"], f"(tp-new {tag}, rank 0)")
+    launches = {"phi": got}
+    # whisper
+    for mode in ("fp", "int8"):
+        wb, w = base["whisper"][mode], res[f"whisper_{mode}"]
+        c = dataclasses.replace(_whisper_cfg(), mac=MacConfig(mode=mode))
+        for key, what, want_toks, eager in (
+                ("gen_tp", "generate + frames", wb["gen"], None),
+                ("static_tp", "ServeEngine", wb["static"],
+                 wb["static_tok_s"]),
+                ("gen_dp", "generate + frames", wb["gen_rows"], None),
+                ("static_dp", "ServeEngine", wb["static_rows"], None)):
+            r = w[key]
+            tag = f"{WHISPER_ARCH} {mode} {what}"
+            tp = key.endswith("tp")
+            if r["counts"]["encoded_matmul"] or r["counts"]["paged_attn"] \
+                    or r["counts"]["flash_attention"]:
+                raise AssertionError(f"[tp-new] {tag}: kernels launched")
+            parts = _new_check(tag, r, want_toks, c, eager,
+                               f"1 x {TP}" if tp else f"{DP} x 1",
+                               w["peak_tp" if tp else "peak_dp"])
+            axes(tag, r, "data/" if tp else "model/")
+            if parts and not tp:
+                raise AssertionError(f"[tp-new] {tag}: the {DP} x 1 serve "
+                                     "parts from its data rows' one-rank "
+                                     "computation")
+            if parts:
+                redo.append((f"whisper_{mode}", tag, r, key))
+    # deepseek-v3
+    cfg = _moe_cfg(DSV3_ARCH)
+    d, r = base["dsv3"], res["dsv3_tp"]
+    log(f"[tp-new] {DSV3_ARCH} ({cfg.n_layers} layers, EP: "
+        f"{cfg.n_experts // TP} experts a rank): built and folded in turns,"
+        f" {r['build_s']:.1f}s a rank (peak {r['build_peak'] / 1e9:.2f} GB);"
+        f" folded bf16 Wt a rank {r['fw_local'] / 1e9:.4f} GB of "
+        f"{r['fw_whole'] / 1e9:.4f}; a rank's params "
+        f"{r['local_bytes'] / 1e9:.2f} GB")
+    tag = f"{DSV3_ARCH} exact static"
+    parts = _new_check(tag, r, d["static"], cfg, d["eager_tok_s"],
+                       f"1 x {TP}", r["peak"])
+    axes(tag, r, "data/")
+    _check_static_counts(r["counts"], r["chunks"], cfg,
+                         f"(tp-new {tag}, rank 0)", gated=True, tp=TP)
+    launches["dsv3"] = r["counts"]["encoded_matmul_by_shape"]
+    log(f"[tp-new] {tag}: MoE drops (pairs dropped, pairs) {r['drops']}, "
+        f"single-rank eager (6h) {d['drops_static']}")
+    if parts:
+        redo.append(("dsv3", tag, r))
+    elif r["drops"] != d["drops_static"]:
+        raise AssertionError(f"[tp-new] {tag}: MoE drops differ from 6h's")
+    r, rows = res["dsv3_dp"], d["rows_fp"]
+    tag = f"{DSV3_ARCH} fp static"
+    if _new_check(tag, r, rows["tokens"], cfg,
+                  sum(map(len, rows["tokens"])) / rows["dt"], f"{DP} x 1",
+                  r["peak"]):
+        raise AssertionError(f"[tp-new] {tag}: the {DP} x 1 serve parts "
+                             "from its data rows' one-rank computation")
+    axes(tag, r, "model/")
+    log(f"[tp-new] {tag}: MoE drops over the data rows {r['drops']}, the "
+        f"one-rank rows' {rows['drops']}")
+    if r["drops"] != rows["drops"]:
+        raise AssertionError(f"[tp-new] {tag}: MoE drops differ")
+    # the TP 2 partings, each against its single rank's serve rerun here
+    for name, tag, r, *key in redo:
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name == "phi":
+            cfg = _new_cfg(PHI_ARCH)
+            params = init_model(cfg, seed=0, device=dev, init_device=dev)
+            pe, ce, _ = _fold_exact(params, cfg)
+            toks, extras = _phi_inputs(ce)
+            _tp_origins(tag, dev, pe, ce, list(toks),
+                        base["phi"]["tokens"], r, True,
+                        **_gen_kw(ce, toks, extras))
+        elif name == "dsv3":
+            cfg = _moe_cfg(DSV3_ARCH)
+            params = init_model(cfg, seed=0, device=dev, init_device=dev)
+            pe, ce, _ = _fold_exact(params, cfg)
+            _tp_origins(tag, dev, pe, ce, make_trace(cfg.vocab_size),
+                        base["dsv3"]["static"], r, True)
+        else:
+            mode = name.split("_")[1]
+            ce = dataclasses.replace(_whisper_cfg(),
+                                     mac=MacConfig(mode=mode))
+            pe = params = init_model(ce, seed=0, device=dev,
+                                     init_device=dev)
+            wb = base["whisper"][mode]
+            if key[0] == "gen_tp":
+                toks, frames = _whisper_prompts(ce)
+                _tp_origins(tag, dev, pe, ce, list(toks), wb["gen"], r,
+                            True, **_gen_kw(ce, toks, {"enc_x": frames}))
+            else:
+                _tp_origins(tag, dev, pe, ce,
+                            make_trace(ce.vocab_size)[:N_SLOTS],
+                            wb["static"], r, True)
+        del params, pe
+    return launches
 
 
 # --- phase 6k's training on two ranks ----------------------------------------
@@ -6117,8 +6659,9 @@ def _mesh_train_check(dev, res, refs, ckpt):
 def _tp_rank(mesh, job):
     """Phase 6k on one rank of ``TP``: qwen1.5-0.5b, then qwen3-moe, each
     served once the parent's training references are done (they run as
-    the ranks start and load); then training (``_tp_train``), the serve
-    state freed."""
+    the ranks start and load), then phi-3-vision, whisper and deepseek-v3
+    (``_tp_new``); then training (``_tp_train``), the serve state
+    freed."""
     import torch
     dev = torch.device("cuda", 0)
     out = {"qwen": _tp_qwen(mesh, dev, job["base"],
@@ -6131,6 +6674,7 @@ def _tp_rank(mesh, job):
     out["dp_moe"] = _dp_moe(dev, job["base"]["dp_moe"])
     gc.collect()
     torch.cuda.empty_cache()
+    out["new"] = _tp_new(mesh, dev, job["base"]["new"])
     out["train"] = _tp_train(mesh, dev, job["train"])
     return out
 
@@ -6144,9 +6688,12 @@ def _tp_origins(tag, dev, params, cfg, trace, base, r, static,
     order there, whose int8 code differs; it must sit within
     ``ORIGIN_TOL`` of a .5 boundary on both sides with every earlier
     input within ``ORIGIN_TOL``, or, with no code moved, the split must
-    be a near-tie (``FP_TIE_RTOL`` of the largest |logit|)."""
+    be a near-tie (``FP_TIE_RTOL`` of the largest |logit|).  ``kw`` goes
+    to ``_recorded_serve`` (a static serve standing for ``generate``: its
+    ``extras``, which the near-tie's no-cache forward takes too)."""
     import numpy as np
     import torch
+    from repro_torch.models import supports_paged_cache
     splits = _splits_of(r["tokens"], base)
     if r["origins"] is None:
         raise AssertionError(f"[tp] {tag}: tokens part from the single-rank "
@@ -6159,15 +6706,52 @@ def _tp_origins(tag, dev, params, cfg, trace, base, r, static,
 
     def code(t):
         return torch.clamp(torch.round(t), -127, 127)
+    frame_sites = [t for t in order if t.endswith(FRAMES)]
+    order = [t for t in order if t not in frame_sites]
     for i, j in splits.items():
         xs, xt = one_rows[i], tp_rows[i]
-        diff = torch.stack([(code(xs[t]) != code(xt[t])).any(dim=1)
-                            for t in order])
-        hit = diff.any(dim=0).nonzero()
+        # an encoder runs whole before the decoder reads it: the first of
+        # its sites with a code apart, if any, holds the origin
+        t = next((u for u in frame_sites
+                  if (code(xs[u]) != code(xt[u])).any()), None)
+        if t is not None:
+            apart = code(xs[t]) != code(xt[t])
+            edge = max(abs(v - math.floor(v) - 0.5)
+                       for v in torch.cat([xs[t][apart], xt[t][apart]]
+                                          ).tolist())
+            before = max([(xs[u] - xt[u]).abs().max().item()
+                          for u in frame_sites[:frame_sites.index(t)]]
+                         + [0.0])
+            f, c = (int(v) for v in apart.nonzero()[0])
+            log(f"[tp-origin] {tag}: request {i} parts at new token {j}; "
+                f"the first int8 code apart is in the encoder, {t} (frame "
+                f"{f}, channel {c}; {int(apart.sum())} codes): x / scale "
+                f"{xs[t][f, c].item():.7f} (1 rank) against "
+                f"{xt[t][f, c].item():.7f} ({mesh_tag}), every code apart "
+                f"within {edge:.1e} of the .5 boundary; every earlier "
+                f"input within {before:.3e}")
+            if edge > ORIGIN_TOL or before > ORIGIN_TOL:
+                raise AssertionError(f"[tp] {tag}: request {i} parts "
+                                     "without a rounding-boundary origin "
+                                     f"({edge:.2e}, {before:.2e})")
+            continue
+        # no quantized linear (fp weights): no code to move.  A site may
+        # see fewer positions (MLA's decode reads wk_b/wv_b raw)
+        n_pos = max((xs[t].shape[0] for t in order), default=0)
+        diff = torch.stack([torch.nn.functional.pad(
+            (code(xs[t]) != code(xt[t])).any(dim=1),
+            (0, n_pos - xs[t].shape[0])) for t in order]) if order else None
+        hit = [] if diff is None else diff.any(dim=0).nonzero()
         if len(hit) == 0:
             toks = np.concatenate([trace[i], np.asarray(base[i][:j],
                                                         np.int32)])
-            lg, _ = _routes(params, cfg, toks, dev)
+            ex = kw.get("extras")
+            if ex is not None or not supports_paged_cache(cfg):
+                lg = {"dense": _dense_logits(
+                    params, cfg, toks, dev,
+                    {k: v[i:i + 1] for k, v in (ex or {}).items()})}
+            else:
+                lg, _ = _routes(params, cfg, toks, dev)
             top = max(v.abs().max().item() for v in lg.values())
             rel = max(abs((v[base[i][j]] - v[r["tokens"][i][j]]).item())
                       for v in lg.values()) / top
@@ -6184,9 +6768,11 @@ def _tp_origins(tag, dev, params, cfg, trace, base, r, static,
         edge = max(abs(v - math.floor(v) - 0.5) for c in chans
                    for v in (xs[t][p, c].item(), xt[t][p, c].item()))
         before = max([(xs[u][:p] - xt[u][:p]).abs().max().item()
-                      for u in order if p] + [
+                      for u in order if p and len(xs[u][:p])] + [
             (xs[u][p] - xt[u][p]).abs().max().item()
-            for u in order[:order.index(t)]] + [0.0])
+            for u in order[:order.index(t)] if xs[u].shape[0] > p] + [
+            (xs[u] - xt[u]).abs().max().item() for u in frame_sites]
+            + [0.0])
         plen = len(trace[i])
         where = (f"prompt position {p}" if p < plen
                  else f"new token {p - plen} fed back")
@@ -6355,6 +6941,29 @@ def phase_tp(dev, info):
         raise AssertionError("[dp] the 2 x 1 qwen3-moe serve would not fit "
                              "beside the parent")
     base["dp_moe"] = _dp_moe_one_rank(dev)
+    base["new"] = info["tp_base"]["new"]
+    # deepseek-v3 on two ranks: a rank's bytes first (the exact fold at TP
+    # 2; on a DP x 1 mesh every rank holds the whole params)
+    cd = _moe_cfg(DSV3_ARCH)
+    shape = ShapeSpec("static-serve", 512, N_SLOTS, "decode")
+    tp2 = dryrun.cell(cd, shape, TP)
+    dp2 = dryrun.cell(cd, shape, 1, n_data=DP)
+    need = {"tp2 exact": TP * (tp2["params_bytes"] + tp2["fw_bytes"]),
+            f"{DP}x1 exact": DP * (dp2["params_bytes"] + dp2["fw_bytes"]),
+            f"{DP}x1 fp": DP * dp2["params_bytes"]}
+    log(f"[tp-new] {DSV3_ARCH} ({cd.n_layers} layers, {cd.param_dtype}), "
+        f"launch/dryrun.py: a rank's params {tp2['params_bytes'] / 1e9:.2f} "
+        f"GB + folded {tp2['fw_bytes'] / 1e9:.2f} GB at TP {TP}, "
+        f"{dp2['params_bytes'] / 1e9:.2f} + {dp2['fw_bytes'] / 1e9:.2f} GB "
+        f"on a {DP} x 1 mesh; two ranks "
+        + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in need.items())
+        + f" of the card's {roofline.HBM_BYTES / 1e9:.0f}: TP {TP} serves "
+        f"exact, the {DP} x 1 mesh fp (its exact fold on both ranks would "
+        f"not fit)")
+    if need["tp2 exact"] > 0.85 * roofline.HBM_BYTES or \
+            need[f"{DP}x1 fp"] > 0.85 * roofline.HBM_BYTES:
+        raise AssertionError(f"[tp-new] {DSV3_ARCH} on two ranks would not "
+                             "fit the card")
     log(f"[tp] this process holds {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
         f" GB of the card ({torch.cuda.memory_reserved(dev) / 1e9:.2f} GB "
         "reserved) as the ranks start")
@@ -6374,6 +6983,13 @@ def phase_tp(dev, info):
                                 job["train"]["done"])
         log(f"[tp-train] the single-rank references in "
             f"{time.perf_counter() - t0:.1f}s, as the ranks start")
+        # their blocks back to the card for the ranks' builds
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[tp] this process holds "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB of the card "
+            f"({torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved) "
+            "after the references")
         res = fut.result()
     log(f"[tp] {TP} ranks spawned, served, trained and joined in "
         f"{time.perf_counter() - t0:.1f}s")
@@ -6477,7 +7093,10 @@ def phase_tp(dev, info):
         gc.collect()
         torch.cuda.empty_cache()
     counts.update(_dp_checks(dev, cfg, q["dp"], base, res["dp_moe"]))
-    return {"counts": counts}
+    launches = _new_checks(dev, res["new"], base["new"])
+    log(f"[tp-new] kernel 1 launches of rank 0 by (m, k, n) at TP {TP}: "
+        f"{PHI_ARCH} {launches['phi']}; {DSV3_ARCH} {launches['dsv3']}")
+    return {"counts": counts, "new_launches": launches}
 
 
 def _dp_checks(dev, cfg, dp, base, moe):
@@ -6913,8 +7532,12 @@ def _main_phases(dev, analysis, t_start) -> int:
     serve_info["moe"] = _phase(phase_moe, dev)
     serve_info["new"] = _phase(phase_new_archs, dev)
     serve_info["xw"] = _phase(phase_xlstm_whisper, dev)
-    serve_info["tp_base"] = {"moe": serve_info["moe"][
-        "qwen3-moe-235b-a22b"].pop("eager")}
+    serve_info["tp_base"] = {
+        "moe": serve_info["moe"]["qwen3-moe-235b-a22b"].pop("eager"),
+        "new": {"dsv3": serve_info["moe"][DSV3_ARCH].pop("eager"),
+                "phi": serve_info["new"][PHI_ARCH].pop("tp_base"),
+                "whisper": {m: serve_info["xw"][WHISPER_ARCH][m].pop(
+                    "tp_base") for m in ("fp", "int8")}}}
     serve_info["tp"] = _phase(phase_tp, dev, serve_info)
     started = _phase(phase_cli_start, dev)
     try:

@@ -16,8 +16,9 @@ out on a stand-in model axis of ``TP`` ranks and on a ``DATA x TP`` mesh
     pattern with its reason);
   * **pool coverage**: the paged pools (``pool_k``/``pool_v``) and their
     scale side pools (``scale_k``/``scale_v``) of every kv dtype, and the
-    static engine's dense cache, hold ``Hkv / TP`` kv heads a rank where
-    attention splits, every other dim whole;
+    static engine's dense cache (whisper's cross K/V ``ck``/``cv`` too),
+    hold ``Hkv / TP`` kv heads a rank where attention splits, every other
+    dim whole; MLA's latent ``ckv``/``kr`` is whole on every model rank;
   * **fold-role consistency**: with folded leaves planted beside every
     roled linear (``_fw (U, k, n)``, ``_fb (n,)``, ``_as``, ``_ws``),
     ``shard_params`` cuts n of a column linear's ``_fw`` and its
@@ -28,8 +29,10 @@ out on a stand-in model axis of ``TP`` ranks and on a ``DATA x TP`` mesh
   * **the data axis** (a ``DATA x TP`` mesh, a data row past the first):
     a rank's params are its ``1 x TP`` slices (the data axis replicates
     every param), the paged pools and scale rows hold the whole page
-    count and the dense cache the data row's batch rows, as the serving
-    rules of ``parallel/statesharding.py`` (``SERVING_CACHE``) say.
+    count and the dense cache (every leaf ``SERVING_CACHE`` names: the
+    self-attention's, whisper's cross K/V, MLA's latent) the data row's
+    batch rows, as the serving rules of ``parallel/statesharding.py``
+    say.
 
 Arches that ``shard_params`` (or ``check_trainable``) refuses are listed
 in the coverage as refused, with the reason, not reported as findings.
@@ -60,8 +63,20 @@ CACHE_AT = r"^SERVING_CACHE"
 POOLS_AT = r"^def paged_cache_layout"
 
 # large leaves that stay whole on every rank on purpose: path pattern →
-# reason.  Empty today: every large leaf of a TP-servable arch is cut.
-REPLICATE: Dict[str, str] = {}
+# reason (each the reference's own rule, ``repro/parallel/sharding.py``
+# ``_RULES``, but for the MTP head)
+REPLICATE: Dict[str, str] = {
+    r"mla/w(q_a|kv_a|kr)$": "MLA's low-rank down projections, whose "
+    "latent feeds every head (the reference's (attn|mla)/w(q_a|kv_a|kr)$: "
+    "no model dim)",
+    r"moe/router/w$": "the router: every rank routes every token (the "
+    "reference's moe/router/w$: no model dim)",
+    r"pos_table$": "whisper's decoder position table, read every step "
+    "(the reference's pos_table$: replicated)",
+    r"^mtp/": "deepseek-v3's multi-token-prediction head, which serving "
+    "never reads; its cut (the reference's mtp/proj/w$, mtp/.*head/w$) "
+    "comes with training under a mesh (ROADMAP Queue A, item 1)",
+}
 
 
 @dataclasses.dataclass
@@ -163,13 +178,14 @@ def check_pool_coverage(arch: str, tp: int = TP) -> List[Finding]:
     from repro_torch.models import init_cache, supports_paged_cache
     from repro_torch.models.lm import paged_cache_layout
     from repro_torch.parallel.mesh import set_mesh
-    from repro_torch.parallel.sharding import attn_split
+    from repro_torch.parallel.sharding import splits
+    from repro_torch.parallel.statesharding import SERVING_CACHE
     cfg = get_config(arch)
     mesh = LayoutMesh(tp)
     with set_mesh(mesh):
-        ways = attn_split(cfg)
+        sp = splits(cfg)
     out: List[Finding] = []
-    if ways == 1:
+    if sp.get("attn", sp.get("mla")) == 1:
         return out
     if supports_paged_cache(cfg):
         for dt in ("bf16", "int8", "int4"):
@@ -201,22 +217,29 @@ def check_pool_coverage(arch: str, tp: int = TP) -> List[Finding]:
     mine = dict(leaf_paths(rank["layers"]))
     for path, leaf in leaf_paths(cache["layers"]):
         name = path.rsplit("/", 1)[-1]
-        if name in ("k", "v") and leaf.dim() == 4:
-            out += _heads_cut(f"{arch} dense cache '{path}'",
-                              tuple(leaf.shape), tuple(mine[path].shape),
-                              2, tp)
+        if name not in SERVING_CACHE:
+            continue
+        m_dim = SERVING_CACHE[name][1]
+        # the dense and cross K/V's kv heads; MLA's latent whole
+        out += _heads_cut(f"{arch} dense cache '{path}'",
+                          tuple(leaf.shape), tuple(mine[path].shape),
+                          m_dim, 1 if m_dim is None else tp)
     return out
 
 
 def _heads_cut(what, whole, mine, axis, tp) -> List[Finding]:
+    """``axis`` (None: no dim) of a cache leaf cut into ``tp``, every
+    other dim whole."""
     want = tuple(s // tp if i == axis else s for i, s in enumerate(whole))
     if tuple(mine) == want:
         return []
+    rule = (f"the kv-head axis ({axis}) must split over the model axis"
+            if axis is not None else "it has no kv-head axis and stays "
+            "whole on every model rank")
     return [Finding(RULE, STATESHARDING_REL,
                 line_of(STATESHARDING_REL, DIMS_AT),
                     f"{what}: a rank holds {tuple(mine)} of {tuple(whole)}"
-                    f"; the kv-head axis ({axis}) must split over the "
-                    f"model axis: expected {want}")]
+                    f"; {rule}: expected {want}")]
 
 
 def check_data_axis(arch: str, tp: int = TP, n_data: int = DATA
@@ -230,7 +253,8 @@ def check_data_axis(arch: str, tp: int = TP, n_data: int = DATA
     from repro_torch.models.lm import paged_cache_layout
     from repro_torch.parallel.mesh import set_mesh
     from repro_torch.parallel.sharding import shard_params
-    from repro_torch.parallel.statesharding import (cache_rows,
+    from repro_torch.parallel.statesharding import (SERVING_CACHE,
+                                                    cache_rows,
                                                     local_cache_shape)
     cfg = get_config(arch)
     mesh = LayoutMesh(tp, n_data=n_data, data_rank=n_data - 1)
@@ -270,7 +294,7 @@ def check_data_axis(arch: str, tp: int = TP, n_data: int = DATA
     for path, leaf in leaf_paths(init_cache(cfg, B, 64,
                                             device="meta")["layers"]):
         name = path.rsplit("/", 1)[-1]
-        if name in ("k", "v") and leaf.dim() == 4:
+        if name in SERVING_CACHE:
             compare(f"dense cache '{path}'", name, tuple(leaf.shape),
                     tuple(rank[path].shape))
     return out

@@ -15,7 +15,8 @@ For each cell, a rank's bytes:
     stand-in mesh: the model axis's slices, which a data axis does not
     cut further; the whole tree at 1x1);
   * ``fw_bytes``: the folded bitplanes encoded serving adds beside them,
-    ``U·k·n·2`` bytes (bf16) for every roled 2-D linear at ``U = 8``;
+    ``U·k·n·2`` bytes (bf16) for every roled 2-D linear it folds (not a
+    router's or the MTP head's) at ``U = 8``;
   * ``kv_bytes``: the dense KV cache of ``global_batch × seq_len`` at its
     kv heads and its data row's batch rows (prefill and decode cells);
     ``pool_bytes``: the paged pools that hold the same tokens
@@ -62,10 +63,14 @@ def _bytes(tree) -> int:
 
 
 def _fw_bytes(tree, U: int = FOLD_U) -> int:
+    """``U·k·n·2`` bytes for every 2-D linear serving folds: a roled
+    linear's weight, but not the router's (its routing runs fp) nor the
+    MTP head's (serving never runs it)."""
     from repro_torch.analysis.shardcheck import leaf_paths
     from repro_torch.parallel.sharding import LINEAR_ROLES
     return sum(U * t.numel() * 2 for path, t in leaf_paths(tree)
-               if t.dim() == 2 and path.rsplit("/", 1)[-1] in LINEAR_ROLES)
+               if t.dim() == 2 and path.rsplit("/", 1)[-1] in LINEAR_ROLES
+               and not path.startswith("mtp/") and "/router/" not in path)
 
 
 def _tag(tp: int, n_data: int = 1) -> str:

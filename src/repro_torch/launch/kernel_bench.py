@@ -1,7 +1,7 @@
 """Time the port's kernels at the main path's shapes on one card.
 
     python src/repro_torch/launch/kernel_bench.py [--src DIR] [--tag NAME]
-        [--only em,paged,paged_sq,flash]
+        [--only em,em_tp,paged,paged_sq,flash]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is built and
 timed (by default this checkout's), so that two checkouts can be compared
@@ -12,7 +12,8 @@ Prints one JSON line per measurement, tagged ``--tag``: kernel ms (a CUDA
 graph of 40 calls rotating over inputs past the 50 MB L2), max error
 against the plain version, the bound, and the library call's ms for the
 same function where there is one; every bound comes from
-``launch/roofline.py``.  Kernel 1 at its nine shapes; kernel 2
+``launch/roofline.py``.  Kernel 1 at its nine shapes (``em_tp``, not by
+default: at a rank's shapes of tensor-parallel serving); kernel 2
 (paged attention, 4 slots x 16 heads x D 64, lens 100-400) with dense
 f32, int8 and int4 pools at page tables of 32 and 127 pages, and with
 ``paged_sq`` (not by default) against Sq = 1..16 query tokens per row;
@@ -32,6 +33,14 @@ import sys
 # bound it)
 SHAPES = [(m, k, n) for m in (4, 32, 884)
           for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
+# kernel 1 at a rank's local (k, n) of tensor-parallel serving at 2 ranks
+# (``--only em_tp``): deepseek-v3's MLA wq_b, wk_b/wv_b and wo, dense and
+# shared MLPs and head; phi-3-vision's attention, MLP and head; at a data
+# row's decode (m = 2), decode (4) and the static prefill (884)
+TP_SHAPES = [(m, k, n) for m in (2, 4, 884) for k, n in (
+    (1536, 12288), (512, 8192), (8192, 7168), (7168, 9216), (9216, 7168),
+    (7168, 1024), (1024, 7168), (7168, 64640),
+    (3072, 1536), (1536, 3072), (3072, 4096), (4096, 3072), (3072, 16032))]
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,6 +75,22 @@ def time_graph(fn, arg_sets, iters: int = 40) -> float:
     s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     s.record()
     g.replay()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def time_eager(fn, arg_sets, iters: int = 4) -> float:
+    """ms per call of ``fn`` issued from Python (host overhead included),
+    after one warm-up call a set."""
+    import torch
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / iters
@@ -283,13 +308,63 @@ def bench_flash(tag):
               flush=True)
 
 
+def bench_em_tp(tag):
+    """Kernel 1 at ``TP_SHAPES``: inputs drawn on the card (a head's Wt
+    is 7.4 GB), two sets past the L2, the error against the plain
+    version on the first and the plain version's ms (``time_eager``)."""
+    import torch
+    from repro_torch.core import circuits
+    from repro_torch.core.decompose import decompose
+    from repro_torch.kernels import encoded_matmul as em
+    from repro_torch.kernels.ref import planes_ref
+    prog = decompose(circuits.exact_product_circuit(8, 8)[0])
+    U, shifts = prog.n_a_planes, prog.a_mono_bits
+    lib, lib_name = bf16_mm()
+    for m, k, n in TP_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(m + k + n)
+        mag = 2.0 ** (torch.arange(U, device="cuda") % 8)
+        sets = []
+        for _ in range(2):
+            wt = torch.empty((U, k, n), dtype=torch.bfloat16, device="cuda")
+            for u in range(U):                    # a plane at a time
+                wt[u] = torch.randint(-127, 128, (k, n), generator=g,
+                                      device="cuda", dtype=torch.int16)
+                wt[u] *= mag[u]
+            x = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                              dtype=torch.int16).to(torch.int8)
+            bias = torch.randn((n,), generator=g, device="cuda") * 100
+            sets.append((x, wt, bias, shifts))
+        out = em.encoded_matmul(*sets[0])
+        ref = em.encoded_matmul_plain(*sets[0])
+        err = (out - ref).abs().max().item() / ref.abs().max().item()
+        del out, ref
+        ms = time_graph(em.encoded_matmul, sets, iters=20)
+        lib_sets = [(planes_ref(x, sh).to(torch.bfloat16).permute(1, 0, 2)
+                     .reshape(m, U * k).contiguous(), wt.reshape(U * k, n))
+                    for x, wt, _, sh in sets]
+        lib_ms = time_graph(lib, lib_sets, iters=20)
+        del lib_sets
+        plain_ms = time_eager(em.encoded_matmul_plain, sets)
+        bound = roofline().encoded_matmul(m, k, n, U)
+        print(json.dumps({"tag": tag, "kernel": "encoded_matmul", "m": m,
+                          "k": k, "n": n, "U": U, "ms": ms,
+                          "bound_ms": bound.bound_ms,
+                          "bound_by": bound.bound_by,
+                          "rel_err": err, "plain_ms": plain_ms,
+                          "library_ms": lib_ms,
+                          "library": lib_name}), flush=True)
+        del sets
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
     ap.add_argument("--tag", default="this")
     ap.add_argument("--only", default="em,paged,flash",
-                    help="comma-separated: em, paged, paged_sq, flash")
+                    help="comma-separated: em, em_tp, paged, paged_sq, "
+                         "flash")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -297,7 +372,7 @@ def main() -> int:
         raise SystemExit("kernel_bench: needs an NVIDIA card")
     from repro_torch.kernels import build
     build.build()
-    benches = {"em": bench_em, "paged": bench_paged,
+    benches = {"em": bench_em, "em_tp": bench_em_tp, "paged": bench_paged,
                "paged_sq": bench_paged_sq, "flash": bench_flash}
     for name in args.only.split(","):
         benches[name](args.tag)

@@ -63,15 +63,18 @@
       --metrics-out m.json --time-device --drift-every 8 \
       --profile-dir prof --sanitize
   # serving over a mesh: the CLI spawns D·M ranks (gloo; on the card
-  # they share it), rank 0 prints; dense archs and qwen3-moe only.
-  # --mesh M is tensor parallel; --mesh DxM adds a data axis (one
-  # scheduler on every rank, the decode slots split over data rows)
+  # they share it), rank 0 prints; every arch but hymba and xlstm (MLA,
+  # the vlm and whisper static only).  --mesh M is tensor parallel;
+  # --mesh DxM adds a data axis (one scheduler on every rank, the decode
+  # slots and static chunks split over data rows)
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --continuous --mac encoded --encoding exact --mesh 2
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --continuous --mesh 2x2
   python -m repro_torch.launch.serve --continuous --mac encoded \
       --encoding exact --paged-attn kernel --mesh 2
+  python -m repro_torch.launch.serve --arch deepseek-v3-671b --layers 2 \
+      --param-dtype bfloat16 --mac encoded --encoding exact --mesh 2
 
 ``--paged-attn gather`` / ``kernel`` are the reference CLI's ``xla`` /
 ``pallas``: the gathered-page-view path, or the fused page-walk op (the
@@ -203,7 +206,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="serving over D·M ranks ('M': tensor parallel, "
                          "or 'DxM': D data rows of M): the CLI spawns them "
-                         "(gloo), rank 0 prints; dense archs and qwen3-moe")
+                         "(gloo), rank 0 prints; every arch but hymba "
+                         "and xlstm")
     args = ap.parse_args(argv)
 
     if args.kv_dtype != "bf16" and not args.continuous:
@@ -227,10 +231,11 @@ def main(argv=None):
         n_data, n_model = int(m.group(1) or 1), int(m.group(2))
         if n_data < 1 or n_model < 1:
             ap.error("--mesh needs at least one rank on each axis")
-        if cfg.family not in ("dense", "moe") or cfg.use_mla:
+        from repro_torch.parallel.sharding import SERVED_FAMILIES
+        if cfg.family not in SERVED_FAMILIES:
             ap.error(f"--mesh: {args.arch} is not ported to tensor "
-                     "parallelism, only the dense archs and qwen3-moe "
-                     "(ROADMAP Queue A, item 1: TP for the other families)")
+                     "parallelism, only the dense, moe, vlm and encdec "
+                     "archs (ROADMAP Queue A, item 1: hymba and xlstm)")
         if args.drift_every:
             ap.error("--drift-every runs the whole model on one rank; it is "
                      "not ported under --mesh")

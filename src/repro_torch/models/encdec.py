@@ -22,8 +22,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import blocks as B
 from repro_torch.nn.attention import init_kv_cache
-from repro_torch.nn.common import (embed_apply, embed_init, norm_apply,
-                                   norm_init)
+from repro_torch.nn.common import (embed_init, norm_apply, norm_init,
+                                   vocab_embed)
+from repro_torch.parallel.sharding import local_kv_heads
 
 
 def _sinusoid(S: int, d: int) -> np.ndarray:
@@ -92,7 +93,7 @@ def apply_encdec(params, cfg, tokens, *, enc_x=None, cache=None):
     S = tokens.shape[1]
     dev = tokens.device
     pos0 = 0 if cache is None else cache["pos"]
-    x = embed_apply(params["embed"], tokens, cfg.cdtype)
+    x = vocab_embed(params["embed"], tokens, cfg)
     ptab = params["pos_table"].to(cfg.cdtype)
     # dynamic_slice_in_dim: the start clamps to [0, max_pos_embed - S]
     start = torch.clamp(torch.as_tensor(pos0, device=dev), 0,
@@ -138,11 +139,12 @@ def init_encdec_cache(cfg, batch: int, max_len: int, enc_len: int = None, *,
                       device) -> list:
     """Per decoder layer a dense ``{k, v}`` of ``max_len`` rows and zero
     cross K/V ``{ck, cv}`` of ``enc_len`` frames (default ``max(1, max_len
-    // enc_len_ratio)``, the reference's), in the compute dtype."""
+    // enc_len_ratio)``, the reference's), in the compute dtype; under a
+    mesh, this rank's kv heads (``local_kv_heads``)."""
     enc_len = enc_len or max(1, max_len // cfg.enc_len_ratio)
     layers = init_kv_cache(cfg, batch, max_len, cfg.dec_layers,
                            device=device)
-    shape = (batch, enc_len, cfg.n_kv_p, cfg.head_dim_r)
+    shape = (batch, enc_len, local_kv_heads(cfg), cfg.head_dim_r)
     for c in layers:
         c["ck"] = torch.zeros(shape, dtype=cfg.cdtype, device=device)
         c["cv"] = torch.zeros(shape, dtype=cfg.cdtype, device=device)

@@ -51,13 +51,13 @@ from repro_torch.nn import blocks as B
 from repro_torch.nn.attention import init_kv_cache
 from repro_torch.nn.common import (embed_apply, embed_init, linear,
                                    linear_init, norm_apply, norm_init,
-                                   softcap)
+                                   softcap, vocab_embed)
 from repro_torch.nn.mla import init_mla_cache
 from repro_torch.nn.ssm import init_ssm_cache
 from repro_torch.nn.xlstm import M_INIT, init_mlstm_cache, init_slstm_cache
 from repro_torch.parallel.mesh import (copy_to_model, gather_from_model,
-                                      get_mesh, reduce_from_model, set_mesh)
-from repro_torch.parallel.sharding import local_kv_heads, model_rank, splits
+                                      get_mesh, set_mesh)
+from repro_torch.parallel.sharding import local_kv_heads, splits
 from repro_torch.quant.kvcache import kv_pool_layout
 from repro_torch.tree import tree_leaves, tree_map
 from .encdec import apply_encdec, init_encdec, init_encdec_cache
@@ -242,7 +242,7 @@ def apply_model(params, cfg, tokens: torch.Tensor, *, img=None, enc_x=None,
             out += (h,)
         return out
     Bn, S = tokens.shape
-    x = _embed(params, cfg, tokens)
+    x = vocab_embed(params["embed"], tokens, cfg)
     if cfg.embed_scale:
         x = x * torch.full((), np.sqrt(cfg.d_model), dtype=cfg.cdtype,
                            device=x.device)
@@ -339,23 +339,6 @@ def _block_body(p_l, x, cfg, kind, window, positions):
         x, _, aux = B.decoder_block_apply(p_l, x, cfg, ffn=kind,
                                           window=window, positions=positions)
     return x, aux
-
-
-def _embed(params, cfg, tokens):
-    """The embedding lookup; where the head splits over the model axis
-    the table holds this rank's rows of the vocab
-    (``parallel.sharding``): the tokens are looked up in its rows, zeros
-    elsewhere, and the model axis sums the rows (exact: one rank holds
-    each token's row)."""
-    if splits(cfg)["head"] == 1:
-        return embed_apply(params["embed"], tokens, cfg.cdtype)
-    table = params["embed"]["table"]
-    n = table.shape[0]
-    local = tokens.long() - model_rank() * n
-    inside = (local >= 0) & (local < n)
-    x = embed_apply({"table": table}, torch.where(inside, local, 0),
-                    cfg.cdtype)
-    return reduce_from_model(x * inside[..., None].to(x.dtype))
 
 
 def _head(params, cfg, h, local_logits=False):

@@ -11,14 +11,15 @@ import math
 
 import torch
 
-from .attention import attn_apply, attn_init, kv_of_q_map
+from .attention import attn_apply, attn_init
 from .attention_mha import mha
 from .common import linear, mlp_apply, mlp_init, norm_apply, norm_init
 from .mla import mla_apply, mla_init
 from .moe import moe_apply, moe_init
 from .ssm import ssm_apply, ssm_init
 from .xlstm import mlstm_apply, mlstm_init, slstm_apply, slstm_init
-from repro_torch.parallel.sharding import splits
+from repro_torch.parallel.mesh import copy_to_model
+from repro_torch.parallel.sharding import local_kv_map, splits
 
 
 def _zero(x):
@@ -141,31 +142,35 @@ def encoder_block_init(generator, cfg) -> dict:
     return p
 
 
-def _kv_map(cfg):
-    return kv_of_q_map(cfg.n_heads, cfg.n_kv_heads, cfg.n_heads_p,
-                       cfg.n_kv_p)
+def _heads(cfg, part: str) -> tuple:
+    """(the split, this rank's q heads, its kv heads) of whisper's
+    attention ``part`` under the active mesh (``splits``)."""
+    tp = splits(cfg)[part]
+    return tp, cfg.n_heads_p // tp, cfg.n_kv_p // tp
 
 
 def encoder_block_apply(p, x, cfg):
     """Bidirectional self-attention block over frames x (B, Se, d): no
-    mask, no cache, no rotary."""
+    mask, no cache, no rotary.  Under a mesh its attention runs on this
+    rank's heads and its MLP on its hidden shard, as a decoder block's."""
     h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln1")
     B, S, _ = h.shape
     hd = cfg.head_dim_r
     cdt = cfg.cdtype
-    q = linear(p["attn"], "wq", h, cfg.mac, cdt).reshape(
-        B, S, cfg.n_heads_p, hd)
-    k = linear(p["attn"], "wk", h, cfg.mac, cdt).reshape(
-        B, S, cfg.n_kv_p, hd)
-    v = linear(p["attn"], "wv", h, cfg.mac, cdt).reshape(
-        B, S, cfg.n_kv_p, hd)
+    tp, hq, hkv = _heads(cfg, "attn")
+    if tp > 1:
+        h = copy_to_model(h)
+    q = linear(p["attn"], "wq", h, cfg.mac, cdt, tp).reshape(B, S, hq, hd)
+    k = linear(p["attn"], "wk", h, cfg.mac, cdt, tp).reshape(B, S, hkv, hd)
+    v = linear(p["attn"], "wv", h, cfg.mac, cdt, tp).reshape(B, S, hkv, hd)
     pos = torch.arange(S, device=x.device)
-    o = mha(q, k, v, _kv_map(cfg), scale=1.0 / math.sqrt(hd), q_pos=pos,
-            k_pos=pos, causal=False, chunk=cfg.attn_chunk)
-    o = linear(p["attn"], "wo", o.reshape(B, S, -1), cfg.mac, cdt)
+    o = mha(q, k, v, local_kv_map(cfg, tp), scale=1.0 / math.sqrt(hd),
+            q_pos=pos, k_pos=pos, causal=False, chunk=cfg.attn_chunk)
+    o = linear(p["attn"], "wo", o.reshape(B, S, -1), cfg.mac, cdt, tp)
     x = x + o
     h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln2")
-    return x + mlp_apply(p["mlp"], h, cfg.mac, cfg.act, cfg.gated_mlp, cdt)
+    return x + mlp_apply(p["mlp"], h, cfg.mac, cfg.act, cfg.gated_mlp, cdt,
+                         splits(cfg)["mlp"])
 
 
 def xattn_decoder_block_init(generator, cfg) -> dict:
@@ -183,7 +188,9 @@ def xattn_decoder_block_apply(p, x, enc_kv, cfg, *, cache=None,
     """Causal self-attention, then cross-attention to the encoder's
     precomputed ``enc_kv = (k, v)`` (B, Se, n_kv, hd), then the MLP.
     ``cache``: None or a dense layer cache ``{k, v, pos}`` for the
-    self-attention (written in place, ``attn_apply``)."""
+    self-attention (written in place, ``attn_apply``).  Under a mesh each
+    attention runs on this rank's heads (``enc_kv`` holds its kv heads,
+    ``cross_kv``) and the MLP on its hidden shard."""
     h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln1")
     a, new_cache = attn_apply(p["attn"], h, cfg, cache=cache,
                               positions=positions)
@@ -192,25 +199,30 @@ def xattn_decoder_block_apply(p, x, enc_kv, cfg, *, cache=None,
     B, S, _ = h.shape
     hd = cfg.head_dim_r
     cdt = cfg.cdtype
-    q = linear(p["xattn"], "wq", h, cfg.mac, cdt).reshape(
-        B, S, cfg.n_heads_p, hd)
+    tp, hq, _ = _heads(cfg, "xattn")
+    if tp > 1:
+        h = copy_to_model(h)
+    q = linear(p["xattn"], "wq", h, cfg.mac, cdt, tp).reshape(B, S, hq, hd)
     ek, ev = enc_kv
     zeros = torch.zeros((), dtype=torch.long, device=x.device)
-    o = mha(q, ek, ev, _kv_map(cfg), scale=1.0 / math.sqrt(hd),
+    o = mha(q, ek, ev, local_kv_map(cfg, tp), scale=1.0 / math.sqrt(hd),
             q_pos=zeros.expand(S), k_pos=zeros.expand(ek.shape[1]),
             causal=False, chunk=cfg.attn_chunk)
-    x = x + linear(p["xattn"], "wo", o.reshape(B, S, -1), cfg.mac, cdt)
+    x = x + linear(p["xattn"], "wo", o.reshape(B, S, -1), cfg.mac, cdt, tp)
     h = norm_apply(p, x, cfg.norm, cfg.norm_eps, "ln2")
-    x = x + mlp_apply(p["mlp"], h, cfg.mac, cfg.act, cfg.gated_mlp, cdt)
+    x = x + mlp_apply(p["mlp"], h, cfg.mac, cfg.act, cfg.gated_mlp, cdt,
+                      splits(cfg)["mlp"])
     return x, new_cache, _zero(x)
 
 
 def cross_kv(p_block, enc_out, cfg):
     """A decoder layer's cross-attention K/V (B, Se, n_kv, hd) from the
-    encoder's output."""
+    encoder's output; under a mesh, this rank's kv heads."""
     B, Se, _ = enc_out.shape
     hd = cfg.head_dim_r
-    k = linear(p_block["xattn"], "wk", enc_out, cfg.mac, cfg.cdtype)
-    v = linear(p_block["xattn"], "wv", enc_out, cfg.mac, cfg.cdtype)
-    return (k.reshape(B, Se, cfg.n_kv_p, hd),
-            v.reshape(B, Se, cfg.n_kv_p, hd))
+    tp, _, hkv = _heads(cfg, "xattn")
+    if tp > 1:
+        enc_out = copy_to_model(enc_out)
+    k = linear(p_block["xattn"], "wk", enc_out, cfg.mac, cfg.cdtype, tp)
+    v = linear(p_block["xattn"], "wv", enc_out, cfg.mac, cfg.cdtype, tp)
+    return (k.reshape(B, Se, hkv, hd), v.reshape(B, Se, hkv, hd))

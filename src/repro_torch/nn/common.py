@@ -12,7 +12,8 @@ from repro_torch.core.layers import MacConfig
 # checks install it from here
 from repro_torch.core.macexec import (activation_recorder,  # noqa: F401
                                       check_finite, record_activation)
-from repro_torch.parallel.mesh import copy_to_model
+from repro_torch.parallel.mesh import copy_to_model, reduce_from_model
+from repro_torch.parallel.sharding import model_rank, splits
 
 
 def linear_init(generator, d_in: int, d_out: int, name: str,
@@ -88,6 +89,20 @@ def embed_apply(p: dict, ids: torch.Tensor, compute_dtype) -> torch.Tensor:
     # the rows, then the cast (the same values as the reference's cast of
     # the table, without a copy of a bf16 table in f32 on every call)
     return p["table"][ids.long()].to(compute_dtype)
+
+
+def vocab_embed(p: dict, ids: torch.Tensor, cfg) -> torch.Tensor:
+    """The model's embedding lookup; where the head splits over the model
+    axis (``parallel.sharding``) the table holds this rank's rows of the
+    vocab: the tokens are looked up in its rows, zeros elsewhere, and the
+    model axis sums the rows (exact: one rank holds each token's row)."""
+    if splits(cfg)["head"] == 1:
+        return embed_apply(p, ids, cfg.cdtype)
+    n = p["table"].shape[0]
+    local = ids.long() - model_rank() * n
+    inside = (local >= 0) & (local < n)
+    x = embed_apply(p, torch.where(inside, local, 0), cfg.cdtype)
+    return reduce_from_model(x * inside[..., None].to(x.dtype))
 
 
 # --- rotary -------------------------------------------------------------------

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.parallel.mesh import copy_to_model
+from repro_torch.parallel.sharding import splits
 from .attention_mha import NEG_INF, mha, softmax_f32
 from .common import apply_rope, linear, linear_init, norm_apply, norm_init
 
@@ -46,13 +48,14 @@ def mla_init(generator, cfg) -> dict:
     return p
 
 
-def _q_proj(p, x, cfg):
+def _q_proj(p, x, cfg, tp):
     B, S, _ = x.shape
-    H = cfg.n_heads_p
+    H = cfg.n_heads_p // tp
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     cq = norm_apply(p, linear(p, "wq_a", x, cfg.mac, cfg.cdtype),
                     "rms", cfg.norm_eps, "qa_norm")
-    q = linear(p, "wq_b", cq, cfg.mac, cfg.cdtype).reshape(B, S, H, dn + dr)
+    q = linear(p, "wq_b", cq, cfg.mac, cfg.cdtype, tp).reshape(
+        B, S, H, dn + dr)
     return q[..., :dn], q[..., dn:]
 
 
@@ -62,9 +65,20 @@ def mla_apply(p: dict, x: torch.Tensor, cfg, *, cache=None, positions=None):
     ``cache``: None, or a dense layer cache ``{ckv, kr, pos}``
     (``init_mla_cache``) whose rows ``[pos, pos+S)`` are written in place;
     ``pos`` an int or a 0-d tensor.  S > 1 with a cache is a prefill from
-    ``pos`` 0, S == 1 a decode step over the whole cache row."""
+    ``pos`` 0, S == 1 a decode step over the whole cache row.
+
+    Under a mesh whose model axis divides the heads (``splits``) the
+    block runs on this rank's ``H/TP`` heads: its column shards of
+    ``wq_b``/``wk_b``/``wv_b`` (raw and folded, whole heads each) and its
+    row shard of ``wo``, whose partials are summed over the ranks; the
+    latent and the rotated key, and the cache that holds them, are whole
+    on every rank."""
     B, S, _ = x.shape
-    H = cfg.n_heads_p
+    tp = splits(cfg)["mla"]
+    H = cfg.n_heads_p // tp
+    if tp > 1:
+        # training: the input's gradient summed over the model axis
+        x = copy_to_model(x)
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
     scale = 1.0 / np.sqrt(dn + dr)
@@ -72,7 +86,7 @@ def mla_apply(p: dict, x: torch.Tensor, cfg, *, cache=None, positions=None):
         pos0 = 0 if cache is None else cache["pos"]
         positions = pos0 + torch.arange(S, device=x.device)
 
-    qn, qr = _q_proj(p, x, cfg)
+    qn, qr = _q_proj(p, x, cfg, tp)
     qr = apply_rope(qr, positions, cfg.rope_theta)
     ckv = norm_apply(p, linear(p, "wkv_a", x, cfg.mac, cfg.cdtype),
                      "rms", cfg.norm_eps, "kva_norm")         # (B,S,r)
@@ -89,8 +103,10 @@ def mla_apply(p: dict, x: torch.Tensor, cfg, *, cache=None, positions=None):
     if cache is None or S > 1:
         # parallel path (training, or prefill from 0 with the cache
         # written above): per-head K/V expanded by the wk_b/wv_b linears
-        kn = linear(p, "wk_b", ckv, cfg.mac, cfg.cdtype).reshape(B, S, H, dn)
-        v = linear(p, "wv_b", ckv, cfg.mac, cfg.cdtype).reshape(B, S, H, dv)
+        kn = linear(p, "wk_b", ckv, cfg.mac, cfg.cdtype, tp).reshape(
+            B, S, H, dn)
+        v = linear(p, "wv_b", ckv, cfg.mac, cfg.cdtype, tp).reshape(
+            B, S, H, dv)
         k = torch.cat([kn, kr.expand(B, S, H, dr)], -1)
         q = torch.cat([qn, qr.expand(B, S, H, dr)], -1)
         out = mha(q, k, v, np.arange(H, dtype=np.int32), scale=scale,
@@ -122,7 +138,7 @@ def mla_apply(p: dict, x: torch.Tensor, cfg, *, cache=None, positions=None):
         out = out.to(cfg.cdtype)
 
     out = out.reshape(B, S, H * dv)
-    return linear(p, "wo", out, cfg.mac, cfg.cdtype), new_cache
+    return linear(p, "wo", out, cfg.mac, cfg.cdtype, tp), new_cache
 
 
 def init_mla_cache(cfg, batch: int, max_len: int, n_layers: int, *,

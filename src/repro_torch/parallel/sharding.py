@@ -15,7 +15,12 @@ Megatron-style, the math of the reference's GSPMD result:
   * attention runs on a rank's ``Hq/TP`` and ``Hkv/TP`` heads, and the
     paged pools, their scale rows and the static engine's dense cache
     hold ``Hkv/TP`` heads a rank (the reference shards the dense cache
-    over the sequence instead, ``_CACHE_RULES["k"]``);
+    over the sequence instead, ``_CACHE_RULES["k"]``); whisper's
+    cross-attention likewise, its cross K/V ``ck``/``cv`` included;
+  * MLA runs on a rank's ``H/TP`` heads (``wq_b``/``wk_b``/``wv_b``
+    column, ``wo`` row); its latent cache ``ckv``/``kr`` has no head axis
+    and stays whole on every model rank (the reference cuts it over the
+    sequence, ``_CACHE_RULES["ckv"]``);
   * MoE experts split over the model axis (EP), the router is
     replicated, a shared expert follows the dense MLP;
   * the head is column-sharded and its logits are gathered on every
@@ -105,9 +110,19 @@ def local_kv_heads(cfg) -> int:
 
 
 def splits(cfg) -> dict:
-    """Each sharded part of a dense or moe block and the head → its split
-    under the active mesh (1: replicated)."""
-    out = {"attn": attn_split(cfg), "head": split(cfg.vocab_p)}
+    """Each sharded part of a block and the head → its split under the
+    active mesh (1: replicated): GQA attention (``"attn"``; whisper's
+    encoder and decoder self-attention, and its cross-attention
+    ``"xattn"`` at the same split) or MLA (``"mla"``: its heads, which
+    share one latent and have no kv-head map), the dense MLP, the
+    experts and the shared expert."""
+    out = {"head": split(cfg.vocab_p)}
+    if cfg.use_mla:
+        out["mla"] = split(cfg.n_heads_p)
+    else:
+        out["attn"] = attn_split(cfg)
+    if cfg.family == "encdec":
+        out["xattn"] = out["attn"]
     if cfg.n_experts:
         out["experts"] = split(cfg.n_experts)
         if cfg.n_shared_experts:
@@ -156,6 +171,10 @@ def _shard_linears(node: dict, tp: int, r: int) -> dict:
     return out
 
 
+# the families ``shard_params`` cuts
+SERVED_FAMILIES = ("dense", "moe", "vlm", "encdec")
+
+
 class LocalParams(dict):
     """A rank's params as ``shard_params`` cut them; ``shard_params``
     returns one as it is, so several engines of a rank can share one
@@ -165,17 +184,22 @@ class LocalParams(dict):
 def shard_params(params: dict, cfg, mesh) -> dict:
     """This rank's serving params (a ``LocalParams``): every sharded leaf
     cut to its slice (a copy), every replicated one shared with
-    ``params``.  Dense and moe families (GQA attention) only.  The slices
-    are the model axis's alone: a ``DxM`` mesh cuts them as ``1xM`` does
-    and its data axis replicates every param (no FSDP, as the
-    reference's serving).  A train state's shards:
-    ``statesharding.shard_state``."""
+    ``params``.  The dense, moe (GQA or MLA), vlm and encdec families;
+    the hybrid and xlstm families raise.  MLA's ``wq_b``/``wk_b``/``wv_b``
+    are column linears and its ``wo`` a row linear, each cut on whole
+    heads (the raw weights, which decode reads, as well as their folds);
+    its low-rank down projections ``wq_a``/``wkv_a``/``wkr``, their norms,
+    whisper's ``pos_table`` and the MTP head (which serving never reads)
+    stay whole, as the reference's rules say.  The slices are the model
+    axis's alone: a ``DxM`` mesh cuts them as ``1xM`` does and its data
+    axis replicates every param (no FSDP, as the reference's serving).
+    A train state's shards: ``statesharding.shard_state``."""
     if isinstance(params, LocalParams):
         return params
-    if cfg.family not in ("dense", "moe") or cfg.use_mla:
-        raise ValueError(f"tensor-parallel serving covers the dense and "
-                         f"GQA moe families, not {cfg.arch!r} (ROADMAP "
-                         "Queue A, item 1)")
+    if cfg.family not in SERVED_FAMILIES:
+        raise ValueError(f"tensor-parallel serving covers the dense, moe, "
+                         f"vlm and encdec families, not {cfg.arch!r} "
+                         "(ROADMAP Queue A, item 1: hymba and xlstm)")
     with set_mesh(mesh):
         sp = splits(cfg)
     r = mesh.model_rank
@@ -190,8 +214,9 @@ def shard_params(params: dict, cfg, mesh) -> dict:
     layers = []
     for layer in params["layers"]:
         layer = dict(layer)
-        if sp["attn"] > 1:
-            layer["attn"] = _shard_linears(layer["attn"], sp["attn"], r)
+        for part in ("attn", "xattn", "mla"):
+            if part in layer and sp.get(part, 1) > 1:
+                layer[part] = _shard_linears(layer[part], sp[part], r)
         if "mlp" in layer and sp.get("mlp", 1) > 1:
             layer["mlp"] = _shard_linears(layer["mlp"], sp["mlp"], r)
         if "moe" in layer:

@@ -31,8 +31,9 @@ Serving's caches follow the reference's cache rules
 in ``SERVING_CACHE`` and read by the engines and the shard checker
 through ``cache_rows`` and ``local_cache_shape``: the paged pools and
 their scale rows hold the whole page count on every data row, the static
-engine's dense cache the data row's batch rows; both hold the model
-axis's kv heads where attention splits.
+engine's dense cache (whisper's cross K/V and MLA's latent too) the
+data row's batch rows; all but the latent hold the model axis's kv heads
+where attention splits.
 """
 from __future__ import annotations
 
@@ -44,8 +45,8 @@ from .sharding import attn_split, batch_rows, linear_dim, splits
 REPLICATED = -1
 _STAGES = ("dense_prefix", "moe_stack", "stack")
 TRAIN_TODO = ("training under a mesh covers the dense and GQA moe "
-              "families; {arch!r} waits for ROADMAP Queue A, item 1 (TP "
-              "for the other families)")
+              "families; {arch!r} waits for ROADMAP Queue A, item 1 "
+              "(training for the other five families, MTP included)")
 
 
 # a serving cache leaf's name → (its dim over the data axis, its kv-head
@@ -54,6 +55,13 @@ SERVING_CACHE = {
     # the static engine's dense cache (B, S, Hkv, D): the reference's
     # ``"k"``/``"v"`` rows over data
     "k": (0, 2), "v": (0, 2),
+    # whisper's cross K/V (B, S_enc, Hkv, D): as ``k``/``v`` (the reference
+    # cuts them over the frames instead, ``_CACHE_RULES["ck"]``)
+    "ck": (0, 2), "cv": (0, 2),
+    # MLA's latent (B, S, r) and rotated key (B, S, rope_dim): the data
+    # row's batch rows, whole on every model rank (no head axis; the
+    # reference cuts them over the sequence, ``_CACHE_RULES["ckv"]``)
+    "ckv": (0, None), "kr": (0, None),
     # paged pools (P, ps, Hkv, D) and scale rows (P, ps, Hkv): no data
     # axis in the reference's ``pool_*``/``scale_*`` rules
     "pool_k": (None, 2), "pool_v": (None, 2),
@@ -74,14 +82,16 @@ def cache_rows(name: str, n: int, mesh) -> tuple:
 def local_cache_shape(name: str, shape: tuple, cfg, mesh) -> tuple:
     """The shape a rank of ``mesh`` holds of serving cache leaf ``name``
     of logical ``shape``, by ``SERVING_CACHE``: its data dim cut to the
-    data row's rows, its kv heads cut where attention splits (``cfg``)."""
+    data row's rows, its kv heads (where it has them) cut where attention
+    splits (``cfg``)."""
     d_dim, m_dim = SERVING_CACHE[name]
     out = list(shape)
     if d_dim is not None:
         lo, hi = batch_rows(shape[d_dim], mesh)
         out[d_dim] = hi - lo
-    with set_mesh(mesh):
-        out[m_dim] //= attn_split(cfg)
+    if m_dim is not None:
+        with set_mesh(mesh):
+            out[m_dim] //= attn_split(cfg)
     return tuple(out)
 
 

@@ -4,8 +4,11 @@ speculative decoding, telemetry and allocator sanitizer), and the
 static-batch ``ServeEngine`` with ``generate`` over the dense KV cache,
 the reference's baseline and the serving CLI's default.
 
-Both engines take ``mesh=`` (``parallel.mesh.Mesh``, ``D x M``) for
-serving over several ranks, one engine per rank process: each rank keeps
+Both engines and ``generate`` take ``mesh=`` (``parallel.mesh.Mesh``,
+``D x M``) for serving over several ranks, one engine per rank process
+(the static engine and ``generate``: the dense, moe, vlm and encdec
+families, MLA included; the continuous engine: those that page): each
+rank keeps
 its model-axis slices of the params (``parallel.sharding.shard_params``;
 the data axis replicates them), its pools and dense caches hold its kv
 heads, and every step runs under the mesh.  The data axis follows the
@@ -1118,7 +1121,7 @@ def generate(params, cfg, prompts, max_new: int = 16,
              max_len: Optional[int] = None, extras: Optional[dict] = None,
              greedy: bool = True, generator=None,
              eos_id: Optional[int] = None, pad_lens=None,
-             cuda_graphs: Optional[bool] = None) -> torch.Tensor:
+             cuda_graphs: Optional[bool] = None, mesh=None) -> torch.Tensor:
     """Batched generation over a dense KV cache (the reference's
     ``generate``): prompts (B, S) → tokens (B, ≤ max_new) int32 on the
     params' device.
@@ -1140,18 +1143,39 @@ def generate(params, cfg, prompts, max_new: int = 16,
     ``meta_tokens`` rows, as the reference's.  No decode step is wasted:
     one prefill and at most ``max_new - 1`` decode steps.  On the card the
     decode step is a captured CUDA graph (``cuda_graphs=False`` runs it
-    eagerly)."""
+    eagerly).
+
+    ``mesh``: generate as one rank of it, as the reference's ``generate``
+    runs under an active mesh: the params are cut by ``shard_params``
+    (the whole params given, or a rank's ``LocalParams``), every step
+    runs under the mesh (eagerly), and where the data axis divides B
+    this data row runs its rows alone, their ``extras`` rows with them
+    (a vlm's ``img`` and an encdec arch's ``enc_x`` reach the sharded
+    prefill whole on every model rank), and one all-gather puts the
+    tokens together; every rank returns all B rows."""
+    if mesh is not None:
+        params = shard_params(params, cfg, mesh)
     dev = params["embed"]["table"].device
     prompts = torch.as_tensor(prompts).to(dev)
     B, S = prompts.shape
     pad = _ragged_pad(cfg, pad_lens)
-    enc_x = (extras or {}).get("enc_x")
-    sb = StaticBatch(params, cfg, B,
-                     max_len or (S + max_new + cfg.meta_tokens), device=dev,
-                     graphs=_graphs_on(dev, cuda_graphs),
-                     enc_len=None if enc_x is None else enc_x.shape[1])
-    return sb.run(prompts, max_new, greedy=greedy, generator=generator,
-                  eos_id=eos_id, pad=pad, extras=extras)
+    lo, hi = cache_rows("k", B, mesh)
+    split = (lo, hi) != (0, B)
+    extras = {k: torch.as_tensor(v)[lo:hi] for k, v in (extras or {}).items()}
+    enc_x = extras.get("enc_x")
+    with set_mesh(mesh), replicated_batch(not split):
+        # the cache at this rank's kv heads and its data row's rows
+        sb = StaticBatch(params, cfg, hi - lo,
+                         max_len or (S + max_new + cfg.meta_tokens),
+                         device=dev, graphs=_graphs_on(dev, cuda_graphs, mesh),
+                         enc_len=None if enc_x is None else enc_x.shape[1])
+        out = sb.run(prompts[lo:hi], max_new, greedy=greedy,
+                     generator=generator, eos_id=eos_id,
+                     pad=None if pad is None else pad[lo:hi], extras=extras)
+    if not split:
+        return out
+    # analysis: allow(host-sync): the tokens' one gather over the data axis
+    return _gather_rows(mesh, out.cpu(), split).to(dev)
 
 
 class ServeEngine:
@@ -1176,9 +1200,10 @@ class ServeEngine:
     reference builds its cache per call.  ``stats()["jit_compiles"]``
     counts the captures.  ``cuda_graphs=False`` runs the same functions
     eagerly.  ``device`` defaults to the card; ``params`` must already
-    live there.  ``mesh``: serve as one rank of it, as ``Engine``; the
-    dense caches hold this rank's kv heads (the reference splits them
-    over the sequence instead).  A chunk whose requests the data axis
+    live there.  ``mesh``: serve as one rank of it, as ``Engine`` (MLA,
+    vlm and encdec archs too); the dense caches hold this rank's kv heads
+    (the reference splits them over the sequence instead), an MLA
+    cache its whole latent.  A chunk whose requests the data axis
     divides runs its data row's rows alone (each row's cache built for
     them at the chunk's common left-pad length) and one all-gather at
     the chunk's end puts its tokens together; any other chunk runs whole

@@ -224,7 +224,9 @@ def test_param_and_cache_coverage_clean(shard_report):
     assert [str(f) for f in findings] == []
     assert "qwen1.5-0.5b" in cov["served"]
     assert "qwen3-moe-235b-a22b" in cov["trained"]
-    assert "deepseek-v3-671b" in cov["refused"]       # MLA: not a finding
+    assert "deepseek-v3-671b" in cov["served"]        # MLA
+    assert "deepseek-v3-671b (training)" in cov["refused"]
+    assert "hymba-1.5b" in cov["refused"]             # not a finding
 
 
 def test_unruled_large_leaf_is_caught():

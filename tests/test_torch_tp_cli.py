@@ -49,7 +49,7 @@ def test_data_axis_prints_the_single_rank_tokens(capfd, continuous):
     (["--mesh", "2x2", "--arch", "hymba-1.5b"], "not ported to tensor"),
     (["--mesh", "x2"], "expected 'M' or 'DxM'"),
     (["--mesh", "2", "--arch", "xlstm-1.3b"], "not ported to tensor"),
-    (["--mesh", "2", "--arch", "deepseek-v3-671b"], "not ported to tensor"),
+    (["--mesh", "2", "--arch", "hymba-1.5b"], "not ported to tensor"),
 ])
 def test_mesh_refusals(capsys, extra, msg):
     with pytest.raises(SystemExit) as e:
